@@ -1,0 +1,300 @@
+"""Batch-first CryptoSuite of the port: the default chain (secp256k1 +
+Keccak-256) on PyTorch and the CUDA kernels.
+
+Counterpart of fisco_bcos_tpu/crypto/suite.py, with the same batch API:
+
+    verify_batch(hashes, sigs, pubs)  -> bool[N]
+    recover_batch(hashes, sigs)       -> (pubs[N], ok[N])
+    recover_addresses(hashes, sigs)   -> (addresses[N], ok[N])
+    hash_batch(msgs)                  -> digest[N]
+    merkle_root(leaves)               -> digest
+
+`backend` keeps the JAX suite's meaning: "device" always takes the tensor
+path, "host" always the host oracle (here the pure-Python `refimpl` copy),
+"auto" the tensor path at or above `device_min_batch`. The tensor path
+runs on `device`: on "cuda" it launches the kernels, on "cpu" it runs
+their plain PyTorch versions (what the CPU tests use). A suite on "cuda"
+raises when there is no card; it never drops to the CPU.
+
+Device batches keep the JAX suite's padding: up to CHUNK rows pad to the
+next of BUCKETS, larger batches run as CHUNK-sized calls.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import refimpl
+from ..ops import bigint, ec, keccak, merkle
+
+DIGEST = 32
+BUCKETS = (8, 64, 512, 4096, 16384, 65536)
+CHUNK = 16384
+_ZERO32 = b"\x00" * 32
+
+
+def _bucket(n: int) -> int:
+    for b in BUCKETS:
+        if n <= b:
+            return b
+    return ((n + BUCKETS[-1] - 1) // BUCKETS[-1]) * BUCKETS[-1]
+
+
+def _chunks(n: int) -> list[tuple[int, int]]:
+    """[(offset, length)] covering n in CHUNK-sized pieces."""
+    return [(o, min(CHUNK, n - o)) for o in range(0, n, CHUNK)]
+
+
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    if a.shape[0] == n:
+        return a
+    pad = np.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def _limbs_of(values: Sequence[bytes]) -> np.ndarray:
+    """Big-endian byte strings -> [N, 16] limbs of their integer values
+    (int.from_bytes semantics; rows of exactly 32 bytes skip the ints)."""
+    if all(len(v) == 32 for v in values):
+        return bigint.rows_to_limbs(b"".join(values), len(values))
+    return bigint.batch_to_limbs([int.from_bytes(v, "big") for v in values])
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyPair:
+    """Node/account key pair. The secret stays on the host."""
+
+    secret: int
+    pub: tuple[int, int]
+    suite: "CryptoSuite"
+
+    @property
+    def pub_bytes(self) -> bytes:
+        return self.pub[0].to_bytes(32, "big") + self.pub[1].to_bytes(32, "big")
+
+    @property
+    def address(self) -> bytes:
+        return self.suite.address_of_pub(self.pub_bytes)
+
+
+class CryptoSuite:
+    """secp256k1 + Keccak-256 with batch-native tensor paths."""
+
+    def __init__(self, kind: str = "ecdsa", backend: str = "device",
+                 device: str | torch.device = "cuda",
+                 device_min_batch: int = 512,
+                 mesh_devices: int | None = None):
+        if kind == "sm":
+            raise NotImplementedError(
+                "the SM chain (SM2 + SM3) is not ported yet: it is the SM "
+                "slice queued in ROADMAP.md")
+        if kind != "ecdsa":
+            raise ValueError(f"unknown crypto suite kind: {kind}")
+        if mesh_devices is not None and mesh_devices >= 2:
+            raise NotImplementedError(
+                "mesh_devices >= 2: sharding over several GPUs is the "
+                "multi-GPU slice queued in ROADMAP.md")
+        if backend not in ("device", "host", "auto"):
+            raise ValueError(f"unknown backend: {backend}")
+        self.kind = kind
+        self.backend = backend
+        self.device = torch.device(device)
+        if (backend != "host" and self.device.type == "cuda"
+                and not torch.cuda.is_available()):
+            raise RuntimeError(
+                "CryptoSuite(device='cuda'): no CUDA device is available; "
+                "pass device='cpu' to run the plain PyTorch path")
+        self.device_min_batch = device_min_batch
+        self.curve = ec.SECP256K1
+        self.params = refimpl.SECP256K1
+        self.hash_name = "keccak256"
+        self.signature_size = 65  # r(32) | s(32) | v(1)
+
+    def __repr__(self):
+        return f"CryptoSuite({self.kind}, backend={self.backend}, device={self.device})"
+
+    # -- hashing -----------------------------------------------------------
+    def hash(self, data: bytes) -> bytes:
+        return refimpl.keccak256(data)
+
+    def hash_batch(self, msgs: Sequence[bytes]) -> list[bytes]:
+        """Batched Keccak-256: one kernel launch for the whole batch."""
+        if not msgs:
+            return []
+        if not self._use_device(len(msgs)):
+            return [refimpl.keccak256(m) for m in msgs]
+        out = keccak.keccak256_batch_np(list(msgs), device=self.device)
+        return [bytes(row) for row in out]
+
+    def merkle_root(self, leaves: Sequence[bytes]) -> bytes:
+        """Width-16 Keccak Merkle root over 32-byte leaf digests."""
+        if len(leaves) == 0:
+            return b"\x00" * DIGEST
+        if not self._use_device(len(leaves)):
+            return merkle.merkle_levels_host(list(leaves), self.hash_name)[-1][0]
+        arr = np.frombuffer(bytearray(b"".join(leaves)), np.uint8).reshape(
+            len(leaves), DIGEST)
+        root = merkle.merkle_root(torch.as_tensor(arr, device=self.device))
+        return bytes(root.cpu().numpy())
+
+    # -- keys and signing (host, single) -----------------------------------
+    def generate_keypair(self, seed: bytes | None = None) -> KeyPair:
+        secret, pub = refimpl.keygen(self.params, seed)
+        return KeyPair(secret, pub, self)
+
+    def keypair_from_secret(self, secret: int) -> KeyPair:
+        pub = refimpl.ec_mul(self.params, secret, (self.params.gx, self.params.gy))
+        return KeyPair(secret, pub, self)
+
+    def address_of_pub(self, pub_bytes: bytes) -> bytes:
+        """Right-160 bits of H(pubkey)."""
+        return refimpl.keccak256(pub_bytes)[12:]
+
+    def sign(self, kp, digest: bytes) -> bytes:
+        r, s, v = refimpl.ecdsa_sign(self.params, kp.secret, digest)
+        return r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([v])
+
+    # -- verification / recovery (batch-native) ----------------------------
+    def verify(self, pub_bytes: bytes, digest: bytes, sig: bytes) -> bool:
+        return bool(self.verify_batch([digest], [sig], [pub_bytes])[0])
+
+    def recover(self, digest: bytes, sig: bytes) -> bytes | None:
+        pubs, ok = self.recover_batch([digest], [sig])
+        return pubs[0] if ok[0] else None
+
+    def _use_device(self, n: int) -> bool:
+        if self.backend == "host":
+            return False
+        if self.backend == "device":
+            return True
+        return n >= self.device_min_batch
+
+    def _bucket_for(self, n: int) -> int:
+        return _bucket(n)
+
+    def _sig_rows(self, sigs: Sequence[bytes]):
+        """(r rows, s rows, v ids): malformed (short) signatures become
+        r = s = 0 and v = 255, which every path rejects."""
+        ok = [len(g) >= self.signature_size for g in sigs]
+        rs = [g[:32] if k else _ZERO32 for g, k in zip(sigs, ok)]
+        ss = [g[32:64] if k else _ZERO32 for g, k in zip(sigs, ok)]
+        vs = [g[64] if len(g) >= 65 else 255 for g in sigs]
+        return rs, ss, vs
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a.astype(np.int32), device=self.device)
+
+    def _padded_calls(self, fn, arrays):
+        """Run fn over row-padded pieces of arrays; -> [(length, result)]."""
+        n = arrays[0].shape[0]
+        if n <= CHUNK:
+            b = self._bucket_for(n)
+            return [(n, fn(*(self._tensor(_pad_rows(a, b)) for a in arrays)))]
+        return [(ln, fn(*(self._tensor(_pad_rows(a[o:o + ln], CHUNK))
+                          for a in arrays)))
+                for o, ln in _chunks(n)]
+
+    def verify_batch(self, digests: Sequence[bytes], sigs: Sequence[bytes],
+                     pubs: Sequence[bytes]) -> np.ndarray:
+        """-> bool[N]. pubs are 64-byte uncompressed keys; a trailing v
+        byte on a signature is ignored."""
+        n = len(digests)
+        if len(sigs) != n or len(pubs) != n:
+            raise ValueError("verify_batch: digests, sigs and pubs differ in length")
+        if n == 0:
+            return np.zeros((0,), bool)
+        rs, ss, _ = self._sig_rows(sigs)
+        if not self._use_device(n):
+            return np.array([
+                refimpl.ecdsa_verify(self.params,
+                                     (int.from_bytes(p[:32], "big"),
+                                      int.from_bytes(p[32:64], "big")),
+                                     d, int.from_bytes(r, "big"),
+                                     int.from_bytes(s, "big"))
+                for d, r, s, p in zip(digests, rs, ss, pubs)], dtype=bool)
+        arrays = [_limbs_of(digests), _limbs_of(rs), _limbs_of(ss),
+                  _limbs_of([p[:32] for p in pubs]),
+                  _limbs_of([p[32:64] for p in pubs])]
+        parts = self._padded_calls(
+            lambda *a: ec.ecdsa_verify_batch(self.curve, *a), arrays)
+        return np.concatenate([ok[:ln].cpu().numpy() for ln, ok in parts])
+
+    def _recover_device(self, digests, sigs):
+        """Device recovery -> (qx, qy [N, 16] int64 tensors, ok bool[N])
+        on self.device."""
+        rs, ss, vs = self._sig_rows(sigs)
+        arrays = [_limbs_of(digests), _limbs_of(rs), _limbs_of(ss),
+                  np.array(vs, np.int32)]
+        parts = self._padded_calls(
+            lambda e, r, s, v: ec.ecdsa_recover_batch(self.curve, e, r, s, v),
+            arrays)
+        return tuple(torch.cat([p[k][:ln] for ln, p in parts])
+                     for k in range(3))
+
+    def _recover_host(self, digests, sigs):
+        rs, ss, vs = self._sig_rows(sigs)
+        out, okl = [], []
+        for d, r, s, v in zip(digests, rs, ss, vs):
+            Q = refimpl.ecdsa_recover(self.params, d, int.from_bytes(r, "big"),
+                                      int.from_bytes(s, "big"), v)
+            okl.append(Q is not None)
+            out.append(Q[0].to_bytes(32, "big") + Q[1].to_bytes(32, "big")
+                       if Q is not None else None)
+        return out, np.array(okl, dtype=bool)
+
+    def recover_batch(self, digests: Sequence[bytes], sigs: Sequence[bytes]
+                      ) -> tuple[list[bytes | None], np.ndarray]:
+        """-> (64-byte pub keys (None where invalid), ok[N])."""
+        n = len(digests)
+        if len(sigs) != n:
+            raise ValueError("recover_batch: digests and sigs differ in length")
+        if n == 0:
+            return [], np.zeros((0,), bool)
+        if not self._use_device(n):
+            return self._recover_host(digests, sigs)
+        qx, qy, ok = self._recover_device(digests, sigs)
+        ok = ok.cpu().numpy()
+        rows = np.concatenate([bigint.limbs_to_rows(qx.cpu().numpy()),
+                               bigint.limbs_to_rows(qy.cpu().numpy())], axis=1)
+        return [bytes(row) if o else None for row, o in zip(rows, ok)], ok
+
+    def recover_addresses(self, digests: Sequence[bytes], sigs: Sequence[bytes]
+                          ) -> tuple[list[bytes | None], np.ndarray]:
+        """Sender addresses (right-160 of Keccak(pub)) for a tx batch, None
+        where the signature is invalid. The device path hashes the
+        recovered keys on the device too (kernel 3)."""
+        n = len(digests)
+        if len(sigs) != n:
+            raise ValueError("recover_addresses: digests and sigs differ in length")
+        if n == 0 or not self._use_device(n):
+            pubs, ok = self.recover_batch(digests, sigs)
+            return [self.address_of_pub(p) if p is not None else None
+                    for p in pubs], ok
+        qx, qy, ok = self._recover_device(digests, sigs)
+        digest = keccak.keccak256_varlen(pub_blocks(qx, qy),
+                                         torch.ones_like(ok, dtype=torch.int32))
+        addrs = digest[:, 12:].cpu().numpy()
+        ok = ok.cpu().numpy()
+        return [bytes(a) if o else None for a, o in zip(addrs, ok)], ok
+
+
+def pub_blocks(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
+    """Affine keys [N, 16] limbs -> [N, 1, 136] Keccak-padded blocks of
+    the 64-byte big-endian encodings x || y, built where the keys lie."""
+    limbs = torch.cat([qx.flip(-1), qy.flip(-1)], dim=-1)  # big-endian limbs
+    be = torch.stack([limbs >> 8, limbs & 0xFF], dim=-1).reshape(-1, 64)
+    blocks = torch.zeros((be.shape[0], keccak.RATE_BYTES), dtype=torch.uint8,
+                         device=be.device)
+    blocks[:, :64] = be.to(torch.uint8)
+    blocks[:, 64] = 0x01
+    blocks[:, -1] = 0x80
+    return blocks[:, None, :]
+
+
+def make_suite(sm_crypto: bool = False, **kw) -> CryptoSuite:
+    """chain.sm_crypto -> suite selection (SM raises until its slice)."""
+    return CryptoSuite("sm" if sm_crypto else "ecdsa", **kw)

@@ -1,0 +1,395 @@
+"""Batched secp256k1 ECDSA verify and public-key recovery.
+
+Counterpart of fisco_bcos_tpu/ops/ec.py for the default chain's curve.
+Two forms of each entry point live here:
+
+* the plain PyTorch version (`ecdsa_verify_plain`, `ecdsa_recover_plain`),
+  a line-for-line port of the JAX package's XLA path: Jacobian points
+  complete by selection, the GLV split, a 34-step ladder over four window
+  tables (G and phi(G) as constants, Q and phi(Q) per lane, batch-
+  normalised to affine), product-tree inversions;
+* the CUDA kernels in `ops/cuda_verify.py`, one launch per batch.
+
+`ecdsa_verify_batch` / `ecdsa_recover_batch` take the JAX package's
+public boundary (`[B, 16]` 16-bit limbs) and dispatch on where the
+tensors lie: a CUDA tensor goes to the kernel (which raises if it cannot
+run), a CPU tensor to the plain version. Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import fp
+from .bigint import NLIMBS
+from .fp import col, eq, geq, is_zero, select
+from ..crypto import refimpl
+
+WINDOW = 4
+TBL = 1 << WINDOW  # 16 window entries (index 0 = skip)
+GLV_DIGITS = 34  # 136-bit signed halves (worst observed magnitude: 129 bits)
+
+__all__ = ["Curve", "SECP256K1", "ecdsa_verify_batch", "ecdsa_recover_batch",
+           "ecdsa_verify_plain", "ecdsa_recover_plain", "glv_shamir_mult"]
+
+
+class Curve:
+    """secp256k1 context: fields, constants, the G and phi(G) tables and
+    the GLV split constants, all derived from the `refimpl` copy."""
+
+    def __init__(self, params: refimpl.CurveParams):
+        self.params = params
+        if not (params.a == 0 and (1 << fp.BITS) - params.p < 1 << 34):
+            raise NotImplementedError(
+                "the port carries the secp256k1 curve only (a = 0, Solinas "
+                "p); SM2 is the SM slice in ROADMAP.md")
+        self.fp = fp.SolinasField(params.p, params.name + ".p")
+        self.fn = fp.MontField(params.n, params.name + ".n")
+        self.b_rep = self.fp.encode_int(params.b)
+        # affine window table for G: entry k = k*G, flattened [TBL, 2*16]
+        tbl = np.zeros((TBL, 2 * NLIMBS), np.uint32)
+        chain = []
+        P = None
+        for k in range(1, TBL):
+            P = refimpl.ec_add(params, P, (params.gx, params.gy))
+            chain.append(P)
+            tbl[k, :NLIMBS] = self.fp.encode_int(P[0])
+            tbl[k, NLIMBS:] = self.fp.encode_int(P[1])
+        self.g_table = tbl
+        lG = refimpl.ec_mul(params, refimpl.GLV_LAMBDA, (params.gx, params.gy))
+        assert lG == (refimpl.GLV_BETA * params.gx % params.p, params.gy), \
+            "GLV (beta, lambda) pair inconsistent"
+        self.beta_rep = self.fp.encode_int(refimpl.GLV_BETA)
+        self.glv_lambda = refimpl.GLV_LAMBDA
+        tbl2 = np.zeros_like(tbl)
+        for k, (px, py) in enumerate(chain, start=1):
+            tbl2[k, :NLIMBS] = self.fp.encode_int(
+                refimpl.GLV_BETA * px % params.p)
+            tbl2[k, NLIMBS:] = self.fp.encode_int(py)
+        self.g_table_endo = tbl2
+        self.g1_limbs = fp.to_limbs(refimpl._GLV_G1)
+        self.g2_limbs = fp.to_limbs(refimpl._GLV_G2)
+        self.mb1_int = refimpl._GLV_MINUS_B1
+        self.mb2_int = refimpl._GLV_MINUS_B2
+        self.half_n_limbs = fp.to_limbs(params.n // 2)
+
+    def __repr__(self):
+        return f"Curve({self.params.name})"
+
+
+SECP256K1 = Curve(refimpl.SECP256K1)
+
+
+# ---------------------------------------------------------------------------
+# Jacobian point arithmetic (points packed as [3, 16, B], field rep)
+# ---------------------------------------------------------------------------
+
+def _pack(X, Y, Z):
+    return torch.stack([X, Y, Z], dim=-3)
+
+
+def _unpack(P):
+    return P[..., 0, :, :], P[..., 1, :, :], P[..., 2, :, :]
+
+
+def _sel(cond, a, b):
+    """cond ? a : b over packed points (cond: [..., B])."""
+    return torch.where(cond[..., None, None, :], a, b)
+
+
+def jac_double(cv: Curve, P):
+    """2P for a = 0. Complete: Z = 0 (infinity) propagates as Z3 = 0."""
+    f = cv.fp
+    X, Y, Z = _unpack(P)
+    two_y = f.add(Y, Y)
+    XX, YY = f.mul(X, X), f.mul(Y, Y)
+    XYY, YYYY, Z3 = f.mul(X, YY), f.mul(YY, YY), f.mul(two_y, Z)
+    M = f.add(f.add(XX, XX), XX)
+    S = f.add(XYY, XYY)
+    S = f.add(S, S)
+    X3 = f.sub(f.mul(M, M), f.add(S, S))
+    y8 = f.add(YYYY, YYYY)
+    y8 = f.add(y8, y8)
+    y8 = f.add(y8, y8)
+    Y3 = f.sub(f.mul(M, f.sub(S, X3)), y8)
+    return _pack(X3, Y3, Z3)
+
+
+def jac_add(cv: Curve, P, Q):
+    """P + Q, both Jacobian. Complete by selection (doubling/infinity)."""
+    f = cv.fp
+    X1, Y1, Z1 = _unpack(P)
+    X2, Y2, Z2 = _unpack(Q)
+    p_inf, q_inf = is_zero(Z1), is_zero(Z2)
+    Z1Z1, Z2Z2 = f.mul(Z1, Z1), f.mul(Z2, Z2)
+    U1, U2 = f.mul(X1, Z2Z2), f.mul(X2, Z1Z1)
+    S1 = f.mul(f.mul(Y1, Z2), Z2Z2)
+    S2 = f.mul(f.mul(Y2, Z1), Z1Z1)
+    H, R = f.sub(U2, U1), f.sub(S2, S1)
+    h0, r0 = is_zero(H), is_zero(R)
+    HH, RR = f.mul(H, H), f.mul(R, R)
+    HHH, V = f.mul(H, HH), f.mul(U1, HH)
+    X3 = f.sub(f.sub(RR, HHH), f.add(V, V))
+    Y3 = f.sub(f.mul(R, f.sub(V, X3)), f.mul(S1, HHH))
+    Z3 = f.mul(f.mul(Z1, Z2), H)
+    res = _pack(X3, Y3, Z3)
+    res = _sel(h0 & r0, jac_double(cv, P), res)  # P == Q
+    res = _sel(h0 & ~r0, torch.zeros_like(res), res)  # P == -Q
+    res = _sel(q_inf, P, res)
+    return _sel(p_inf, Q, res)
+
+
+def jac_add_affine(cv: Curve, P, qx, qy):
+    """P + (qx, qy) with the second operand affine (Z2 = 1): mixed add."""
+    f = cv.fp
+    X1, Y1, Z1 = _unpack(P)
+    p_inf = is_zero(Z1)
+    Z1Z1 = f.mul(Z1, Z1)
+    U2 = f.mul(qx, Z1Z1)
+    S2 = f.mul(f.mul(qy, Z1), Z1Z1)
+    H, R = f.sub(U2, X1), f.sub(S2, Y1)
+    h0, r0 = is_zero(H), is_zero(R)
+    HH, RR = f.mul(H, H), f.mul(R, R)
+    HHH, V, Z3 = f.mul(H, HH), f.mul(X1, HH), f.mul(Z1, H)
+    X3 = f.sub(f.sub(RR, HHH), f.add(V, V))
+    Y3 = f.sub(f.mul(R, f.sub(V, X3)), f.mul(Y1, HHH))
+    res = _pack(X3, Y3, Z3)
+    res = _sel(h0 & r0, jac_double(cv, P), res)
+    res = _sel(h0 & ~r0, torch.zeros_like(res), res)
+    one = f.one_rep(X1)
+    lifted = _pack(qx.expand_as(one), qy.expand_as(one), one)
+    return _sel(p_inf, lifted, res)
+
+
+# ---------------------------------------------------------------------------
+# GLV split and ladder
+# ---------------------------------------------------------------------------
+
+def _take_const(gt_flat: np.ndarray, dig):
+    """Constant table [TBL, 32] x digits [B] -> (x [16, B], y [16, B])."""
+    t = torch.as_tensor(gt_flat.astype(np.int64), device=dig.device)
+    ge = t[dig].T  # [32, B]
+    return ge[:NLIMBS], ge[NLIMBS:]
+
+
+def _take_batch(tq, dig):
+    """Per-lane table [TBL, 2, 16, B] x digits [B] -> [2, 16, B]."""
+    idx = dig[None, None, None, :].expand((1,) + tq.shape[1:])
+    return torch.gather(tq, 0, idx)[0]
+
+
+def _q_window_affine(cv: Curve, qx_r, qy_r):
+    """Per-lane affine window table [TBL, 2, 16, B]: k*Q for k < 16 built
+    by repeated complete adds, then batch-normalised with one product-tree
+    inversion over all TBL x B Z values. Entry 0 (infinity) normalises to
+    zeros; a zero window digit never reads it."""
+    f = cv.fp
+    q1 = _pack(qx_r, qy_r, f.one_rep(qx_r))
+    entries = [torch.zeros_like(q1), q1]
+    for _ in range(TBL - 2):
+        entries.append(jac_add(cv, entries[-1], q1))
+    tq = torch.stack(entries, dim=0)
+    X, Y, Z = tq[:, 0], tq[:, 1], tq[:, 2]  # each [TBL, 16, B]
+    tbl_n, L, B = X.shape
+    zf = Z.permute(1, 0, 2).reshape(L, tbl_n * B)
+    w = zf.shape[-1]
+    pad = (1 << (w - 1).bit_length()) - w
+    if pad:
+        zf = torch.cat([zf, f.one_rep(zf[:, :pad])], dim=-1)
+    zi = f.inv_batch(zf)[..., :tbl_n * B]
+    zi = zi.reshape(L, tbl_n, B).permute(1, 0, 2)
+    zi2 = f.mul(zi, zi)
+    ax, zi3 = f.mul(X, zi2), f.mul(zi2, zi)
+    ay = f.mul(Y, zi3)
+    return torch.stack([ax, ay], dim=1)
+
+
+def _mul_shift_384(k, g_limbs):
+    """floor(k * g / 2^384): one wide multiply and a limb slice."""
+    exact, _ = fp.carry_prop(fp.mul_wide(k, col(g_limbs, k)), 2 * NLIMBS)
+    return fp._pad(exact[..., 24:, :], 0, NLIMBS - 8)
+
+
+def _glv_split_device(cv: Curve, k):
+    """k [16, B] canonical mod n -> (m1, neg1, m2, neg2): signed halves
+    with magnitudes < 2^136, k = +-m1 +- m2*lambda (mod n)."""
+    fn_ = cv.fn
+    c1 = _mul_shift_384(k, cv.g1_limbs)
+    c2 = _mul_shift_384(k, cv.g2_limbs)
+    mb1 = col(fn_.encode_int(cv.mb1_int), k)  # Montgomery-domain consts
+    mb2 = col(fn_.encode_int(cv.mb2_int), k)
+    lam = col(fn_.encode_int(cv.glv_lambda), k)
+    k2 = fn_.from_rep(fn_.add(fn_.mul(fn_.to_rep(c1), mb1),
+                              fn_.mul(fn_.to_rep(c2), mb2)))
+    k1 = fn_.sub(fn_.reduce_loose(k),
+                 fn_.from_rep(fn_.mul(fn_.to_rep(k2), lam)))
+    half = col(cv.half_n_limbs, k)
+    nl = col(fn_.limbs, k)
+
+    def signed(x):
+        neg_flag = ~geq(half.expand_as(x), x)  # x > n/2
+        mag, _ = fp.sub_limbs(nl.expand_as(x), x)
+        return select(neg_flag, mag, x), neg_flag
+
+    m1, n1 = signed(k1)
+    m2, n2 = signed(k2)
+    return m1, n1, m2, n2
+
+
+def _neg_y(f, Y, flag):
+    return select(flag, f.neg(Y), Y)
+
+
+def glv_digits(m):
+    """Signed-half magnitude [16, B] -> [34, B] MSB-first 4-bit digits."""
+    return fp.window_digits(m, WINDOW)[..., :GLV_DIGITS, :].flip(-2)
+
+
+def glv_shamir_mult(cv: Curve, k1, k2, qx_r, qy_r):
+    """k1*G + k2*Q via the endomorphism: 34 steps over four window tables
+    (G, phi(G) constant; Q, phi(Q) per lane). -> packed Jacobian [3,16,B]."""
+    f = cv.fp
+    a1, s1, a2, s2 = _glv_split_device(cv, k1)
+    b1, t1, b2, t2 = _glv_split_device(cv, k2)
+    tq2 = _q_window_affine(cv, qx_r, qy_r)
+    beta = col(cv.beta_rep, qx_r).expand_as(tq2[:, 0])
+    tql2 = torch.stack([f.mul(tq2[:, 0], beta), tq2[:, 1]], dim=1)
+    da1, da2, db1, db2 = (glv_digits(x) for x in (a1, a2, b1, b2))
+    acc = torch.zeros((3, NLIMBS, k1.shape[-1]), dtype=k1.dtype,
+                      device=k1.device)
+    for step in range(GLV_DIGITS):
+        for _ in range(WINDOW):
+            acc = jac_double(cv, acc)
+        d = da1[step]
+        gx, gy = _take_const(cv.g_table, d)
+        acc = _sel(d == 0, acc, jac_add_affine(cv, acc, gx, _neg_y(f, gy, s1)))
+        d = da2[step]
+        gx, gy = _take_const(cv.g_table_endo, d)
+        acc = _sel(d == 0, acc, jac_add_affine(cv, acc, gx, _neg_y(f, gy, s2)))
+        d = db1[step]
+        qe = _take_batch(tq2, d)
+        acc = _sel(d == 0, acc,
+                   jac_add_affine(cv, acc, qe[0], _neg_y(f, qe[1], t1)))
+        d = db2[step]
+        qe = _take_batch(tql2, d)
+        acc = _sel(d == 0, acc,
+                   jac_add_affine(cv, acc, qe[0], _neg_y(f, qe[1], t2)))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# verification / recovery, plain form (lane-major [16, B] int64)
+# ---------------------------------------------------------------------------
+
+def _scalar_checks(fn, r, s):
+    nl = col(fn.limbs, r)
+    return (~is_zero(r)) & (~is_zero(s)) & (~geq(r, nl)) & (~geq(s, nl))
+
+
+def _on_curve(cv: Curve, xr, yr):
+    f = cv.fp
+    rhs = f.add(f.mul(f.sqr(xr), xr), col(cv.b_rep, xr).expand_as(xr))
+    return eq(f.sqr(yr), rhs)
+
+
+def _x_matches_mod_n(cv: Curve, X, Z, rscalar):
+    """x(X:Z) == rscalar (mod n) without an inversion: X == cand * Z^2 for
+    cand in {r, r + n} (the second only when r + n < p)."""
+    f, fn_ = cv.fp, cv.fn
+    zz = f.sqr(Z)
+    m1 = eq(X, f.mul(f.to_rep(rscalar), zz))
+    rpn, carry = fp.add_limbs(rscalar, col(fn_.limbs, rscalar))
+    lt_p = (carry == 0) & (~geq(rpn, col(f.limbs, rpn)))
+    cand2 = select(lt_p, rpn, torch.zeros_like(rpn))
+    m2 = lt_p & eq(X, f.mul(f.to_rep(cand2), zz))
+    return m1 | m2
+
+
+def ecdsa_verify_plain(cv: Curve, e, r, s, qx, qy):
+    """Plain batched verify on lane-major [16, B] int64 limbs -> bool[B]."""
+    f, fn_ = cv.fp, cv.fn
+    ok = _scalar_checks(fn_, r, s)
+    pl = col(f.limbs, qx)
+    ok &= (~geq(qx, pl)) & (~geq(qy, pl))
+    qxr, qyr = f.to_rep(qx), f.to_rep(qy)
+    ok &= _on_curve(cv, qxr, qyr)
+    ok &= ~(is_zero(qx) & is_zero(qy))
+    w = fn_.inv_batch(fn_.to_rep(s))
+    u1 = fn_.from_rep(fn_.mul(fn_.to_rep(e), w))
+    u2 = fn_.from_rep(fn_.mul(fn_.to_rep(r), w))
+    X, _, Z = _unpack(glv_shamir_mult(cv, u1, u2, qxr, qyr))
+    ok &= ~is_zero(Z)
+    ok &= _x_matches_mod_n(cv, X, Z, fn_.reduce_loose(r))
+    return ok
+
+
+def ecdsa_recover_plain(cv: Curve, e, r, s, v):
+    """Plain batched recovery. e, r, s lane-major [16, B] int64, v [B]
+    int64 -> (qx, qy [16, B], ok [B]); qx = qy = 0 where not ok."""
+    f, fn_ = cv.fp, cv.fn
+    ok = _scalar_checks(fn_, r, s) & (v >= 0) & (v < 4)
+    pl = col(f.limbs, r)
+    hi_bit = ((v >> 1) & 1) == 1
+    addend = select(hi_bit, col(fn_.limbs, r).expand_as(r),
+                    torch.zeros_like(r))
+    xr, carry = fp.add_limbs(r, addend)
+    ok &= (carry == 0) & (~geq(xr, pl))
+    xr = select(ok, xr, torch.zeros_like(xr))
+    xm = f.to_rep(xr)
+    ysq = f.add(f.mul(f.sqr(xm), xm), col(cv.b_rep, xm).expand_as(xm))
+    y = f.pow_const(ysq, (cv.params.p + 1) // 4)  # sqrt, p = 3 mod 4
+    ok &= eq(f.sqr(y), ysq)
+    flip = (f.from_rep(y)[0] & 1) != (v & 1)
+    ym = select(flip, f.neg(y), y)
+    rinv = fn_.inv_batch(fn_.to_rep(r))
+    u1 = fn_.from_rep(fn_.mul(fn_.neg(fn_.to_rep(e)), rinv))  # -e/r
+    u2 = fn_.from_rep(fn_.mul(fn_.to_rep(s), rinv))  # s/r
+    X, Y, Z = _unpack(glv_shamir_mult(cv, u1, u2, xm, ym))
+    ok &= ~is_zero(Z)
+    zinv = f.inv_batch(Z)
+    zi2 = f.sqr(zinv)
+    qx = f.from_rep(f.mul(X, zi2))
+    qy = f.from_rep(f.mul(Y, f.mul(zi2, zinv)))
+    zero = torch.zeros_like(qx)
+    return select(ok, qx, zero), select(ok, qy, zero), ok
+
+
+# ---------------------------------------------------------------------------
+# public entry points: [B, 16] limbs in, dispatch on the tensors' device
+# ---------------------------------------------------------------------------
+
+def _lane_major(a) -> torch.Tensor:
+    a = torch.as_tensor(a)
+    if a.dim() != 2 or a.shape[-1] != NLIMBS:
+        raise ValueError(f"expected [B, {NLIMBS}] limbs, got {tuple(a.shape)}")
+    return a.T
+
+
+def ecdsa_verify_batch(cv: Curve, e, r, s, qx, qy) -> torch.Tensor:
+    """Batched ECDSA verify. All args [B, 16] 16-bit limbs; -> bool[B]."""
+    if cv is not SECP256K1:
+        raise NotImplementedError("only the secp256k1 singleton is ported")
+    args = [_lane_major(a) for a in (e, r, s, qx, qy)]
+    if args[0].is_cuda:
+        from . import cuda_verify
+
+        return cuda_verify.ecdsa_verify(*args).bool()
+    return ecdsa_verify_plain(cv, *(a.to(torch.int64) for a in args))
+
+
+def ecdsa_recover_batch(cv: Curve, e, r, s, v):
+    """Batched public-key recovery. e, r, s [B, 16], v [B] recovery id ->
+    (qx, qy [B, 16] int64, ok bool[B]); zero keys where not ok."""
+    if cv is not SECP256K1:
+        raise NotImplementedError("only the secp256k1 singleton is ported")
+    e, r, s = (_lane_major(a) for a in (e, r, s))
+    v = torch.as_tensor(v)
+    if e.is_cuda:
+        from . import cuda_verify
+
+        qx, qy, ok = cuda_verify.ecdsa_recover(e, r, s, v)
+        return qx.T.to(torch.int64), qy.T.to(torch.int64), ok.bool()
+    qx, qy, ok = ecdsa_recover_plain(
+        cv, *(a.to(torch.int64) for a in (e, r, s)), v.to(torch.int64))
+    return qx.T, qy.T, ok

@@ -1,0 +1,135 @@
+"""The port's slice as a whole (CryptoSuite + protocol.types on the CPU
+tensor path) against the JAX package's host suite, bit-exact, plus the
+port's package rules (no JAX, no fisco_bcos_tpu imports) and suite API."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fisco_bcos_tpu.crypto import suite as jsuite
+from fisco_bcos_tpu.protocol import types as JT
+from fisco_bcos_tpu_torch.crypto import suite as psuite
+from fisco_bcos_tpu_torch.protocol import types as PT
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _block(T, suite, keys, sigs=None):
+    txs = [T.Transaction(nonce=f"n{i}", to=bytes([i + 1]) * 20, block_limit=500,
+                         input=bytes((i * 37 + j) % 256 for j in range(20 + 40 * i)))
+           for i in range(16)]
+    if sigs is None:
+        sigs = []
+        for i, t in enumerate(txs):
+            sig = suite.sign(keys[i % 4], t.hash(suite))
+            if i == 5:
+                sig = bytes(32) + sig[32:]  # r = 0
+            if i == 11:
+                sig = sig[:64] + bytes([sig[64] ^ 1])  # wrong key
+            sigs.append(sig)
+    for t, g in zip(txs, sigs):
+        t.signature = g
+        object.__setattr__(t, "_hash", None)
+    receipts = [T.Receipt(gas_used=21000 + i, status=i % 3, output=bytes([i]) * 8,
+                          block_number=3) for i in range(16)]
+    header = T.BlockHeader(number=3, sealer_list=[k.pub_bytes for k in keys])
+    return T.Block(header=header, transactions=txs, receipts=receipts), sigs
+
+
+def _slice(T, suite, block, sealers):
+    senders, ok = T.batch_recover_senders(block.transactions, suite)
+    hashes = [t._hash for t in block.transactions]
+    txs_root = block.calculate_txs_root(suite)
+    rc_root = block.calculate_receipts_root(suite)
+    h = block.header.hash(suite)
+    seals = [suite.sign(k, h) for k in sealers]
+    digests = [h] * 4 + [bytes([h[0] ^ 1]) + h[1:]]
+    pubs = [k.pub_bytes for k in sealers] + [sealers[0].pub_bytes]
+    seal_ok = suite.verify_batch(digests, seals + seals[:1], pubs)
+    return dict(hashes=hashes, senders=senders, ok=list(ok), txs_root=txs_root,
+                receipts_root=rc_root, seals=seals, seal_ok=list(seal_ok))
+
+
+def test_16_tx_block_matches_jax_host_suite():
+    port = psuite.make_suite(device="cpu")
+    jax_host = jsuite.make_suite(backend="host")
+    keys = [port.generate_keypair(b"acct" + bytes([i])) for i in range(4)]
+    jkeys = [jax_host.keypair_from_secret(k.secret) for k in keys]
+    pblock, sigs = _block(PT, port, keys)
+    jblock, _ = _block(JT, jax_host, jkeys, sigs)
+    got = _slice(PT, port, pblock, keys)
+    want = _slice(JT, jax_host, jblock, jkeys)
+    assert got == want
+    assert got["ok"].count(False) == 1  # r = 0; the wrong-key lane recovers
+    assert got["senders"][11] != keys[3].address
+    assert got["seal_ok"] == [True] * 4 + [False]
+
+
+def test_host_and_tensor_backends_agree_on_bad_signatures():
+    dev = psuite.make_suite(device="cpu")
+    host = psuite.make_suite(backend="host")
+    kp = host.generate_keypair(b"k")
+    d = [bytes([i]) * 32 for i in range(6)]
+    sigs = [host.sign(kp, x) for x in d]
+    sigs[1] = sigs[1][:40]  # malformed -> r = s = 0, v = 255
+    sigs[2] = sigs[2][:64] + b"\x07"  # v >= 4
+    pubs = [kp.pub_bytes] * 6
+    pubs[3] = bytes(64)  # (0, 0) key
+    assert list(dev.verify_batch(d, sigs, pubs)) == list(host.verify_batch(d, sigs, pubs))
+    assert dev.recover_batch(d, sigs)[0] == host.recover_batch(d, sigs)[0]
+    assert dev.recover_addresses(d, sigs)[0] == host.recover_addresses(d, sigs)[0]
+    assert dev.hash_batch(d) == host.hash_batch(d)
+    assert dev.merkle_root(d) == host.merkle_root(d)
+
+
+def test_buckets_and_chunk_match_jax():
+    assert psuite.BUCKETS == jsuite.BUCKETS and psuite.CHUNK == jsuite.CHUNK
+    for n in (1, 8, 9, 4096, 16385, 65536, 70000):
+        assert psuite._bucket(n) == jsuite._bucket(n)
+        assert psuite._chunks(n) == jsuite._chunks(n)
+
+
+def test_unported_configurations_raise():
+    with pytest.raises(NotImplementedError, match="SM slice"):
+        psuite.make_suite(sm_crypto=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        psuite.make_suite(mesh_devices=2, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            psuite.make_suite()  # device="cuda" by default: never drops to CPU
+    assert psuite.make_suite(backend="host").backend == "host"
+
+
+def _port_sources():
+    files = sorted(p for p in (REPO / "fisco_bcos_tpu_torch").rglob("*.py")
+                   if "_build" not in p.parts)
+    return files + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        assert not {"jax", "jaxlib", "fisco_bcos_tpu"} & set(roots), (path, roots)
+
+
+def test_tensor_entry_points_dispatch_on_device():
+    """CPU tensors take the plain versions; nothing counts a launch."""
+    from fisco_bcos_tpu_torch.ops import cuda_hash, keccak
+
+    before = cuda_hash.keccak256_varlen.launches
+    blocks, nvalid = keccak.pad_batch_np([b"abc"])
+    keccak.keccak256_varlen(torch.as_tensor(blocks), torch.as_tensor(nvalid))
+    assert cuda_hash.keccak256_varlen.launches == before
+    with pytest.raises(ValueError):
+        cuda_hash.keccak256_varlen(torch.as_tensor(blocks), torch.as_tensor(nvalid))
+    assert np.asarray(blocks).shape == (1, 1, 136)

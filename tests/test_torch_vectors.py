@@ -1,0 +1,87 @@
+"""Seeded secp256k1 signature vectors, valid and adversarial, for the
+port's tests (CPU and card), built with the port's pure-Python oracle, and
+the tests that hold the vectors to what they claim to be."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fisco_bcos_tpu_torch.crypto import refimpl
+from fisco_bcos_tpu_torch.ops.bigint import batch_to_limbs
+
+C = refimpl.SECP256K1
+
+
+def signed_vectors(n: int, nkeys: int = 4, tag: int = 0):
+    """n signatures by nkeys keys over distinct digests, then corrupted in
+    the ways the JAX tests pin. -> list of dicts with e, r, s, v, qx, qy
+    (ints) and the digest bytes."""
+    keys = [refimpl.keygen(C, seed=bytes([tag, k])) for k in range(nkeys)]
+    out = []
+    for i in range(n):
+        sk, (qx, qy) = keys[i % nkeys]
+        h = refimpl.keccak256(bytes([tag]) + i.to_bytes(4, "big"))
+        r, s, v = refimpl.ecdsa_sign(C, sk, h)
+        out.append(dict(e=int.from_bytes(h, "big"), r=r, s=s, v=v,
+                        qx=qx, qy=qy))
+    corrupt = [
+        lambda d: d.update(r=0),
+        lambda d: d.update(s=C.n),
+        lambda d: d.update(v=4),
+        lambda d: d.update(e=d["e"] ^ 1),
+        lambda d: d.update(qx=(d["qx"] + 1) % C.p),
+        lambda d: d.update(s=0),
+        lambda d: d.update(v=d["v"] ^ 2),
+        lambda d: d.update(qx=0, qy=0),
+    ]
+    for j, f in enumerate(corrupt):
+        if 1 + 2 * j < n:
+            f(out[1 + 2 * j])
+    return out
+
+
+def collision_vectors():
+    """Vectors that force the ladder's doubling and cancellation cases:
+    the key is +-G and e = +-r, so u1 = +-u2."""
+    out = []
+    for j, (sk, sign_e, flip_y) in enumerate(
+            [(1, 1, False), (1, -1, False), (1, 1, True)]):
+        h = refimpl.keccak256(b"collide" + bytes([j]))
+        r, s, v = refimpl.ecdsa_sign(C, sk, h)
+        e = r if sign_e > 0 else C.n - r
+        qy = C.p - C.gy if flip_y else C.gy
+        out.append(dict(e=e, r=r, s=s, v=v, qx=C.gx, qy=qy))
+    return out
+
+
+def limbs(xs) -> torch.Tensor:
+    """List of ints -> [N, 16] int64 limb tensor on the CPU."""
+    return torch.as_tensor(batch_to_limbs(xs).astype(np.int64))
+
+
+def _verifies(d) -> bool:
+    return refimpl.ecdsa_verify(C, (d["qx"], d["qy"]), d["e"].to_bytes(32, "big"),
+                                d["r"], d["s"])
+
+
+def _recovers(d) -> bool:
+    Q = refimpl.ecdsa_recover(C, d["e"].to_bytes(32, "big"), d["r"], d["s"], d["v"])
+    return Q == (d["qx"], d["qy"])
+
+
+def test_signed_vectors_valid_and_corrupted_lanes():
+    vs = signed_vectors(17, tag=3)
+    # lane 1 + 2j carries corruption j; 5 (v=4) and 13 (v^2) only hit recovery
+    for i, d in enumerate(vs):
+        assert _verifies(d) == (i % 2 == 0 or i in (5, 13)), i
+        assert _recovers(d) == (i % 2 == 0), i
+
+
+def test_collision_vectors_force_equal_or_opposite_scalars():
+    for d, (sign, key_y) in zip(collision_vectors(),
+                                [(1, C.gy), (-1, C.gy), (1, C.p - C.gy)]):
+        w = pow(d["s"], -1, C.n)
+        u1, u2 = d["e"] * w % C.n, d["r"] * w % C.n
+        assert u1 == (u2 if sign > 0 else C.n - u2)
+        assert (d["qx"], d["qy"]) == (C.gx, key_y)
