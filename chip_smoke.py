@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's block crypto path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's block crypto paths on one NVIDIA card:
+the default chain (secp256k1 + Keccak-256) and the SM chain (SM2 + SM3).
 
     python3 chip_smoke.py
 
@@ -7,19 +8,24 @@ Phases (any failure exits non-zero; nothing falls back to the plain
 version or to the CPU):
 
 1. Card: name and power limit (nvidia-smi), the kernels' parallel build.
-2. Each CUDA kernel against its plain PyTorch version on the card at the
-   main path's shapes, bit-exact: recover and verify at one CHUNK (16,384
-   lanes), Keccak over 65,536 messages of 1-8 blocks, Merkle trees at
-   n in {1, 2, 17, 4097, 65535, 65536}. Kernel times are medians of CUDA
-   event timings after a warm-up; the plain version runs once.
-3. The slice: a 65,536-tx block through the port's protocol entry points
-   (batch_recover_senders, Block.calculate_txs_root and
-   calculate_receipts_root), and a commit-seal span of 16,384 lanes through
-   suite.verify_batch, checked against the pure-Python oracle on every
-   distinct signed entry (by its signer) and every corrupted lane, and
-   against the plain path for the tx hashes and 65,536-leaf roots. The
-   launch counters are zeroed just before and read just after; every
-   kernel must have launched.
+2. Each default-chain CUDA kernel against its plain PyTorch version on the
+   card at the main path's shapes, bit-exact: recover and verify at one
+   CHUNK (16,384 lanes), Keccak over 65,536 messages of 1-8 blocks, Merkle
+   trees at n in {1, 2, 17, 4097, 65535, 65536}. Kernel times are medians
+   of CUDA event timings after a warm-up; the plain version runs once.
+3. The default chain's slice: a 65,536-tx block through the port's
+   protocol entry points (batch_recover_senders, Block.calculate_txs_root
+   and calculate_receipts_root), and a commit-seal span of 16,384 lanes
+   through suite.verify_batch, checked against the pure-Python oracle on
+   every distinct signed entry (by its signer), every corrupted lane and
+   64 sampled tiled lanes, and against the plain path for the tx hashes
+   and 65,536-leaf roots. The launch counters are zeroed just before and
+   read just after; every kernel must have launched.
+4. The SM chain's kernels as in 2: SM3 over the 65,536 tx encodings of the
+   SM block (2-17 blocks), SM3 Merkle trees at the same n, SM2 verify at
+   one CHUNK of host-signed vectors with 1% adversarial lanes.
+5. The SM chain's slice as in 3, on make_suite(sm_crypto=True): the same
+   payloads signed with SM2 by 16 senders, seals signed by 4 sealers.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -175,6 +181,47 @@ def keccak_bound(perms: int, nbytes: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+# SM3 counts 32-bit instructions as csrc/sm3.cuh issues them, with 3-input
+# logic (LOP3) and 3-input adds fused and a rotate one funnel shift: ~7 per
+# expanded word (52), ~16 per round (64), 8 for the feed-forward and 16
+# byte swaps of the block's words.
+SM3_COMPRESS_OPS = 52 * 7 + 64 * 16 + 8 + 16
+# SM2 counts Montgomery products over p (csrc/sm2.cuh), each FN_MUL wide
+# multiplies: 8 per a = -3 doubling, 11 per mixed add (point.cuh)
+SM2_DBL, SM2_MADD = 8, 11
+
+
+def sm3_bound(compressions: int, nbytes: int):
+    ops_ms = compressions * SM3_COMPRESS_OPS / H100_INT_OPS * 1e3
+    bytes_ms = nbytes / H100_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sm2_products(e, r, s, qx, qy) -> int:
+    """Wide multiplies one lane of the SM2 kernel needs for these inputs
+    (the table's inversion priced as batched, as for secp256k1)."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+
+    c = refimpl.SM2P256V1
+    if not (0 < r < c.n and 0 < s < c.n and qx < c.p and qy < c.p) or (qx, qy) == (0, 0):
+        return 0
+    checks = 2 + 4  # Q into the Montgomery domain, y^2 == x^3 + a x + b
+    t = (r + s) % c.n
+    if (qy * qy - qx ** 3 - c.a * qx - c.b) % c.p or t == 0:
+        return checks * FN_MUL
+    table = SM2_DBL + 13 * SM2_MADD + 14 + INV_LANE + 14 * 6 + 5
+    nz = sum(1 for k in (s, t) for j in range(64) if (k >> (4 * j)) & 15)
+    ladder = 256 * SM2_DBL + (nz - 1) * SM2_MADD  # the first add lands on infinity
+    return (checks + table + ladder + 3) * FN_MUL  # + Z^2, c R, c Z^2
+
+
+def sm2_batch_inversion() -> int:
+    """Products of the one mod-p Fermat power a batch would share."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+
+    return _pow_muls(refimpl.SM2P256V1.p - 2) * FN_MUL
+
+
 # ---------------------------------------------------------------------------
 # inputs
 # ---------------------------------------------------------------------------
@@ -230,9 +277,49 @@ def phase_card():
     return smi, name
 
 
+def tree_row(dev, nrng, alg: str) -> dict:
+    """The Merkle level kernel of `alg` against the plain tree (and the
+    host levels up to n = 4,097) at every n of MERKLE_NS; timed as the
+    whole tree at the largest n."""
+    from fisco_bcos_tpu_torch.ops import cuda_merkle, merkle
+
+    name = "merkle_keccak_level" if alg == "keccak256" else "merkle_sm3_level"
+    mism = err = 0
+    for n in MERKLE_NS:
+        leaves = nrng.integers(0, 256, (n, 32), dtype=np.uint8)
+        lt = torch.as_tensor(leaves, device=dev)
+        root = cuda_merkle.merkle_root(lt, n, alg)
+        nb = max(16, 1 << (n - 1).bit_length())
+        padded = torch.cat([lt, torch.zeros((nb - n, 32), dtype=torch.uint8, device=dev)])
+        proot, pms = wall_ms(lambda: merkle.merkle_root_bucketed_plain(padded, n, alg))
+        bad = not torch.equal(root, proot)
+        if n <= 4097:
+            host = merkle.merkle_levels_host([bytes(x) for x in leaves], alg)[-1][0]
+            bad |= bytes(root.cpu().numpy()) != host
+        mism += int(bad)
+        err = max(err, int((root.int() - proot.int()).abs().max()))
+        log(f"[kernel] merkle {alg} n={n}: {'MISMATCH' if bad else 'ok'}")
+    ms = cuda_ms(lambda: cuda_merkle.merkle_root(lt, n, alg), 20)
+    parents, m = 0, n
+    while m > 1:
+        m = (m + 15) // 16
+        parents += m
+    nbytes = 32 * (n + parents) + 32 * parents
+    if alg == "keccak256":  # 4 permutations or 9 compressions a parent
+        bound, by = keccak_bound(4 * parents, nbytes)
+    else:
+        bound, by = sm3_bound(9 * parents, nbytes)
+    log(f"[kernel] merkle {alg} n={n} tree: {ms:.3f} ms (plain {pms:.0f} ms), "
+        f"bound {bound:.4f} ms")
+    return dict(
+        name=name, route="cuda", source="fisco_bcos_tpu_torch/csrc/merkle.cu",
+        replaces="fisco_bcos_tpu/ops/pallas_merkle.py:220", mismatches=mism,
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+        library_ms=None, shape=f"n={n}, whole tree, one launch per level")
+
+
 def phase_kernels(dev, signed, rng):
-    from fisco_bcos_tpu_torch.ops import (cuda_hash, cuda_merkle, cuda_verify,
-                                          ec, keccak, merkle)
+    from fisco_bcos_tpu_torch.ops import cuda_hash, cuda_verify, ec, keccak
 
     rows = {}
     B = EC_B
@@ -298,46 +385,214 @@ def phase_kernels(dev, signed, rng):
         shape=f"B={NTX}, {blocks.shape[1]} blocks max, {perms} permutations")
     log(f"[kernel] keccak B={NTX}: mismatches {mism}, {ms:.3f} ms (plain {plain_ms:.0f} ms)")
     # -- merkle -------------------------------------------------------------
-    mism = 0
-    err = 0
-    for n in MERKLE_NS:
-        leaves = nrng.integers(0, 256, (n, 32), dtype=np.uint8)
-        lt = torch.as_tensor(leaves, device=dev)
-        root = cuda_merkle.merkle_root(lt, n)
-        nb = max(16, 1 << (n - 1).bit_length())
-        padded = torch.cat([lt, torch.zeros((nb - n, 32), dtype=torch.uint8, device=dev)])
-        proot, pms = wall_ms(lambda: merkle.merkle_root_bucketed_plain(padded, n))
-        bad = not torch.equal(root, proot)
-        if n <= 4097:
-            host = merkle.merkle_levels_host([bytes(x) for x in leaves])[-1][0]
-            bad |= bytes(root.cpu().numpy()) != host
-        mism += int(bad)
-        err = max(err, int((root.int() - proot.int()).abs().max()))
-        log(f"[kernel] merkle n={n}: {'MISMATCH' if bad else 'ok'}")
-    ms = cuda_ms(lambda: cuda_merkle.merkle_root(lt, n), 20)
-    parents, m = 0, n
-    while m > 1:
-        m = (m + 15) // 16
-        parents += m
-    bound, by = keccak_bound(4 * parents, 32 * (n + parents) + 32 * parents)
-    rows["merkle_keccak_level"] = dict(
-        name="merkle_keccak_level", route="cuda", source="fisco_bcos_tpu_torch/csrc/merkle.cu",
-        replaces="fisco_bcos_tpu/ops/pallas_merkle.py:220", mismatches=mism,
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
-        library_ms=None, shape=f"n={n}, whole tree, one launch per level")
-    log(f"[kernel] merkle n={n} tree: {ms:.3f} ms (plain {pms:.0f} ms)")
+    rows["merkle_keccak_level"] = tree_row(dev, nrng, "keccak256")
     bad = {k: r["mismatches"] for k, r in rows.items() if r["mismatches"]}
     if bad:
         fail(f"kernel vs plain mismatches: {bad}")
     return rows
 
 
-def phase_slice(dev, suite, rng):
+def sm2_inputs(rng: random.Random, B: int):
+    """B lanes of 256 host-signed SM2 vectors (8 keys), tiled, 1% of them
+    corrupted by kind in turn: r = 0, s >= n, s = n - r, digest flipped,
+    another key, off-curve key, key (0, 0), qx >= p."""
     from fisco_bcos_tpu_torch.crypto import refimpl
-    from fisco_bcos_tpu_torch.ops import cuda_hash, cuda_merkle, cuda_verify, keccak, merkle
+
+    c = refimpl.SM2P256V1
+    keys = [refimpl.keygen(c, seed=b"sm" + bytes([k])) for k in range(8)]
+    signed = []
+    for i in range(256):
+        sk, pub = keys[i % 8]
+        h = refimpl.sm3(b"smoke" + i.to_bytes(4, "big"))
+        r, s = refimpl.sm2_sign(sk, h)
+        signed.append(dict(e=int.from_bytes(h, "big"), r=r, s=s, qx=pub[0], qy=pub[1]))
+    out, bad = [], {}
+    for j, i in enumerate(sorted(rng.sample(range(B), B // 100))):
+        bad[i] = j % 8
+    for i in range(B):
+        d = dict(signed[i % len(signed)])
+        k = bad.get(i)
+        if k == 0:
+            d["r"] = 0
+        elif k == 1:
+            d["s"] = c.n + i % 97
+        elif k == 2:
+            d["s"] = c.n - d["r"]
+        elif k == 3:
+            d["e"] ^= 1 << (i % 256)
+        elif k == 4:
+            d["qx"], d["qy"] = keys[(i + 1) % 8][1]
+        elif k == 5:
+            d["qy"] ^= 1
+        elif k == 6:
+            d["qx"], d["qy"] = 0, 0
+        elif k == 7:
+            d["qx"] = c.p + i % 97
+        out.append(d)
+    return out, bad
+
+
+def phase_sm_kernels(dev, data, rng):
+    """Kernels A, B and C against their plain versions on the card at the
+    SM path's shapes, bit-exact."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+    from fisco_bcos_tpu_torch.ops import cuda_sm3, cuda_verify, ec, sm3
+
+    rows = {}
+    # -- A: SM3 over the SM block's tx encodings ------------------------------
+    msgs = [t.encode_unsigned() for t in data["txs"]]
+    blocks, nvalid = sm3.pad_batch_np(msgs)
+    bt, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
+    got = cuda_sm3.sm3_varlen(bt, nv)
+    plain, plain_ms = wall_ms(lambda: sm3.sm3_varlen_plain(bt, nv))
+    mism = int((got != plain).any(1).sum())
+    for i in rng.sample(range(len(msgs)), 16):
+        mism += bytes(got[i].cpu().numpy()) != refimpl.sm3(msgs[i])
+    ms = cuda_ms(lambda: cuda_sm3.sm3_varlen(bt, nv), 20)
+    comp = int(nvalid.sum())
+    bound, by = sm3_bound(comp, comp * 64 + 4 * len(msgs) + 32 * len(msgs))
+    rows["sm3_varlen"] = dict(
+        name="sm3_varlen", route="cuda", source="fisco_bcos_tpu_torch/csrc/sm3.cu",
+        replaces="fisco_bcos_tpu/ops/pallas_hash.py:174", mismatches=mism,
+        max_abs_err=int((got.int() - plain.int()).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        shape=f"B={len(msgs)}, {int(nvalid.min())}-{int(nvalid.max())} blocks, "
+              f"{comp} compressions")
+    log(f"[kernel] sm3 B={len(msgs)}: mismatches {mism}, {ms:.3f} ms "
+        f"(plain {plain_ms:.0f} ms), bound {bound:.4f} ms")
+    # -- B: SM3 Merkle trees ----------------------------------------------------
+    rows["merkle_sm3_level"] = tree_row(dev, np.random.default_rng(SEED + 2), "sm3")
+    # -- C: SM2 verify at one CHUNK --------------------------------------------
+    t0 = time.perf_counter()
+    vs, bad = sm2_inputs(rng, EC_B)
+    log(f"[kernel] 256 host SM2 signatures for kernel C: {time.perf_counter() - t0:.1f} s")
+    args = [lane([d[k] for d in vs], dev) for k in ("e", "r", "s", "qx", "qy")]
+    ok = cuda_verify.sm2_verify(*args)
+    pok, plain_ms = wall_ms(lambda: ec.sm2_verify_plain(ec.SM2P256V1, *args))
+    mism = int((ok.bool() != pok).sum())
+    okl = ok.bool().tolist()
+    for i in sorted(bad) + rng.sample([i for i in range(len(vs)) if i not in bad], 16):
+        d = vs[i]
+        mism += okl[i] != refimpl.sm2_verify((d["qx"], d["qy"]), d["e"].to_bytes(32, "big"),
+                                             d["r"], d["s"])
+    ms = cuda_ms(lambda: cuda_verify.sm2_verify(*args), 5)
+    prods = (sum(sm2_products(d["e"], d["r"], d["s"], d["qx"], d["qy"]) for d in vs)
+             + sm2_batch_inversion())
+    rows["sm2_verify"] = dict(
+        name="sm2_verify", route="cuda", source="fisco_bcos_tpu_torch/csrc/sm2.cu",
+        replaces="fisco_bcos_tpu/ops/pallas_verify.py:507", mismatches=mism,
+        max_abs_err=int((ok.long() - pok.long()).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=ec_bound_ms(prods), bound_by="operations",
+        library_ms=None, shape=f"B={EC_B}", valid_lanes=int(ok.sum()))
+    log(f"[kernel] sm2 verify B={EC_B}: mismatches {mism} ({len(bad)} corrupted lanes "
+        f"and 16 signed held to the oracle), {ms:.3f} ms (plain {plain_ms:.0f} ms), "
+        f"bound {ec_bound_ms(prods):.3f} ms, valid lanes {int(ok.sum())}")
+    bad = {k: r["mismatches"] for k, r in rows.items() if r["mismatches"]}
+    if bad:
+        fail(f"kernel vs plain mismatches: {bad}")
+    return rows
+
+
+def corrupt_tx(kind: str, j: int, sig: bytes, c, other_pub: bytes) -> bytes:
+    """The j-th corrupted tx signature of the slice's block: six kinds on
+    the default chain, seven on the SM chain (r | s | embedded key)."""
+    sig = bytearray(sig)
+    if kind == "ecdsa":
+        k = j % 6
+        if k == 0:
+            sig[:32] = bytes(32)                          # r = 0
+        elif k == 1:
+            sig[32:64] = (c.n + j).to_bytes(32, "big")     # s >= n
+        elif k == 2:
+            sig[64] = 4 + j % 200                          # v >= 4
+        elif k == 3:
+            sig[64] ^= 1                                   # wrong key
+        elif k == 4:
+            sig = sig[:40]                                 # malformed
+        else:
+            sig[5] ^= 0x10                                 # r flipped
+        return bytes(sig)
+    k = j % 7
+    r = int.from_bytes(sig[:32], "big")
+    if k == 0:
+        sig[:32] = bytes(32)                               # r = 0
+    elif k == 1:
+        sig[32:64] = (c.n + j).to_bytes(32, "big")         # s >= n
+    elif k == 2:
+        sig[32:64] = (c.n - r).to_bytes(32, "big")         # s = n - r: t = 0
+    elif k == 3:
+        sig = sig[:100]                                    # under 128 bytes
+    elif k == 4:
+        sig[5] ^= 0x10                                     # r flipped
+    elif k == 5:
+        sig[64:128] = other_pub                            # another signer's key
+    else:
+        sig[127] ^= 1                                      # off-curve key
+    return bytes(sig)
+
+
+def corrupt_seal(kind: str, j: int, d: bytes, sig: bytes, pub: bytes, c, other_pub: bytes):
+    """The j-th corrupted seal lane -> (digest, sig, pub): five kinds on the
+    default chain, six on the SM chain (t = 0 added)."""
+    k = j % (5 if kind == "ecdsa" else 6)
+    if k == 0:
+        sig = bytes(32) + sig[32:]                                  # r = 0
+    elif k == 1:
+        sig = sig[:32] + (c.n + j).to_bytes(32, "big") + sig[64:]   # s >= n
+    elif k == 2:
+        d = bytes([d[0] ^ 1]) + d[1:]                               # digest flipped
+    elif k == 3:
+        x = (int.from_bytes(pub[:32], "big") + 1) % c.p             # off-curve key
+        pub = x.to_bytes(32, "big") + pub[32:]
+    elif k == 4:
+        pub = other_pub                                             # wrong key
+    else:
+        r = int.from_bytes(sig[:32], "big")
+        sig = sig[:32] + (c.n - r).to_bytes(32, "big") + sig[64:]   # t = 0
+    return d, sig, pub
+
+
+def _ints(pub: bytes):
+    return int.from_bytes(pub[:32], "big"), int.from_bytes(pub[32:64], "big")
+
+
+def oracle_verify(kind: str, pub: bytes, d: bytes, sig: bytes) -> bool:
+    """The pure-Python verdict of the suite's verify_batch on one lane."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+
+    size = 65 if kind == "ecdsa" else 128
+    r, s = ((int.from_bytes(sig[:32], "big"), int.from_bytes(sig[32:64], "big"))
+            if len(sig) >= size else (0, 0))
+    if kind == "ecdsa":
+        return refimpl.ecdsa_verify(refimpl.SECP256K1, _ints(pub), d, r, s)
+    return refimpl.sm2_verify(_ints(pub), d, r, s)
+
+
+def oracle_sender(kind: str, h: bytes, sig: bytes):
+    """The pure-Python sender address of one tx lane, None if invalid."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+
+    if kind == "ecdsa":
+        if len(sig) < 65:
+            return None
+        Q = refimpl.ecdsa_recover(refimpl.SECP256K1, h, int.from_bytes(sig[:32], "big"),
+                                  int.from_bytes(sig[32:64], "big"), sig[64])
+        if Q is None:
+            return None
+        return refimpl.keccak256(Q[0].to_bytes(32, "big") + Q[1].to_bytes(32, "big"))[12:]
+    if len(sig) < 128 or not oracle_verify(kind, sig[64:128], h, sig):
+        return None
+    return refimpl.sm3(sig[64:128])[12:]
+
+
+def build_slice(suite, rng):
+    """The slice's data on `suite`: a 65,536-tx block (seeded payloads,
+    16 senders, 1,024 distinct signatures tiled, 1% of lanes corrupted),
+    65,536 receipts, and a 16,384-lane seal span (256 headers x 4 sealers,
+    tiled, 1% corrupted)."""
     from fisco_bcos_tpu_torch.protocol import types as T
 
-    c = refimpl.SECP256K1
+    c, kind = suite.params, suite.kind
     nrng = np.random.default_rng(SEED + 1)
     t0 = time.perf_counter()
     kps = [suite.generate_keypair(b"sender" + bytes([k])) for k in range(16)]
@@ -356,22 +611,9 @@ def phase_slice(dev, suite, rng):
     # corrupt 1% of the lanes
     corrupt = {}
     for j, i in enumerate(rng.sample(range(NTX), NTX // 100)):
-        sig = bytearray(txs[i].signature)
-        kind = j % 6
-        if kind == 0:
-            sig[:32] = bytes(32)                          # r = 0
-        elif kind == 1:
-            sig[32:64] = (c.n + j).to_bytes(32, "big")     # s >= n
-        elif kind == 2:
-            sig[64] = 4 + j % 200                          # v >= 4
-        elif kind == 3:
-            sig[64] ^= 1                                   # wrong key
-        elif kind == 4:
-            sig = sig[:40]                                 # malformed
-        else:
-            sig[5] ^= 0x10                                 # r flipped
-        txs[i].signature = bytes(sig)
-        corrupt[i] = kind
+        other = kps[(i % NSIGNED + 1) % 16].pub_bytes
+        txs[i].signature = corrupt_tx(kind, j, txs[i].signature, c, other)
+        corrupt[i] = j
     for t in txs:
         object.__setattr__(t, "_hash", None)
         object.__setattr__(t, "_sender", None)
@@ -397,28 +639,47 @@ def phase_slice(dev, suite, rng):
     pb = [seal_p[i % len(seal_p)] for i in range(NSEAL)]
     seal_bad = {}
     for j, i in enumerate(rng.sample(range(NSEAL), NSEAL // 100)):
-        kind = j % 5
-        if kind == 0:
-            sg[i] = bytes(32) + sg[i][32:]
-        elif kind == 1:
-            sg[i] = sg[i][:32] + (c.n + j).to_bytes(32, "big") + sg[i][64:]
-        elif kind == 2:
-            dg[i] = bytes([dg[i][0] ^ 1]) + dg[i][1:]
-        elif kind == 3:
-            x = (int.from_bytes(pb[i][:32], "big") + 1) % c.p
-            pb[i] = x.to_bytes(32, "big") + pb[i][32:]
-        else:
-            pb[i] = seal_p[(i + 1) % len(seal_p)]
-        seal_bad[i] = kind
+        dg[i], sg[i], pb[i] = corrupt_seal(kind, j, dg[i], sg[i], pb[i], c,
+                                           seal_p[(i + 1) % len(seal_p)])
+        seal_bad[i] = j
     setup_s = time.perf_counter() - t0
-    log(f"[slice] set-up (payloads, {NSIGNED + len(seal_s)} host signatures, "
+    log(f"[slice {kind}] set-up (payloads, {NSIGNED + len(seal_s)} host signatures, "
         f"corruption): {setup_s:.1f} s")
+    return dict(kps=kps, txs=txs, signed_hash=signed_hash, corrupt=corrupt,
+                receipts=receipts, block=block, seal_d=seal_d, seal_s=seal_s,
+                seal_p=seal_p, dg=dg, sg=sg, pb=pb, seal_bad=seal_bad)
 
-    # -- the main path: counters zeroed just before, read just after --------
-    counters = {"ecdsa_recover": cuda_verify.ecdsa_recover,
+
+def slice_counters(kind: str) -> dict:
+    """The launch counters of the kernels on a suite's main path."""
+    from fisco_bcos_tpu_torch.ops import cuda_hash, cuda_merkle, cuda_sm3, cuda_verify
+
+    if kind == "ecdsa":
+        return {"ecdsa_recover": cuda_verify.ecdsa_recover,
                 "ecdsa_verify": cuda_verify.ecdsa_verify,
                 "keccak256_varlen": cuda_hash.keccak256_varlen,
                 "merkle_keccak_level": cuda_merkle.merkle_level}
+    return {"sm2_verify": cuda_verify.sm2_verify,
+            "sm3_varlen": cuda_sm3.sm3_varlen,
+            "merkle_sm3_level": cuda_merkle.merkle_sm3_level}
+
+
+def phase_slice(dev, suite, data, rng):
+    """Drive the main path on `data` through the protocol entry points,
+    with the suite's launch counters zeroed just before and read just
+    after, then hold what came out to the oracle and the plain path."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+    from fisco_bcos_tpu_torch.ops import keccak, merkle, sm3
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    kind, tag = suite.kind, f"[slice {suite.kind}]"
+    txs, receipts, block = data["txs"], data["receipts"], data["block"]
+    dg, sg, pb, seal_bad = data["dg"], data["sg"], data["pb"], data["seal_bad"]
+    corrupt, kps = data["corrupt"], data["kps"]
+    host_hash = refimpl.keccak256 if kind == "ecdsa" else refimpl.sm3
+
+    # -- the main path: counters zeroed just before, read just after --------
+    counters = slice_counters(kind)
     for fn in counters.values():
         fn.launches = 0
     phases = {}
@@ -432,33 +693,41 @@ def phase_slice(dev, suite, rng):
             lambda: block.calculate_receipts_root(suite))
         seal_ok, phases["seal_verify"] = wall_ms(lambda: suite.verify_batch(dg, sg, pb))
     launches = {k: fn.launches for k, fn in counters.items()}
-    device_us = {}
+    device_us, calls = {}, {}
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", 0) or 0
-        if t:
-            device_us[ev.key.split("(")[0]] = t
+        if t:  # entries that differ past the name add up
+            k = ev.key.split("(")[0]
+            device_us[k] = device_us.get(k, 0) + t
+            calls[k] = calls.get(k, 0) + ev.count
     total_ms = sum(phases.values())
     dev_ms = sum(device_us.values()) / 1e3
-    log(f"[slice] launches on the main path: {launches}")
+    log(f"{tag} launches on the main path: {launches}")
     for k, v in phases.items():
-        log(f"[slice] {k}: {v:.1f} ms wall")
+        log(f"{tag} {k}: {v:.1f} ms wall")
     if dev_ms:
-        top = dict(sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
-        log(f"[slice] device time {dev_ms:.1f} ms of {total_ms:.1f} ms wall "
-            f"(host {total_ms - dev_ms:.1f} ms); largest by kernel (us): {top}")
+        top = {k: (round(v, 1), calls[k])
+               for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8]}
+        log(f"{tag} device time {dev_ms:.1f} ms of {total_ms:.1f} ms wall "
+            f"(host {total_ms - dev_ms:.1f} ms); largest by kernel (us, calls): {top}")
     else:
-        log("[slice] device kernel time: not measured (profiler saw no kernels)")
+        log(f"{tag} device kernel time: not measured (profiler saw no kernels)")
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         fail(f"the main path did not launch {missing}")
 
     # -- checks ---------------------------------------------------------------
     hashes = [t._hash for t in txs]
-    if hashes[:NSIGNED] != signed_hash:
+    if hashes[:NSIGNED] != data["signed_hash"]:
         fail("tx hashes differ from the host oracle on the signed entries")
-    blocks, nvalid = keccak.pad_batch_np([t.encode_unsigned() for t in txs])
-    plain = keccak.keccak256_varlen_plain(torch.as_tensor(blocks, device=dev),
-                                          torch.as_tensor(nvalid, device=dev))
+    if kind == "ecdsa":
+        blocks, nvalid = keccak.pad_batch_np([t.encode_unsigned() for t in txs])
+        plain = keccak.keccak256_varlen_plain(torch.as_tensor(blocks, device=dev),
+                                              torch.as_tensor(nvalid, device=dev))
+    else:
+        blocks, nvalid = sm3.pad_batch_np([t.encode_unsigned() for t in txs])
+        plain = sm3.sm3_varlen_plain(torch.as_tensor(blocks, device=dev),
+                                     torch.as_tensor(nvalid, device=dev))
     if [bytes(x) for x in plain.cpu().numpy()] != hashes:
         fail("tx hashes differ from the plain path")
     bad = 0
@@ -469,55 +738,45 @@ def phase_slice(dev, suite, rng):
     checked = set(range(NSIGNED)) | set(corrupt)
     sample = rng.sample([i for i in range(NSIGNED, NTX) if i not in corrupt], 64)
     for i in sorted(set(corrupt) | set(sample)):
-        sig = txs[i].signature
-        if len(sig) < 65:
-            Q = None
-        else:
-            Q = refimpl.ecdsa_recover(c, hashes[i], int.from_bytes(sig[:32], "big"),
-                                      int.from_bytes(sig[32:64], "big"), sig[64])
-        want = (refimpl.keccak256(Q[0].to_bytes(32, "big") + Q[1].to_bytes(32, "big"))[12:]
-                if Q is not None else None)
-        if senders[i] != want or bool(ok[i]) != (Q is not None):
+        want = oracle_sender(kind, hashes[i], txs[i].signature)
+        if senders[i] != want or bool(ok[i]) != (want is not None):
             bad += 1
     if bad:
         fail(f"{bad} sender lanes differ from the host oracle")
-    log(f"[slice] senders: {len(checked) + len(sample)} lanes held to the oracle "
+    log(f"{tag} senders: {len(checked) + len(sample)} lanes held to the oracle "
         f"({NSIGNED} signed, {len(corrupt)} corrupted, {len(sample)} tiled), "
         f"{int(ok.sum())} of {NTX} valid")
+    alg = suite.hash_name
     leaves = torch.as_tensor(np.frombuffer(bytearray(b"".join(hashes)), np.uint8)
                              .reshape(NTX, 32), device=dev)
-    if bytes(merkle.merkle_root_bucketed_plain(leaves, NTX).cpu().numpy()) != txs_root:
+    if bytes(merkle.merkle_root_bucketed_plain(leaves, NTX, alg).cpu().numpy()) != txs_root:
         fail("txs root differs from the plain path")
     rleaves = torch.as_tensor(np.frombuffer(bytearray(b"".join(r._hash for r in receipts)),
                                             np.uint8).reshape(NTX, 32), device=dev)
-    if bytes(merkle.merkle_root_bucketed_plain(rleaves, NTX).cpu().numpy()) != rc_root:
+    if bytes(merkle.merkle_root_bucketed_plain(rleaves, NTX, alg).cpu().numpy()) != rc_root:
         fail("receipts root differs from the plain path")
     for i in rng.sample(range(NTX), 16):
-        if receipts[i]._hash != refimpl.keccak256(receipts[i].encode()):
+        if receipts[i]._hash != host_hash(receipts[i].encode()):
             fail("receipt hash differs from the host oracle")
     sub = [bytes(x) for x in hashes[:4096]]
-    if suite.merkle_root(sub) != merkle.merkle_levels_host(sub)[-1][0]:
+    if suite.merkle_root(sub) != merkle.merkle_levels_host(sub, alg)[-1][0]:
         fail("4096-leaf root differs from merkle_levels_host")
     bad = 0
     for i in range(NSEAL):
         if i in seal_bad:
-            want = refimpl.ecdsa_verify(
-                c, (int.from_bytes(pb[i][:32], "big"), int.from_bytes(pb[i][32:], "big")),
-                dg[i], int.from_bytes(sg[i][:32], "big"), int.from_bytes(sg[i][32:64], "big"))
+            want = oracle_verify(kind, pb[i], dg[i], sg[i])
         else:
             want = True  # a signature the oracle made, over its own digest
         bad += bool(seal_ok[i]) != want
+    seal_d, seal_s, seal_p = data["seal_d"], data["seal_s"], data["seal_p"]
     for i in rng.sample(range(len(seal_d)), 32):
-        if not refimpl.ecdsa_verify(c, (int.from_bytes(seal_p[i][:32], "big"),
-                                        int.from_bytes(seal_p[i][32:], "big")),
-                                    seal_d[i], int.from_bytes(seal_s[i][:32], "big"),
-                                    int.from_bytes(seal_s[i][32:64], "big")):
+        if not oracle_verify(kind, seal_p[i], seal_d[i], seal_s[i]):
             fail("oracle rejects its own seal")
     if bad:
         fail(f"{bad} seal lanes differ from the host oracle")
-    log(f"[slice] seals: {NSEAL} lanes, {len(seal_bad)} corrupted, "
+    log(f"{tag} seals: {NSEAL} lanes, {len(seal_bad)} corrupted, "
         f"{int(seal_ok.sum())} accepted; all agree with the oracle")
-    log(f"[slice] txs root {txs_root.hex()} receipts root {rc_root.hex()}")
+    log(f"{tag} txs root {txs_root.hex()} receipts root {rc_root.hex()}")
     return launches, phases
 
 
@@ -553,7 +812,12 @@ def main() -> int:
     log(f"[kernel] 256 host signatures for the kernel inputs: "
         f"{time.perf_counter() - t0:.1f} s")
     rows = phase_kernels(dev, signed, rng)
-    launches, _ = phase_slice(dev, suite, rng)
+    launches, _ = phase_slice(dev, suite, build_slice(suite, rng), rng)
+    sm_suite = make_suite(sm_crypto=True)
+    sm_data = build_slice(sm_suite, rng)
+    rows.update(phase_sm_kernels(dev, sm_data, rng))
+    sm_launches, _ = phase_slice(dev, sm_suite, sm_data, rng)
+    launches.update(sm_launches)
     for k, n in launches.items():
         rows[k]["launches"] = n
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -1,5 +1,6 @@
 """Batch-first CryptoSuite of the port: the default chain (secp256k1 +
-Keccak-256) on PyTorch and the CUDA kernels.
+Keccak-256) and the SM chain (SM2 + SM3, GB/T 32918 / 32905) on PyTorch
+and the CUDA kernels.
 
 Counterpart of fisco_bcos_tpu/crypto/suite.py, with the same batch API:
 
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from . import refimpl
-from ..ops import bigint, ec, keccak, merkle
+from ..ops import bigint, ec, keccak, merkle, sm3
 
 DIGEST = 32
 BUCKETS = (8, 64, 512, 4096, 16384, 65536)
@@ -82,17 +83,15 @@ class KeyPair:
 
 
 class CryptoSuite:
-    """secp256k1 + Keccak-256 with batch-native tensor paths."""
+    """secp256k1 + Keccak-256 ("ecdsa") or SM2 + SM3 ("sm") with
+    batch-native tensor paths. An SM signature is r | s | pub (128 bytes):
+    its recovery is a verify against the embedded key."""
 
     def __init__(self, kind: str = "ecdsa", backend: str = "device",
                  device: str | torch.device = "cuda",
                  device_min_batch: int = 512,
                  mesh_devices: int | None = None):
-        if kind == "sm":
-            raise NotImplementedError(
-                "the SM chain (SM2 + SM3) is not ported yet: it is the SM "
-                "slice queued in ROADMAP.md")
-        if kind != "ecdsa":
+        if kind not in ("ecdsa", "sm"):
             raise ValueError(f"unknown crypto suite kind: {kind}")
         if mesh_devices is not None and mesh_devices >= 2:
             raise NotImplementedError(
@@ -109,36 +108,45 @@ class CryptoSuite:
                 "CryptoSuite(device='cuda'): no CUDA device is available; "
                 "pass device='cpu' to run the plain PyTorch path")
         self.device_min_batch = device_min_batch
-        self.curve = ec.SECP256K1
-        self.params = refimpl.SECP256K1
-        self.hash_name = "keccak256"
-        self.signature_size = 65  # r(32) | s(32) | v(1)
+        if kind == "ecdsa":
+            self.curve = ec.SECP256K1
+            self.params = refimpl.SECP256K1
+            self.hash_name = "keccak256"
+            self._host_hash = refimpl.keccak256
+            self.signature_size = 65  # r(32) | s(32) | v(1)
+        else:
+            self.curve = ec.SM2P256V1
+            self.params = refimpl.SM2P256V1
+            self.hash_name = "sm3"
+            self._host_hash = refimpl.sm3
+            self.signature_size = 128  # r(32) | s(32) | pub(64)
 
     def __repr__(self):
         return f"CryptoSuite({self.kind}, backend={self.backend}, device={self.device})"
 
     # -- hashing -----------------------------------------------------------
     def hash(self, data: bytes) -> bytes:
-        return refimpl.keccak256(data)
+        return self._host_hash(data)
 
     def hash_batch(self, msgs: Sequence[bytes]) -> list[bytes]:
-        """Batched Keccak-256: one kernel launch for the whole batch."""
+        """Batched Keccak-256 or SM3: one kernel launch for the batch."""
         if not msgs:
             return []
         if not self._use_device(len(msgs)):
-            return [refimpl.keccak256(m) for m in msgs]
-        out = keccak.keccak256_batch_np(list(msgs), device=self.device)
-        return [bytes(row) for row in out]
+            return [self._host_hash(m) for m in msgs]
+        fn = keccak.keccak256_batch_np if self.kind == "ecdsa" else sm3.sm3_batch_np
+        return [bytes(row) for row in fn(list(msgs), device=self.device)]
 
     def merkle_root(self, leaves: Sequence[bytes]) -> bytes:
-        """Width-16 Keccak Merkle root over 32-byte leaf digests."""
+        """Width-16 Merkle root (the suite's hash) over 32-byte digests."""
         if len(leaves) == 0:
             return b"\x00" * DIGEST
         if not self._use_device(len(leaves)):
             return merkle.merkle_levels_host(list(leaves), self.hash_name)[-1][0]
         arr = np.frombuffer(bytearray(b"".join(leaves)), np.uint8).reshape(
             len(leaves), DIGEST)
-        root = merkle.merkle_root(torch.as_tensor(arr, device=self.device))
+        root = merkle.merkle_root(torch.as_tensor(arr, device=self.device),
+                                  self.hash_name)
         return bytes(root.cpu().numpy())
 
     # -- keys and signing (host, single) -----------------------------------
@@ -152,9 +160,12 @@ class CryptoSuite:
 
     def address_of_pub(self, pub_bytes: bytes) -> bytes:
         """Right-160 bits of H(pubkey)."""
-        return refimpl.keccak256(pub_bytes)[12:]
+        return self._host_hash(pub_bytes)[12:]
 
     def sign(self, kp, digest: bytes) -> bytes:
+        if self.kind == "sm":
+            r, s = refimpl.sm2_sign(kp.secret, digest)
+            return r.to_bytes(32, "big") + s.to_bytes(32, "big") + kp.pub_bytes
         r, s, v = refimpl.ecdsa_sign(self.params, kp.secret, digest)
         return r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([v])
 
@@ -201,7 +212,7 @@ class CryptoSuite:
     def verify_batch(self, digests: Sequence[bytes], sigs: Sequence[bytes],
                      pubs: Sequence[bytes]) -> np.ndarray:
         """-> bool[N]. pubs are 64-byte uncompressed keys; a trailing v
-        byte on a signature is ignored."""
+        byte (ecdsa) or embedded key (sm) on a signature is ignored."""
         n = len(digests)
         if len(sigs) != n or len(pubs) != n:
             raise ValueError("verify_batch: digests, sigs and pubs differ in length")
@@ -209,19 +220,25 @@ class CryptoSuite:
             return np.zeros((0,), bool)
         rs, ss, _ = self._sig_rows(sigs)
         if not self._use_device(n):
-            return np.array([
-                refimpl.ecdsa_verify(self.params,
-                                     (int.from_bytes(p[:32], "big"),
-                                      int.from_bytes(p[32:64], "big")),
-                                     d, int.from_bytes(r, "big"),
-                                     int.from_bytes(s, "big"))
+            return np.array([self._verify_host(
+                (int.from_bytes(p[:32], "big"), int.from_bytes(p[32:64], "big")),
+                d, int.from_bytes(r, "big"), int.from_bytes(s, "big"))
                 for d, r, s, p in zip(digests, rs, ss, pubs)], dtype=bool)
         arrays = [_limbs_of(digests), _limbs_of(rs), _limbs_of(ss),
                   _limbs_of([p[:32] for p in pubs]),
                   _limbs_of([p[32:64] for p in pubs])]
-        parts = self._padded_calls(
-            lambda *a: ec.ecdsa_verify_batch(self.curve, *a), arrays)
+        verify = ec.ecdsa_verify_batch if self.kind == "ecdsa" else ec.sm2_verify_batch
+        parts = self._padded_calls(lambda *a: verify(self.curve, *a), arrays)
         return np.concatenate([ok[:ln].cpu().numpy() for ln, ok in parts])
+
+    def _verify_host(self, pub, digest, r, s) -> bool:
+        if self.kind == "sm":
+            return refimpl.sm2_verify(pub, digest, r, s)
+        return refimpl.ecdsa_verify(self.params, pub, digest, r, s)
+
+    def _embedded_pubs(self, sigs) -> list[bytes]:
+        """SM: the key a signature carries (zero for a short signature)."""
+        return [g[64:128] if len(g) >= 128 else bytes(64) for g in sigs]
 
     def _recover_device(self, digests, sigs):
         """Device recovery -> (qx, qy [N, 16] int64 tensors, ok bool[N])
@@ -254,6 +271,10 @@ class CryptoSuite:
             raise ValueError("recover_batch: digests and sigs differ in length")
         if n == 0:
             return [], np.zeros((0,), bool)
+        if self.kind == "sm":  # a verify against the embedded keys
+            pubs = self._embedded_pubs(sigs)
+            ok = self.verify_batch(digests, sigs, pubs)
+            return [p if o else None for p, o in zip(pubs, ok)], ok
         if not self._use_device(n):
             return self._recover_host(digests, sigs)
         qx, qy, ok = self._recover_device(digests, sigs)
@@ -264,9 +285,9 @@ class CryptoSuite:
 
     def recover_addresses(self, digests: Sequence[bytes], sigs: Sequence[bytes]
                           ) -> tuple[list[bytes | None], np.ndarray]:
-        """Sender addresses (right-160 of Keccak(pub)) for a tx batch, None
-        where the signature is invalid. The device path hashes the
-        recovered keys on the device too (kernel 3)."""
+        """Sender addresses (right-160 of H(pub)) for a tx batch, None
+        where the signature is invalid. The device path hashes the keys on
+        the device too (kernel 3, or kernel A for SM)."""
         n = len(digests)
         if len(sigs) != n:
             raise ValueError("recover_addresses: digests and sigs differ in length")
@@ -274,12 +295,33 @@ class CryptoSuite:
             pubs, ok = self.recover_batch(digests, sigs)
             return [self.address_of_pub(p) if p is not None else None
                     for p in pubs], ok
+        if self.kind == "sm":
+            return self._sm_addresses(digests, sigs)
         qx, qy, ok = self._recover_device(digests, sigs)
         digest = keccak.keccak256_varlen(pub_blocks(qx, qy),
                                          torch.ones_like(ok, dtype=torch.int32))
         addrs = digest[:, 12:].cpu().numpy()
         ok = ok.cpu().numpy()
         return [bytes(a) if o else None for a, o in zip(addrs, ok)], ok
+
+    def _sm_addresses(self, digests, sigs):
+        """SM device path: verify against the embedded keys, then SM3 of
+        the valid keys (two blocks each) in one kernel launch."""
+        pubs = self._embedded_pubs(sigs)
+        ok = self.verify_batch(digests, sigs, pubs)
+        valid = np.flatnonzero(ok)
+        out: list[bytes | None] = [None] * len(pubs)
+        if valid.size:
+            keys = np.frombuffer(b"".join(pubs[i] for i in valid), np.uint8)
+            blocks = np.tile(sm3.pad_message_np(bytes(64)).reshape(-1), (valid.size, 1))
+            blocks[:, :64] = keys.reshape(valid.size, 64)
+            digest = sm3.sm3_varlen(
+                torch.as_tensor(blocks.reshape(valid.size, 2, sm3.BLOCK_BYTES),
+                                device=self.device),
+                torch.full((valid.size,), 2, dtype=torch.int32, device=self.device))
+            for i, a in zip(valid, digest[:, 12:].cpu().numpy()):
+                out[i] = bytes(a)
+        return out, ok
 
 
 def pub_blocks(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
@@ -296,5 +338,5 @@ def pub_blocks(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
 
 
 def make_suite(sm_crypto: bool = False, **kw) -> CryptoSuite:
-    """chain.sm_crypto -> suite selection (SM raises until its slice)."""
+    """chain.sm_crypto -> suite selection."""
     return CryptoSuite("sm" if sm_crypto else "ecdsa", **kw)

@@ -6,8 +6,8 @@
 //
 // Design: the TPU kernels carry 16 limbs of 16 bits so that a limb product
 // fits a uint32 lane. Hopper has a 32x32->64 multiply, so here a value is
-// 8 little-endian 32-bit words and a 256x256-bit product is 64 wide
-// multiply-adds into 64-bit accumulators. What bounds it: integer
+// 8 little-endian 32-bit words (bigint.cuh) and a 256x256-bit product is 64
+// wide multiply-adds into 64-bit accumulators. What bounds it: integer
 // multiply-add issue (64 per 256-bit multiply plus the reduction), with
 // every value kept in registers; nothing here touches device memory.
 //
@@ -16,10 +16,7 @@
 // * mod n: Montgomery domain with R = 2^256 (CIOS), as ops/fp.MontField.
 // Every function returns a canonical value (< modulus) for canonical input.
 #pragma once
-#include <stdint.h>
-
-typedef uint32_t u32;
-typedef uint64_t u64;
+#include "bigint.cuh"
 
 // Every constant the kernels read sits in one __constant__ block, filled
 // from ops/consts.py (`kernel_words`, field order `SECP_FIELDS`) through
@@ -45,76 +42,6 @@ static __constant__ SecpConsts SC;
 #define FN_R2 (SC.r2)
 #define FN_ONE (SC.one)
 #define FN_INV_E (SC.inv_e_n)
-
-__device__ __forceinline__ void set8(u32 r[8], const u32 a[8]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r[i] = a[i];
-}
-
-__device__ __forceinline__ void zero8(u32 r[8]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r[i] = 0;
-}
-
-__device__ __forceinline__ bool is_zero8(const u32 a[8]) {
-    u32 acc = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc |= a[i];
-    return acc == 0;
-}
-
-__device__ __forceinline__ bool eq8(const u32 a[8], const u32 b[8]) {
-    u32 acc = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc |= a[i] ^ b[i];
-    return acc == 0;
-}
-
-// r = a + b mod 2^256, returns the carry
-__device__ __forceinline__ u32 add8(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u64 c = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        c += (u64)a[i] + b[i];
-        r[i] = (u32)c;
-        c >>= 32;
-    }
-    return (u32)c;
-}
-
-// r = a - b mod 2^256, returns the borrow
-__device__ __forceinline__ u32 sub8(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u64 brw = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        u64 d = (u64)a[i] - b[i] - brw;
-        r[i] = (u32)d;
-        brw = (d >> 32) & 1;
-    }
-    return (u32)brw;
-}
-
-__device__ __forceinline__ bool geq8(const u32 a[8], const u32 b[8]) {
-    u32 t[8];
-    return sub8(t, a, b) == 0;
-}
-
-// t = a * b, full 512-bit product
-__device__ __forceinline__ void mul_wide8(u32 t[16], const u32 a[8], const u32 b[8]) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        u64 c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            c += (u64)a[j] * b[i] + t[i + j];
-            t[i + j] = (u32)c;
-            c >>= 32;
-        }
-        t[i + 8] = (u32)c;
-    }
-}
 
 // ---------------------------------------------------------------- mod p
 
@@ -175,17 +102,11 @@ __device__ __forceinline__ void fp_mul(u32 r[8], const u32 a[8], const u32 b[8])
 __device__ __forceinline__ void fp_sqr(u32 r[8], const u32 a[8]) { fp_mul(r, a, a); }
 
 __device__ __forceinline__ void fp_add(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u32 s[8], d[8];
-    u32 c = add8(s, a, b);
-    u32 brw = sub8(d, s, FP_P);
-    if (c || !brw) set8(s, d);
-    set8(r, s);
+    add_mod(r, a, b, FP_P);
 }
 
 __device__ __forceinline__ void fp_sub(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u32 d[8];
-    if (sub8(d, a, b)) add8(d, d, FP_P);
-    set8(r, d);
+    sub_mod(r, a, b, FP_P);
 }
 
 __device__ __forceinline__ void fp_neg(u32 r[8], const u32 a[8]) {
@@ -206,53 +127,17 @@ __device__ __forceinline__ void fp_reduce(u32 r[8], const u32 a[8]) {
 
 // ---------------------------------------------------------------- mod n
 
-// r = a * b * R^-1 mod n (CIOS). Canonical when one operand is < n and
-// the other < 2^256 (the result before the last subtract stays < 2n).
+// r = a * b * R^-1 mod n (bigint.cuh's CIOS over the group order)
 __device__ __forceinline__ void fn_mont_mul(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u32 t[10];
-#pragma unroll
-    for (int i = 0; i < 10; ++i) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        u64 c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            c += (u64)a[j] * b[i] + t[j];
-            t[j] = (u32)c;
-            c >>= 32;
-        }
-        c += t[8];
-        t[8] = (u32)c;
-        t[9] = (u32)(c >> 32);
-        u32 m = t[0] * FN_NP0;
-        c = ((u64)m * FN_N[0] + t[0]) >> 32;
-#pragma unroll
-        for (int j = 1; j < 8; ++j) {
-            c += (u64)m * FN_N[j] + t[j];
-            t[j - 1] = (u32)c;
-            c >>= 32;
-        }
-        c += t[8];
-        t[7] = (u32)c;
-        t[8] = t[9] + (u32)(c >> 32);
-    }
-    u32 d[8];
-    u32 brw = sub8(d, t, FN_N);
-    if (t[8] || !brw) set8(r, d); else set8(r, t);
+    mont_mul(r, a, b, FN_N, FN_NP0);
 }
 
 __device__ __forceinline__ void fn_add(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u32 s[8], d[8];
-    u32 c = add8(s, a, b);
-    u32 brw = sub8(d, s, FN_N);
-    if (c || !brw) set8(s, d);
-    set8(r, s);
+    add_mod(r, a, b, FN_N);
 }
 
 __device__ __forceinline__ void fn_sub(u32 r[8], const u32 a[8], const u32 b[8]) {
-    u32 d[8];
-    if (sub8(d, a, b)) add8(d, d, FN_N);
-    set8(r, d);
+    sub_mod(r, a, b, FN_N);
 }
 
 __device__ __forceinline__ void fn_neg(u32 r[8], const u32 a[8]) {
@@ -284,28 +169,3 @@ struct FnMontOps {
         fn_mont_mul(r, a, b);
     }
 };
-
-// r = a^e for a fixed 256-bit exponent e (uniform across the warp), MSB
-// first over 4-bit windows from a 16-entry table of powers. `one` is the
-// field's one in its domain. Zero maps to zero.
-template <class F>
-__device__ void pow_fixed(u32 r[8], const u32 a[8], const u32 e[8], const u32 one[8]) {
-    u32 tbl[16][8];
-    set8(tbl[0], one);
-    set8(tbl[1], a);
-    for (int k = 2; k < 16; ++k) F::mul(tbl[k], tbl[k - 1], a);
-    u32 acc[8];
-    set8(acc, one);
-    bool started = false;
-    for (int w = 63; w >= 0; --w) {
-        u32 d = (e[w >> 3] >> (4 * (w & 7))) & 15u;
-        if (started) {
-            for (int k = 0; k < 4; ++k) F::mul(acc, acc, acc);
-            if (d) F::mul(acc, acc, tbl[d]);
-        } else if (d) {
-            set8(acc, tbl[d]);
-            started = true;
-        }
-    }
-    set8(r, acc);
-}

@@ -19,39 +19,13 @@
 // package's layout, so adjacent threads read adjacent addresses per limb.
 #include <cuda_runtime.h>
 #include "ecdsa.cuh"
-
-__device__ __forceinline__ void load_limbs(u32 w[8], const int32_t *col, int B, int lane) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        u32 lo = (u32)col[(2 * i) * B + lane] & 0xFFFFu;
-        u32 hi = (u32)col[(2 * i + 1) * B + lane] & 0xFFFFu;
-        w[i] = lo | (hi << 16);
-    }
-}
-
-__device__ __forceinline__ void store_limbs(int32_t *col, int B, int lane, const u32 w[8]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        col[(2 * i) * B + lane] = (int32_t)(w[i] & 0xFFFFu);
-        col[(2 * i + 1) * B + lane] = (int32_t)(w[i] >> 16);
-    }
-}
-
-// stage the [2][16][32] 16-bit-limb G / phi(G) tables as [2][16][16] words
-__device__ __forceinline__ void stage_tables(u32 *sg, const int32_t *gtab) {
-    for (int i = threadIdx.x; i < 2 * TBL * 16; i += blockDim.x) {
-        int row = i >> 4, w = i & 15;  // w: x words 0..7, y words 8..15
-        const int32_t *src = gtab + row * 32 + 2 * w;
-        sg[i] = ((u32)src[0] & 0xFFFFu) | (((u32)src[1] & 0xFFFFu) << 16);
-    }
-    __syncthreads();
-}
+#include "lanes.cuh"
 
 __global__ void ecdsa_recover_kernel(const int32_t *e, const int32_t *r, const int32_t *s,
                                      const int32_t *v, const int32_t *gtab, int32_t *qx,
                                      int32_t *qy, int32_t *ok, int B) {
     __shared__ u32 sg[2 * TBL * 16];
-    stage_tables(sg, gtab);
+    stage_tables(sg, gtab, 2);
     int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= B) return;
     u32 ew[8], rw[8], sw[8], ox[8], oy[8];
@@ -68,7 +42,7 @@ __global__ void ecdsa_verify_kernel(const int32_t *e, const int32_t *r, const in
                                     const int32_t *qx, const int32_t *qy, const int32_t *gtab,
                                     int32_t *ok, int B) {
     __shared__ u32 sg[2 * TBL * 16];
-    stage_tables(sg, gtab);
+    stage_tables(sg, gtab, 2);
     int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= B) return;
     u32 ew[8], rw[8], sw[8], xw[8], yw[8];

@@ -25,7 +25,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("verify", "keccak", "merkle")
+SOURCES = ("verify", "keccak", "merkle", "sm3", "sm2")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,10 +38,15 @@ SIGNATURES = {
         "ecdsa_verify_launch": [_P] * 7 + [_I, _P],
     },
     "keccak": {"keccak256_varlen_launch": [_P, _P, _P, _I, _I, _P]},
-    "merkle": {"merkle_keccak_level_launch": [_P, _I, _I, _P, _I, _P]},
+    "merkle": {"merkle_keccak_level_launch": [_P, _I, _I, _P, _I, _P],
+               "merkle_sm3_level_launch": [_P, _I, _I, _P, _I, _P]},
+    "sm3": {"sm3_varlen_launch": [_P, _P, _P, _I, _I, _P]},
+    "sm2": {"sm2_verify_launch": [_P] * 7 + [_I, _P]},
 }
-# which block of consts.kernel_words() each source's set_consts takes
-CONST_BLOCK = {"verify": "verify", "keccak": "keccak", "merkle": "keccak"}
+# which blocks of consts.kernel_words() each source's set_consts takes,
+# concatenated in this order
+CONST_BLOCK = {"verify": ("verify",), "keccak": ("keccak",),
+               "merkle": ("keccak", "sm3"), "sm3": ("sm3",), "sm2": ("sm2",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _CONSTS_SET: set[tuple[str, int]] = set()
@@ -122,8 +127,9 @@ def library(name: str, device: torch.device) -> ctypes.CDLL:
     if key not in _CONSTS_SET:
         from .consts import derive_consts, kernel_words
 
+        blocks = kernel_words(derive_consts())
         words = np.ascontiguousarray(
-            kernel_words(derive_consts())[CONST_BLOCK[name]], dtype=np.uint32)
+            np.concatenate([blocks[b] for b in CONST_BLOCK[name]]), dtype=np.uint32)
         with torch.cuda.device(device):
             rc = lib.set_consts(words.ctypes.data_as(ctypes.c_void_p), words.size)
         check(lib, rc, f"{name} set_consts")
@@ -160,3 +166,9 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_aligned(t: torch.Tensor, name: str, align: int = 16) -> None:
+    """Kernels that load 16 bytes at a time need 16-byte aligned rows."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a {align}-byte aligned tensor")

@@ -1,10 +1,13 @@
-"""Wrappers of kernels 1 and 2: whole secp256k1 recovery and verify.
+"""Wrappers of kernels 1, 2 and C: whole secp256k1 recovery and verify,
+and whole SM2 verify.
 
-Sources: `csrc/verify.cu` (kernels), `csrc/ecdsa.cuh` (per-signature
-bodies), `csrc/ec.cuh` (ladder), `csrc/field.cuh` (field arithmetic).
-They replace `ecdsa_recover_fused` and `ecdsa_verify_fused` of
+Sources: `csrc/verify.cu` (secp256k1 kernels), `csrc/ecdsa.cuh`
+(per-signature bodies), `csrc/ec.cuh` (GLV ladder), `csrc/field.cuh`
+(secp256k1 field); `csrc/sm2.cu` and `csrc/sm2.cuh` (SM2); `point.cuh`,
+`bigint.cuh` and `lanes.cuh` shared. They replace `ecdsa_recover_fused`,
+`ecdsa_verify_fused` and `sm2_verify_fused` of
 fisco_bcos_tpu/ops/pallas_verify.py. The plain versions are
-`ops.ec.ecdsa_recover_plain` / `ecdsa_verify_plain`.
+`ops.ec.ecdsa_recover_plain` / `ecdsa_verify_plain` / `sm2_verify_plain`.
 
 Each wrapper takes lane-major `[16, B]` columns of 16-bit limbs on one CUDA
 device, launches once on the current stream and counts the launch in its
@@ -22,13 +25,15 @@ from .bigint import NLIMBS
 _GTAB: dict = {}
 
 
-def _gtab(device: torch.device) -> torch.Tensor:
-    """[2, 16, 32] int32 G and phi(G) window tables on `device`."""
-    t = _GTAB.get(device)
+def _gtab(device: torch.device, name: str = "gtab") -> torch.Tensor:
+    """A constant window-table block on `device`: "gtab" the [2, 16, 32]
+    int32 G and phi(G) tables of secp256k1, "sm2_gtab" SM2's [16, 32] G
+    table."""
+    t = _GTAB.get((device, name))
     if t is None:
         from .consts import derive_consts
 
-        t = _GTAB[device] = derive_consts()["gtab"].to(device).contiguous()
+        t = _GTAB[device, name] = derive_consts()[name].to(device).contiguous()
     return t
 
 
@@ -85,3 +90,24 @@ def ecdsa_verify(e, r, s, qx, qy):
 
 
 ecdsa_verify.launches = 0
+
+
+def sm2_verify(e, r, s, qx, qy):
+    """SM2 verify. e, r, s, qx, qy: [16, B] limbs -> ok [B] int32."""
+    e, r, s, qx, qy = _limb_args((e, r, s, qx, qy),
+                                 ("e", "r", "s", "qx", "qy"))
+    B = e.shape[1]
+    ok = torch.empty((B,), dtype=torch.int32, device=e.device)
+    if B == 0:
+        return ok
+    lib = _cuda.library("sm2", e.device)
+    rc = lib.sm2_verify_launch(
+        _cuda.ptr(e), _cuda.ptr(r), _cuda.ptr(s), _cuda.ptr(qx),
+        _cuda.ptr(qy), _cuda.ptr(_gtab(e.device, "sm2_gtab")), _cuda.ptr(ok), B,
+        _cuda.stream_ptr(e))
+    _cuda.check(lib, rc, "sm2_verify")
+    sm2_verify.launches += 1
+    return ok
+
+
+sm2_verify.launches = 0

@@ -1,19 +1,20 @@
-"""Batched secp256k1 ECDSA verify and public-key recovery.
+"""Batched secp256k1 ECDSA verify and recovery, and SM2 verify.
 
-Counterpart of fisco_bcos_tpu/ops/ec.py for the default chain's curve.
+Counterpart of fisco_bcos_tpu/ops/ec.py for the port's two curves.
 Two forms of each entry point live here:
 
-* the plain PyTorch version (`ecdsa_verify_plain`, `ecdsa_recover_plain`),
-  a line-for-line port of the JAX package's XLA path: Jacobian points
-  complete by selection, the GLV split, a 34-step ladder over four window
-  tables (G and phi(G) as constants, Q and phi(Q) per lane, batch-
-  normalised to affine), product-tree inversions;
+* the plain PyTorch version (`ecdsa_verify_plain`, `ecdsa_recover_plain`,
+  `sm2_verify_plain`), a line-for-line port of the JAX package's XLA
+  path: Jacobian points complete by selection, a ladder over 4-bit window
+  tables (secp256k1: the GLV split, 34 steps over G, phi(G), Q and phi(Q);
+  SM2: the plain 64-step Shamir ladder over G and Q), per-lane Q tables
+  batch-normalised to affine, product-tree inversions;
 * the CUDA kernels in `ops/cuda_verify.py`, one launch per batch.
 
-`ecdsa_verify_batch` / `ecdsa_recover_batch` take the JAX package's
-public boundary (`[B, 16]` 16-bit limbs) and dispatch on where the
-tensors lie: a CUDA tensor goes to the kernel (which raises if it cannot
-run), a CPU tensor to the plain version. Nothing falls back.
+`ecdsa_verify_batch` / `ecdsa_recover_batch` / `sm2_verify_batch` take the
+JAX package's public boundary (`[B, 16]` 16-bit limbs) and dispatch on
+where the tensors lie: a CUDA tensor goes to the kernel (which raises if
+it cannot run), a CPU tensor to the plain version. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,24 +29,32 @@ from ..crypto import refimpl
 
 WINDOW = 4
 TBL = 1 << WINDOW  # 16 window entries (index 0 = skip)
+NDIGITS = fp.BITS // WINDOW  # 64 steps of the plain Shamir ladder
 GLV_DIGITS = 34  # 136-bit signed halves (worst observed magnitude: 129 bits)
 
-__all__ = ["Curve", "SECP256K1", "ecdsa_verify_batch", "ecdsa_recover_batch",
-           "ecdsa_verify_plain", "ecdsa_recover_plain", "glv_shamir_mult"]
+__all__ = ["Curve", "SECP256K1", "SM2P256V1", "ecdsa_verify_batch",
+           "ecdsa_recover_batch", "sm2_verify_batch", "ecdsa_verify_plain",
+           "ecdsa_recover_plain", "sm2_verify_plain", "glv_shamir_mult",
+           "shamir_mult"]
 
 
 class Curve:
-    """secp256k1 context: fields, constants, the G and phi(G) tables and
-    the GLV split constants, all derived from the `refimpl` copy."""
+    """Curve context: fields, constants and the G window table, derived
+    from the `refimpl` copy; the GLV plane (phi(G) table, split constants)
+    only where the curve has the endomorphism (secp256k1)."""
 
     def __init__(self, params: refimpl.CurveParams):
         self.params = params
-        if not (params.a == 0 and (1 << fp.BITS) - params.p < 1 << 34):
-            raise NotImplementedError(
-                "the port carries the secp256k1 curve only (a = 0, Solinas "
-                "p); SM2 is the SM slice in ROADMAP.md")
-        self.fp = fp.SolinasField(params.p, params.name + ".p")
+        if (1 << fp.BITS) - params.p < 1 << 34:
+            self.fp: fp._FieldBase = fp.SolinasField(params.p, params.name + ".p")
+        else:  # SM2's p is not Solinas: Montgomery domain
+            self.fp = fp.MontField(params.p, params.name + ".p")
         self.fn = fp.MontField(params.n, params.name + ".n")
+        self.a_is_zero = params.a % params.p == 0
+        self.a_is_minus3 = params.a % params.p == params.p - 3
+        if not (self.a_is_zero or self.a_is_minus3):
+            raise ValueError("the point formulas cover a = 0 and a = -3 only")
+        self.a_rep = self.fp.encode_int(params.a)
         self.b_rep = self.fp.encode_int(params.b)
         # affine window table for G: entry k = k*G, flattened [TBL, 2*16]
         tbl = np.zeros((TBL, 2 * NLIMBS), np.uint32)
@@ -57,15 +66,20 @@ class Curve:
             tbl[k, :NLIMBS] = self.fp.encode_int(P[0])
             tbl[k, NLIMBS:] = self.fp.encode_int(P[1])
         self.g_table = tbl
-        lG = refimpl.ec_mul(params, refimpl.GLV_LAMBDA, (params.gx, params.gy))
-        assert lG == (refimpl.GLV_BETA * params.gx % params.p, params.gy), \
-            "GLV (beta, lambda) pair inconsistent"
+        self.has_endo = False
+        if self.a_is_zero and params.p % 3 == 1:
+            lG = refimpl.ec_mul(params, refimpl.GLV_LAMBDA, (params.gx, params.gy))
+            if lG == (refimpl.GLV_BETA * params.gx % params.p, params.gy):
+                self._glv_plane(chain)
+
+    def _glv_plane(self, chain):
+        params = self.params
+        self.has_endo = True
         self.beta_rep = self.fp.encode_int(refimpl.GLV_BETA)
         self.glv_lambda = refimpl.GLV_LAMBDA
-        tbl2 = np.zeros_like(tbl)
+        tbl2 = np.zeros_like(self.g_table)
         for k, (px, py) in enumerate(chain, start=1):
-            tbl2[k, :NLIMBS] = self.fp.encode_int(
-                refimpl.GLV_BETA * px % params.p)
+            tbl2[k, :NLIMBS] = self.fp.encode_int(refimpl.GLV_BETA * px % params.p)
             tbl2[k, NLIMBS:] = self.fp.encode_int(py)
         self.g_table_endo = tbl2
         self.g1_limbs = fp.to_limbs(refimpl._GLV_G1)
@@ -79,6 +93,7 @@ class Curve:
 
 
 SECP256K1 = Curve(refimpl.SECP256K1)
+SM2P256V1 = Curve(refimpl.SM2P256V1)
 
 
 # ---------------------------------------------------------------------------
@@ -99,13 +114,18 @@ def _sel(cond, a, b):
 
 
 def jac_double(cv: Curve, P):
-    """2P for a = 0. Complete: Z = 0 (infinity) propagates as Z3 = 0."""
+    """2P. Complete: Z = 0 (infinity) propagates as Z3 = 0."""
     f = cv.fp
     X, Y, Z = _unpack(P)
     two_y = f.add(Y, Y)
-    XX, YY = f.mul(X, X), f.mul(Y, Y)
+    if cv.a_is_zero:
+        XX, YY = f.mul(X, X), f.mul(Y, Y)
+        M = f.add(f.add(XX, XX), XX)  # 3 X^2
+    else:  # a = -3: M = 3 (X - Z^2)(X + Z^2)
+        YY, ZZ = f.mul(Y, Y), f.mul(Z, Z)
+        T = f.mul(f.sub(X, ZZ), f.add(X, ZZ))
+        M = f.add(f.add(T, T), T)
     XYY, YYYY, Z3 = f.mul(X, YY), f.mul(YY, YY), f.mul(two_y, Z)
-    M = f.add(f.add(XX, XX), XX)
     S = f.add(XYY, XYY)
     S = f.add(S, S)
     X3 = f.sub(f.mul(M, M), f.add(S, S))
@@ -278,6 +298,29 @@ def glv_shamir_mult(cv: Curve, k1, k2, qx_r, qy_r):
     return acc
 
 
+def shamir_mult(cv: Curve, k1, k2, qx_r, qy_r):
+    """k1*G + k2*Q, the plain ladder (no endomorphism): 64 steps of four
+    doublings and two mixed adds over 4-bit MSB-first windows of both
+    scalars, against the constant G table and the per-lane affine Q
+    table. k1, k2 plain canonical scalars [16, B]; Q affine in field rep.
+    -> packed Jacobian [3, 16, B]."""
+    tq2 = _q_window_affine(cv, qx_r, qy_r)
+    d1 = fp.window_digits(k1, WINDOW).flip(-2)  # [64, B] MSB first
+    d2 = fp.window_digits(k2, WINDOW).flip(-2)
+    acc = torch.zeros((3, NLIMBS, k1.shape[-1]), dtype=k1.dtype,
+                      device=k1.device)
+    for step in range(NDIGITS):
+        for _ in range(WINDOW):
+            acc = jac_double(cv, acc)
+        d = d1[step]
+        gx, gy = _take_const(cv.g_table, d)
+        acc = _sel(d == 0, acc, jac_add_affine(cv, acc, gx, gy))
+        d = d2[step]
+        qe = _take_batch(tq2, d)
+        acc = _sel(d == 0, acc, jac_add_affine(cv, acc, qe[0], qe[1]))
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # verification / recovery, plain form (lane-major [16, B] int64)
 # ---------------------------------------------------------------------------
@@ -290,6 +333,8 @@ def _scalar_checks(fn, r, s):
 def _on_curve(cv: Curve, xr, yr):
     f = cv.fp
     rhs = f.add(f.mul(f.sqr(xr), xr), col(cv.b_rep, xr).expand_as(xr))
+    if not cv.a_is_zero:
+        rhs = f.add(rhs, f.mul(col(cv.a_rep, xr).expand_as(xr), xr))
     return eq(f.sqr(yr), rhs)
 
 
@@ -355,6 +400,27 @@ def ecdsa_recover_plain(cv: Curve, e, r, s, v):
     return select(ok, qx, zero), select(ok, qy, zero), ok
 
 
+def sm2_verify_plain(cv: Curve, e, r, s, qx, qy):
+    """Plain batched SM2 verify (GB/T 32918), R' = e + x(s*G + (r+s)*Q)
+    == r (mod n), on lane-major [16, B] int64 limbs -> bool[B]."""
+    f, fn_ = cv.fp, cv.fn
+    ok = _scalar_checks(fn_, r, s)
+    pl = col(f.limbs, qx)
+    ok &= (~geq(qx, pl)) & (~geq(qy, pl))
+    qxr, qyr = f.to_rep(qx), f.to_rep(qy)
+    ok &= _on_curve(cv, qxr, qyr)
+    ok &= ~(is_zero(qx) & is_zero(qy))
+    rc = fn_.reduce_loose(r)
+    sc = fn_.reduce_loose(s)
+    t = fn_.add(rc, sc)
+    ok &= ~is_zero(t)
+    X, _, Z = _unpack(shamir_mult(cv, sc, t, qxr, qyr))
+    ok &= ~is_zero(Z)
+    c = fn_.sub(rc, fn_.reduce_loose(e))  # the x1 that passes, mod n
+    ok &= _x_matches_mod_n(cv, X, Z, c)
+    return ok
+
+
 # ---------------------------------------------------------------------------
 # public entry points: [B, 16] limbs in, dispatch on the tensors' device
 # ---------------------------------------------------------------------------
@@ -369,7 +435,7 @@ def _lane_major(a) -> torch.Tensor:
 def ecdsa_verify_batch(cv: Curve, e, r, s, qx, qy) -> torch.Tensor:
     """Batched ECDSA verify. All args [B, 16] 16-bit limbs; -> bool[B]."""
     if cv is not SECP256K1:
-        raise NotImplementedError("only the secp256k1 singleton is ported")
+        raise ValueError("ECDSA runs on the secp256k1 singleton only")
     args = [_lane_major(a) for a in (e, r, s, qx, qy)]
     if args[0].is_cuda:
         from . import cuda_verify
@@ -382,7 +448,7 @@ def ecdsa_recover_batch(cv: Curve, e, r, s, v):
     """Batched public-key recovery. e, r, s [B, 16], v [B] recovery id ->
     (qx, qy [B, 16] int64, ok bool[B]); zero keys where not ok."""
     if cv is not SECP256K1:
-        raise NotImplementedError("only the secp256k1 singleton is ported")
+        raise ValueError("ECDSA runs on the secp256k1 singleton only")
     e, r, s = (_lane_major(a) for a in (e, r, s))
     v = torch.as_tensor(v)
     if e.is_cuda:
@@ -393,3 +459,16 @@ def ecdsa_recover_batch(cv: Curve, e, r, s, v):
     qx, qy, ok = ecdsa_recover_plain(
         cv, *(a.to(torch.int64) for a in (e, r, s)), v.to(torch.int64))
     return qx.T, qy.T, ok
+
+
+def sm2_verify_batch(cv: Curve, e, r, s, qx, qy) -> torch.Tensor:
+    """Batched SM2 verify; e is the SM3(Z_A || M) digest as an integer.
+    All args [B, 16] 16-bit limbs; -> bool[B]."""
+    if cv is not SM2P256V1:
+        raise ValueError("SM2 verify runs on the SM2P256V1 singleton only")
+    args = [_lane_major(a) for a in (e, r, s, qx, qy)]
+    if args[0].is_cuda:
+        from . import cuda_verify
+
+        return cuda_verify.sm2_verify(*args).bool()
+    return sm2_verify_plain(cv, *(a.to(torch.int64) for a in args))

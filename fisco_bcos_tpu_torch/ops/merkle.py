@@ -1,5 +1,6 @@
-"""Width-16 Keccak-256 Merkle roots: plain PyTorch tree, dispatch to
-kernel 4, and the host levels and proofs.
+"""Width-16 Merkle roots (Keccak-256 or SM3): plain PyTorch tree, dispatch
+to the level kernels (kernel 4 for Keccak, kernel B for SM3), and the host
+levels and proofs.
 
 Counterpart of fisco_bcos_tpu/ops/merkle.py. Canonical tree (the
 protocol's definition, identical on every path):
@@ -16,34 +17,44 @@ from __future__ import annotations
 import torch
 
 from . import keccak as _keccak
+from . import sm3 as _sm3
 from ..crypto import refimpl
 
 WIDTH = 16
 DIGEST = 32
+ALGS = ("keccak256", "sm3")
 
 
 def _check_alg(alg: str) -> None:
-    if alg != "keccak256":
-        raise NotImplementedError(
-            f"merkle alg {alg!r}: only keccak256 is ported; SM3 is the SM "
-            "slice in ROADMAP.md")
+    if alg not in ALGS:
+        raise ValueError(f"unknown hash alg {alg!r}")
 
 
-def _hash_nodes(nodes: torch.Tensor) -> torch.Tensor:
-    """[k, WIDTH*DIGEST] uint8 -> [k, DIGEST] Keccak-256 digests."""
+def _hash_nodes(nodes: torch.Tensor, alg: str) -> torch.Tensor:
+    """[k, WIDTH*DIGEST] uint8 -> [k, DIGEST] digests. A 512-byte node is
+    5 Keccak rate blocks or 9 SM3 blocks after padding."""
     k, nbytes = nodes.shape
-    rate = _keccak.RATE_BYTES
-    nb = nbytes // rate + 1
-    buf = torch.zeros((k, nb * rate), dtype=torch.uint8, device=nodes.device)
+    if alg == "keccak256":
+        rate = _keccak.RATE_BYTES
+        nb = nbytes // rate + 1
+        buf = torch.zeros((k, nb * rate), dtype=torch.uint8, device=nodes.device)
+        buf[:, :nbytes] = nodes
+        buf[:, nbytes] = 0x01
+        buf[:, -1] += 0x80
+        return _keccak.keccak256_blocks(buf.reshape(k, nb, rate))
+    _check_alg(alg)
+    pad = torch.as_tensor(_sm3.pad_message_np(bytes(nbytes)).reshape(-1),
+                          device=nodes.device)
+    buf = pad.repeat(k, 1)  # the padding of any 512-byte message
     buf[:, :nbytes] = nodes
-    buf[:, nbytes] = 0x01
-    buf[:, -1] += 0x80
-    return _keccak.keccak256_blocks(buf.reshape(k, nb, rate))
+    return _sm3.sm3_blocks(buf.reshape(k, -1, _sm3.BLOCK_BYTES))
 
 
-def merkle_root_bucketed_plain(leaves: torch.Tensor, n: int) -> torch.Tensor:
-    """Plain version of kernel 4 (ops/merkle.py:61-87): leaves [N_bucket,
-    32] uint8 zero-padded, n the logical count -> [32] root."""
+def merkle_root_bucketed_plain(leaves: torch.Tensor, n: int,
+                               alg: str = "keccak256") -> torch.Tensor:
+    """Plain version of the level kernels (fisco_bcos_tpu/ops/merkle.py
+    `_merkle_root_bucketed`): leaves [N_bucket, 32] uint8 zero-padded, n
+    the logical count -> [32] root."""
     nodes = leaves
     count = int(n)
     root = leaves[0] if count <= 1 else torch.zeros_like(leaves[0])
@@ -55,7 +66,7 @@ def merkle_root_bucketed_plain(leaves: torch.Tensor, n: int) -> torch.Tensor:
             nodes = torch.cat([nodes, torch.zeros((pad, DIGEST), dtype=torch.uint8,
                                                   device=nodes.device)])
             m += pad
-        parents = _hash_nodes(nodes.reshape(m // WIDTH, WIDTH * DIGEST))
+        parents = _hash_nodes(nodes.reshape(m // WIDTH, WIDTH * DIGEST), alg)
         count = (count + WIDTH - 1) // WIDTH
         live = torch.arange(parents.shape[0], device=parents.device) < count
         nodes = torch.where(live[:, None], parents, torch.zeros_like(parents))
@@ -66,7 +77,8 @@ def merkle_root_bucketed_plain(leaves: torch.Tensor, n: int) -> torch.Tensor:
 
 def merkle_root(leaves: torch.Tensor, alg: str = "keccak256") -> torch.Tensor:
     """Root [32] uint8 of [n, 32] uint8 leaf digests. A CUDA tensor runs
-    kernel 4 level by level; a CPU tensor runs the plain bucketed tree."""
+    the alg's level kernel once per level; a CPU tensor runs the plain
+    bucketed tree."""
     _check_alg(alg)
     n = leaves.shape[0]
     if n == 0:
@@ -74,12 +86,12 @@ def merkle_root(leaves: torch.Tensor, alg: str = "keccak256") -> torch.Tensor:
     if leaves.is_cuda:
         from . import cuda_merkle
 
-        return cuda_merkle.merkle_root(leaves, n)
+        return cuda_merkle.merkle_root(leaves, n, alg)
     nbucket = max(WIDTH, 1 << (n - 1).bit_length())
     if nbucket > n:
         leaves = torch.cat([leaves, torch.zeros((nbucket - n, DIGEST),
                                                 dtype=torch.uint8)])
-    return merkle_root_bucketed_plain(leaves, n)
+    return merkle_root_bucketed_plain(leaves, n, alg)
 
 
 # ---------------------------------------------------------------------------
@@ -88,7 +100,7 @@ def merkle_root(leaves: torch.Tensor, alg: str = "keccak256") -> torch.Tensor:
 
 def _hash_host(data: bytes, alg: str) -> bytes:
     _check_alg(alg)
-    return refimpl.keccak256(data)
+    return refimpl.keccak256(data) if alg == "keccak256" else refimpl.sm3(data)
 
 
 def merkle_levels_host(leaves: list[bytes], alg: str = "keccak256") -> list[list[bytes]]:

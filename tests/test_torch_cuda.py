@@ -1,5 +1,6 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on
-the card. Marked `cuda`; every test skips (inside the fixture) where
+"""The port's CUDA kernels (slice 1: recover, verify, Keccak, Keccak
+Merkle level; the SM chain: SM3, SM3 Merkle level, SM2 verify) against
+their plain PyTorch versions, on the card. Marked `cuda`; every test skips (inside the fixture) where
 torch.cuda.is_available() is false. On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -13,8 +14,8 @@ import torch
 
 from fisco_bcos_tpu_torch.crypto import refimpl
 from fisco_bcos_tpu_torch.crypto.suite import make_suite
-from fisco_bcos_tpu_torch.ops import (bigint, cuda_hash, cuda_merkle,
-                                      cuda_verify, ec, keccak, merkle)
+from fisco_bcos_tpu_torch.ops import (bigint, cuda_hash, cuda_merkle, cuda_sm3,
+                                      cuda_verify, ec, keccak, merkle, sm3)
 import test_torch_vectors as vectors  # tests/ is on sys.path under pytest
 
 pytestmark = pytest.mark.cuda
@@ -119,5 +120,54 @@ def test_suite_on_card_matches_cpu_path(dev):
     ga, gok = gpu.recover_addresses(digests, sigs)
     ca, cok = cpu.recover_addresses(digests, sigs)
     assert ga == ca and (gok == cok).all()
+    assert gpu.hash_batch(digests) == cpu.hash_batch(digests)
+    assert gpu.merkle_root(digests) == cpu.merkle_root(digests)
+
+
+def test_sm3_kernel_matches_plain_and_oracle(dev):
+    rng = np.random.default_rng(4)
+    lens = [0, 1, 55, 56, 63, 64, 119, 120, 1000] + list(rng.integers(0, 1200, 55))
+    msgs = [bytes(rng.integers(0, 256, int(n), dtype=np.uint8)) for n in lens]
+    blocks, nvalid = sm3.pad_batch_np(msgs)
+    nvalid[3] = 0
+    b, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
+    got = cuda_sm3.sm3_varlen(b, nv)
+    assert torch.equal(got, sm3.sm3_varlen_plain(b, nv))
+    want = [refimpl.sm3(m) for m in msgs]
+    assert [bytes(x) for i, x in enumerate(got.cpu().numpy()) if i != 3] == want[:3] + want[4:]
+
+
+@pytest.mark.parametrize("n", [1, 2, 17, 300, 4097])
+def test_merkle_sm3_kernel_matches_plain(dev, n):
+    rng = np.random.default_rng(200 + n)
+    leaves = rng.integers(0, 256, (n + 7, 32), dtype=np.uint8)
+    lt = torch.as_tensor(leaves, device=dev)
+    got = cuda_merkle.merkle_root(lt, n, "sm3")  # rows past n read as zero
+    assert torch.equal(got.cpu(), merkle.merkle_root(torch.as_tensor(leaves[:n]), "sm3"))
+    if n <= 300:
+        assert bytes(got.cpu().numpy()) == merkle.merkle_levels_host(
+            [bytes(x) for x in leaves[:n]], "sm3")[-1][0]
+
+
+def test_sm2_kernel_matches_plain_and_oracle(dev):
+    vs = vectors.sm2_vectors(24, tag=12) + vectors.sm2_collision_vectors()
+    args = [_lane([d[k] for d in vs], dev) for k in ("e", "r", "s", "qx", "qy")]
+    ok = cuda_verify.sm2_verify(*args)
+    assert torch.equal(ok.bool(), ec.sm2_verify_plain(ec.SM2P256V1, *args))
+    assert ok.bool().tolist() == [vectors.sm2_verifies(d) for d in vs]
+
+
+def test_sm_suite_on_card_matches_cpu_path(dev):
+    vs = vectors.sm2_vectors(12, tag=13)
+    digests = [d["e"].to_bytes(32, "big") for d in vs]
+    pubs = [d["qx"].to_bytes(32, "big") + d["qy"].to_bytes(32, "big") for d in vs]
+    sigs = [d["r"].to_bytes(32, "big") + d["s"].to_bytes(32, "big") + p
+            for d, p in zip(vs, pubs)]
+    gpu, cpu = make_suite(sm_crypto=True), make_suite(sm_crypto=True, device="cpu")
+    assert (gpu.verify_batch(digests, sigs, pubs)
+            == cpu.verify_batch(digests, sigs, pubs)).all()
+    ga, gok = gpu.recover_addresses(digests, sigs)
+    ca, cok = cpu.recover_addresses(digests, sigs)
+    assert ga == ca and (gok == cok).all() and gok.any()
     assert gpu.hash_batch(digests) == cpu.hash_batch(digests)
     assert gpu.merkle_root(digests) == cpu.merkle_root(digests)

@@ -14,6 +14,7 @@ import torch
 from fisco_bcos_tpu.ops import ec as jec
 from fisco_bcos_tpu.ops import pallas_verify
 from fisco_bcos_tpu.ops import keccak as jkeccak
+from fisco_bcos_tpu.ops import sm3 as jsm3
 from fisco_bcos_tpu_torch.crypto import refimpl
 from fisco_bcos_tpu_torch.ops import bigint, consts, ec
 import test_torch_vectors as vectors  # tests/ is on sys.path under pytest
@@ -54,6 +55,9 @@ def test_consts_from_jax_equal_derived():
         "half_n_limbs": jcv.half_n_limbs,
         "glv_consts": pallas_verify._secp_consts()[0],
         "keccak_rc_hi": jkeccak._RC_HI, "keccak_rc_lo": jkeccak._RC_LO,
+        "sm2_g_table": jec.SM2P256V1.g_table,
+        "sm2_consts": pallas_verify._sm2_consts()[0],
+        "sm3_iv": jsm3._IV, "sm3_tjrot": jsm3._TJROT,
     }
     assert set(jax_np) == set(consts.JAX_NAMES)
     got, mine = consts.consts_from_jax(jax_np), consts.derive_consts()
@@ -61,8 +65,9 @@ def test_consts_from_jax_equal_derived():
     for k in got:
         assert torch.equal(got[k], mine[k]), k
     assert mine["gtab"].shape == (2, 16, 32) and mine["gtab"].dtype == torch.int32
+    assert mine["sm2_gtab"].shape == (16, 32) and mine["sm2_gtab"].dtype == torch.int32
     kj, km = consts.kernel_words(got), consts.kernel_words(mine)
-    assert set(kj) == set(km) == {"verify", "keccak"}
+    assert set(kj) == set(km) == {"verify", "keccak", "sm2", "sm3"}
     for k in kj:
         np.testing.assert_array_equal(kj[k], km[k])
 
@@ -141,8 +146,20 @@ def test_plain_recover_matches_oracle():
 
 
 def test_non_secp_curve_is_refused():
-    with pytest.raises(NotImplementedError):
-        ec.Curve(refimpl.SM2P256V1)
+    """SM2 is a curve of the port now, but ECDSA runs on secp256k1 only,
+    SM2 verify on SM2 only, and a curve the point formulas do not cover
+    (a not 0 or -3) is refused at construction."""
+    sm = ec.Curve(refimpl.SM2P256V1)
+    assert isinstance(sm.fp, ec.fp.MontField) and sm.a_is_minus3 and not sm.has_endo
+    z = vectors.limbs([0] * 8)
+    with pytest.raises(ValueError):
+        ec.ecdsa_verify_batch(ec.SM2P256V1, z, z, z, z, z)
+    with pytest.raises(ValueError):
+        ec.ecdsa_recover_batch(ec.SM2P256V1, z, z, z, torch.zeros(8))
+    with pytest.raises(ValueError):
+        ec.sm2_verify_batch(ec.SECP256K1, z, z, z, z, z)
+    with pytest.raises(ValueError):
+        ec.Curve(refimpl.CurveParams("a1", C.p, 1, 7, C.n, C.gx, C.gy))
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,9 @@ from fisco_bcos_tpu.ops import fp as jfp
 from fisco_bcos_tpu_torch.ops import bigint, fp
 
 P, N = jref.SECP256K1.p, jref.SECP256K1.n
+# SM2's p is not Solinas and lies near 2^256: a Montgomery field, whose
+# redundant columns press hardest on the int64 carry collapse
+SM2_P, SM2_N = jref.SM2P256V1.p, jref.SM2P256V1.n
 B = 8
 
 
@@ -37,6 +40,8 @@ def _same(port_out: torch.Tensor, jax_out) -> None:
 FIELDS = {
     "solinas_p": (lambda: fp.SolinasField(P), lambda: jfp.SolinasField(P), P),
     "mont_n": (lambda: fp.MontField(N), lambda: jfp.MontField(N), N),
+    "sm2_p": (lambda: fp.MontField(SM2_P), lambda: jfp.MontField(SM2_P), SM2_P),
+    "sm2_n": (lambda: fp.MontField(SM2_N), lambda: jfp.MontField(SM2_N), SM2_N),
 }
 
 

@@ -17,7 +17,15 @@ from fisco_bcos_tpu_torch.protocol import types as PT
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _block(T, suite, keys, sigs=None):
+# lane -> corruption of its signature (sig, keys) -> sig
+ECDSA_BAD = {5: lambda g, k: bytes(32) + g[32:],              # r = 0
+             11: lambda g, k: g[:64] + bytes([g[64] ^ 1])}    # wrong key
+SM_BAD = {5: lambda g, k: bytes(32) + g[32:],                 # r = 0
+          8: lambda g, k: g[:100],                            # short
+          11: lambda g, k: g[:64] + k[0].pub_bytes}           # another key
+
+
+def _block(T, suite, keys, sigs=None, bad=ECDSA_BAD):
     txs = [T.Transaction(nonce=f"n{i}", to=bytes([i + 1]) * 20, block_limit=500,
                          input=bytes((i * 37 + j) % 256 for j in range(20 + 40 * i)))
            for i in range(16)]
@@ -25,11 +33,7 @@ def _block(T, suite, keys, sigs=None):
         sigs = []
         for i, t in enumerate(txs):
             sig = suite.sign(keys[i % 4], t.hash(suite))
-            if i == 5:
-                sig = bytes(32) + sig[32:]  # r = 0
-            if i == 11:
-                sig = sig[:64] + bytes([sig[64] ^ 1])  # wrong key
-            sigs.append(sig)
+            sigs.append(bad[i](sig, keys) if i in bad else sig)
     for t, g in zip(txs, sigs):
         t.signature = g
         object.__setattr__(t, "_hash", None)
@@ -39,13 +43,13 @@ def _block(T, suite, keys, sigs=None):
     return T.Block(header=header, transactions=txs, receipts=receipts), sigs
 
 
-def _slice(T, suite, block, sealers):
+def _slice(T, suite, block, sealers, seals=None):
     senders, ok = T.batch_recover_senders(block.transactions, suite)
     hashes = [t._hash for t in block.transactions]
     txs_root = block.calculate_txs_root(suite)
     rc_root = block.calculate_receipts_root(suite)
     h = block.header.hash(suite)
-    seals = [suite.sign(k, h) for k in sealers]
+    seals = seals or [suite.sign(k, h) for k in sealers]
     digests = [h] * 4 + [bytes([h[0] ^ 1]) + h[1:]]
     pubs = [k.pub_bytes for k in sealers] + [sealers[0].pub_bytes]
     seal_ok = suite.verify_batch(digests, seals + seals[:1], pubs)
@@ -68,14 +72,36 @@ def test_16_tx_block_matches_jax_host_suite():
     assert got["seal_ok"] == [True] * 4 + [False]
 
 
-def test_host_and_tensor_backends_agree_on_bad_signatures():
-    dev = psuite.make_suite(device="cpu")
-    host = psuite.make_suite(backend="host")
+def test_16_tx_sm_block_matches_jax_host_suite():
+    """The SM chain: SM3 tx and receipt hashes, SM2 senders from the
+    embedded keys, SM3 roots and SM2 seal verdicts, on the port's CPU
+    tensor path, equal to the JAX SM host suite. Signatures are made once
+    and shared."""
+    port = psuite.make_suite(sm_crypto=True, device="cpu")
+    jax_host = jsuite.make_suite(sm_crypto=True, backend="host")
+    keys = [port.generate_keypair(b"sm" + bytes([i])) for i in range(4)]
+    jkeys = [jax_host.keypair_from_secret(k.secret) for k in keys]
+    pblock, sigs = _block(PT, port, keys, bad=SM_BAD)
+    jblock, _ = _block(JT, jax_host, jkeys, sigs)
+    got = _slice(PT, port, pblock, keys)
+    want = _slice(JT, jax_host, jblock, jkeys, got["seals"])
+    assert got == want
+    assert [i for i, o in enumerate(got["ok"]) if not o] == [5, 8, 11]
+    assert got["senders"][0] == keys[0].address == port.address_of_pub(keys[0].pub_bytes)
+    assert got["seal_ok"] == [True] * 4 + [False]
+    assert port.signature_size == 128 and len(got["seals"][0]) == 128
+
+
+@pytest.mark.parametrize("sm", [False, True], ids=["ecdsa", "sm"])
+def test_host_and_tensor_backends_agree_on_bad_signatures(sm):
+    dev = psuite.make_suite(sm_crypto=sm, device="cpu")
+    host = psuite.make_suite(sm_crypto=sm, backend="host")
     kp = host.generate_keypair(b"k")
     d = [bytes([i]) * 32 for i in range(6)]
     sigs = [host.sign(kp, x) for x in d]
-    sigs[1] = sigs[1][:40]  # malformed -> r = s = 0, v = 255
-    sigs[2] = sigs[2][:64] + b"\x07"  # v >= 4
+    sigs[1] = sigs[1][:40]  # malformed -> r = s = 0 (and v = 255)
+    # ecdsa: v >= 4; sm: an embedded key of zeros
+    sigs[2] = sigs[2][:64] + (b"\x07" if not sm else bytes(64))
     pubs = [kp.pub_bytes] * 6
     pubs[3] = bytes(64)  # (0, 0) key
     assert list(dev.verify_batch(d, sigs, pubs)) == list(host.verify_batch(d, sigs, pubs))
@@ -93,14 +119,21 @@ def test_buckets_and_chunk_match_jax():
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="SM slice"):
-        psuite.make_suite(sm_crypto=True, device="cpu")
+    """Several GPUs are not ported; the SM chain is (it raised before its
+    slice), and like the default chain it never drops to the CPU."""
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         psuite.make_suite(mesh_devices=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        psuite.make_suite(sm_crypto=True, mesh_devices=2, device="cpu")
+    sm = psuite.make_suite(sm_crypto=True, device="cpu")
+    assert (sm.kind, sm.hash_name, sm.signature_size) == ("sm", "sm3", 128)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             psuite.make_suite()  # device="cuda" by default: never drops to CPU
+        with pytest.raises(RuntimeError):
+            psuite.make_suite(sm_crypto=True)
     assert psuite.make_suite(backend="host").backend == "host"
+    assert psuite.make_suite(sm_crypto=True, backend="host").backend == "host"
 
 
 def _port_sources():

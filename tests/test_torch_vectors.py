@@ -1,6 +1,6 @@
-"""Seeded secp256k1 signature vectors, valid and adversarial, for the
-port's tests (CPU and card), built with the port's pure-Python oracle, and
-the tests that hold the vectors to what they claim to be."""
+"""Seeded secp256k1 and SM2 signature vectors, valid and adversarial, for
+the port's tests (CPU and card), built with the port's pure-Python oracle,
+and the tests that hold the vectors to what they claim to be."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from fisco_bcos_tpu_torch.crypto import refimpl
 from fisco_bcos_tpu_torch.ops.bigint import batch_to_limbs
 
 C = refimpl.SECP256K1
+S = refimpl.SM2P256V1
 
 
 def signed_vectors(n: int, nkeys: int = 4, tag: int = 0):
@@ -55,6 +56,67 @@ def collision_vectors():
     return out
 
 
+SM2_CORRUPTIONS = ("r=0", "s>=n", "t=0", "digest", "wrong key", "off curve",
+                   "zero key", "qx>=p")
+
+
+def sm2_vectors(n: int, nkeys: int = 3, tag: int = 0):
+    """n SM2 signatures by nkeys keys over distinct digests; lane 1 + 2j
+    then carries corruption SM2_CORRUPTIONS[j] (as far as n reaches).
+    -> list of dicts with e, r, s, qx, qy (ints)."""
+    keys = [refimpl.keygen(S, seed=bytes([tag, k])) for k in range(nkeys)]
+    out = []
+    for i in range(n):
+        sk, (qx, qy) = keys[i % nkeys]
+        h = refimpl.sm3(bytes([tag]) + i.to_bytes(4, "big"))
+        r, s = refimpl.sm2_sign(sk, h)
+        out.append(dict(e=int.from_bytes(h, "big"), r=r, s=s, qx=qx, qy=qy))
+    other = keys[-1][1]
+    corrupt = [
+        lambda d: d.update(r=0),
+        lambda d: d.update(s=S.n + d["s"] % 7),
+        lambda d: d.update(s=S.n - d["r"]),
+        lambda d: d.update(e=d["e"] ^ 1),
+        lambda d: d.update(qx=other[0], qy=other[1]),
+        lambda d: d.update(qy=d["qy"] ^ 1),
+        lambda d: d.update(qx=0, qy=0),
+        lambda d: d.update(qx=S.p + 3),
+    ]
+    for j, f in enumerate(corrupt):
+        if 1 + 2 * j < n:
+            f(out[1 + 2 * j])
+    return out
+
+
+def _top_digit(k: int) -> int:
+    return k >> (4 * ((k.bit_length() - 1) // 4)) if k else 0
+
+
+def sm2_collision_vectors():
+    """Valid SM2 signatures that force the ladder's doubling and
+    cancellation cases: key +-2G (SM2 forbids the secret n - 1, so not
+    +-G), and the leading window of s twice that of t = r + s at the same
+    position, so the first Q add meets acc = +-(its own operand)."""
+    out = []
+    for sk in (2, S.n - 2):
+        pub = refimpl.ec_mul(S, sk, (S.gx, S.gy))
+        for i in range(4000):
+            h = refimpl.sm3(b"collide" + bytes([sk & 1]) + i.to_bytes(4, "big"))
+            r, s = refimpl.sm2_sign(sk, h)
+            t = (r + s) % S.n
+            if (s.bit_length() + 3) // 4 == (t.bit_length() + 3) // 4 \
+                    and _top_digit(s) == 2 * _top_digit(t):
+                out.append(dict(e=int.from_bytes(h, "big"), r=r, s=s,
+                                qx=pub[0], qy=pub[1]))
+                break
+    return out
+
+
+def sm2_verifies(d) -> bool:
+    return refimpl.sm2_verify((d["qx"], d["qy"]), d["e"].to_bytes(32, "big"),
+                              d["r"], d["s"])
+
+
 def limbs(xs) -> torch.Tensor:
     """List of ints -> [N, 16] int64 limb tensor on the CPU."""
     return torch.as_tensor(batch_to_limbs(xs).astype(np.int64))
@@ -85,3 +147,18 @@ def test_collision_vectors_force_equal_or_opposite_scalars():
         u1, u2 = d["e"] * w % C.n, d["r"] * w % C.n
         assert u1 == (u2 if sign > 0 else C.n - u2)
         assert (d["qx"], d["qy"]) == (C.gx, key_y)
+
+
+def test_sm2_vectors_valid_and_corrupted_lanes():
+    vs = sm2_vectors(17, tag=3)
+    for i, d in enumerate(vs):
+        assert sm2_verifies(d) == (i % 2 == 0), i
+    assert (vs[5]["r"] + vs[5]["s"]) % S.n == 0 and vs[5]["r"] < S.n
+    assert vs[15]["qx"] >= S.p
+
+
+def test_sm2_collision_vectors_meet_their_own_operand():
+    vs = sm2_collision_vectors()
+    assert len(vs) == 2 and all(sm2_verifies(d) for d in vs)
+    g2 = refimpl.ec_mul(S, 2, (S.gx, S.gy))
+    assert [(d["qx"], d["qy"]) for d in vs] == [g2, (g2[0], S.p - g2[1])]
