@@ -24,6 +24,7 @@ next of BUCKETS, larger batches run as CHUNK-sized calls.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -108,18 +109,31 @@ class CryptoSuite:
                 "CryptoSuite(device='cuda'): no CUDA device is available; "
                 "pass device='cpu' to run the plain PyTorch path")
         self.device_min_batch = device_min_batch
+        # the per-kind parts, chosen once: hashes, signing, verify, recovery
         if kind == "ecdsa":
             self.curve = ec.SECP256K1
             self.params = refimpl.SECP256K1
             self.hash_name = "keccak256"
             self._host_hash = refimpl.keccak256
             self.signature_size = 65  # r(32) | s(32) | v(1)
+            self._hash_np = keccak.keccak256_batch_np
+            self._sign = _sign_ecdsa
+            self._verify_lanes = ec.ecdsa_verify_batch
+            self._verify_host = functools.partial(refimpl.ecdsa_verify, self.params)
+            self._recover = self._recover_ecdsa
+            self._addresses_device = self._ecdsa_addresses
         else:
             self.curve = ec.SM2P256V1
             self.params = refimpl.SM2P256V1
             self.hash_name = "sm3"
             self._host_hash = refimpl.sm3
             self.signature_size = 128  # r(32) | s(32) | pub(64)
+            self._hash_np = sm3.sm3_batch_np
+            self._sign = _sign_sm
+            self._verify_lanes = ec.sm2_verify_batch
+            self._verify_host = refimpl.sm2_verify
+            self._recover = self._recover_embedded
+            self._addresses_device = self._sm_addresses
 
     def __repr__(self):
         return f"CryptoSuite({self.kind}, backend={self.backend}, device={self.device})"
@@ -134,8 +148,7 @@ class CryptoSuite:
             return []
         if not self._use_device(len(msgs)):
             return [self._host_hash(m) for m in msgs]
-        fn = keccak.keccak256_batch_np if self.kind == "ecdsa" else sm3.sm3_batch_np
-        return [bytes(row) for row in fn(list(msgs), device=self.device)]
+        return [bytes(row) for row in self._hash_np(list(msgs), device=self.device)]
 
     def merkle_root(self, leaves: Sequence[bytes]) -> bytes:
         """Width-16 Merkle root (the suite's hash) over 32-byte digests."""
@@ -163,11 +176,7 @@ class CryptoSuite:
         return self._host_hash(pub_bytes)[12:]
 
     def sign(self, kp, digest: bytes) -> bytes:
-        if self.kind == "sm":
-            r, s = refimpl.sm2_sign(kp.secret, digest)
-            return r.to_bytes(32, "big") + s.to_bytes(32, "big") + kp.pub_bytes
-        r, s, v = refimpl.ecdsa_sign(self.params, kp.secret, digest)
-        return r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([v])
+        return self._sign(kp, digest)
 
     # -- verification / recovery (batch-native) ----------------------------
     def verify(self, pub_bytes: bytes, digest: bytes, sig: bytes) -> bool:
@@ -227,18 +236,8 @@ class CryptoSuite:
         arrays = [_limbs_of(digests), _limbs_of(rs), _limbs_of(ss),
                   _limbs_of([p[:32] for p in pubs]),
                   _limbs_of([p[32:64] for p in pubs])]
-        verify = ec.ecdsa_verify_batch if self.kind == "ecdsa" else ec.sm2_verify_batch
-        parts = self._padded_calls(lambda *a: verify(self.curve, *a), arrays)
+        parts = self._padded_calls(lambda *a: self._verify_lanes(self.curve, *a), arrays)
         return np.concatenate([ok[:ln].cpu().numpy() for ln, ok in parts])
-
-    def _verify_host(self, pub, digest, r, s) -> bool:
-        if self.kind == "sm":
-            return refimpl.sm2_verify(pub, digest, r, s)
-        return refimpl.ecdsa_verify(self.params, pub, digest, r, s)
-
-    def _embedded_pubs(self, sigs) -> list[bytes]:
-        """SM: the key a signature carries (zero for a short signature)."""
-        return [g[64:128] if len(g) >= 128 else bytes(64) for g in sigs]
 
     def _recover_device(self, digests, sigs):
         """Device recovery -> (qx, qy [N, 16] int64 tensors, ok bool[N])
@@ -271,11 +270,17 @@ class CryptoSuite:
             raise ValueError("recover_batch: digests and sigs differ in length")
         if n == 0:
             return [], np.zeros((0,), bool)
-        if self.kind == "sm":  # a verify against the embedded keys
-            pubs = self._embedded_pubs(sigs)
-            ok = self.verify_batch(digests, sigs, pubs)
-            return [p if o else None for p, o in zip(pubs, ok)], ok
-        if not self._use_device(n):
+        return self._recover(digests, sigs)
+
+    def _recover_embedded(self, digests, sigs):
+        """SM: a verify against the key each signature carries (zero for a
+        short signature)."""
+        pubs = [g[64:128] if len(g) >= 128 else bytes(64) for g in sigs]
+        ok = self.verify_batch(digests, sigs, pubs)
+        return [p if o else None for p, o in zip(pubs, ok)], ok
+
+    def _recover_ecdsa(self, digests, sigs):
+        if not self._use_device(len(digests)):
             return self._recover_host(digests, sigs)
         qx, qy, ok = self._recover_device(digests, sigs)
         ok = ok.cpu().numpy()
@@ -295,8 +300,10 @@ class CryptoSuite:
             pubs, ok = self.recover_batch(digests, sigs)
             return [self.address_of_pub(p) if p is not None else None
                     for p in pubs], ok
-        if self.kind == "sm":
-            return self._sm_addresses(digests, sigs)
+        return self._addresses_device(digests, sigs)
+
+    def _ecdsa_addresses(self, digests, sigs):
+        """Recover on the device, then Keccak of the keys where they lie."""
         qx, qy, ok = self._recover_device(digests, sigs)
         digest = keccak.keccak256_varlen(pub_blocks(qx, qy),
                                          torch.ones_like(ok, dtype=torch.int32))
@@ -305,10 +312,9 @@ class CryptoSuite:
         return [bytes(a) if o else None for a, o in zip(addrs, ok)], ok
 
     def _sm_addresses(self, digests, sigs):
-        """SM device path: verify against the embedded keys, then SM3 of
-        the valid keys (two blocks each) in one kernel launch."""
-        pubs = self._embedded_pubs(sigs)
-        ok = self.verify_batch(digests, sigs, pubs)
+        """Verify against the embedded keys, then SM3 of the valid keys
+        (two blocks each) in one kernel launch."""
+        pubs, ok = self._recover_embedded(digests, sigs)
         valid = np.flatnonzero(ok)
         out: list[bytes | None] = [None] * len(pubs)
         if valid.size:
@@ -323,7 +329,6 @@ class CryptoSuite:
                 out[i] = bytes(a)
         return out, ok
 
-
 def pub_blocks(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
     """Affine keys [N, 16] limbs -> [N, 1, 136] Keccak-padded blocks of
     the 64-byte big-endian encodings x || y, built where the keys lie."""
@@ -335,6 +340,16 @@ def pub_blocks(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
     blocks[:, 64] = 0x01
     blocks[:, -1] = 0x80
     return blocks[:, None, :]
+
+
+def _sign_ecdsa(kp: KeyPair, digest: bytes) -> bytes:
+    r, s, v = refimpl.ecdsa_sign(refimpl.SECP256K1, kp.secret, digest)
+    return r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([v])
+
+
+def _sign_sm(kp: KeyPair, digest: bytes) -> bytes:
+    r, s = refimpl.sm2_sign(kp.secret, digest)
+    return r.to_bytes(32, "big") + s.to_bytes(32, "big") + kp.pub_bytes
 
 
 def make_suite(sm_crypto: bool = False, **kw) -> CryptoSuite:

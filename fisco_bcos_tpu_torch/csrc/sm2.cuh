@@ -2,10 +2,13 @@
 // fisco_bcos_tpu/ops/pallas_verify.py _sm2_verify_kernel_body :404 step by
 // step: R' = e + x(s*G + (r+s)*Q) == r (mod n), GB/T 32918.
 //
-// SM2's p = 2^256 - 2^224 - 2^96 + 2^64 - 1 is not of the Solinas shape
-// field.cuh folds, so the field is bigint.cuh's Montgomery product over p
-// (R = 2^256), as ops/fp.MontField. The group order n needs no product
-// here: t = r + s and x1 = r - e are additions mod n.
+// SM2's p = 2^256 - 2^224 - 2^96 + 2^64 - 1 is a generalized-Mersenne prime
+// (as NIST P-256's): its high half folds back with word adds and subtracts
+// alone, but not by the one-word 2^256 - c fold of field.cuh. The field is
+// bigint.cuh's Montgomery product over p (R = 2^256), as ops/fp.MontField,
+// shared with secp256k1's n; a special-form fold would save about half of
+// each product's multiplies and is later speed work. The group order n
+// needs no product here: t = r + s and x1 = r - e are additions mod n.
 //
 // Ladder: the plain 64-step Shamir ladder of s*G + t*Q over 4-bit MSB-first
 // windows (pallas_ec.ladder's 64-step form, ops/ec.shamir_mult), four

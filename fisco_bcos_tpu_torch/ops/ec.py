@@ -47,7 +47,7 @@ class Curve:
         self.params = params
         if (1 << fp.BITS) - params.p < 1 << 34:
             self.fp: fp._FieldBase = fp.SolinasField(params.p, params.name + ".p")
-        else:  # SM2's p is not Solinas: Montgomery domain
+        else:  # SM2's p has no one-word fold: Montgomery domain
             self.fp = fp.MontField(params.p, params.name + ".p")
         self.fn = fp.MontField(params.n, params.name + ".n")
         self.a_is_zero = params.a % params.p == 0
@@ -66,15 +66,17 @@ class Curve:
             tbl[k, :NLIMBS] = self.fp.encode_int(P[0])
             tbl[k, NLIMBS:] = self.fp.encode_int(P[1])
         self.g_table = tbl
-        self.has_endo = False
-        if self.a_is_zero and params.p % 3 == 1:
+        # phi(x, y) = (beta x, y) exists only where a = 0 and p = 1 mod 3;
+        # the GLV constants carried are secp256k1's and must match its G
+        self.has_endo = self.a_is_zero and params.p % 3 == 1
+        if self.has_endo:
             lG = refimpl.ec_mul(params, refimpl.GLV_LAMBDA, (params.gx, params.gy))
-            if lG == (refimpl.GLV_BETA * params.gx % params.p, params.gy):
-                self._glv_plane(chain)
+            assert lG == (refimpl.GLV_BETA * params.gx % params.p, params.gy), \
+                "GLV (beta, lambda) pair inconsistent"
+            self._glv_plane(chain)
 
     def _glv_plane(self, chain):
         params = self.params
-        self.has_endo = True
         self.beta_rep = self.fp.encode_int(refimpl.GLV_BETA)
         self.glv_lambda = refimpl.GLV_LAMBDA
         tbl2 = np.zeros_like(self.g_table)

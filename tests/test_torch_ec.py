@@ -162,6 +162,15 @@ def test_non_secp_curve_is_refused():
         ec.Curve(refimpl.CurveParams("a1", C.p, 1, 7, C.n, C.gx, C.gy))
 
 
+def test_glv_constants_are_checked():
+    """A curve that can have the endomorphism (a = 0, p = 1 mod 3) gets
+    the GLV plane only if secp256k1's (beta, lambda) hold for its G: a
+    base point of another group order fails at construction."""
+    assert ec.SECP256K1.has_endo
+    with pytest.raises(AssertionError, match="GLV"):
+        ec.Curve(refimpl.CurveParams("g1", C.p, 0, 7, C.n, C.gx + 1, C.gy))
+
+
 # ---------------------------------------------------------------------------
 # against the JAX batch entry points (minutes of XLA compile on the CPU)
 # ---------------------------------------------------------------------------

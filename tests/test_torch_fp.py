@@ -11,7 +11,7 @@ from fisco_bcos_tpu.ops import fp as jfp
 from fisco_bcos_tpu_torch.ops import bigint, fp
 
 P, N = jref.SECP256K1.p, jref.SECP256K1.n
-# SM2's p is not Solinas and lies near 2^256: a Montgomery field, whose
+# SM2's p has no one-word fold and lies near 2^256: a Montgomery field, whose
 # redundant columns press hardest on the int64 carry collapse
 SM2_P, SM2_N = jref.SM2P256V1.p, jref.SM2P256V1.n
 B = 8
