@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's block crypto paths on one NVIDIA card:
-the default chain (secp256k1 + Keccak-256) and the SM chain (SM2 + SM3).
+"""Drive the PyTorch/CUDA port's crypto paths on one NVIDIA card: the
+default chain (secp256k1 + Keccak-256), the SM chain (SM2 + SM3) and the
+ZK plane's batched Poseidon (BN254).
 
     python3 chip_smoke.py
 
@@ -28,7 +29,23 @@ version or to the CPU):
 5. The SM chain's slice as in 3, on make_suite(sm_crypto=True): the same
    payloads, every tx signed with SM2 over its own payload by one of 16
    senders (so every lane is valid before corruption), seals signed by 4
-   sealers.
+   sealers. The fp kernels' counters must still be 0 here: the plain EC
+   versions that phases 2 and 4 ran as oracles launch no fp kernel.
+6. The standalone field multiplies (csrc/fp.cu) against their plain
+   version (the field's mul_plain) on the card, bit-exact, at the Poseidon
+   path's shapes (mul and mul_const at [16, 65536], mul_stacked at
+   [9, 16, 65536] and [3, 16, 65536]) over BN254 r, secp256k1 n, SM2 p and
+   n (Montgomery) and secp256k1 p (Solinas), with edge lanes 0, 1, n - 1
+   and R mod n and, for BN254 r, loose operands in [2r, 2^256).
+7. The ZK plane's slice through make_suite()'s poseidon_batch: 65,536
+   pairs, a 65,536-leaf Poseidon-Merkle tree (16 level calls) and 256
+   inclusion proofs in one verify_batch call, plus 8 tampered ones; held
+   to the plain path on the card on every lane and root, and to the
+   pure-Python oracle on 1,024 lanes with the edge pairs and on a
+   4,096-leaf root. Each step's fp launches must be 171 / 90 / 1 per chunk
+   call and no other kernel's counter may move; the profiler (warmed up
+   on a small step) records the 65,536-pair step, whose kernel calls must
+   equal the counters.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -55,6 +72,11 @@ NTX = 65536
 NSIGNED = 1024  # distinct (key, tx) pairs signed on the host, then tiled
 NSEAL = 16384
 MERKLE_NS = (1, 2, 17, 4097, 65535, 65536)
+# the ZK plane: chain_bench --proof-bench's largest rows
+FP_B = 65536  # one Poseidon CHUNK of lanes
+NPAIRS = 65536
+NLEAVES = 65536
+NPROOFS = 256
 
 
 def log(*a):
@@ -79,6 +101,86 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+MARK = "chip_smoke.measured"
+LAST_EVENTS: dict = {}
+
+
+def device_events(prof, tag: str):
+    """Device time (us) and calls per kernel name of the device work
+    launched inside the host range MARK, the record_function around the
+    measured work. A device event belongs to the range when the runtime
+    call that launched it (a CPU event of the same CUPTI correlation id,
+    on the host's clock) started inside it. The device events' own times
+    cannot say so: on the card they drift by milliseconds against the
+    host's clock (a kernel seemed to start before its own launch), so the
+    warm-up's last kernel (run before MARK) could seem to start inside it
+    and a measured one before it. Each session is
+    one cycle that first runs a warm-up through the same kernels, since a
+    session's first events can go missing. LAST_EVENTS keeps (correlation
+    id, us of its launch after MARK, us) of each counted event by name,
+    for a failure's message."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    marks = [e for e in events if e.name == MARK and e.device_type == DeviceType.CPU]
+    if len(marks) != 1:
+        fail(f"{tag} the profiler recorded {len(marks)} ranges {MARK}, expected 1")
+    t0, t1 = marks[0].time_range.start, marks[0].time_range.end
+    device = [ev for ev in events
+              if ev.device_type != DeviceType.CPU and not ev.is_user_annotation
+              and ev.name != MARK and not ev.name.startswith("ProfilerStep")]
+    ids = {ev.id for ev in device if ev.id}
+    launched = {ev.id: ev.time_range.start - t0 for ev in events
+                if ev.device_type == DeviceType.CPU and ev.id in ids
+                and ev.name.startswith("cu") and t0 <= ev.time_range.start <= t1}
+    device_us, calls, outside, seen = {}, {}, {}, set()
+    LAST_EVENTS.clear()
+    for ev in device:
+        k = ev.name.split("(")[0]  # entries that differ past the name add up
+        if ev.id not in launched or ev.id in seen:
+            outside[k] = outside.get(k, 0) + 1
+            continue
+        seen.add(ev.id)
+        device_us[k] = device_us.get(k, 0) + ev.self_device_time_total
+        calls[k] = calls.get(k, 0) + 1
+        LAST_EVENTS.setdefault(k, []).append(
+            (ev.id, round(launched[ev.id], 1), ev.self_device_time_total))
+    if outside:
+        log(f"{tag} left out device events not launched inside the measured range "
+            f"(the warm-up's): {sum(outside.values())}")
+    return device_us, calls
+
+
+def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3) -> float:
+    """Mean device time in ms of the kernel `name` over reps calls of fn,
+    by the profiler's device events (CUPTI), each call after a 256 MB
+    write that evicts the 50 MB L2, so the kernel reads its inputs from
+    device memory as the bound assumes. For a kernel shorter than its
+    launch, where CUDA events around one call time the host's launch. The
+    warm-up calls' events are left out (device_events); a profiler session
+    that lost events is run again, up to `tries` times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+            with record_function(MARK):
+                for _ in range(reps):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+        device_us, calls = device_events(prof, f"[{name}]")
+        us, calls = device_us.get(name, 0.0), calls.get(name, 0)
+        if calls == reps:
+            return us / calls / 1e3
+        log(f"[profiler] recorded {calls} of {reps} calls of {name}; again")
+    fail(f"the profiler recorded {calls} calls of {name}, expected {reps}")
 
 
 def wall_ms(fn):
@@ -767,38 +869,30 @@ def phase_slice(dev, suite, data, rng):
 
     # -- the main path: counters zeroed just before, read just after --------
     # The profiler warms up on one small step through the same kernels,
-    # whose events it discards: a session's first events can go missing
-    # (seen in the second session of a process).
+    # whose events device_events leaves out: a session's first events can
+    # go missing (seen in the second session of a process).
     counters = slice_counters(kind)
     phases = {}
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         suite.recover_addresses(dg[:8], sg[:8])
         suite.verify_batch(dg[:8], sg[:8], pb[:8])
         suite.merkle_root(data["signed_hash"][:17])
         torch.cuda.synchronize()
-        prof.step()
-        for fn in counters.values():
-            fn.launches = 0
-        (senders, ok), phases["recover_senders"] = wall_ms(
-            lambda: T.batch_recover_senders(txs, suite))
-        txs_root, phases["txs_root"] = wall_ms(lambda: block.calculate_txs_root(suite))
-        rc_root, phases["receipts_root"] = wall_ms(
-            lambda: block.calculate_receipts_root(suite))
-        seal_ok, phases["seal_verify"] = wall_ms(lambda: suite.verify_batch(dg, sg, pb))
-        launches = {k: fn.launches for k, fn in counters.items()}
+        with record_function(MARK):
+            for fn in counters.values():
+                fn.launches = 0
+            (senders, ok), phases["recover_senders"] = wall_ms(
+                lambda: T.batch_recover_senders(txs, suite))
+            txs_root, phases["txs_root"] = wall_ms(lambda: block.calculate_txs_root(suite))
+            rc_root, phases["receipts_root"] = wall_ms(
+                lambda: block.calculate_receipts_root(suite))
+            seal_ok, phases["seal_verify"] = wall_ms(lambda: suite.verify_batch(dg, sg, pb))
+            launches = {k: fn.launches for k, fn in counters.items()}
     # the device's own events (kernels, copies): a host op's device time
-    # repeats its kernels', and the step's annotation spans the whole step
-    device_us, calls = {}, {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", 0) or 0
-        if t and ev.device_type != DeviceType.CPU and not ev.key.startswith("ProfilerStep"):
-            k = ev.key.split("(")[0]  # entries that differ past the name add up
-            device_us[k] = device_us.get(k, 0) + t
-            calls[k] = calls.get(k, 0) + ev.count
+    # repeats its kernels', and the annotations span the whole step
+    device_us, calls = device_events(prof, tag)
     total_ms = sum(phases.values())
     dev_ms = sum(device_us.values()) / 1e3
     log(f"{tag} launches on the main path: {launches}")
@@ -816,7 +910,8 @@ def phase_slice(dev, suite, data, rng):
         fail(f"the main path did not launch {missing}")
     seen = {k: calls.get(k + "_kernel", 0) for k in launches}
     if seen != launches:
-        fail(f"the profiler recorded kernel calls {seen}, the counters {launches}")
+        fail(f"the profiler recorded kernel calls {seen}, the counters {launches}; "
+             f"events: { {k + '_kernel': LAST_EVENTS.get(k + '_kernel') for k in launches} }")
 
     # -- checks ---------------------------------------------------------------
     hashes = [t._hash for t in txs]
@@ -883,6 +978,287 @@ def phase_slice(dev, suite, data, rng):
     return launches, phases
 
 
+# ---------------------------------------------------------------------------
+# the ZK plane: standalone field multiplies and batched Poseidon
+# ---------------------------------------------------------------------------
+# A Montgomery product (CIOS) is 2 x 64 + 8 wide multiplies, a product mod
+# secp256k1's p 64 + 8 (FN_MUL, FP_MUL above). Each lane moves int64 limbs:
+# 16 x 8 bytes per operand read and per result written.
+LANE_BYTES = 16 * 8
+
+
+def fp_bound(lanes: int, vectors: int, products: int, column: bool = False):
+    """Bound of `lanes` products moving `vectors` [16]-limb int64 vectors a
+    lane (a [16, 1] column read once more when column=True)."""
+    nbytes = lanes * vectors * LANE_BYTES + (LANE_BYTES if column else 0)
+    bytes_ms = nbytes / H100_BYTES * 1e3
+    ops_ms = ec_bound_ms(lanes * products)
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def fp_fields():
+    from fisco_bcos_tpu_torch.crypto import refimpl
+    from fisco_bcos_tpu_torch.ops import fp
+    from fisco_bcos_tpu_torch.zk import poseidon
+
+    return {"bn254_r": fp.MontField(poseidon.P, "bn254r"),
+            "secp256k1_n": fp.MontField(refimpl.SECP256K1.n),
+            "sm2_p": fp.MontField(refimpl.SM2P256V1.p),
+            "sm2_n": fp.MontField(refimpl.SM2P256V1.n),
+            "secp256k1_p": fp.SolinasField(refimpl.SECP256K1.p)}
+
+
+def fp_lanes(nrng, n: int, B: int, dev, loose: bool = False) -> torch.Tensor:
+    """[16, B] int64 limbs of seeded values below n (a top limb below n's),
+    lanes 0-3 the edges 0, 1, n - 1 and R mod n; loose=True puts every
+    eighth lane in [2n, 2^256) (the to_rep operand when 2n < 2^256)."""
+    from fisco_bcos_tpu_torch.ops import bigint
+
+    limbs = nrng.integers(0, 1 << 16, (16, B), dtype=np.int64)
+    limbs[15] = nrng.integers(0, n >> 240, B)
+    if loose:
+        lo = (2 * n >> 240) + 1
+        limbs[15, 7::8] = nrng.integers(min(lo, 0xFFFF), 1 << 16, len(range(7, B, 8)))
+    for j, v in enumerate((0, 1, n - 1, (1 << 256) % n)):
+        limbs[:, j] = bigint.to_limbs(v)
+    return torch.as_tensor(limbs, device=dev)
+
+
+def phase_fp_kernels(dev):
+    """Kernels D, E, F against the field's mul_plain on the card at the
+    Poseidon path's shapes over five fields, bit-exact. `ms` is the
+    kernel's device time on BN254 r, the Poseidon field
+    (kernel_device_ms); `call_ms`, CUDA events around one call, adds the
+    host's launch through the wrapper and is logged for every field."""
+    from fisco_bcos_tpu_torch.ops import cuda_fp
+
+    nrng = np.random.default_rng(SEED + 3)
+    B = FP_B
+    mism = {"fp_mul": 0, "fp_mul_const": 0, "fp_mul_stacked": 0}
+    err = dict.fromkeys(mism, 0)
+    t, calls, plain, loose_lanes = {}, {}, {}, 0
+    for name, f in fp_fields().items():
+        n = f.n_int
+        loose = name == "bn254_r"
+        a = fp_lanes(nrng, n, B, dev, loose=loose)
+        b = fp_lanes(nrng, n, B, dev)
+        c = b[:, 5:6].contiguous()
+        a9 = torch.stack([a] + [fp_lanes(nrng, n, B, dev, loose=loose) for _ in range(8)])
+        b9 = torch.stack([fp_lanes(nrng, n, B, dev) for _ in range(9)])
+        a3, b3 = a9[:3].contiguous(), b9[:3].contiguous()
+        if loose:
+            hi = a[15] > (2 * n >> 240)
+            loose_lanes = int(hi.sum())
+        cases = {"fp_mul": (cuda_fp.mul, a, b), "fp_mul_const": (cuda_fp.mul_const, a, c),
+                 "fp_mul_stacked": (cuda_fp.mul_stacked, a9, b9),
+                 "fp_mul_stacked_k3": (cuda_fp.mul_stacked, a3, b3)}
+        for k, (fn, x, y) in cases.items():
+            got = fn(f, x, y)
+            want, pms = wall_ms(lambda: f.mul_plain(x, y))
+            row = k.replace("_k3", "")
+            bad = (got != want).any(-2)
+            mism[row] += int(bad.sum())
+            err[row] = max(err[row], int((got - want).abs().max()))
+            calls[name, k] = cuda_ms(lambda: fn(f, x, y), 20)
+            plain[name, k] = pms
+            if loose:
+                t[k] = kernel_device_ms(lambda: fn(f, x, y), f"fp_{fn.__name__}_kernel")
+        log(f"[fp] {name} (B={B}), ms a call by CUDA events: " + ", ".join(
+            f"{k[3:]} {calls[name, k]:.4f}" for k in cases) + f"; mismatched lanes so far {mism}")
+        del a9, b9, a3, b3
+    log(f"[fp] BN254 r loose lanes in [2r, 2^256): {loose_lanes}")
+    if any(mism.values()):
+        fail(f"fp kernel vs plain mismatches: {mism}")
+    log("[fp] bn254_r device ms, L2 evicted before each call: " + ", ".join(
+        f"{k[3:]} {v:.4f}" for k, v in t.items()))
+    pl = {k: plain["bn254_r", k] for k in t}
+    cl = {k: calls["bn254_r", k] for k in t}
+    rows = {}
+    spec = {"fp_mul": ("pallas_fp.py:192", fp_bound(B, 3, FN_MUL), f"[16, {B}] x [16, {B}]"),
+            "fp_mul_const": ("pallas_fp.py:232", fp_bound(B, 2, FN_MUL, column=True),
+                             f"[16, {B}] x [16, 1]"),
+            "fp_mul_stacked": ("pallas_fp.py:269", fp_bound(9 * B, 3, FN_MUL),
+                               f"[9, 16, {B}] x [9, 16, {B}] (K=3: {t['fp_mul_stacked_k3']:.4f} ms, "
+                               f"bound {fp_bound(3 * B, 3, FN_MUL)[0]:.4f} ms, plain "
+                               f"{pl['fp_mul_stacked_k3']:.1f} ms)")}
+    for k, (line, (bound, by), shape) in spec.items():
+        rows[k] = dict(
+            name=k, route="cuda", source="fisco_bcos_tpu_torch/csrc/fp.cu",
+            replaces=f"fisco_bcos_tpu/ops/{line}", mismatches=mism[k], max_abs_err=err[k],
+            ms=t[k], call_ms=cl[k], plain_ms=pl[k], bound_ms=bound, bound_by=by,
+            library_ms=None,
+            shape=f"{shape}, BN254 r; bit-exact on 5 fields",
+            call_ms_by_field={name: calls[name, k] for name in fp_fields()})
+        log(f"[kernel] {k}: {t[k]:.4f} ms device, {cl[k]:.4f} ms a call (plain {pl[k]:.1f} ms), "
+            f"bound {bound:.4f} ms ({by})")
+    return rows
+
+
+def fp_counters() -> dict:
+    from fisco_bcos_tpu_torch.ops import cuda_fp
+
+    return {"fp_mul": cuda_fp.mul, "fp_mul_stacked": cuda_fp.mul_stacked,
+            "fp_mul_const": cuda_fp.mul_const}
+
+
+def poseidon_data():
+    """65,536 seeded pairs with the edge pairs first, 65,536 seeded leaves."""
+    from fisco_bcos_tpu_torch.zk import poseidon
+
+    nrng = np.random.default_rng(SEED + 4)
+    flat = nrng.bytes(32 * 2 * NPAIRS)
+    vals = [flat[32 * i:32 * (i + 1)] for i in range(2 * NPAIRS)]
+    lefts, rights = vals[:NPAIRS], vals[NPAIRS:]
+    r = poseidon.P
+    rm1, r0, rp1 = ((r + d).to_bytes(32, "big") for d in (-1, 0, 1))
+    z, ones = bytes(32), b"\xff" * 32
+    edges = [(z, ones), (ones, z), (z, z), (ones, ones), (rm1, r0), (r0, rp1), (rp1, rm1)]
+    for i, (a, b) in enumerate(edges):
+        lefts[i], rights[i] = a, b
+    flat = nrng.bytes(32 * NLEAVES)
+    leaves = [flat[32 * i:32 * (i + 1)] for i in range(NLEAVES)]
+    return lefts, rights, leaves, len(edges)
+
+
+def _flip(b: bytes) -> bytes:
+    return bytes([b[0] ^ 1]) + b[1:]
+
+
+def tampered_proofs(zm, levels, leaves, rng):
+    """8 proofs that must fail: 3 with the leaf flipped, 3 with a sibling
+    flipped at some level, 2 with the root flipped."""
+    root = levels[-1][0]
+    out = []
+    for j in range(8):
+        i = rng.randrange(len(leaves))
+        proof = zm.proof_from_levels(levels, i)
+        if j < 3:
+            out.append((_flip(leaves[i]), proof, root))
+        elif j < 6:
+            k = rng.randrange(len(proof))
+            left, right, pos = proof[k]
+            proof[k] = (_flip(left), right, pos) if pos else (left, _flip(right), pos)
+            out.append((leaves[i], proof, root))
+        else:
+            out.append((leaves[i], proof, _flip(root)))
+    return out
+
+
+def phase_poseidon(dev, suite, rng):
+    """The ZK plane's slice: counters zeroed before each step and read
+    after, then every result held to the plain path and the oracle."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fisco_bcos_tpu_torch.zk import merkle as zm
+    from fisco_bcos_tpu_torch.zk import poseidon, poseidon_torch as pt
+
+    tag = "[poseidon]"
+    t0 = time.perf_counter()
+    lefts, rights, leaves, nedge = poseidon_data()
+    above = sum(int.from_bytes(v, "big") >= poseidon.P for v in lefts + rights)
+    log(f"{tag} set-up: {NPAIRS} pairs ({above} of {2 * NPAIRS} values above r), "
+        f"{NLEAVES} leaves: {time.perf_counter() - t0:.1f} s")
+    counters = fp_counters()
+    others = {**slice_counters("ecdsa"), **slice_counters("sm")}
+    others_before = {k: fn.launches for k, fn in others.items()}
+    per_chunk = {f"fp_{k}": v for k, v in pt.LAUNCHES_PER_CHUNK.items()}
+    chunks = lambda n: -(-n // pt.CHUNK)  # noqa: E731
+    steps, launches, totals = {}, {}, dict.fromkeys(counters, 0)
+
+    def step(name, fn, nchunks):
+        for c in counters.values():
+            c.launches = 0
+        out, steps[name] = wall_ms(fn)
+        got = {k: c.launches for k, c in counters.items()}
+        launches[name] = got
+        want = {k: per_chunk[k] * nchunks for k in counters}
+        if got != want:
+            fail(f"{name}: fp launches {got}, expected {want} ({nchunks} chunk calls)")
+        for k in totals:
+            totals[k] += got[k]
+        return out
+
+    # -- the main path -----------------------------------------------------
+    # The profiler warms up on a small step and counts the 65,536-pair
+    # step only: the tree's 16 calls would hold ~250k events.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        suite.poseidon_batch(lefts[:128], rights[:128])
+        torch.cuda.synchronize()
+        with record_function(MARK):
+            digests = step("poseidon_batch", lambda: suite.poseidon_batch(lefts, rights),
+                           chunks(NPAIRS))
+    pairs_per_level, m = [], NLEAVES
+    while m > 1:
+        pairs_per_level.append((m + 1) // 2)
+        m = (m + 1) // 2
+    levels = step("tree_build", lambda: zm.build_levels(leaves, hasher=suite.poseidon_batch),
+                  sum(chunks(p) for p in pairs_per_level))
+    root = levels[-1][0]
+    idx = rng.sample(range(NLEAVES), NPROOFS)
+    items = [(leaves[i], zm.proof_from_levels(levels, i), root) for i in idx]
+    ok = step("proof_verify", lambda: zm.verify_batch(items, hasher=suite.poseidon_batch),
+              chunks(NPROOFS * len(pairs_per_level)))
+    bad_items = tampered_proofs(zm, levels, leaves, rng)
+    bad_ok = step("proof_verify_tampered",
+                  lambda: zm.verify_batch(bad_items, hasher=suite.poseidon_batch),
+                  chunks(len(bad_items) * len(pairs_per_level)))
+    moved = {k: fn.launches - others_before[k] for k, fn in others.items()
+             if fn.launches != others_before[k]}
+    if moved:
+        fail(f"{tag} kernels off the Poseidon path launched: {moved}")
+
+    device_us, calls = device_events(prof, tag)
+    seen = {k: calls.get(k + "_kernel", 0) for k in counters}
+    if seen != launches["poseidon_batch"]:
+        fail(f"{tag} the profiler recorded fp kernel calls {seen}, the counters "
+             f"{launches['poseidon_batch']}; fp_mul_const events: "
+             f"{LAST_EVENTS.get('fp_mul_const_kernel')}")
+    fp_us = sum(device_us.get(k + "_kernel", 0) for k in counters)
+    dev_ms = sum(device_us.values()) / 1e3
+    other_calls = sum(c for k, c in calls.items() if not k.endswith("_kernel")
+                      or k[:-7] not in counters)
+    wall = steps["poseidon_batch"]
+    top = {k: (round(v / 1e3, 2), calls[k])
+           for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8]}
+    log(f"{tag} launches per step: {launches}")
+    log(f"{tag} poseidon_batch {NPAIRS} pairs: {wall:.1f} ms wall, "
+        f"{NPAIRS / wall * 1e3:.0f} pairs/s; device {dev_ms:.1f} ms "
+        f"({dev_ms / wall:.1%} of wall): fp kernels {fp_us / 1e3:.1f} ms "
+        f"({sum(launches['poseidon_batch'].values())} launches), everything else "
+        f"{dev_ms - fp_us / 1e3:.1f} ms ({other_calls} device events); "
+        f"largest (ms, calls): {top}")
+    log(f"{tag} tree {NLEAVES} leaves: {steps['tree_build']:.1f} ms wall, "
+        f"{NLEAVES / steps['tree_build'] * 1e3:.0f} leaves/s, {len(pairs_per_level)} level calls")
+    log(f"{tag} verify {NPROOFS} proofs ({NPROOFS * len(pairs_per_level)} pairs): "
+        f"{steps['proof_verify']:.1f} ms wall; 8 tampered: {steps['proof_verify_tampered']:.1f} ms")
+
+    # -- checks --------------------------------------------------------------
+    t0 = time.perf_counter()
+    plain, pms = wall_ms(lambda: pt.hash2_batch(lefts, rights, device=dev, plain=True))
+    bad = sum(a != b for a, b in zip(digests, plain))
+    if bad:
+        fail(f"{tag} {bad} of {NPAIRS} digests differ from the plain path")
+    host = poseidon.hash2_batch_host(lefts[:1024], rights[:1024])
+    if digests[:1024] != host:
+        fail(f"{tag} digests differ from the oracle on the first 1,024 lanes "
+             f"({nedge} edge pairs among them)")
+    plain_levels = zm.build_levels(
+        leaves, hasher=lambda a, b: pt.hash2_batch(a, b, device=dev, plain=True))
+    if plain_levels[-1][0] != root:
+        fail(f"{tag} the {NLEAVES}-leaf root differs from the plain path's")
+    small = leaves[:4096]
+    if zm.root(small, hasher=suite.poseidon_batch) != zm.root(small):
+        fail(f"{tag} the 4,096-leaf root differs from the oracle's")
+    if not ok.all() or len(ok) != NPROOFS:
+        fail(f"{tag} {int((~ok).sum())} of {NPROOFS} proofs failed")
+    if bad_ok.any():
+        fail(f"{tag} {int(bad_ok.sum())} tampered proofs verified")
+    log(f"{tag} checks: {NPAIRS} digests = plain path ({pms:.0f} ms), "
+        f"1,024 = oracle, roots = plain and oracle, {NPROOFS} proofs true, 8 tampered "
+        f"false ({time.perf_counter() - t0:.1f} s); root {root.hex()}")
+    return totals, steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -921,6 +1297,13 @@ def main() -> int:
     rows.update(phase_sm_kernels(dev, sm_data, rng))
     sm_launches, _ = phase_slice(dev, sm_suite, sm_data, rng)
     launches.update(sm_launches)
+    idle = {k: fn.launches for k, fn in fp_counters().items()}
+    if any(idle.values()):
+        fail(f"fp kernels launched during phases 2-5 (the plain EC oracles): {idle}")
+    del sm_data
+    rows.update(phase_fp_kernels(dev))
+    fp_launches, _ = phase_poseidon(dev, suite, rng)
+    launches.update(fp_launches)
     for k, n in launches.items():
         rows[k]["launches"] = n
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -9,6 +9,7 @@ Counterpart of fisco_bcos_tpu/crypto/suite.py, with the same batch API:
     recover_addresses(hashes, sigs)   -> (addresses[N], ok[N])
     hash_batch(msgs)                  -> digest[N]
     merkle_root(leaves)               -> digest
+    poseidon_batch(lefts, rights)     -> digest[N]   (BN254 Poseidon, ZK plane)
 
 `backend` keeps the JAX suite's meaning: "device" always takes the tensor
 path, "host" always the host oracle (here the pure-Python `refimpl` copy),
@@ -32,6 +33,7 @@ import torch
 
 from . import refimpl
 from ..ops import bigint, ec, keccak, merkle, sm3
+from ..zk import poseidon, poseidon_torch
 
 DIGEST = 32
 BUCKETS = (8, 64, 512, 4096, 16384, 65536)
@@ -149,6 +151,22 @@ class CryptoSuite:
         if not self._use_device(len(msgs)):
             return [self._host_hash(m) for m in msgs]
         return [bytes(row) for row in self._hash_np(list(msgs), device=self.device)]
+
+    def poseidon_batch(self, lefts: Sequence[bytes],
+                       rights: Sequence[bytes]) -> list[bytes]:
+        """Batched Poseidon arity-2 compression over the BN254 scalar field
+        (zk/poseidon.py oracle, zk/poseidon_torch.py tensor path), the hash
+        the ZK proof plane builds its Merkle trees from (zk/merkle.py).
+        Inputs are 32-byte big-endian values (reduced mod r on entry);
+        outputs are canonical field elements. Gated as hash_batch is."""
+        n = len(lefts)
+        if len(rights) != n:
+            raise ValueError("poseidon_batch: lefts and rights differ in length")
+        if n == 0:
+            return []
+        if not self._use_device(n):
+            return poseidon.hash2_batch_host(lefts, rights)
+        return poseidon_torch.hash2_batch(lefts, rights, device=self.device)
 
     def merkle_root(self, leaves: Sequence[bytes]) -> bytes:
         """Width-16 Merkle root (the suite's hash) over 32-byte digests."""

@@ -1,11 +1,13 @@
-// The EC kernels' boundary: lane-major [16, B] int32 columns of 16-bit
-// limbs (the JAX package's layout, so adjacent threads read adjacent
-// addresses per limb) to and from 8 x 32-bit words per thread, and the
-// staging of constant affine window tables into shared memory.
+// The kernels' boundary: lane-major [16, B] columns of 16-bit limbs (the
+// JAX package's layout, so adjacent threads read adjacent addresses per
+// limb; int32 for the EC kernels, int64 for the fp kernels) to and from 8 x
+// 32-bit words per thread, and the staging of constant affine window
+// tables into shared memory.
 #pragma once
 #include "bigint.cuh"
 
-__device__ __forceinline__ void load_limbs(u32 w[8], const int32_t *col, int B, int lane) {
+template <class T>
+__device__ __forceinline__ void load_limbs(u32 w[8], const T *col, int B, int lane) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
         u32 lo = (u32)col[(2 * i) * B + lane] & 0xFFFFu;
@@ -14,11 +16,12 @@ __device__ __forceinline__ void load_limbs(u32 w[8], const int32_t *col, int B, 
     }
 }
 
-__device__ __forceinline__ void store_limbs(int32_t *col, int B, int lane, const u32 w[8]) {
+template <class T>
+__device__ __forceinline__ void store_limbs(T *col, int B, int lane, const u32 w[8]) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-        col[(2 * i) * B + lane] = (int32_t)(w[i] & 0xFFFFu);
-        col[(2 * i + 1) * B + lane] = (int32_t)(w[i] >> 16);
+        col[(2 * i) * B + lane] = (T)(w[i] & 0xFFFFu);
+        col[(2 * i + 1) * B + lane] = (T)(w[i] >> 16);
     }
 }
 

@@ -25,7 +25,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("verify", "keccak", "merkle", "sm3", "sm2")
+SOURCES = ("verify", "keccak", "merkle", "sm3", "sm2", "fp")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,11 +42,15 @@ SIGNATURES = {
                "merkle_sm3_level_launch": [_P, _I, _I, _P, _I, _P]},
     "sm3": {"sm3_varlen_launch": [_P, _P, _P, _I, _I, _P]},
     "sm2": {"sm2_verify_launch": [_P] * 7 + [_I, _P]},
+    "fp": {"fp_mul_launch": [_P] * 4 + [_I, _P],
+           "fp_mul_const_launch": [_P] * 4 + [_I, _P],
+           "fp_mul_stacked_launch": [_P] * 4 + [_I, _I, _P]},
 }
 # which blocks of consts.kernel_words() each source's set_consts takes,
 # concatenated in this order
 CONST_BLOCK = {"verify": ("verify",), "keccak": ("keccak",),
-               "merkle": ("keccak", "sm3"), "sm3": ("sm3",), "sm2": ("sm2",)}
+               "merkle": ("keccak", "sm3"), "sm3": ("sm3",), "sm2": ("sm2",),
+               "fp": ("verify",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _CONSTS_SET: set[tuple[str, int]] = set()

@@ -9,7 +9,12 @@ here ever has bit 63 set, so `>>` is a plain logical shift.
 
 This is the plain version of the field layer: the CPU tests hold it
 bit-exact against the JAX package, and `chip_smoke.py` holds the CUDA
-kernels (whose field code is `csrc/field.cuh`) against it on the card.
+kernels (whose field code is `csrc/field.cuh` and `csrc/bigint.cuh`)
+against it on the card. A field built with `kernels=True` (the Poseidon
+field, zk/poseidon_torch.py) sends its CUDA multiplies to the standalone
+kernels of `csrc/fp.cu` (ops/cuda_fp.py) instead, as the JAX package's
+`_FieldBase.mul` sends them to pallas_fp; the curve fields are built
+without, so the plain EC paths stay plain on the card.
 
 Every method keeps the JAX package's canonical invariant: what it returns
 is fully carried and below the modulus, so equality is limb equality.
@@ -150,20 +155,76 @@ def window_digits(a, w: int):
     return torch.stack(digs, dim=-2)
 
 
-class _FieldBase:
-    """Shared modulus plumbing; subclasses define the multiply domain."""
+def _route(kernel: str, field, a, b):
+    """One product by the named fp kernel: for CUDA tensors the csrc/fp.cu
+    launch (ops/cuda_fp), on the CPU its plain version, `mul_plain`."""
+    if a.is_cuda or b.is_cuda:
+        from . import cuda_fp
 
-    def __init__(self, n: int, name: str):
+        return getattr(cuda_fp, kernel)(field, a.contiguous(), b.contiguous())
+    return field.mul_plain(a, b)
+
+
+class _FieldBase:
+    """Shared modulus plumbing; subclasses define the multiply domain
+    (`mul_plain`), `mul` dispatches it."""
+
+    def __init__(self, n: int, name: str, kernels: bool = False):
         self.name = name
         self.n_int = n
         self.limbs = to_limbs(n)
+        self.kernels = kernels
+        self._cols: dict = {}
+        # Every op here is right for any n > 2^253, as in the JAX package
+        # (fisco_bcos_tpu/ops/fp.py:266-277): canonical inputs keep
+        # a + b < 2n < 2^255, and a Montgomery product stays below 2n, so
+        # one conditional subtract makes it canonical, whenever at least
+        # one operand is canonical. Only `reduce_loose` is weaker when
+        # 2n < 2^256 (BN254 r); see there.
         assert n > 1 << (BITS - 3), "modulus must exceed 2^253"
 
     def __repr__(self):
         return f"{type(self).__name__}({self.name})"
 
+    def _c(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        """The limb vector attribute `name` as an int64 [16, 1] column on
+        like's device, copied there once per device: a copy from host
+        memory waits for the device's queue, so one per op would
+        serialize the card."""
+        key = (name, like.device)
+        c = self._cols.get(key)
+        if c is None:
+            c = self._cols[key] = col(getattr(self, name), like)
+        return c
+
     def _n(self, like):
-        return col(self.limbs, like)
+        return self._c("limbs", like)
+
+    def mul(self, a, b):
+        """a * b in the field's domain. A field built with kernels=True
+        routes by shape as fisco_bcos_tpu/ops/fp.py:280-309 routes to
+        pallas_fp: a 2-D [16, B] against a [16, 1] column, in either
+        order, to `mul_const`; otherwise both operands broadcast to one
+        shape, and a 2-D result goes to `mul`, a stacked [..., 16, B] one
+        to `mul_stacked` with its leading axes collapsed. CUDA tensors
+        launch the csrc/fp.cu kernels (any B, where the TPU kernels need
+        a multiple of 128); CPU tensors run `mul_plain`. Every other field
+        runs `mul_plain`."""
+        if not self.kernels:
+            return self.mul_plain(a, b)
+        if a.dim() == 2 and b.dim() == 2:
+            if tuple(b.shape) == (NLIMBS, 1):
+                return _route("mul_const", self, a, b)
+            if tuple(a.shape) == (NLIMBS, 1):
+                return _route("mul_const", self, b, a)
+        if a.shape != b.shape:
+            a, b = torch.broadcast_tensors(a, b)
+        if a.dim() == 2:
+            return _route("mul", self, a, b)
+        tail = tuple(a.shape[-2:])
+        out = _route("mul_stacked", self, a.reshape((-1,) + tail),
+                     b.reshape((-1,) + tail))
+        return out.reshape(a.shape)
 
     def add(self, a, b):
         s, c = add_limbs(a, b)
@@ -180,8 +241,12 @@ class _FieldBase:
         return select(is_zero(a), a, d)
 
     def reduce_loose(self, a):
-        """One conditional subtract: any exact-limb value < 2^256 becomes
-        canonical (every curve field has 2n > 2^256)."""
+        """One conditional subtract of n from an exact-limb value < 2^256.
+        When 2n > 2^256 (every curve field) the result is canonical (< n).
+        For a smaller modulus (BN254 r ~ 2^253.8) it is merely below
+        2^256 - n, which may still exceed n, up to about 4.3n: callers
+        there must take a loose value, as MontField.to_rep does (its one
+        product against the canonical R^2 mod n is canonical)."""
         d, brw = sub_limbs(a, self._n(a))
         return select(brw == 0, d, a)
 
@@ -238,8 +303,8 @@ class SolinasField(_FieldBase):
     bit and one conditional subtract.
     """
 
-    def __init__(self, p: int, name: str = "solinas"):
-        super().__init__(p, name)
+    def __init__(self, p: int, name: str = "solinas", kernels: bool = False):
+        super().__init__(p, name, kernels)
         c = (1 << BITS) - p
         assert 0 < c < 1 << (3 * LIMB_BITS)
         self.c_int = c
@@ -256,7 +321,7 @@ class SolinasField(_FieldBase):
             out = out + _pad(top * coef, sh, NLIMBS - ntop - sh)
         return out
 
-    def mul(self, a, b):
+    def mul_plain(self, a, b):
         cols = mul_wide(a, b)
         low, high = cols[..., :NLIMBS, :], cols[..., NLIMBS:, :]
         t = _pad(low, 0, 2)
@@ -289,20 +354,22 @@ class SolinasField(_FieldBase):
 class MontField(_FieldBase):
     """Generic odd 256-bit modulus; Montgomery domain with R = 2^256."""
 
-    def __init__(self, n: int, name: str = "mont"):
-        super().__init__(n, name)
+    def __init__(self, n: int, name: str = "mont", kernels: bool = False):
+        super().__init__(n, name, kernels)
         assert n % 2 == 1
         self.r_int = (1 << BITS) % n
         self.r2 = to_limbs(pow(self.r_int, 2, n))
         self.nprime = to_limbs((-pow(n, -1, 1 << BITS)) % (1 << BITS))
         self.one_m = to_limbs(self.r_int)
+        self.unit = to_limbs(1)
 
-    def mul(self, a, b):
-        """REDC(a*b) for Montgomery-domain inputs, one of them canonical."""
+    def mul_plain(self, a, b):
+        """REDC(a*b) for Montgomery-domain inputs, one of them canonical
+        (the other need only be < 2^256)."""
         n = self._n(a)
         z, _ = carry_prop(mul_wide(a, b), 2 * NLIMBS)
         m, _ = carry_prop(mul_wide(z[..., :NLIMBS, :],
-                                   col(self.nprime, a))[..., :NLIMBS, :],
+                                   self._c("nprime", a))[..., :NLIMBS, :],
                           NLIMBS)
         s, o = carry_prop(mul_wide(m, n) + z, 2 * NLIMBS)
         hi = s[..., NLIMBS:, :]
@@ -310,17 +377,16 @@ class MontField(_FieldBase):
         return select((o == 1) | (brw == 0), d, hi)
 
     def one_rep(self, like):
-        return col(self.one_m, like).expand_as(like).clone()
+        return self._c("one_m", like).expand_as(like).clone()
 
     def encode_int(self, v: int) -> np.ndarray:
         return to_limbs(v % self.n_int * self.r_int % self.n_int)
 
     def to_rep(self, a):
-        """Exact-limb value < 2^256 -> Montgomery domain (canonical)."""
-        return self.mul(self.reduce_loose(a), col(self.r2, a))
+        """Exact-limb value < 2^256 -> Montgomery domain (canonical, also
+        when reduce_loose leaves it loose: R^2 mod n is canonical)."""
+        return self.mul(self.reduce_loose(a), self._c("r2", a))
 
     def from_rep(self, a):
         """Montgomery domain -> plain canonical integer limbs."""
-        one = np.zeros((NLIMBS,), np.int64)
-        one[0] = 1
-        return self.mul(a, col(one, a))
+        return self.mul(a, self._c("unit", a))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (slice 1: recover, verify, Keccak, Keccak
-Merkle level; the SM chain: SM3, SM3 Merkle level, SM2 verify) against
+Merkle level; the SM chain: SM3, SM3 Merkle level, SM2 verify; the ZK
+plane: the standalone field multiplies under batched Poseidon) against
 their plain PyTorch versions, on the card. Marked `cuda`; every test skips (inside the fixture) where
 torch.cuda.is_available() is false. On a machine with a card:
 
@@ -14,8 +15,9 @@ import torch
 
 from fisco_bcos_tpu_torch.crypto import refimpl
 from fisco_bcos_tpu_torch.crypto.suite import make_suite
-from fisco_bcos_tpu_torch.ops import (bigint, cuda_hash, cuda_merkle, cuda_sm3,
-                                      cuda_verify, ec, keccak, merkle, sm3)
+from fisco_bcos_tpu_torch.ops import (bigint, cuda_fp, cuda_hash, cuda_merkle, cuda_sm3,
+                                      cuda_verify, ec, fp, keccak, merkle, sm3)
+from fisco_bcos_tpu_torch.zk import poseidon, poseidon_torch
 import test_torch_vectors as vectors  # tests/ is on sys.path under pytest
 
 pytestmark = pytest.mark.cuda
@@ -171,3 +173,75 @@ def test_sm_suite_on_card_matches_cpu_path(dev):
     assert ga == ca and (gok == cok).all() and gok.any()
     assert gpu.hash_batch(digests) == cpu.hash_batch(digests)
     assert gpu.merkle_root(digests) == cpu.merkle_root(digests)
+
+
+# -- kernels D, E, F: the standalone field multiplies (csrc/fp.cu) ----------
+
+FP_FIELDS = {
+    "bn254_r": (fp.MontField, poseidon.P),
+    "secp_p": (fp.SolinasField, refimpl.SECP256K1.p),
+    "secp_n": (fp.MontField, refimpl.SECP256K1.n),
+    "sm2_p": (fp.MontField, refimpl.SM2P256V1.p),
+    "sm2_n": (fp.MontField, refimpl.SM2P256V1.n),
+}
+
+
+def _fp_lanes(mod, B, seed, dev, loose=False):
+    """B seeded canonical lanes, edge lanes 0, 1, n - 1 and R mod n first;
+    loose=True puts values in [min(2n, n), 2^256) in every eighth lane."""
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(32), "big") % mod for _ in range(B)]
+    vals[:4] = [0, 1, mod - 1, (1 << 256) % mod]
+    if loose:
+        lo = min(2 * mod, (1 << 256) - 1)
+        for i in range(7, B, 8):
+            vals[i] = lo + int.from_bytes(rng.bytes(32), "big") % ((1 << 256) - lo)
+    return _lane(vals, dev)
+
+
+@pytest.mark.parametrize("name", sorted(FP_FIELDS))
+def test_fp_kernels_match_plain(dev, name):
+    mk, mod = FP_FIELDS[name]
+    f = mk(mod)
+    B = 4096
+    a, b = _fp_lanes(mod, B, 1, dev, loose=True), _fp_lanes(mod, B, 2, dev)
+    n0 = (cuda_fp.mul.launches, cuda_fp.mul_const.launches, cuda_fp.mul_stacked.launches)
+    assert torch.equal(cuda_fp.mul(f, a, b), f.mul_plain(a, b))
+    c = b[:, 5:6].contiguous()
+    assert torch.equal(cuda_fp.mul_const(f, a, c), f.mul_plain(a, c))
+    a3 = torch.stack([a, b, a.flip(-1)])
+    b3 = torch.stack([b, b.flip(-1), b]).contiguous()
+    assert torch.equal(cuda_fp.mul_stacked(f, a3, b3), f.mul_plain(a3, b3))
+    assert (cuda_fp.mul.launches, cuda_fp.mul_const.launches,
+            cuda_fp.mul_stacked.launches) == tuple(x + 1 for x in n0)
+
+
+def test_poseidon_batch_on_card_matches_plain_and_oracle(dev):
+    rng = np.random.default_rng(41)
+    lefts = [rng.bytes(32) for _ in range(4096)]
+    rights = [rng.bytes(32) for _ in range(4096)]
+    lefts[0], rights[0] = b"\x00" * 32, b"\xff" * 32
+    counters = (cuda_fp.mul, cuda_fp.mul_stacked, cuda_fp.mul_const)
+    for fn in counters:
+        fn.launches = 0
+    got = make_suite().poseidon_batch(lefts, rights)
+    assert [fn.launches for fn in counters] == [
+        poseidon_torch.LAUNCHES_PER_CHUNK[k] for k in ("mul", "mul_stacked", "mul_const")]
+    assert got == poseidon_torch.hash2_batch(lefts, rights, device=dev, plain=True)
+    assert got[:16] == poseidon.hash2_batch_host(lefts[:16], rights[:16])
+
+
+def test_fp_wrappers_reject_what_the_kernels_do_not_take(dev):
+    f = fp.MontField(poseidon.P, kernels=True)
+    a = torch.zeros((16, 8), dtype=torch.int64, device=dev)
+    bad = {"dtype": a.int(), "shape": a[:8].contiguous(), "device": a.cpu(),
+           "layout": torch.zeros((8, 16), dtype=torch.int64, device=dev).t()}
+    for b in bad.values():
+        with pytest.raises(ValueError):
+            cuda_fp.mul(f, a, b)
+    with pytest.raises(ValueError):
+        cuda_fp.mul_const(f, a, a)  # not a [16, 1] column
+    with pytest.raises(ValueError):
+        cuda_fp.mul_stacked(f, a, a)  # not [K, 16, B]
+    with pytest.raises(ValueError):
+        cuda_fp.mul(fp.SolinasField((1 << 256) - 189), a, a)

@@ -20,6 +20,18 @@ from fisco_bcos_tpu_torch.crypto import refimpl
 from fisco_bcos_tpu_torch.ops import bigint, consts, ec
 import test_torch_vectors as vectors  # tests/ is on sys.path under pytest
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These tests run thousands of small tensor ops: one intra-op thread,
+    so that test workers sharing the cores do not stall at every op's
+    thread barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 S = refimpl.SM2P256V1
 KEYS = ("e", "r", "s", "qx", "qy")
 

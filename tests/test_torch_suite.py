@@ -14,6 +14,18 @@ from fisco_bcos_tpu.protocol import types as JT
 from fisco_bcos_tpu_torch.crypto import suite as psuite
 from fisco_bcos_tpu_torch.protocol import types as PT
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """These tests run thousands of small tensor ops: one intra-op thread,
+    so that test workers sharing the cores do not stall at every op's
+    thread barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parent.parent
 
 
