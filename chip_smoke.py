@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's crypto paths on one NVIDIA card: the
 default chain (secp256k1 + Keccak-256), the SM chain (SM2 + SM3) and the
-ZK plane's batched Poseidon (BN254).
+ZK plane's batched Poseidon (BN254), then both chains again on the
+composed EC route.
 
     python3 chip_smoke.py
 
@@ -29,8 +30,9 @@ version or to the CPU):
 5. The SM chain's slice as in 3, on make_suite(sm_crypto=True): the same
    payloads, every tx signed with SM2 over its own payload by one of 16
    senders (so every lane is valid before corruption), seals signed by 4
-   sealers. The fp kernels' counters must still be 0 here: the plain EC
-   versions that phases 2 and 4 ran as oracles launch no fp kernel.
+   sealers. The fp, pow and ladder kernels' counters must still be 0
+   here: the plain EC versions that phases 2 and 4 ran as oracles launch
+   none of them.
 6. The standalone field multiplies (csrc/fp.cu) against their plain
    version (the field's mul_plain) on the card, bit-exact, at the Poseidon
    path's shapes (mul and mul_const at [16, 65536], mul_stacked at
@@ -46,6 +48,24 @@ version or to the CPU):
    call and no other kernel's counter may move; the profiler (warmed up
    on a small step) records the 65,536-pair step, whose kernel calls must
    equal the counters.
+8. The pow kernel (csrc/fp.cu) against the plain window loop on the
+   card, bit-exact, at [16, 16,384] and [16, 1]: (p+1)/4 on secp256k1's
+   p, n - 2 on secp256k1's and SM2's n, p - 2 on SM2's p, with edge lanes
+   0, 1, n - 1 and R mod n.
+9. The ladder kernel (csrc/ladder.cu) against ec.ladder_plain on the card
+   at 16,384 lanes in both forms (GLV on secp256k1, plain on SM2),
+   Jacobian bit-exact, on the edge lanes of ec.LADDER_EDGES (zero
+   scalars, Q = +-G at k1 = k2, an off-curve Q with Z = 0 table entries,
+   the last G add doubling and cancelling) and flipped sign flags; 32
+   lanes held to the oracle k1 G + k2 Q.
+10. The composed EC route: the blocks and seal spans of phases 3 and 5
+   again, through make_suite(ec_route="composed") and
+   make_suite(sm_crypto=True, ec_route="composed") by the same checks,
+   whose senders, ok masks, roots and seal verdicts must be identical to
+   the fused route's; one ladder a chunk call, 3 pows a recovery chunk and
+   1 a secp256k1 verify chunk (none on the SM chain), the fused EC
+   kernels' counters 0, and the profiler's kernel calls equal to the
+   counters.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -839,29 +859,45 @@ def build_slice(suite, rng):
                 seal_p=seal_p, dg=dg, sg=sg, pb=pb, seal_bad=seal_bad)
 
 
-def slice_counters(kind: str) -> dict:
-    """The launch counters of the kernels on a suite's main path."""
+def slice_counters(kind: str, route: str = "fused") -> dict:
+    """The launch counters of the kernels on a suite's main path: on the
+    composed EC route the fp, pow and ladder kernels take the fused EC
+    kernel's place (whose counter is then expected to stay 0)."""
     from fisco_bcos_tpu_torch.ops import cuda_hash, cuda_merkle, cuda_sm3, cuda_verify
 
     if kind == "ecdsa":
-        return {"ecdsa_recover": cuda_verify.ecdsa_recover,
-                "ecdsa_verify": cuda_verify.ecdsa_verify,
-                "keccak256_varlen": cuda_hash.keccak256_varlen,
-                "merkle_keccak_level": cuda_merkle.merkle_level}
-    return {"sm2_verify": cuda_verify.sm2_verify,
-            "sm3_varlen": cuda_sm3.sm3_varlen,
-            "merkle_sm3_level": cuda_merkle.merkle_sm3_level}
+        ec_k = {"ecdsa_recover": cuda_verify.ecdsa_recover,
+                "ecdsa_verify": cuda_verify.ecdsa_verify}
+        hashes = {"keccak256_varlen": cuda_hash.keccak256_varlen,
+                  "merkle_keccak_level": cuda_merkle.merkle_level}
+    else:
+        ec_k = {"sm2_verify": cuda_verify.sm2_verify}
+        hashes = {"sm3_varlen": cuda_sm3.sm3_varlen,
+                  "merkle_sm3_level": cuda_merkle.merkle_sm3_level}
+    if route == "fused":
+        return {**ec_k, **hashes}
+    return {**ec_k, **hashes, **composed_counters()}
 
 
-def phase_slice(dev, suite, data, rng):
+def composed_counters() -> dict:
+    from fisco_bcos_tpu_torch.ops import cuda_ec, cuda_fp
+
+    return {"ladder": cuda_ec.ladder, "fp_pow": cuda_fp.pow_const, **fp_counters()}
+
+
+def phase_slice(dev, suite, data, rng, expect=None):
     """Drive the main path on `data` through the protocol entry points,
     with the suite's launch counters zeroed just before and read just
-    after, then hold what came out to the oracle and the plain path."""
+    after, then hold what came out to the oracle and the plain path.
+    expect: counters whose launches must equal a number (0 for a kernel
+    off the route); every other counter must have launched. -> (launches,
+    phase walls, results: senders, ok mask, roots, seal verdicts)."""
     from fisco_bcos_tpu_torch.crypto import refimpl
     from fisco_bcos_tpu_torch.ops import keccak, merkle, sm3
     from fisco_bcos_tpu_torch.protocol import types as T
 
-    kind, tag = suite.kind, f"[slice {suite.kind}]"
+    kind = suite.kind
+    tag = f"[slice {kind}{'' if suite.ec_route == 'fused' else ' ' + suite.ec_route}]"
     txs, receipts, block = data["txs"], data["receipts"], data["block"]
     dg, sg, pb, seal_bad = data["dg"], data["sg"], data["pb"], data["seal_bad"]
     corrupt, kps = data["corrupt"], data["kps"]
@@ -871,7 +907,8 @@ def phase_slice(dev, suite, data, rng):
     # The profiler warms up on one small step through the same kernels,
     # whose events device_events leaves out: a session's first events can
     # go missing (seen in the second session of a process).
-    counters = slice_counters(kind)
+    counters = slice_counters(kind, suite.ec_route)
+    expect = expect or {}
     phases = {}
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -905,9 +942,12 @@ def phase_slice(dev, suite, data, rng):
             f"(host {total_ms - dev_ms:.1f} ms); largest by kernel (us, calls): {top}")
     else:
         log(f"{tag} device kernel time: not measured (profiler saw no kernels)")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items() if n == 0 and k not in expect]
     if missing:
-        fail(f"the main path did not launch {missing}")
+        fail(f"{tag} the main path did not launch {missing}")
+    off = {k: (launches[k], n) for k, n in expect.items() if launches[k] != n}
+    if off:
+        fail(f"{tag} launches (counted, expected) off the route's: {off}")
     seen = {k: calls.get(k + "_kernel", 0) for k in launches}
     if seen != launches:
         fail(f"the profiler recorded kernel calls {seen}, the counters {launches}; "
@@ -934,8 +974,13 @@ def phase_slice(dev, suite, data, rng):
             bad += 1
     checked = set(range(own)) | set(corrupt)
     sample = rng.sample([i for i in range(NSIGNED, NTX) if i not in corrupt], 64)
+    # the oracle's verdicts are kept on `data`: a second run over the same
+    # block (the composed route) is held to the same, not recomputed
+    oracle = data.setdefault("oracle", {})
     for i in sorted(set(corrupt) | set(sample)):
-        want = oracle_sender(kind, hashes[i], txs[i].signature)
+        if ("sender", i) not in oracle:
+            oracle["sender", i] = oracle_sender(kind, hashes[i], txs[i].signature)
+        want = oracle["sender", i]
         if senders[i] != want or bool(ok[i]) != (want is not None):
             bad += 1
     if bad:
@@ -962,7 +1007,9 @@ def phase_slice(dev, suite, data, rng):
     bad = 0
     for i in range(NSEAL):
         if i in seal_bad:
-            want = oracle_verify(kind, pb[i], dg[i], sg[i])
+            if ("seal", i) not in oracle:
+                oracle["seal", i] = oracle_verify(kind, pb[i], dg[i], sg[i])
+            want = oracle["seal", i]
         else:
             want = True  # a signature the oracle made, over its own digest
         bad += bool(seal_ok[i]) != want
@@ -975,7 +1022,9 @@ def phase_slice(dev, suite, data, rng):
     log(f"{tag} seals: {NSEAL} lanes, {len(seal_bad)} corrupted, "
         f"{int(seal_ok.sum())} accepted; all agree with the oracle")
     log(f"{tag} txs root {txs_root.hex()} receipts root {rc_root.hex()}")
-    return launches, phases
+    results = dict(senders=senders, ok=np.asarray(ok), txs_root=txs_root,
+                   receipts_root=rc_root, seal_ok=np.asarray(seal_ok))
+    return launches, phases, results
 
 
 # ---------------------------------------------------------------------------
@@ -1259,6 +1308,214 @@ def phase_poseidon(dev, suite, rng):
     return totals, steps
 
 
+# ---------------------------------------------------------------------------
+# the composed EC route: kernels G (pow) and H (ladder), then both blocks
+# ---------------------------------------------------------------------------
+# Products a ladder needs: a window table entry past 2Q adds Q (Z = 1), a
+# mixed add; each step 4 doublings; a G entry (Z = 1) a mixed add, a Q
+# entry a full add (a mixed one for entry 1).
+JAC_ADD, MIXED_ADD = 16, 11
+DBL = {"secp256k1": 7, "sm2p256v1": SM2_DBL}
+
+
+def pow_cases():
+    """Kernel G's fields and exponents on the composed route: recovery's
+    square root, and the inversions' n - 2 and p - 2."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+    from fisco_bcos_tpu_torch.ops import fp
+
+    c, m = refimpl.SECP256K1, refimpl.SM2P256V1
+    return [("secp256k1_p", fp.SolinasField(c.p), (c.p + 1) // 4, FP_MUL),
+            ("secp256k1_n", fp.MontField(c.n), c.n - 2, FN_MUL),
+            ("sm2_n", fp.MontField(m.n), m.n - 2, FN_MUL),
+            ("sm2_p", fp.MontField(m.p), m.p - 2, sm2_fp_mul())]
+
+
+def phase_pow_kernel(dev):
+    """(8) Kernel G against the plain window loop (a field built without
+    kernels) on the card, bit-exact, at [16, EC_B] and [16, 1], lanes 0-3
+    the edges 0, 1, n - 1 and R mod n. `ms` is the device time at
+    (p+1)/4 on secp256k1's p, recovery's square root (kernel_device_ms);
+    `one_lane_ms` the device time of a [16, 1] launch, bound by the
+    latency of its dependent products."""
+    from fisco_bcos_tpu_torch.ops import cuda_fp, fp
+
+    nrng = np.random.default_rng(SEED + 5)
+    mism, err, row = 0, 0, None
+    for name, f, e, mul_slots in pow_cases():
+        a = fp_lanes(nrng, f.n_int, EC_B, dev)
+        one = a[:, 2:3].contiguous()  # n - 1
+        got = cuda_fp.pow_const(f, a, e)
+        want, pms = wall_ms(lambda: f.pow_const(a, e))
+        got1 = cuda_fp.pow_const(f, one, e)
+        bad = int((got != want).any(0).sum()) + int((got1 != want[:, 2:3]).any())
+        mism += bad
+        err = max(err, int((got - want).abs().max()), int((got1 - want[:, 2:3]).abs().max()))
+        call = cuda_ms(lambda: cuda_fp.pow_const(f, a, e), 20)
+        log(f"[pow] {name} e={'(p+1)/4' if name == 'secp256k1_p' else 'm-2'} "
+            f"({len(fp.msb_digits(e))} digits): mismatched lanes {bad}, {call:.4f} ms a call "
+            f"[16, {EC_B}] (plain {pms:.1f} ms)")
+        if row is None:
+            ms = kernel_device_ms(lambda: cuda_fp.pow_const(f, a, e), "fp_pow_kernel")
+            ms1 = kernel_device_ms(lambda: cuda_fp.pow_const(f, one, e), "fp_pow_kernel")
+            prods = _pow_muls(e)
+            ops_ms = ec_bound_ms(EC_B * prods * mul_slots)
+            bytes_ms = EC_B * 2 * LANE_BYTES / H100_BYTES * 1e3
+            bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+            row = dict(
+                name="fp_pow", route="cuda", source="fisco_bcos_tpu_torch/csrc/fp.cu",
+                replaces="fisco_bcos_tpu/ops/pallas_fp.py:345", ms=ms, call_ms=call,
+                one_lane_ms=ms1, plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
+                shape=f"[16, {EC_B}], e=(p+1)/4 on secp256k1 p ({prods} products a lane); "
+                      f"bit-exact on 4 fields and at [16, 1]")
+            log(f"[kernel] fp_pow: {ms:.4f} ms device, {call:.4f} ms a call (plain "
+                f"{pms:.1f} ms), bound {bound:.4f} ms ({by}); one lane {ms1:.4f} ms device "
+                f"(latency of {14 + 5 * (len(fp.msb_digits(e)) - 1)} dependent products)")
+    if mism:
+        fail(f"pow kernel vs plain mismatches: {mism}")
+    row.update(mismatches=mism, max_abs_err=err)
+    return {"fp_pow": row}
+
+
+def ladder_scalars(c, nrng, B: int):
+    """B lanes of canonical scalars k1, k2 and affine keys Q (64 seeded
+    keys, tiled), lanes 0-8 the port's edge lanes (ec.LADDER_EDGES)."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+    from fisco_bcos_tpu_torch.ops import ec
+
+    keys = [refimpl.keygen(c, seed=b"ladder" + bytes([i]))[1] for i in range(64)]
+    flat = nrng.bytes(64 * B)
+    k1 = [int.from_bytes(flat[64 * i:64 * i + 32], "big") % c.n for i in range(B)]
+    k2 = [int.from_bytes(flat[64 * i + 32:64 * i + 64], "big") % c.n for i in range(B)]
+    qx, qy = [keys[i % 64][0] for i in range(B)], [keys[i % 64][1] for i in range(B)]
+    return ec.ladder_edge_lanes(c, k1, k2, qx, qy)
+
+
+def ladder_products(cv, nsteps: int, digs, skip: int) -> int:
+    """Products mod p that a ladder launch needs for these digits, over
+    lanes skip.. (the edge lanes before `skip` are counted at none, since
+    their cancellations leave the accumulator at infinity): per pair the
+    window table up to its largest Q digit m (2Q a doubling, then m - 2
+    mixed adds); from a lane's first nonzero digit on, whose add is a copy
+    onto infinity, 4 doublings a step and an add per nonzero digit."""
+    n_pairs, dbl = digs.shape[0] // 2, DBL[cv.params.name]
+    d = digs[:, :, skip:].long()
+    m = d[1::2].amax(1)
+    table = int(torch.where(m >= 2, dbl + (m - 2) * MIXED_ADD, 0).sum())
+    cost = torch.where(d == 0, 0, MIXED_ADD)
+    cost[1::2] = torch.where(d[1::2] >= 2, JAC_ADD, cost[1::2])
+    seq = cost.transpose(0, 1).reshape(nsteps * 2 * n_pairs, -1)  # add order
+    nz = seq != 0
+    first = nz.int().argmax(0)
+    live = nz.any(0)
+    adds = seq.sum(0) - seq.gather(0, first[None])[0]
+    dbls = torch.where(live, 4 * (nsteps - 1 - first // (2 * n_pairs)), 0) * dbl
+    return table + int((adds + dbls).sum())
+
+
+def phase_ladder_kernel(dev, rng):
+    """(9) Kernel H against ladder_plain on the card at EC_B lanes in both
+    forms (GLV on secp256k1, plain Shamir on SM2), Jacobian bit-exact, on
+    ladder_scalars' lanes with the sign flags of every fourth lane from 9
+    flipped; 32 on-curve lanes with their own flags held to the oracle
+    k1 G + k2 Q, the edge lanes among them."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+    from fisco_bcos_tpu_torch.ops import bigint, cuda_ec, ec
+
+    nrng = np.random.default_rng(SEED + 6)
+    rows, mism, err = {}, 0, 0
+    times = {}
+    for cv in (ec.SECP256K1, ec.SM2P256V1):
+        c, f = cv.params, cv.fp
+        k1, k2, qx, qy = ladder_scalars(c, nrng, EC_B)
+        nsteps, gts, digs, negs, qp = ec.ladder_inputs(
+            cv, lane(k1, dev), lane(k2, dev), f.to_rep(lane(qx, dev)), f.to_rep(lane(qy, dev)))
+        flip = torch.zeros_like(negs)
+        flip[:, 9::4] = torch.as_tensor(nrng.integers(0, 2, flip[:, 9::4].shape),
+                                        dtype=flip.dtype, device=dev)
+        negs = negs ^ flip
+        got = cuda_ec.ladder(cv, nsteps, gts, digs, negs, qp)
+        want, pms = wall_ms(lambda: ec.ladder_plain(cv, nsteps, gts, digs, negs, qp))
+        bad = int((got != want).any(0).any(0).sum())
+        mism += bad
+        err = max(err, int((got - want).abs().max()))
+        # the oracle on on-curve lanes whose flags are the split's own
+        X, Y, Z = (f.from_rep(got[i]).cpu() for i in range(3))
+        oracle_bad = 0
+        for i in [3, 4, 6, 7, 8] + list(range(10, EC_B, 4))[:27]:
+            want_pt = refimpl.ec_add(c, refimpl.ec_mul(c, k1[i], (c.gx, c.gy)),
+                                     refimpl.ec_mul(c, k2[i], (qx[i], qy[i])))
+            z = bigint.from_limbs(Z[:, i].numpy())
+            if z == 0:
+                oracle_bad += want_pt is not None
+                continue
+            zi = pow(z, -1, c.p)
+            pt = (bigint.from_limbs(X[:, i].numpy()) * zi * zi % c.p,
+                  bigint.from_limbs(Y[:, i].numpy()) * zi ** 3 % c.p)
+            oracle_bad += pt != want_pt
+        mism += oracle_bad
+        ms = cuda_ms(lambda: cuda_ec.ladder(cv, nsteps, gts, digs, negs, qp), 5)
+        skip = len(ec.LADDER_EDGES)
+        prods = ladder_products(cv, nsteps, digs, skip)
+        slots = FP_MUL if cv.has_endo else sm2_fp_mul()
+        bound = ec_bound_ms(prods * slots)
+        times[c.name] = dict(ms=ms, plain_ms=pms, bound_ms=bound, products=prods)
+        form = "GLV, 2 pairs" if cv.has_endo else "plain, 1 pair"
+        log(f"[kernel] ladder {c.name} ({form}, {nsteps} steps) B={EC_B}: mismatched lanes "
+            f"{bad}, oracle misses {oracle_bad} of 32, {ms:.3f} ms (plain {pms:.0f} ms), "
+            f"bound {bound:.4f} ms ({prods / (EC_B - skip):.0f} products a lane), "
+            f"infinity lanes {int((want[2] == 0).all(0).sum())}")
+    if mism:
+        fail(f"ladder kernel vs plain or oracle mismatches: {mism}")
+    g, m = times["secp256k1"], times["sm2p256v1"]
+    rows["ladder"] = dict(
+        name="ladder", route="cuda", source="fisco_bcos_tpu_torch/csrc/ladder.cu",
+        replaces="fisco_bcos_tpu/ops/pallas_ec.py:310", mismatches=0, max_abs_err=err,
+        ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"], bound_by="operations",
+        library_ms=None, sm2_ms=m["ms"], sm2_plain_ms=m["plain_ms"],
+        sm2_bound_ms=m["bound_ms"],
+        shape=f"B={EC_B}, GLV form on secp256k1 (SM2 plain form: {m['ms']:.3f} ms, "
+              f"bound {m['bound_ms']:.4f} ms)")
+    return rows
+
+
+def reset_caches(data) -> None:
+    """Drop the hashes and senders phase_slice cached on the block, so a
+    second run computes them again."""
+    for t in data["txs"]:
+        object.__setattr__(t, "_hash", None)
+        object.__setattr__(t, "_sender", None)
+    for r in data["receipts"]:
+        r._hash = None
+
+
+def phase_composed(dev, kind: str, data, fused: dict, rng):
+    """(10) The composed EC route's slice: the same block and seal span
+    through make_suite(..., ec_route="composed") by phase_slice, whose
+    results must be identical to the fused route's. Launches: one ladder
+    a chunk call; pow 3 a recovery chunk (square root, two inversion
+    roots), 1 a secp256k1 verify chunk, 0 on the SM chain; the fused EC
+    kernels' counters 0."""
+    from fisco_bcos_tpu_torch.crypto.suite import CHUNK, make_suite
+
+    suite = make_suite(sm_crypto=kind == "sm", ec_route="composed")
+    reset_caches(data)
+    chunks = -(-NTX // CHUNK) + -(-NSEAL // CHUNK)
+    if kind == "ecdsa":
+        expect = {"ecdsa_recover": 0, "ecdsa_verify": 0, "ladder": chunks,
+                  "fp_pow": 3 * -(-NTX // CHUNK) + -(-NSEAL // CHUNK)}
+    else:
+        expect = {"sm2_verify": 0, "ladder": chunks, "fp_pow": 0, "fp_mul_stacked": 0}
+    launches, phases, res = phase_slice(dev, suite, data, rng, expect)
+    diff = [k for k in res if not (np.array_equal(res[k], fused[k]) if isinstance(res[k], np.ndarray)
+                                   else res[k] == fused[k])]
+    if diff:
+        fail(f"[slice {kind} composed] results differ from the fused route's: {diff}")
+    log(f"[slice {kind} composed] senders, ok mask, roots and seal verdicts identical to "
+        f"the fused route's")
+    return launches, phases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1291,21 +1548,31 @@ def main() -> int:
     log(f"[kernel] 256 host signatures for the kernel inputs: "
         f"{time.perf_counter() - t0:.1f} s")
     rows = phase_kernels(dev, signed, rng)
-    launches, _ = phase_slice(dev, suite, build_slice(suite, rng), rng)
+    data = build_slice(suite, rng)
+    launches, _, fused = phase_slice(dev, suite, data, rng)
     sm_suite = make_suite(sm_crypto=True)
     sm_data = build_slice(sm_suite, rng)
     rows.update(phase_sm_kernels(dev, sm_data, rng))
-    sm_launches, _ = phase_slice(dev, sm_suite, sm_data, rng)
+    sm_launches, _, sm_fused = phase_slice(dev, sm_suite, sm_data, rng)
     launches.update(sm_launches)
-    idle = {k: fn.launches for k, fn in fp_counters().items()}
+    idle = {k: fn.launches for k, fn in composed_counters().items()}
     if any(idle.values()):
-        fail(f"fp kernels launched during phases 2-5 (the plain EC oracles): {idle}")
-    del sm_data
+        fail(f"fp, pow or ladder kernels launched during phases 2-5 (the plain EC "
+             f"oracles): {idle}")
     rows.update(phase_fp_kernels(dev))
     fp_launches, _ = phase_poseidon(dev, suite, rng)
-    launches.update(fp_launches)
+    by_path = {k: {"poseidon": n} for k, n in fp_launches.items()}
+    rows.update(phase_pow_kernel(dev))
+    rows.update(phase_ladder_kernel(dev, rng))
+    for kind, d, fres in (("ecdsa", data, fused), ("sm", sm_data, sm_fused)):
+        got, _ = phase_composed(dev, kind, d, fres, rng)
+        for k in composed_counters():
+            by_path.setdefault(k, {})[f"composed_{kind}"] = got[k]
     for k, n in launches.items():
         rows[k]["launches"] = n
+    for k, paths in by_path.items():
+        rows[k]["launches"] = sum(paths.values())
+        rows[k]["launches_by_path"] = paths
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)

@@ -18,6 +18,11 @@ runs on `device`: on "cuda" it launches the kernels, on "cpu" it runs
 their plain PyTorch versions (what the CPU tests use). A suite on "cuda"
 raises when there is no card; it never drops to the CPU.
 
+`ec_route` picks the EC route of verify and recovery (ops/ec.py):
+"fused", one whole-signature kernel per batch (the JAX package with
+FBTPU_FUSED_VERIFY=1), or "composed", the fp, pow and ladder kernels (the
+JAX package's default on a TPU). Both give the same results.
+
 Device batches keep the JAX suite's padding: up to CHUNK rows pad to the
 next of BUCKETS, larger batches run as CHUNK-sized calls.
 """
@@ -93,7 +98,8 @@ class CryptoSuite:
     def __init__(self, kind: str = "ecdsa", backend: str = "device",
                  device: str | torch.device = "cuda",
                  device_min_batch: int = 512,
-                 mesh_devices: int | None = None):
+                 mesh_devices: int | None = None,
+                 ec_route: str = "fused"):
         if kind not in ("ecdsa", "sm"):
             raise ValueError(f"unknown crypto suite kind: {kind}")
         if mesh_devices is not None and mesh_devices >= 2:
@@ -102,6 +108,9 @@ class CryptoSuite:
                 "multi-GPU slice queued in ROADMAP.md")
         if backend not in ("device", "host", "auto"):
             raise ValueError(f"unknown backend: {backend}")
+        if ec_route not in ec.ROUTES:
+            raise ValueError(f"unknown EC route: {ec_route}")
+        self.ec_route = ec_route
         self.kind = kind
         self.backend = backend
         self.device = torch.device(device)
@@ -138,7 +147,8 @@ class CryptoSuite:
             self._addresses_device = self._sm_addresses
 
     def __repr__(self):
-        return f"CryptoSuite({self.kind}, backend={self.backend}, device={self.device})"
+        return (f"CryptoSuite({self.kind}, backend={self.backend}, device={self.device}, "
+                f"ec_route={self.ec_route})")
 
     # -- hashing -----------------------------------------------------------
     def hash(self, data: bytes) -> bytes:
@@ -254,7 +264,8 @@ class CryptoSuite:
         arrays = [_limbs_of(digests), _limbs_of(rs), _limbs_of(ss),
                   _limbs_of([p[:32] for p in pubs]),
                   _limbs_of([p[32:64] for p in pubs])]
-        parts = self._padded_calls(lambda *a: self._verify_lanes(self.curve, *a), arrays)
+        parts = self._padded_calls(
+            lambda *a: self._verify_lanes(self.curve, *a, route=self.ec_route), arrays)
         return np.concatenate([ok[:ln].cpu().numpy() for ln, ok in parts])
 
     def _recover_device(self, digests, sigs):
@@ -264,7 +275,8 @@ class CryptoSuite:
         arrays = [_limbs_of(digests), _limbs_of(rs), _limbs_of(ss),
                   np.array(vs, np.int32)]
         parts = self._padded_calls(
-            lambda e, r, s, v: ec.ecdsa_recover_batch(self.curve, e, r, s, v),
+            lambda e, r, s, v: ec.ecdsa_recover_batch(self.curve, e, r, s, v,
+                                                      route=self.ec_route),
             arrays)
         return tuple(torch.cat([p[k][:ln] for ln, p in parts])
                      for k in range(3))

@@ -42,6 +42,7 @@ struct SecpFp {
     static __device__ __forceinline__ void sub(u32 r[8], const u32 a[8], const u32 b[8]) {
         fp_sub(r, a, b);
     }
+    static __device__ __forceinline__ void neg(u32 r[8], const u32 a[8]) { fp_neg(r, a); }
     static __device__ __forceinline__ void one(u32 r[8]) {
         zero8(r);
         r[0] = 1;

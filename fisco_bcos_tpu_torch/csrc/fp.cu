@@ -1,5 +1,5 @@
-// Kernels D, E and F of the port: the standalone 256-bit field multiplies,
-// one thread per lane.
+// Kernels D, E and F of the port, the standalone 256-bit field multiplies,
+// and kernel G, the fixed-exponent power; one thread per lane.
 //
 // Replace fisco_bcos_tpu/ops/pallas_fp.py: mul (:192 -> _mul_call :146),
 // mul_const (:232 -> _mul_const_call :222) and mul_stacked (:269 ->
@@ -26,6 +26,19 @@
 // package's layout). The boundary stays int64 16-bit limbs, the dtype of
 // the plain field layer, so the Poseidon rounds convert nothing between
 // the kernels and their plain adds.
+//
+// Kernel G replaces pallas_fp.pow_const (:345 -> _pow_call :303, body
+// pow_digits_values :281), which the composed EC route launches for
+// recovery's square root and at the [16, 1] root of every batched
+// inversion (ops/fp.py pow_const, inv_batch). Same sequence of products as
+// the TPU kernel: a 16-entry window table of 14 products, then per further
+// 4-bit digit 4 squarings and one product by the digit's entry (entry 0,
+// the field's one, too), so every lane returns the limbs of the plain
+// window loop. The exponent rides in the launch's parameters (PowArg), as
+// the TPU kernel's digits ride in SMEM. What bounds it: at 16,384 lanes,
+// multiply throughput (~329 products a lane for (p+1)/4, 512 bytes of limbs);
+// at one lane, the latency of 329 dependent products on one thread. The
+// table is per-thread local memory (16 x 8 words), indexed by the digit.
 #include <cuda_runtime.h>
 #include "field.cuh"
 #include "lanes.cuh"
@@ -90,7 +103,34 @@ __global__ void fp_mul_stacked_kernel(const int64_t *a, const int64_t *b, int64_
     store_limbs(out + off, B, lane, r);
 }
 
+// The exponent of kernel G: nd 4-bit digits, most significant first, and
+// the field's one in its domain (table entry 0)
+struct PowArg {
+    u32 one[8];
+    int nd;
+    unsigned char d[64];
+};
+
+__global__ void fp_pow_kernel(const int64_t *a, int64_t *out, FieldArg f, PowArg e, int B) {
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= B) return;
+    u32 tbl[16][8], acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tbl[0][i] = e.one[i];
+    load_limbs(tbl[1], a, B, lane);
+    for (int k = 2; k < 16; ++k) field_mul(tbl[k], tbl[k - 1], tbl[1], f);
+    set8(acc, tbl[e.d[0]]);
+    for (int i = 1; i < e.nd; ++i) {
+        for (int k = 0; k < 4; ++k) field_mul(acc, acc, acc, f);
+        field_mul(acc, acc, tbl[e.d[i]], f);
+    }
+    store_limbs(out, B, lane, acc);
+}
+
 #define FP_THREADS 256
+// a power is ~50k instructions a lane: smaller blocks spread a 16,384-lane
+// launch over all 132 SMs (128 blocks) instead of 64
+#define POW_THREADS 128
 
 // `field`: host words n[0..7], np0, solinas (ops/cuda_fp._field_words)
 static FieldArg field_arg(const uint32_t *field) {
@@ -122,6 +162,22 @@ extern "C" int fp_mul_stacked_launch(const int64_t *a, const int64_t *b, int64_t
     dim3 grid((B + FP_THREADS - 1) / FP_THREADS, K);
     fp_mul_stacked_kernel<<<grid, FP_THREADS, 0, (cudaStream_t)stream>>>(
         a, b, out, field_arg(field), B);
+    return (int)cudaGetLastError();
+}
+
+// digits: nd (1..64) 4-bit digits, most significant first; one: the
+// field's one in its domain as 8 words (host memory, copied into PowArg)
+extern "C" int fp_pow_launch(const int64_t *a, int64_t *out, const uint8_t *digits,
+                             const uint32_t *one, const uint32_t *field, int nd, int B,
+                             void *stream) {
+    if (nd < 1 || nd > 64) return (int)cudaErrorInvalidValue;
+    PowArg e;
+    for (int i = 0; i < 8; ++i) e.one[i] = one[i];
+    e.nd = nd;
+    for (int i = 0; i < 64; ++i) e.d[i] = i < nd ? (digits[i] & 15u) : 0;
+    int blocks = (B + POW_THREADS - 1) / POW_THREADS;
+    fp_pow_kernel<<<blocks, POW_THREADS, 0, (cudaStream_t)stream>>>(a, out, field_arg(field),
+                                                                    e, B);
     return (int)cudaGetLastError();
 }
 

@@ -25,11 +25,13 @@ __device__ __forceinline__ void store_limbs(T *col, int B, int lane, const u32 w
     }
 }
 
-// stage ntables [16][32] 16-bit-limb affine tables as [ntables][16][16]
-// words (x words 0..7, y words 8..15); every thread of the block calls it
-__device__ __forceinline__ void stage_tables(u32 *sg, const int32_t *gtab, int ntables) {
+// stage ntables [16][32] 16-bit-limb affine tables (int32 or int64) as
+// [ntables][16][16] words (x words 0..7, y words 8..15); every thread of the
+// block calls it
+template <class T>
+__device__ __forceinline__ void stage_tables(u32 *sg, const T *gtab, int ntables) {
     for (int i = threadIdx.x; i < ntables * 16 * 16; i += blockDim.x) {
-        const int32_t *src = gtab + 2 * i;
+        const T *src = gtab + 2 * i;
         sg[i] = ((u32)src[0] & 0xFFFFu) | (((u32)src[1] & 0xFFFFu) << 16);
     }
     __syncthreads();

@@ -1,11 +1,14 @@
 // Jacobian point arithmetic over a field F, one point per thread, shared
-// by the secp256k1 ladder (ec.cuh, a = 0) and the SM2 ladder (sm2.cuh,
-// a = -3). Counterpart of ops/ec.py jac_double / jac_add_affine /
-// _q_window_affine and of fisco_bcos_tpu/ops/pallas_ec.py vjac_double :106
-// and vjac_add :145.
+// by the secp256k1 ladder (ec.cuh, a = 0), the SM2 ladder (sm2.cuh,
+// a = -3) and the standalone ladder kernel (ladder.cu). Counterpart of
+// ops/ec.py jac_double / jac_add / jac_add_affine / _q_window_affine and of
+// fisco_bcos_tpu/ops/pallas_ec.py vjac_double :106 and vjac_add :145.
 //
-// F supplies static mul, add, sub, one(r) (its one in its domain), inv(r, a)
-// (zero maps to zero) and `static constexpr bool A_MINUS3`.
+// F supplies static mul, add, sub, neg, one(r) (its one in its domain),
+// inv(r, a) (zero maps to zero) and `static constexpr bool A_MINUS3`.
+// Every F op returns a canonical value, so two formulas for the same field
+// value give the same words: the Jacobian representative a function
+// returns is set by which values it computes, not by how.
 //
 // The adds are complete by branch, as ops/ec.py is by selection: P =
 // infinity, P == Q (doubling) and P == -Q (infinity) each take their own
@@ -96,6 +99,55 @@ __device__ void jac_madd(Jac &R, const Jac &P, const u32 qx[8], const u32 qy[8])
     F::mul(R.Z, P.Z, H);
     F::sub(R.Y, t, HHH);
     set8(R.X, X3);
+}
+
+// R = P + Q, both Jacobian (pallas_ec.vjac_add :145, ops/ec.py jac_add).
+// Complete by branch, in vjac_add's selection order: P = inf (Z = 0) gives
+// Q, then Q = inf gives P, then H = 0 gives 2P (R = 0) or infinity (zeros);
+// a Z = 0 point is returned with whatever X and Y it carries, as the
+// selection returns it. R may alias P or Q.
+template <class F>
+__device__ void jac_add(Jac &R, const Jac &P, const Jac &Q) {
+    if (is_zero8(P.Z)) {
+        R = Q;
+        return;
+    }
+    if (is_zero8(Q.Z)) {
+        R = P;
+        return;
+    }
+    u32 Z1Z1[8], Z2Z2[8], U1[8], U2[8], S1[8], S2[8], H[8], Rr[8];
+    F::mul(Z1Z1, P.Z, P.Z);
+    F::mul(Z2Z2, Q.Z, Q.Z);
+    F::mul(U1, P.X, Z2Z2);
+    F::mul(U2, Q.X, Z1Z1);
+    F::mul(S1, P.Y, Q.Z);
+    F::mul(S1, S1, Z2Z2);
+    F::mul(S2, Q.Y, P.Z);
+    F::mul(S2, S2, Z1Z1);
+    F::sub(H, U2, U1);
+    F::sub(Rr, S2, S1);
+    if (is_zero8(H)) {
+        if (is_zero8(Rr)) jac_double<F>(R, P);
+        else jac_set_inf(R);
+        return;
+    }
+    u32 HH[8], HHH[8], V[8], t[8], X3[8], Z3[8];
+    F::mul(HH, H, H);
+    F::mul(HHH, H, HH);
+    F::mul(V, U1, HH);
+    F::mul(Z3, P.Z, Q.Z);
+    F::mul(Z3, Z3, H);
+    F::mul(t, Rr, Rr);
+    F::sub(t, t, HHH);
+    F::sub(t, t, V);
+    F::sub(X3, t, V);            // R^2 - H^3 - 2V
+    F::sub(t, V, X3);
+    F::mul(t, Rr, t);
+    F::mul(HHH, S1, HHH);
+    F::sub(R.Y, t, HHH);         // R (V - X3) - S1 H^3
+    set8(R.X, X3);
+    set8(R.Z, Z3);
 }
 
 // Affine table k*Q for k = 1..15 (entry 0 unused), in F's domain. Entries

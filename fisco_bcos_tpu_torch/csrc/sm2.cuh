@@ -50,6 +50,10 @@ struct Sm2Fp {
     static __device__ __forceinline__ void sub(u32 r[8], const u32 a[8], const u32 b[8]) {
         sub_mod(r, a, b, S2.p);
     }
+    static __device__ __forceinline__ void neg(u32 r[8], const u32 a[8]) {
+        if (is_zero8(a)) zero8(r);
+        else sub8(r, S2.p, a);
+    }
     static __device__ __forceinline__ void one(u32 r[8]) { set8(r, S2.pone); }
     static __device__ __forceinline__ void inv(u32 r[8], const u32 a[8]) {
         u32 e[8], one1[8];

@@ -1,9 +1,12 @@
-"""Wrappers of kernels D, E and F: the standalone field multiplies.
+"""Wrappers of kernels D, E and F, the standalone field multiplies, and of
+kernel G, the fixed-exponent power.
 
 Source: `csrc/fp.cu` (with `field.cuh` and `bigint.cuh`). They replace
-`mul`, `mul_const` and `mul_stacked` of fisco_bcos_tpu/ops/pallas_fp.py and
-are reached through `ops/fp._FieldBase.mul` on a field built with
-`kernels=True`. Their plain version is the field's `mul_plain`.
+`mul`, `mul_const`, `mul_stacked` and `pow_const` of
+fisco_bcos_tpu/ops/pallas_fp.py and are reached through
+`ops/fp._FieldBase.mul` and `pow_const` on a field built with
+`kernels=True`. Their plain versions are the field's `mul_plain` and the
+`pow_const` window loop of a field built without kernels.
 
 Each wrapper takes the field and int64 lane-major operands of 16-bit limbs
 on one CUDA device (the plain field layer's dtype, so a Poseidon round
@@ -24,6 +27,7 @@ import torch
 
 from . import _cuda
 from .bigint import NLIMBS
+from .fp import msb_digits
 
 I64 = torch.int64
 SECP256K1_C = (1 << 32) + 977  # 2^256 - p of the one Solinas field with a kernel
@@ -52,10 +56,14 @@ def _field_words(field) -> np.ndarray:
     return w
 
 
-def _launch(fn_name: str, field, *tensors, dims):
+def _launch(fn_name: str, field, *tensors, host=(), dims):
+    """One launch: the tensors' pointers, then the host arrays' (`host`),
+    the field words, `dims` and the stream (the C signatures of
+    csrc/fp.cu)."""
     words = _field_words(field)
     lib = _cuda.library("fp", tensors[0].device)
     rc = getattr(lib, fn_name)(*(_cuda.ptr(t) for t in tensors),
+                               *(h.ctypes.data_as(ctypes.c_void_p) for h in host),
                                words.ctypes.data_as(ctypes.c_void_p),
                                *dims, _cuda.stream_ptr(tensors[0]))
     _cuda.check(lib, rc, fn_name)
@@ -105,3 +113,32 @@ def mul_stacked(field, a, b):
 
 
 mul_stacked.launches = 0
+
+
+MAX_POW_DIGITS = 64  # the kernel's digit array: exponents below 2^256
+
+
+def _words(limbs) -> np.ndarray:
+    """16 little-endian 16-bit limbs -> 8 uint32 words."""
+    v = np.asarray(limbs).astype(np.uint32)
+    return np.ascontiguousarray(v[0::2] | (v[1::2] << 16), dtype=np.uint32)
+
+
+def pow_const(field, a, e: int):
+    """a^e of a [16, B] int64 operand in the field's domain -> [16, B]
+    int64, for a static 0 < e < 2^256. The exponent goes to the launch as
+    its 4-bit MSB-first digits (`fp.msb_digits`), with the field's one."""
+    _cuda.require(a, "a", I64, (NLIMBS, None))
+    if not 0 < e < 1 << (4 * MAX_POW_DIGITS):
+        raise ValueError(f"pow_const: exponent out of range (0, 2^256): {e}")
+    digits = np.ascontiguousarray(msb_digits(e, 4), dtype=np.uint8)
+    one = _words(field.encode_int(1))
+    out = torch.empty_like(a)
+    if a.shape[1]:
+        _launch("fp_pow_launch", field, a, out, host=(digits, one),
+                dims=(len(digits), a.shape[1]))
+        pow_const.launches += 1
+    return out
+
+
+pow_const.launches = 0

@@ -12,9 +12,11 @@ bit-exact against the JAX package, and `chip_smoke.py` holds the CUDA
 kernels (whose field code is `csrc/field.cuh` and `csrc/bigint.cuh`)
 against it on the card. A field built with `kernels=True` (the Poseidon
 field, zk/poseidon_torch.py) sends its CUDA multiplies to the standalone
-kernels of `csrc/fp.cu` (ops/cuda_fp.py) instead, as the JAX package's
-`_FieldBase.mul` sends them to pallas_fp; the curve fields are built
-without, so the plain EC paths stay plain on the card.
+kernels of `csrc/fp.cu` (ops/cuda_fp.py) instead, and its CUDA powers to
+the pow kernel there, as the JAX package's `_FieldBase` sends them to
+pallas_fp; the curve singletons' fields are built without, so the plain
+EC paths stay plain on the card (the composed EC route, ops/ec.py, uses
+kernels=True siblings of them).
 
 Every method keeps the JAX package's canonical invariant: what it returns
 is fully carried and below the modulus, so equality is limb equality.
@@ -254,9 +256,19 @@ class _FieldBase:
         return self.mul(a, a)
 
     def pow_const(self, a, e: int, window: int = 4):
-        """a^e in the internal domain (e a Python int), fixed 4-bit window."""
+        """a^e in the internal domain (e a Python int), fixed 4-bit window.
+        A field built with kernels=True sends a 2-D [16, B] CUDA operand
+        (B = 1 included) to the pow kernel of csrc/fp.cu (ops/cuda_fp), as
+        fisco_bcos_tpu/ops/fp.py:357-368 sends it to pallas_fp.pow_const;
+        everything else runs the window loop below, the kernel's plain
+        version (pallas_fp.pow_digits_values: 14 table products, then 4
+        squarings and one product a digit)."""
         if e == 0:
             return self.one_rep(a)
+        if self.kernels and a.is_cuda and a.dim() == 2:
+            from . import cuda_fp
+
+            return cuda_fp.pow_const(self, a.contiguous(), e)
         table = [self.one_rep(a), a]
         for _ in range((1 << window) - 2):
             table.append(self.mul(table[-1], a))
@@ -291,8 +303,11 @@ class _FieldBase:
             cur = self.mul(left, right)
         invp = self.inv(cur)
         for left, right in reversed(levels):
-            invp = torch.cat([self.mul(invp, right), self.mul(invp, left)],
-                             dim=-1)
+            # one stacked product a level, as fisco_bcos_tpu/ops/fp.py:421-425
+            # (mul_stacked on a kernels=True field)
+            both = self.mul(invp.expand((2,) + invp.shape),
+                            torch.stack([right, left]))
+            invp = torch.cat([both[0], both[1]], dim=-1)
         return select(zero, torch.zeros_like(a), invp)
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (slice 1: recover, verify, Keccak, Keccak
 Merkle level; the SM chain: SM3, SM3 Merkle level, SM2 verify; the ZK
-plane: the standalone field multiplies under batched Poseidon) against
-their plain PyTorch versions, on the card. Marked `cuda`; every test skips (inside the fixture) where
+plane: the standalone field multiplies under batched Poseidon; the
+composed EC route: the pow and ladder kernels) against their plain
+PyTorch versions, on the card. Marked `cuda`; every test skips (inside the fixture) where
 torch.cuda.is_available() is false. On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -9,14 +10,17 @@ torch.cuda.is_available() is false. On a machine with a card:
 Tolerance: bit-exact everywhere (integer crypto).
 """
 
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from fisco_bcos_tpu_torch.crypto import refimpl
 from fisco_bcos_tpu_torch.crypto.suite import make_suite
-from fisco_bcos_tpu_torch.ops import (bigint, cuda_fp, cuda_hash, cuda_merkle, cuda_sm3,
-                                      cuda_verify, ec, fp, keccak, merkle, sm3)
+from fisco_bcos_tpu_torch.ops import (bigint, cuda_ec, cuda_fp, cuda_hash, cuda_merkle,
+                                      cuda_sm3, cuda_verify, ec, fp, keccak, merkle, sm3)
 from fisco_bcos_tpu_torch.zk import poseidon, poseidon_torch
 import test_torch_vectors as vectors  # tests/ is on sys.path under pytest
 
@@ -245,3 +249,96 @@ def test_fp_wrappers_reject_what_the_kernels_do_not_take(dev):
         cuda_fp.mul_stacked(f, a, a)  # not [K, 16, B]
     with pytest.raises(ValueError):
         cuda_fp.mul(fp.SolinasField((1 << 256) - 189), a, a)
+
+
+# -- kernels G and H: the composed EC route (csrc/fp.cu pow, csrc/ladder.cu) --
+
+@pytest.mark.parametrize("name", sorted(FP_FIELDS))
+def test_pow_kernel_matches_plain(dev, name):
+    """At 4,096 lanes (edges 0, 1, n - 1, R mod n first) and at one lane,
+    the [16, 1] root of a batched inversion, through a kernels=True field."""
+    mk, mod = FP_FIELDS[name]
+    f, kf = mk(mod), mk(mod, kernels=True)
+    a = _fp_lanes(mod, 4096, 3, dev)
+    one = a[:, 2:3].contiguous()
+    for e in (1, 0x1234, (mod + 1) // 4, mod - 2):
+        n0 = cuda_fp.pow_const.launches
+        assert torch.equal(cuda_fp.pow_const(f, a, e), f.pow_const(a, e))
+        assert torch.equal(kf.pow_const(one, e), f.pow_const(one, e))
+        assert cuda_fp.pow_const.launches == n0 + 2
+
+
+@pytest.mark.parametrize("curve", ["secp256k1", "sm2"])
+def test_ladder_kernel_matches_plain(dev, curve):
+    """Jacobian bit-exact at 300 lanes (a ragged last block) with
+    vectors.ladder_lanes' adversarial lanes and every fourth lane's sign
+    flags flipped."""
+    cv = ec.SECP256K1 if curve == "secp256k1" else ec.SM2P256V1
+    k1, k2, qx, qy = vectors.ladder_lanes(cv.params, 300, 70)
+    f = cv.fp
+    nsteps, gts, digs, negs, qp = ec.ladder_inputs(
+        cv, _lane(k1, dev), _lane(k2, dev), f.to_rep(_lane(qx, dev)), f.to_rep(_lane(qy, dev)))
+    negs = negs.clone()
+    negs[:, 9::4] ^= 1
+    n0 = cuda_ec.ladder.launches
+    got = cuda_ec.ladder(cv, nsteps, gts, digs, negs, qp)
+    assert cuda_ec.ladder.launches == n0 + 1
+    assert torch.equal(got, ec.ladder_plain(cv, nsteps, gts, digs, negs, qp))
+
+
+@pytest.mark.parametrize("sm", [False, True], ids=["ecdsa", "sm"])
+def test_composed_route_on_card_matches_fused(dev, sm):
+    """make_suite(ec_route="composed") on the card: the same verdicts and
+    senders as the fused route, through the ladder kernel and not the
+    fused EC kernels."""
+    if sm:
+        vs = vectors.sm2_vectors(24, tag=14) + vectors.sm2_collision_vectors()
+        sigs = [d["r"].to_bytes(32, "big") + d["s"].to_bytes(32, "big")
+                + d["qx"].to_bytes(32, "big") + d["qy"].to_bytes(32, "big")
+                for d in vs]
+    else:
+        vs = vectors.signed_vectors(24, tag=15) + vectors.collision_vectors()
+        sigs = [d["r"].to_bytes(32, "big") + d["s"].to_bytes(32, "big")
+                + bytes([d["v"] % 256]) for d in vs]
+    digests = [d["e"].to_bytes(32, "big") for d in vs]
+    pubs = [d["qx"].to_bytes(32, "big") + d["qy"].to_bytes(32, "big") for d in vs]
+    fused = make_suite(sm_crypto=sm)
+    composed = make_suite(sm_crypto=sm, ec_route="composed")
+    want_ok = fused.verify_batch(digests, sigs, pubs)
+    want_addr = fused.recover_addresses(digests, sigs)
+    n_fused = (cuda_verify.ecdsa_recover.launches, cuda_verify.ecdsa_verify.launches,
+               cuda_verify.sm2_verify.launches)
+    n_ladder = cuda_ec.ladder.launches
+    assert (composed.verify_batch(digests, sigs, pubs) == want_ok).all()
+    got_addr = composed.recover_addresses(digests, sigs)
+    assert got_addr[0] == want_addr[0] and (got_addr[1] == want_addr[1]).all()
+    assert (cuda_verify.ecdsa_recover.launches, cuda_verify.ecdsa_verify.launches,
+            cuda_verify.sm2_verify.launches) == n_fused
+    assert cuda_ec.ladder.launches == n_ladder + 2
+    assert want_ok.any() and not want_ok.all()
+
+
+def test_pow_and_ladder_wrappers_reject_what_the_kernels_do_not_take(dev):
+    f = fp.MontField(refimpl.SECP256K1.n)
+    a = torch.zeros((16, 8), dtype=torch.int64, device=dev)
+    for bad in (a.int(), a[:8].contiguous(), a.cpu()):
+        with pytest.raises(ValueError):
+            cuda_fp.pow_const(f, bad, 3)
+    for e in (0, 1 << 256):
+        with pytest.raises(ValueError):
+            cuda_fp.pow_const(f, a, e)
+    cv = ec.SECP256K1
+    k = _lane([1] * 8, dev)
+    ops = list(ec.ladder_inputs(cv, k, k, cv.fp.to_rep(k), cv.fp.to_rep(k)))
+    assert cuda_ec.ladder(cv, *ops).shape == (3, 16, 8)
+    bad = {1: ops[1][:1].contiguous(), 2: ops[2].long(), 3: ops[3][:, :4].contiguous(),
+           4: ops[4].cpu()}
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            cuda_ec.ladder(cv, *(t if j == i else o for j, o in enumerate(ops)))
+    with pytest.raises(ValueError):
+        cuda_ec.ladder(cv, 65, *ops[1:])
+    other = copy.copy(cv)
+    other.params = dataclasses.replace(cv.params, name="other")
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_ec.ladder(other, *ops)

@@ -105,6 +105,27 @@ def test_16_tx_sm_block_matches_jax_host_suite():
 
 
 @pytest.mark.parametrize("sm", [False, True], ids=["ecdsa", "sm"])
+def test_16_tx_block_composed_route_matches_fused_and_jax(sm):
+    """make_suite(ec_route="composed", device="cpu"): the 16-tx block and
+    its seals through the composed EC route's plain versions, equal to the
+    fused route's CPU path and to the JAX host suite, for both chains."""
+    tag, bad = (b"sm", SM_BAD) if sm else (b"acct", ECDSA_BAD)
+    composed = psuite.make_suite(sm_crypto=sm, device="cpu", ec_route="composed")
+    fused = psuite.make_suite(sm_crypto=sm, device="cpu")
+    jax_host = jsuite.make_suite(sm_crypto=sm, backend="host")
+    assert (composed.ec_route, fused.ec_route) == ("composed", "fused")
+    keys = [composed.generate_keypair(tag + bytes([i])) for i in range(4)]
+    jkeys = [jax_host.keypair_from_secret(k.secret) for k in keys]
+    cblock, sigs = _block(PT, composed, keys, bad=bad)
+    fblock, _ = _block(PT, fused, keys, sigs, bad=bad)
+    jblock, _ = _block(JT, jax_host, jkeys, sigs, bad=bad)
+    got = _slice(PT, composed, cblock, keys)
+    assert got == _slice(PT, fused, fblock, keys, got["seals"])
+    assert got == _slice(JT, jax_host, jblock, jkeys, got["seals"])
+    assert got["seal_ok"] == [True] * 4 + [False] and not all(got["ok"])
+
+
+@pytest.mark.parametrize("sm", [False, True], ids=["ecdsa", "sm"])
 def test_host_and_tensor_backends_agree_on_bad_signatures(sm):
     dev = psuite.make_suite(sm_crypto=sm, device="cpu")
     host = psuite.make_suite(sm_crypto=sm, backend="host")

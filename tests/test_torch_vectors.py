@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from fisco_bcos_tpu_torch.crypto import refimpl
+from fisco_bcos_tpu_torch.ops import ec
 from fisco_bcos_tpu_torch.ops.bigint import batch_to_limbs
 
 C = refimpl.SECP256K1
@@ -115,6 +116,19 @@ def sm2_collision_vectors():
 def sm2_verifies(d) -> bool:
     return refimpl.sm2_verify((d["qx"], d["qy"]), d["e"].to_bytes(32, "big"),
                               d["r"], d["s"])
+
+
+def ladder_lanes(c, n: int, seed: int):
+    """n lanes of ladder operands (k1, k2, qx, qy lists of ints, scalars
+    canonical mod c.n) for k1*G + k2*Q: lane j < len(ec.LADDER_EDGES) is
+    that edge (ec.ladder_edge_lanes), the rest random scalars on seeded
+    keys."""
+    rng = np.random.default_rng(seed)
+    k1 = [int.from_bytes(rng.bytes(32), "big") % c.n for _ in range(n)]
+    k2 = [int.from_bytes(rng.bytes(32), "big") % c.n for _ in range(n)]
+    pts = [refimpl.keygen(c, seed=bytes([seed % 256]) + i.to_bytes(2, "big"))[1]
+           for i in range(n)]
+    return ec.ladder_edge_lanes(c, k1, k2, [q[0] for q in pts], [q[1] for q in pts])
 
 
 def limbs(xs) -> torch.Tensor:
