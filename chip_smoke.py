@@ -9,7 +9,10 @@ composed EC route.
 Phases (any failure exits non-zero; nothing falls back to the plain
 version or to the CPU):
 
-1. Card: name and power limit (nvidia-smi), the kernels' parallel build.
+1. Card: name and power limit (nvidia-smi), the kernels' parallel build,
+   ptxas registers and stack of every kernel, and the static SASS counts
+   (instructions, LDL, STL, CALL, BRA; cuobjdump -sass) of the ladder and
+   SM2 verify libraries.
 2. Each default-chain CUDA kernel against its plain PyTorch version on the
    card at the main path's shapes, bit-exact: recover and verify at one
    CHUNK (16,384 lanes), Keccak over 65,536 messages of 1-8 blocks, Merkle
@@ -26,7 +29,10 @@ version or to the CPU):
    (warmed up on a small step) must record as many calls of each kernel.
 4. The SM chain's kernels as in 2: SM3 over the 65,536 tx encodings of the
    SM block (2-17 blocks), SM3 Merkle trees at the same n, SM2 verify at
-   one CHUNK of host-signed vectors with 1% adversarial lanes.
+   one CHUNK of host-signed vectors with 1% adversarial lanes and 8
+   carry-stress lanes (r and s at n - 1 and n - 2, a digest of 2^256 - 1,
+   keys G, -2G and one with x near p - 1), then its lane sweep: ms at
+   16,384, 65,536 and 131,072 lanes, the inputs tiled.
 5. The SM chain's slice as in 3, on make_suite(sm_crypto=True): the same
    payloads, every tx signed with SM2 over its own payload by one of 16
    senders (so every lane is valid before corruption), seals signed by 4
@@ -56,8 +62,10 @@ version or to the CPU):
    at 16,384 lanes in both forms (GLV on secp256k1, plain on SM2),
    Jacobian bit-exact, on the edge lanes of ec.LADDER_EDGES (zero
    scalars, Q = +-G at k1 = k2, an off-curve Q with Z = 0 table entries,
-   the last G add doubling and cancelling) and flipped sign flags; 32
-   lanes held to the oracle k1 G + k2 Q.
+   the last G add doubling and cancelling), 4 carry-stress lanes (scalars
+   n - 1, n - 2 and 2^256 - 1 mod n, Q with x near p - 1) and flipped sign
+   flags; 32 lanes held to the oracle k1 G + k2 Q; then each form's lane
+   sweep as in 4.
 10. The composed EC route: the blocks and seal spans of phases 3 and 5
    again, through make_suite(ec_route="composed") and
    make_suite(sm_crypto=True, ec_route="composed") by the same checks,
@@ -75,6 +83,8 @@ from __future__ import annotations
 
 import json
 import random
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -316,8 +326,9 @@ SM3_COMPRESS_OPS = 52 * 7 + 64 * 16 + 8 + 16
 # is a generalized-Mersenne prime, as NIST P-256's is: a product needs its
 # 64 wide multiplies and a fold of the high half by word adds and subtracts
 # only, two terms to a 3-input add of one issue slot (`sm2_fp_mul`). The
-# kernel's Montgomery product (2 x 64 + 8) and its domain conversions are
-# its design, not the work, and are not priced.
+# kernels' product is of that form too (csrc/sm2.cuh, a special-form
+# Montgomery reduction); their domain conversions are their design, not
+# the work, and are not priced.
 SM2_DBL, SM2_MADD = 8, 11
 
 
@@ -425,10 +436,64 @@ def ec_inputs(rng: random.Random, signed, B: int):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_card():
-    smi = subprocess.run(
+def phase_card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def ptxas_summary(text: str) -> dict:
+    """nvcc -Xptxas -v output -> {function: "R registers, S B stack, spills"}."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = f"{m.group(1)} B stack, spills {m.group(2)}/{m.group(3)} B"
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn] = f"{m.group(1)} registers, " + out.get(fn, "")
+            fn = None
+    return out
+
+
+def sass_counts(lib, dump=None) -> dict:
+    """Static SASS counts of a built library, by function: instructions
+    (NOPs left out), LDL, STL, CALL and BRA, from cuobjdump -sass (whose
+    text goes to the file `dump` when one is given)."""
+    from fisco_bcos_tpu_torch.ops import _cuda
+
+    exe = shutil.which("cuobjdump") or str(Path(_cuda.nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    if dump is not None:
+        Path(dump).write_text(text)
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), dict(instructions=0, LDL=0, STL=0, CALL=0, BRA=0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and cur is not None and m.group(1) != "NOP":
+            cur["instructions"] += 1
+            if m.group(1) in ("LDL", "STL", "CALL", "BRA"):
+                cur[m.group(1)] += 1
+    return funcs
+
+
+def phase_card():
+    smi = phase_card_line()
     name = torch.cuda.get_device_name(0)
     from fisco_bcos_tpu_torch.ops import _cuda
 
@@ -436,9 +501,11 @@ def phase_card():
     log(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| device {name} | kernel build {build_s:.1f} s (parallel nvcc, set-up)")
     for k, v in _cuda.PTXAS_LOG.items():
-        for line in v.splitlines():
-            if "registers" in line or "spill" in line.lower() and "0 bytes spill" not in line:
-                log(f"[ptxas {k}] {line.strip()}")
+        for fn, info in ptxas_summary(v).items():
+            log(f"[ptxas {k}] {fn}: {info}")
+    for k in ("ladder", "sm2"):
+        for fn, c in sass_counts(_cuda._lib_path(k)).items():
+            log(f"[kernel] sass {k} {fn}: {c}")
     return smi, name
 
 
@@ -557,10 +624,53 @@ def phase_kernels(dev, signed, rng):
     return rows
 
 
+def key_near_top(c):
+    """The affine point of c whose x is the largest below p - 1 on the
+    curve (both p are 3 mod 4: y = rhs^((p+1)/4)), y the larger root."""
+    x = c.p - 1
+    while True:
+        rhs = (x ** 3 + c.a * x + c.b) % c.p
+        y = pow(rhs, (c.p + 1) // 4, c.p)
+        if y * y % c.p == rhs:
+            return x, max(y, c.p - y)
+        x -= 1
+
+
+def sm2_stress_lanes():
+    """SM2 verify lanes whose words sit at the carry edges: valid
+    signatures with r and s at n - 1 and n - 2, and r = n - 1, s = 2 (so
+    r + s = 1): the nonce and the digest chosen for r, the key for s; a
+    digest of 2^256 - 1; the keys G and -2G; a key with x near p - 1 and y
+    near p under r = s = n - 1, and its negation under r = 1."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+
+    c = refimpl.SM2P256V1
+    out = []
+    for k, r, s_want in ((7, c.n - 1, c.n - 1), (11, c.n - 2, c.n - 1), (13, c.n - 1, 2)):
+        x1 = refimpl.ec_mul(c, k, (c.gx, c.gy))[0]
+        e = (r - x1) % c.n
+        # s = (k - r d) / (1 + d) = s_want  <=>  d (s_want + r) = k - s_want
+        d = (k - s_want) * pow(s_want + r, -1, c.n) % c.n
+        pub = refimpl.ec_mul(c, d, (c.gx, c.gy))
+        h = e.to_bytes(32, "big")
+        assert refimpl.sm2_sign(d, h, k=k) == (r, s_want)
+        out.append(dict(e=e, r=r, s=s_want, qx=pub[0], qy=pub[1]))
+    for d in (1, c.n - 2, 0x1234567):
+        pub = refimpl.ec_mul(c, d, (c.gx, c.gy))
+        h = b"\xff" * 32 if d == 0x1234567 else refimpl.sm3(b"stress" + bytes([d & 255]))
+        r, s = refimpl.sm2_sign(d, h)
+        out.append(dict(e=int.from_bytes(h, "big"), r=r, s=s, qx=pub[0], qy=pub[1]))
+    qx, qy = key_near_top(c)
+    out.append(dict(e=(1 << 256) - 1, r=c.n - 1, s=c.n - 1, qx=qx, qy=qy))
+    out.append(dict(e=0, r=1, s=c.n - 1, qx=qx, qy=c.p - qy))
+    return out
+
+
 def sm2_inputs(rng: random.Random, B: int):
     """B lanes of 256 host-signed SM2 vectors (8 keys), tiled, 1% of them
     corrupted by kind in turn: r = 0, s >= n, s = n - r, digest flipped,
-    another key, off-curve key, key (0, 0), qx >= p."""
+    another key, off-curve key, key (0, 0), qx >= p; the last lanes the
+    carry-stress lanes of sm2_stress_lanes."""
     from fisco_bcos_tpu_torch.crypto import refimpl
 
     c = refimpl.SM2P256V1
@@ -594,6 +704,10 @@ def sm2_inputs(rng: random.Random, B: int):
         elif k == 7:
             d["qx"] = c.p + i % 97
         out.append(d)
+    stress = sm2_stress_lanes()
+    for j, d in enumerate(stress):
+        out[B - len(stress) + j] = d
+        bad.pop(B - len(stress) + j, None)
     return out, bad
 
 
@@ -636,11 +750,16 @@ def phase_sm_kernels(dev, data, rng):
     pok, plain_ms = wall_ms(lambda: ec.sm2_verify_plain(ec.SM2P256V1, *args))
     mism = int((ok.bool() != pok).sum())
     okl = ok.bool().tolist()
-    for i in sorted(bad) + rng.sample([i for i in range(len(vs)) if i not in bad], 16):
+    stress = range(EC_B - len(sm2_stress_lanes()), EC_B)
+    for i in sorted(bad) + list(stress) + rng.sample(
+            [i for i in range(len(vs)) if i not in bad], 16):
         d = vs[i]
         mism += okl[i] != refimpl.sm2_verify((d["qx"], d["qy"]), d["e"].to_bytes(32, "big"),
                                              d["r"], d["s"])
     ms = cuda_ms(lambda: cuda_verify.sm2_verify(*args), 5)
+    sweep = lane_sweep(lambda k: (lambda a=[x.repeat(1, k) for x in args]:
+                                  cuda_verify.sm2_verify(*a)))
+    log(sweep_line("sm2_verify", sweep))
     prods = (sum(sm2_products(d["e"], d["r"], d["s"], d["qx"], d["qy"]) for d in vs)
              + sm2_batch_inversion())
     rows["sm2_verify"] = dict(
@@ -648,9 +767,10 @@ def phase_sm_kernels(dev, data, rng):
         replaces="fisco_bcos_tpu/ops/pallas_verify.py:507", mismatches=mism,
         max_abs_err=int((ok.long() - pok.long()).abs().max()), ms=ms,
         plain_ms=plain_ms, bound_ms=ec_bound_ms(prods), bound_by="operations",
-        library_ms=None, shape=f"B={EC_B}", valid_lanes=int(ok.sum()))
-    log(f"[kernel] sm2 verify B={EC_B}: mismatches {mism} ({len(bad)} corrupted lanes "
-        f"and 16 signed held to the oracle), {ms:.3f} ms (plain {plain_ms:.0f} ms), "
+        library_ms=None, shape=f"B={EC_B}", valid_lanes=int(ok.sum()), sweep_ms=sweep)
+    log(f"[kernel] sm2 verify B={EC_B}: mismatches {mism} ({len(bad)} corrupted lanes, "
+        f"{len(stress)} carry-stress lanes and 16 signed held to the oracle), "
+        f"{ms:.3f} ms (plain {plain_ms:.0f} ms), "
         f"bound {ec_bound_ms(prods):.3f} ms, valid lanes {int(ok.sum())}")
     bad = {k: r["mismatches"] for k, r in rows.items() if r["mismatches"]}
     if bad:
@@ -1024,7 +1144,22 @@ def phase_slice(dev, suite, data, rng, expect=None):
     log(f"{tag} txs root {txs_root.hex()} receipts root {rc_root.hex()}")
     results = dict(senders=senders, ok=np.asarray(ok), txs_root=txs_root,
                    receipts_root=rc_root, seal_ok=np.asarray(seal_ok))
+    log(f"{tag} results digest {results_digest(results)}")
     return launches, phases, results
+
+
+def results_digest(results: dict) -> str:
+    """SHA-256 of a slice's outputs (every sender, the ok mask, both roots,
+    every seal verdict), so that runs of two trees compare by one line."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for s in results["senders"]:
+        h.update(b"-" if s is None else bytes(s))
+    h.update(np.asarray(results["ok"], dtype=np.uint8).tobytes())
+    h.update(results["txs_root"] + results["receipts_root"])
+    h.update(np.asarray(results["seal_ok"], dtype=np.uint8).tobytes())
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -1379,7 +1514,10 @@ def phase_pow_kernel(dev):
 
 def ladder_scalars(c, nrng, B: int):
     """B lanes of canonical scalars k1, k2 and affine keys Q (64 seeded
-    keys, tiled), lanes 0-8 the port's edge lanes (ec.LADDER_EDGES)."""
+    keys, tiled), lanes 0-8 the port's edge lanes (ec.LADDER_EDGES), lanes
+    9-12 carry-stress lanes: scalars n - 1, n - 2 and 2^256 - 1 mod n
+    against the point whose x is the largest below p - 1 and its
+    negation."""
     from fisco_bcos_tpu_torch.crypto import refimpl
     from fisco_bcos_tpu_torch.ops import ec
 
@@ -1388,7 +1526,46 @@ def ladder_scalars(c, nrng, B: int):
     k1 = [int.from_bytes(flat[64 * i:64 * i + 32], "big") % c.n for i in range(B)]
     k2 = [int.from_bytes(flat[64 * i + 32:64 * i + 64], "big") % c.n for i in range(B)]
     qx, qy = [keys[i % 64][0] for i in range(B)], [keys[i % 64][1] for i in range(B)]
-    return ec.ladder_edge_lanes(c, k1, k2, qx, qy)
+    k1, k2, qx, qy = ec.ladder_edge_lanes(c, k1, k2, qx, qy)
+    tx, ty = key_near_top(c)
+    top = ((1 << 256) - 1) % c.n
+    for j, (a, b, y) in enumerate(((c.n - 1, c.n - 1, ty), (c.n - 2, 1, c.p - ty),
+                                   (top, c.n - 1, ty), (1, top, c.p - ty))):
+        k1[9 + j], k2[9 + j], qx[9 + j], qy[9 + j] = a, b, tx, y
+    return k1, k2, qx, qy
+
+
+def ladder_case(cv, nrng, dev):
+    """Kernel H's operands at EC_B lanes on `dev` (ladder_scalars' lanes,
+    the sign flags of every fourth lane from 9 flipped at random) and the
+    scalars and keys they came from: -> ((nsteps, gts, digs, negs, q
+    planes), (k1, k2, qx, qy))."""
+    from fisco_bcos_tpu_torch.ops import ec
+
+    c, f = cv.params, cv.fp
+    k1, k2, qx, qy = ladder_scalars(c, nrng, EC_B)
+    nsteps, gts, digs, negs, qp = ec.ladder_inputs(
+        cv, lane(k1, dev), lane(k2, dev), f.to_rep(lane(qx, dev)), f.to_rep(lane(qy, dev)))
+    flip = torch.zeros_like(negs)
+    flip[:, 9::4] = torch.as_tensor(nrng.integers(0, 2, flip[:, 9::4].shape),
+                                    dtype=flip.dtype, device=dev)
+    return (nsteps, gts, digs, negs ^ flip, qp), (k1, k2, qx, qy)
+
+
+# the lane sweep: the main path's 16,384 lanes, tiled 4 and 8 times
+SWEEP_B = (EC_B, 4 * EC_B, 8 * EC_B)
+
+
+def lane_sweep(make) -> dict:
+    """ms of one launch (median of 5 CUDA-event timings) at each B of
+    SWEEP_B; make(k) -> a function launching the 16,384-lane inputs tiled
+    k times."""
+    return {k * EC_B: cuda_ms(make(k), 5) for k in (B // EC_B for B in SWEEP_B)}
+
+
+def sweep_line(name: str, sweep: dict) -> str:
+    return f"[kernel] sweep {name}: " + ", ".join(
+        f"B={B} {ms:.3f} ms ({ms * 1e6 / B:.1f} ns a lane)" for B, ms in sweep.items())
 
 
 def ladder_products(cv, nsteps: int, digs, skip: int) -> int:
@@ -1427,13 +1604,7 @@ def phase_ladder_kernel(dev, rng):
     times = {}
     for cv in (ec.SECP256K1, ec.SM2P256V1):
         c, f = cv.params, cv.fp
-        k1, k2, qx, qy = ladder_scalars(c, nrng, EC_B)
-        nsteps, gts, digs, negs, qp = ec.ladder_inputs(
-            cv, lane(k1, dev), lane(k2, dev), f.to_rep(lane(qx, dev)), f.to_rep(lane(qy, dev)))
-        flip = torch.zeros_like(negs)
-        flip[:, 9::4] = torch.as_tensor(nrng.integers(0, 2, flip[:, 9::4].shape),
-                                        dtype=flip.dtype, device=dev)
-        negs = negs ^ flip
+        (nsteps, gts, digs, negs, qp), (k1, k2, qx, qy) = ladder_case(cv, nrng, dev)
         got = cuda_ec.ladder(cv, nsteps, gts, digs, negs, qp)
         want, pms = wall_ms(lambda: ec.ladder_plain(cv, nsteps, gts, digs, negs, qp))
         bad = int((got != want).any(0).any(0).sum())
@@ -1455,11 +1626,15 @@ def phase_ladder_kernel(dev, rng):
             oracle_bad += pt != want_pt
         mism += oracle_bad
         ms = cuda_ms(lambda: cuda_ec.ladder(cv, nsteps, gts, digs, negs, qp), 5)
+        sweep = lane_sweep(lambda k: (
+            lambda a=(digs.repeat(1, 1, k), negs.repeat(1, k), qp.repeat(1, 1, 1, k)):
+            cuda_ec.ladder(cv, nsteps, gts, *a)))
+        log(sweep_line(f"ladder {c.name}", sweep))
         skip = len(ec.LADDER_EDGES)
         prods = ladder_products(cv, nsteps, digs, skip)
         slots = FP_MUL if cv.has_endo else sm2_fp_mul()
         bound = ec_bound_ms(prods * slots)
-        times[c.name] = dict(ms=ms, plain_ms=pms, bound_ms=bound, products=prods)
+        times[c.name] = dict(ms=ms, plain_ms=pms, bound_ms=bound, products=prods, sweep=sweep)
         form = "GLV, 2 pairs" if cv.has_endo else "plain, 1 pair"
         log(f"[kernel] ladder {c.name} ({form}, {nsteps} steps) B={EC_B}: mismatched lanes "
             f"{bad}, oracle misses {oracle_bad} of 32, {ms:.3f} ms (plain {pms:.0f} ms), "
@@ -1473,7 +1648,7 @@ def phase_ladder_kernel(dev, rng):
         replaces="fisco_bcos_tpu/ops/pallas_ec.py:310", mismatches=0, max_abs_err=err,
         ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"], bound_by="operations",
         library_ms=None, sm2_ms=m["ms"], sm2_plain_ms=m["plain_ms"],
-        sm2_bound_ms=m["bound_ms"],
+        sm2_bound_ms=m["bound_ms"], sweep_ms=g["sweep"], sm2_sweep_ms=m["sweep"],
         shape=f"B={EC_B}, GLV form on secp256k1 (SM2 plain form: {m['ms']:.3f} ms, "
               f"bound {m['bound_ms']:.4f} ms)")
     return rows

@@ -11,6 +11,16 @@
 typedef uint32_t u32;
 typedef uint64_t u64;
 
+// A 256-bit value by value: what an out-of-line product takes and returns,
+// so that its operands pass in registers (arrays behind pointers would go
+// through local memory)
+struct W8 {
+    u32 w[8];
+};
+struct W16 {
+    u32 w[16];
+};
+
 __device__ __forceinline__ void set8(u32 r[8], const u32 a[8]) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) r[i] = a[i];
@@ -81,20 +91,29 @@ __device__ __forceinline__ void mul_wide8(u32 t[16], const u32 a[8], const u32 b
     }
 }
 
+// r = c ? a : b by masks, with no branch, so that the product or sum it
+// ends shares a basic block with the next and ptxas may interleave them
+__device__ __forceinline__ void sel8(u32 r[8], u32 c, const u32 a[8], const u32 b[8]) {
+    const u32 m = 0u - (c != 0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r[i] = (a[i] & m) | (b[i] & ~m);
+}
+
 // r = a + b mod N for canonical a, b
 __device__ __forceinline__ void add_mod(u32 r[8], const u32 a[8], const u32 b[8], const u32 N[8]) {
     u32 s[8], d[8];
     u32 c = add8(s, a, b);
     u32 brw = sub8(d, s, N);
-    if (c || !brw) set8(s, d);
-    set8(r, s);
+    sel8(r, c | (brw ^ 1u), d, s);
 }
 
 // r = a - b mod N for canonical a, b
 __device__ __forceinline__ void sub_mod(u32 r[8], const u32 a[8], const u32 b[8], const u32 N[8]) {
-    u32 d[8];
-    if (sub8(d, a, b)) add8(d, d, N);
-    set8(r, d);
+    u32 d[8], n[8];
+    const u32 m = 0u - sub8(d, a, b);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) n[i] = N[i] & m;
+    add8(r, d, n);
 }
 
 // r = a * b * R^-1 mod N (CIOS), np0 = -N^-1 mod 2^32. Canonical when one
@@ -131,7 +150,7 @@ __device__ __forceinline__ void mont_mul(u32 r[8], const u32 a[8], const u32 b[8
     }
     u32 d[8];
     u32 brw = sub8(d, t, N);
-    if (t[8] || !brw) set8(r, d); else set8(r, t);
+    sel8(r, t[8] | (brw ^ 1u), d, t);
 }
 
 // 4-bit window j (0 = least significant) of a 256-bit scalar

@@ -8,7 +8,9 @@
 // 7 per doubling and 11 per mixed add over 34 x (4 doublings + 4 adds).
 //
 // Design for Hopper:
-// * Jacobian coordinates, complete by branch (point.cuh, over SecpFp).
+// * Jacobian coordinates, complete by branch (point.cuh, over SecpFp),
+//   whose products are out of line (`fp_mul_out`, `fp_mul2_out`: one copy
+//   of the product's code for the ladder's step loop, operands by value).
 // * Only the per-lane Q table (k*Q, k < 16) is built, normalised to affine
 //   with one inversion (Montgomery's trick over its 14 Z values); phi(Q)
 //   entries are (beta*x, y) formed at lookup, so the per-thread table is
@@ -30,11 +32,40 @@
 
 #define GLV_DIGITS 34
 
+// fp_mul out of line for the point code, as sm2.cuh's sm2_mul_out
+__device__ __noinline__ W8 fp_mul_out(W8 a, W8 b) {
+    W8 r;
+    fp_mul(r.w, a.w, b.w);
+    return r;
+}
+
+__device__ __noinline__ W16 fp_mul2_out(W8 a0, W8 b0, W8 a1, W8 b1) {
+    W16 r;
+    fp_mul(r.w, a0.w, b0.w);
+    fp_mul(r.w + 8, a1.w, b1.w);
+    return r;
+}
+
 // the secp256k1 field for point.cuh: plain domain mod p, a = 0
 struct SecpFp {
     static constexpr bool A_MINUS3 = false;
     static __device__ __forceinline__ void mul(u32 r[8], const u32 a[8], const u32 b[8]) {
-        fp_mul(r, a, b);
+        W8 x, y;
+        set8(x.w, a);
+        set8(y.w, b);
+        W8 z = fp_mul_out(x, y);
+        set8(r, z.w);
+    }
+    static __device__ __forceinline__ void mul2(u32 r0[8], const u32 a0[8], const u32 b0[8],
+                                                u32 r1[8], const u32 a1[8], const u32 b1[8]) {
+        W8 x0, y0, x1, y1;
+        set8(x0.w, a0);
+        set8(y0.w, b0);
+        set8(x1.w, a1);
+        set8(y1.w, b1);
+        W16 z = fp_mul2_out(x0, y0, x1, y1);
+        set8(r0, z.w);
+        set8(r1, z.w + 8);
     }
     static __device__ __forceinline__ void add(u32 r[8], const u32 a[8], const u32 b[8]) {
         fp_add(r, a, b);
@@ -91,6 +122,7 @@ __device__ void glv_ladder(Jac &acc, const u32 u1[8], const u32 u2[8],
     jac_set_inf(acc);
     u32 px[8], py[8];
     for (int j = GLV_DIGITS - 1; j >= 0; --j) {
+#pragma unroll 1
         for (int k = 0; k < 4; ++k) jac_double<SecpFp>(acc, acc);
         u32 d = digit_at(a1, j);
         if (d) {

@@ -89,8 +89,7 @@ __device__ __forceinline__ void fp_reduce512(u32 r[8], const u32 t[16]) {
         }
     }
     u32 d[8];
-    if (sub8(d, s, FP_P) == 0) set8(s, d);
-    set8(r, s);
+    sel8(r, sub8(d, s, FP_P) ^ 1u, d, s);
 }
 
 __device__ __forceinline__ void fp_mul(u32 r[8], const u32 a[8], const u32 b[8]) {
@@ -110,13 +109,10 @@ __device__ __forceinline__ void fp_sub(u32 r[8], const u32 a[8], const u32 b[8])
 }
 
 __device__ __forceinline__ void fp_neg(u32 r[8], const u32 a[8]) {
-    u32 d[8];
-    if (is_zero8(a)) {
-        zero8(r);
-        return;
-    }
+    u32 d[8], z[8];
+    zero8(z);
     sub8(d, FP_P, a);
-    set8(r, d);
+    sel8(r, is_zero8(a), z, d);
 }
 
 // reduce any value < 2^256 to canonical mod p (one conditional subtract)

@@ -25,12 +25,24 @@
 // leaves the accumulator as the masked add leaves it (zeros if it is
 // infinity, else unchanged).
 //
-// What bounds it: multiply throughput. A GLV lane is ~3,000 products mod p (150
-// a table, 7 a doubling, 11 a G add, 16 a Q add), an SM2 lane ~3,800; its
-// inputs and output are ~1.5 KB. The per-lane tables live in local memory
-// (16 x 3 x 8 words, 1.5 KB a pair), the G tables in shared memory (the
-// lanes' digits diverge). Making it fast (warps per lane, shared tables,
-// fewer products per add) is later work.
+// What bounds it: multiply throughput. A GLV lane is ~2,760 products mod p
+// (~150 a table, 7 a doubling, 11 a G add, 16 a Q add), an SM2 lane
+// ~3,760; its inputs and output are ~1.5 KB (chip_smoke.py
+// `ladder_products`: 0.39 and 0.58 ms at 16,384 lanes). The per-lane
+// tables live in local memory (16 x 3 x 8 words, 1.5 KB a pair), the G
+// tables in shared memory (the lanes' digits diverge).
+//
+// Design for Hopper (each step measured on the H100, PERF.md): at
+// one thread a lane, 16,384 lanes are one warp a scheduler, so a lane's
+// own instruction stream sets the pace. Its products are out of line
+// (ec.cuh `fp_mul_out`, sm2.cuh `sm2_mul_out`), operands by value in
+// registers, and point.cuh computes independent products two to a call
+// (`mul2`): with ~20 inlined products the step loop was ~200 KB of code
+// and instruction fetch, not the ALUs, held the kernel back (1.5-1.9x).
+// The doubling loop stays rolled, the adds' rare doubling is out of line,
+// and SM2's product reduces in special form (sm2.cuh). Spreading a lane
+// over 2 or 4 threads (CGBN's layout) was 2.5-3.6x slower and is not
+// used.
 #include <cuda_runtime.h>
 #include "ec.cuh"
 #include "sm2.cuh"
@@ -58,6 +70,7 @@ __device__ void ladder_lane(Jac &acc, const u32 *sg, const int32_t *digs, const 
     jac_set_inf(acc);
     u32 gx[8], gy[8];
     for (int r = 0; r < nsteps; ++r) {
+#pragma unroll 1
         for (int k = 0; k < 4; ++k) jac_double<F>(acc, acc);
         for (int p = 0; p < n_pairs; ++p) {
             u32 d = (u32)digs[((long)(2 * p) * nsteps + r) * B + lane] & 15u;

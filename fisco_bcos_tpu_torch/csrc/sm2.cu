@@ -8,11 +8,14 @@
 // each thread owns one signature in 8 x 32-bit words (sm2.cuh).
 //
 // What bounds it: integer multiply-adds. A valid lane is about 256 a = -3
-// doublings (8 Montgomery products each), up to 128 mixed adds (11 each),
-// the Q table with its inversion (~500) and the checks: ~3,900 products of
-// 2 x 64 + 8 wide 32x32->64 multiplies. After the five input columns and
-// the G table staged in shared memory, nothing touches device memory but
-// the per-thread stack (the Q table and the power table, local memory).
+// doublings (8 products each), up to 128 mixed adds (11 each), the Q table
+// with its inversion (~500) and the checks: ~3,600 products mod p, each 64
+// wide 32x32->64 multiplies and a special-form reduction of word adds
+// (chip_smoke.py `sm2_products`). After the five input columns and the G
+// table staged in shared memory, nothing touches device memory but the
+// per-thread stack (the Q table and the power table, local memory). The
+// product runs out of line, two to a call where two are independent (the
+// design of ladder.cu).
 //
 // Boundary: lane-major [16, B] int32 columns of 16-bit limbs, as verify.cu.
 #include <cuda_runtime.h>

@@ -2,13 +2,15 @@
 // fisco_bcos_tpu/ops/pallas_verify.py _sm2_verify_kernel_body :404 step by
 // step: R' = e + x(s*G + (r+s)*Q) == r (mod n), GB/T 32918.
 //
-// SM2's p = 2^256 - 2^224 - 2^96 + 2^64 - 1 is a generalized-Mersenne prime
-// (as NIST P-256's): its high half folds back with word adds and subtracts
-// alone, but not by the one-word 2^256 - c fold of field.cuh. The field is
-// bigint.cuh's Montgomery product over p (R = 2^256), as ops/fp.MontField,
-// shared with secp256k1's n; a special-form fold would save about half of
-// each product's multiplies and is later speed work. The group order n
-// needs no product here: t = r + s and x1 = r - e are additions mod n.
+// SM2's p = 2^256 - 2^224 - 2^96 + 2^64 - 1 is a generalized-Mersenne
+// prime. The field is the Montgomery domain mod p (R = 2^256), as
+// ops/fp.MontField, but its product is special-form: -p^-1 = 1 mod 2^32,
+// so each reduction round's multiplier m is the running low word itself,
+// and m p = m 2^256 - m 2^224 - m 2^96 + m 2^64 - m is word adds and
+// subtracts, no multiplies (`sm2_mont_reduce`); the result is the same
+// canonical a b R^-1 mod p as CIOS's, so every limb stays as it was. The
+// group order n needs no product here: t = r + s and x1 = r - e are
+// additions mod n.
 //
 // Ladder: the plain 64-step Shamir ladder of s*G + t*Q over 4-bit MSB-first
 // windows (pallas_ec.ladder's 64-step form, ops/ec.shamir_mult), four
@@ -39,10 +41,79 @@ struct Sm2Consts {
 };
 static __constant__ Sm2Consts S2;
 
+// r = t R^-1 mod p for t < p 2^256 (a product of canonical operands),
+// canonical. Round k (0..7) takes m = word k of the running value (every
+// lower word is already 0) and adds m p: word k cancels, +m at k + 2 and
+// k + 8, -m at k + 3 and k + 7. The words sit in signed 64-bit columns,
+// whose carries ripple once, low to high; the value before the last
+// subtract is below 2p.
+__device__ __forceinline__ void sm2_mont_reduce(u32 r[8], const u32 t[16]) {
+    int64_t col[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) col[k] = t[k];
+    int64_t carry = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        int64_t v = col[k] + carry;
+        u32 m = (u32)v;
+        carry = v >> 32;  // v - m is a multiple of 2^32
+        col[k + 2] += m;
+        col[k + 3] -= m;
+        col[k + 7] -= m;
+        col[k + 8] += m;
+    }
+#pragma unroll
+    for (int k = 8; k < 16; ++k) {
+        int64_t v = col[k] + carry;
+        r[k - 8] = (u32)v;
+        carry = v >> 32;
+    }
+    u32 d[8];
+    u32 brw = sub8(d, r, S2.p);
+    sel8(r, (u32)carry | (brw ^ 1u), d, r);
+}
+
+// The product out of line: one copy of its ~330 instructions for the ~20
+// products of a ladder step, where inlined copies made the step loop too
+// large for the instruction cache (PERF.md)
+__device__ __noinline__ W8 sm2_mul_out(W8 a, W8 b) {
+    u32 t[16];
+    W8 r;
+    mul_wide8(t, a.w, b.w);
+    sm2_mont_reduce(r.w, t);
+    return r;
+}
+
+// two independent products in one call, their chains interleaved
+__device__ __noinline__ W16 sm2_mul2_out(W8 a0, W8 b0, W8 a1, W8 b1) {
+    u32 t0[16], t1[16];
+    W16 r;
+    mul_wide8(t0, a0.w, b0.w);
+    mul_wide8(t1, a1.w, b1.w);
+    sm2_mont_reduce(r.w, t0);
+    sm2_mont_reduce(r.w + 8, t1);
+    return r;
+}
+
 struct Sm2Fp {
     static constexpr bool A_MINUS3 = true;
     static __device__ __forceinline__ void mul(u32 r[8], const u32 a[8], const u32 b[8]) {
-        mont_mul(r, a, b, S2.p, S2.pnp);
+        W8 x, y;
+        set8(x.w, a);
+        set8(y.w, b);
+        W8 z = sm2_mul_out(x, y);
+        set8(r, z.w);
+    }
+    static __device__ __forceinline__ void mul2(u32 r0[8], const u32 a0[8], const u32 b0[8],
+                                                u32 r1[8], const u32 a1[8], const u32 b1[8]) {
+        W8 x0, y0, x1, y1;
+        set8(x0.w, a0);
+        set8(y0.w, b0);
+        set8(x1.w, a1);
+        set8(y1.w, b1);
+        W16 z = sm2_mul2_out(x0, y0, x1, y1);
+        set8(r0, z.w);
+        set8(r1, z.w + 8);
     }
     static __device__ __forceinline__ void add(u32 r[8], const u32 a[8], const u32 b[8]) {
         add_mod(r, a, b, S2.p);
@@ -51,8 +122,10 @@ struct Sm2Fp {
         sub_mod(r, a, b, S2.p);
     }
     static __device__ __forceinline__ void neg(u32 r[8], const u32 a[8]) {
-        if (is_zero8(a)) zero8(r);
-        else sub8(r, S2.p, a);
+        u32 d[8], z[8];
+        zero8(z);
+        sub8(d, S2.p, a);
+        sel8(r, is_zero8(a), z, d);
     }
     static __device__ __forceinline__ void one(u32 r[8]) { set8(r, S2.pone); }
     static __device__ __forceinline__ void inv(u32 r[8], const u32 a[8]) {
@@ -99,6 +172,7 @@ __device__ bool sm2_verify_one(const u32 e[8], const u32 r[8], const u32 s[8],
     Jac acc;
     jac_set_inf(acc);
     for (int j = 63; j >= 0; --j) {
+#pragma unroll 1
         for (int k = 0; k < 4; ++k) jac_double<Sm2Fp>(acc, acc);
         u32 d = digit_at(s, j);
         if (d) {

@@ -131,6 +131,8 @@ def kernel_words(c: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     rc = np.stack([c["keccak_rc_lo"].numpy(), c["keccak_rc_hi"].numpy()], axis=1)
     smc = c["sm2_consts"]
     v = {k: _int(smc[:, j].tolist()) for j, k in enumerate(SM2_COLUMNS)}
+    if v["p"] != 2 ** 256 - 2 ** 224 - 2 ** 96 + 2 ** 64 - 1:
+        raise ValueError("sm2.cuh's special-form reduction is written for SM2's p")
     v["inv_e_p"] = v["p"] - 2
     sm2 = _words(v, SM2_FIELDS) + [v["pnp"] & 0xFFFFFFFF]
     sm3 = np.concatenate([c["sm3_iv"].numpy(), c["sm3_tjrot"].numpy()])
