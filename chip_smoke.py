@@ -11,13 +11,18 @@ version or to the CPU):
 
 1. Card: name and power limit (nvidia-smi), the kernels' parallel build,
    ptxas registers and stack of every kernel, and the static SASS counts
-   (instructions, LDL, STL, CALL, BRA; cuobjdump -sass) of the ladder and
-   SM2 verify libraries.
+   (instructions, LDL, STL, CALL, BRA; cuobjdump -sass) of the ladder, SM2
+   verify and secp256k1 verify/recover libraries.
 2. Each default-chain CUDA kernel against its plain PyTorch version on the
-   card at the main path's shapes, bit-exact: recover and verify at one
-   CHUNK (16,384 lanes), Keccak over 65,536 messages of 1-8 blocks, Merkle
-   trees at n in {1, 2, 17, 4097, 65535, 65536}. Kernel times are medians
-   of CUDA event timings after a warm-up; the plain version runs once.
+   card at the main path's shapes, bit-exact: recover and verify at 16,384
+   lanes, with the inversion-stress lanes of
+   tests/test_torch_vectors.ecdsa_edge_lanes (r and s at 1, n - 2 and
+   n - 1, x = r + n near p, a recovered key at infinity, x = 5 and the
+   off-curve key (5, 0), Q = -G) also held to the pure-Python oracle, then
+   bit-exact at 65,536 and 131,072 lanes (the inputs tiled) and their lane
+   sweeps (as in 4); Keccak over 65,536 messages of 1-8 blocks, Merkle
+   trees at n in {1, 2, 17, 4097, 65535, 65536}. Kernel times are medians of CUDA event timings
+   after a warm-up; the plain version runs once.
 3. The default chain's slice: a 65,536-tx block through the port's
    protocol entry points (batch_recover_senders, Block.calculate_txs_root
    and calculate_receipts_root), and a commit-seal span of 16,384 lanes
@@ -236,6 +241,9 @@ FP_MUL = 72
 FN_MUL = 136
 WIDE = 64
 INV_LANE = 3  # multiplies per lane of a batched inversion
+# a^((p+1)/4) mod secp256k1's p by its addition chain (ec.cuh fp_sqrt):
+# 253 squarings and 13 multiplies
+SQRT_CHAIN = 253 + 13
 KECCAK_PERM_OPS = 24 * 180 + 34
 
 
@@ -275,7 +283,7 @@ def recover_products(e, r, s, v) -> int:
     x = r + (v >> 1) * c.n
     if x >= c.p:
         return 0
-    total = (3 + _pow_muls((c.p + 1) // 4)) * FP_MUL
+    total = (3 + SQRT_CHAIN) * FP_MUL
     ysq = (x ** 3 + 7) % c.p
     if pow(ysq, (c.p + 1) // 4, c.p) ** 2 % c.p != ysq:
         return total
@@ -409,6 +417,43 @@ def lane(xs, dev):
                            device=dev).T.contiguous()
 
 
+def signed_entries():
+    """256 host signatures of seeded digests by 8 keys: {e, r, s, v, qx, qy,
+    pub}."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+
+    c = refimpl.SECP256K1
+    keys = [refimpl.keygen(c, seed=b"k" + bytes([k])) for k in range(8)]
+    signed = []
+    for i in range(256):
+        sk, pub = keys[i % 8]
+        h = refimpl.keccak256(b"smoke" + i.to_bytes(4, "big"))
+        r, s, v = refimpl.ecdsa_sign(c, sk, h)
+        signed.append(dict(e=int.from_bytes(h, "big"), r=r, s=s, v=v,
+                           qx=pub[0], qy=pub[1], pub=pub))
+    return signed
+
+
+def ecdsa_cases(rng: random.Random, signed, B: int):
+    """The recover and verify kernels' B lanes, each ec_inputs with the
+    tests' inversion-stress lanes (tests/test_torch_vectors.ecdsa_edge_lanes)
+    in the last lanes -> (recover lanes, verify lanes, recover edge lanes,
+    verify edge lanes): lists of int dicts, edges by lane index."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import test_torch_vectors
+
+    rec_edges, ver_edges = test_torch_vectors.ecdsa_edge_lanes()
+    rec = ec_inputs(rng, signed, B)
+    ver = ec_inputs(rng, signed, B)
+    out = []
+    for lanes, edges in ((rec, rec_edges), (ver, ver_edges)):
+        at = range(B - len(edges), B)
+        for i, d in zip(at, edges):
+            lanes[i] = d
+        out.append(list(at))
+    return rec, ver, out[0], out[1]
+
+
 def ec_inputs(rng: random.Random, signed, B: int):
     """B lanes: the signed entries tiled over the first half with 1% of
     every 8 corrupted, random scalars (full ladder work, mostly invalid
@@ -503,7 +548,7 @@ def phase_card():
     for k, v in _cuda.PTXAS_LOG.items():
         for fn, info in ptxas_summary(v).items():
             log(f"[ptxas {k}] {fn}: {info}")
-    for k in ("ladder", "sm2"):
+    for k in ("ladder", "sm2", "verify"):
         for fn, c in sass_counts(_cuda._lib_path(k)).items():
             log(f"[kernel] sass {k} {fn}: {c}")
     return smi, name
@@ -550,50 +595,117 @@ def tree_row(dev, nrng, alg: str) -> dict:
         library_ms=None, shape=f"n={n}, whole tree, one launch per level")
 
 
+def recover_tensors(vs, dev):
+    return [lane([d[k] for d in vs], dev) for k in "ers"] + [
+        torch.tensor([d["v"] for d in vs], device=dev)]
+
+
+def verify_tensors(vs, dev):
+    return [lane([d[k] for d in vs], dev) for k in ("e", "r", "s", "qx", "qy")]
+
+
+def recover_oracle_misses(vs, lanes, qx, qy, ok) -> int:
+    """Lanes whose ok and key differ from refimpl.ecdsa_recover."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+    from fisco_bcos_tpu_torch.ops import bigint
+
+    X, Y, okl = qx.cpu().numpy(), qy.cpu().numpy(), ok.cpu().tolist()
+    bad = 0
+    for i in lanes:
+        d = vs[i]
+        Q = refimpl.ecdsa_recover(refimpl.SECP256K1, d["e"].to_bytes(32, "big"), d["r"],
+                                  d["s"], d["v"])
+        got = (bigint.from_limbs(X[:, i]), bigint.from_limbs(Y[:, i]))
+        bad += bool(okl[i]) != (Q is not None) or got != (Q or (0, 0))
+    return bad
+
+
+def recover_misses(out, px, py, pok) -> int:
+    """Lanes whose (qx, qy, ok) differ from the plain version's."""
+    qx, qy, ok = out
+    return int((qx.long() != px).any(0).logical_or((qy.long() != py).any(0))
+               .logical_or(ok.bool() != pok).sum())
+
+
+def tiled_misses(launch, misses) -> dict:
+    """{B: mismatched lanes} of one launch at each tiled B of SWEEP_B past
+    the first: launch(k) runs the kernel on the 16,384-lane inputs tiled k
+    times, misses(out, k) holds it to the plain outputs tiled k times (the
+    plain versions work lane by lane)."""
+    return {k * EC_B: misses(launch(k), k) for k in (b // EC_B for b in SWEEP_B[1:])}
+
+
+def verify_oracle_misses(vs, lanes, ok) -> int:
+    from fisco_bcos_tpu_torch.crypto import refimpl
+
+    okl = ok.cpu().tolist()
+    return sum(bool(okl[i]) != refimpl.ecdsa_verify(
+        refimpl.SECP256K1, (vs[i]["qx"], vs[i]["qy"]), vs[i]["e"].to_bytes(32, "big"),
+        vs[i]["r"], vs[i]["s"]) for i in lanes)
+
+
 def phase_kernels(dev, signed, rng):
     from fisco_bcos_tpu_torch.ops import cuda_hash, cuda_verify, ec, keccak
 
     rows = {}
     B = EC_B
+    rec_vs, ver_vs, rec_edges, ver_edges = ecdsa_cases(rng, signed, B)
     # -- recover ------------------------------------------------------------
-    vs = ec_inputs(rng, signed, B)
-    e, r, s = (lane([d[k] for d in vs], dev) for k in "ers")
-    v = torch.tensor([d["v"] for d in vs], device=dev)
+    e, r, s, v = recover_tensors(rec_vs, dev)
     qx, qy, ok = cuda_verify.ecdsa_recover(e, r, s, v)
     (px, py, pok), plain_ms = wall_ms(lambda: ec.ecdsa_recover_plain(ec.SECP256K1, e, r, s, v))
-    mism = int((qx.long() != px).any(0).logical_or((qy.long() != py).any(0))
-               .logical_or(ok.bool() != pok).sum())
+    mism = recover_misses((qx, qy, ok), px, py, pok)
+    # bit-exact at the sweep's larger launches too
+    tiled = tiled_misses(
+        lambda k: cuda_verify.ecdsa_recover(*(x.repeat(1, k) for x in (e, r, s)), v.repeat(k)),
+        lambda out, k: recover_misses(out, px.repeat(1, k), py.repeat(1, k), pok.repeat(k)))
+    oracle = recover_oracle_misses(rec_vs, rec_edges, qx, qy, ok)
     err = max(int((qx.long() - px).abs().max()), int((qy.long() - py).abs().max()),
               int((ok.long() - pok.long()).abs().max()))
     ms = cuda_ms(lambda: cuda_verify.ecdsa_recover(e, r, s, v), 5)
+    sweep = lane_sweep(lambda k: (lambda a=[x.repeat(1, k) for x in (e, r, s)] + [v.repeat(k)]:
+                                  cuda_verify.ecdsa_recover(*a)))
+    log(sweep_line("ecdsa_recover", sweep))
     # r^-1 mod n, the Q-table inverse and Z^-1 mod p
-    prods = (sum(recover_products(d["e"], d["r"], d["s"], d["v"]) for d in vs)
+    prods = (sum(recover_products(d["e"], d["r"], d["s"], d["v"]) for d in rec_vs)
              + ec_batch_inversions(1, 2))
     rows["ecdsa_recover"] = dict(
         name="ecdsa_recover", route="cuda", source="fisco_bcos_tpu_torch/csrc/verify.cu",
-        replaces="fisco_bcos_tpu/ops/pallas_verify.py:375", mismatches=mism,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=ec_bound_ms(prods),
-        bound_by="operations", library_ms=None, shape=f"B={B}",
-        valid_lanes=int(ok.sum()))
-    log(f"[kernel] recover B={B}: mismatches {mism}, {ms:.3f} ms (plain {plain_ms:.0f} ms), "
+        replaces="fisco_bcos_tpu/ops/pallas_verify.py:375",
+        mismatches=mism + oracle + sum(tiled.values()), max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=ec_bound_ms(prods), bound_by="operations",
+        library_ms=None, shape=f"B={B}", valid_lanes=int(ok.sum()), sweep_ms=sweep)
+    log(f"[kernel] recover B={B}: mismatches {mism} (tiled, by B: {tiled}), "
+        f"edge lanes held to the oracle "
+        f"{len(rec_edges)} (misses {oracle}, valid {int(ok[rec_edges].sum())}), {ms:.3f} ms "
+        f"(plain {plain_ms:.0f} ms), bound {ec_bound_ms(prods):.4f} ms, "
         f"valid lanes {int(ok.sum())}")
     # -- verify -------------------------------------------------------------
-    vs = ec_inputs(rng, signed, B)
-    args = [lane([d[k] for d in vs], dev) for k in ("e", "r", "s", "qx", "qy")]
+    args = verify_tensors(ver_vs, dev)
     ok = cuda_verify.ecdsa_verify(*args)
     pok, plain_ms = wall_ms(lambda: ec.ecdsa_verify_plain(ec.SECP256K1, *args))
     mism = int((ok.bool() != pok).sum())
+    tiled = tiled_misses(lambda k: cuda_verify.ecdsa_verify(*(x.repeat(1, k) for x in args)),
+                         lambda out, k: int((out.bool() != pok.repeat(k)).sum()))
+    oracle = verify_oracle_misses(ver_vs, ver_edges, ok)
     ms = cuda_ms(lambda: cuda_verify.ecdsa_verify(*args), 5)
+    sweep = lane_sweep(lambda k: (lambda a=[x.repeat(1, k) for x in args]:
+                                  cuda_verify.ecdsa_verify(*a)))
+    log(sweep_line("ecdsa_verify", sweep))
     # s^-1 mod n and the Q-table inverse
-    prods = (sum(verify_products(d["e"], d["r"], d["s"], d["qx"], d["qy"]) for d in vs)
+    prods = (sum(verify_products(d["e"], d["r"], d["s"], d["qx"], d["qy"]) for d in ver_vs)
              + ec_batch_inversions(1, 1))
     rows["ecdsa_verify"] = dict(
         name="ecdsa_verify", route="cuda", source="fisco_bcos_tpu_torch/csrc/verify.cu",
-        replaces="fisco_bcos_tpu/ops/pallas_verify.py:262", mismatches=mism,
-        max_abs_err=int((ok.long() - pok.long()).abs().max()), ms=ms,
-        plain_ms=plain_ms, bound_ms=ec_bound_ms(prods), bound_by="operations",
-        library_ms=None, shape=f"B={B}", valid_lanes=int(ok.sum()))
-    log(f"[kernel] verify B={B}: mismatches {mism}, {ms:.3f} ms (plain {plain_ms:.0f} ms), "
+        replaces="fisco_bcos_tpu/ops/pallas_verify.py:262",
+        mismatches=mism + oracle + sum(tiled.values()),
+        max_abs_err=int((ok.long() - pok.long()).abs().max()), ms=ms, plain_ms=plain_ms,
+        bound_ms=ec_bound_ms(prods), bound_by="operations",
+        library_ms=None, shape=f"B={B}", valid_lanes=int(ok.sum()), sweep_ms=sweep)
+    log(f"[kernel] verify B={B}: mismatches {mism} (tiled, by B: {tiled}), "
+        f"edge lanes held to the oracle "
+        f"{len(ver_edges)} (misses {oracle}, valid {int(ok[ver_edges].sum())}), {ms:.3f} ms "
+        f"(plain {plain_ms:.0f} ms), bound {ec_bound_ms(prods):.4f} ms, "
         f"valid lanes {int(ok.sum())}")
     # -- keccak -------------------------------------------------------------
     nrng = np.random.default_rng(SEED)
@@ -1702,7 +1814,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(here))
-    from fisco_bcos_tpu_torch.crypto import refimpl
     from fisco_bcos_tpu_torch.crypto.suite import make_suite
 
     t_start = time.perf_counter()
@@ -1710,16 +1821,8 @@ def main() -> int:
     smi, name = phase_card()
     rng = random.Random(SEED)
     suite = make_suite()
-    c = refimpl.SECP256K1
     t0 = time.perf_counter()
-    keys = [refimpl.keygen(c, seed=b"k" + bytes([k])) for k in range(8)]
-    signed = []
-    for i in range(256):
-        sk, pub = keys[i % 8]
-        h = refimpl.keccak256(b"smoke" + i.to_bytes(4, "big"))
-        r, s, v = refimpl.ecdsa_sign(c, sk, h)
-        signed.append(dict(e=int.from_bytes(h, "big"), r=r, s=s, v=v,
-                           qx=pub[0], qy=pub[1], pub=pub))
+    signed = signed_entries()
     log(f"[kernel] 256 host signatures for the kernel inputs: "
         f"{time.perf_counter() - t0:.1f} s")
     rows = phase_kernels(dev, signed, rng)

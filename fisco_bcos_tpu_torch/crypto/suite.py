@@ -25,6 +25,10 @@ JAX package's default on a TPU). Both give the same results.
 
 Device batches keep the JAX suite's padding: up to CHUNK rows pad to the
 next of BUCKETS, larger batches run as CHUNK-sized calls.
+
+`mesh_devices` keeps the JAX suite's meaning on one device: with fewer
+than two cards the suite runs unsharded. Sharding over several cards is
+not ported and raises.
 """
 
 from __future__ import annotations
@@ -102,10 +106,6 @@ class CryptoSuite:
                  ec_route: str = "fused"):
         if kind not in ("ecdsa", "sm"):
             raise ValueError(f"unknown crypto suite kind: {kind}")
-        if mesh_devices is not None and mesh_devices >= 2:
-            raise NotImplementedError(
-                "mesh_devices >= 2: sharding over several GPUs is the "
-                "multi-GPU slice queued in ROADMAP.md")
         if backend not in ("device", "host", "auto"):
             raise ValueError(f"unknown backend: {backend}")
         if ec_route not in ec.ROUTES:
@@ -120,6 +120,14 @@ class CryptoSuite:
                 "CryptoSuite(device='cuda'): no CUDA device is available; "
                 "pass device='cpu' to run the plain PyTorch path")
         self.device_min_batch = device_min_batch
+        # as the JAX suite's mesh (parallel/mesh.local_mesh): with fewer than
+        # two devices the suite runs unsharded, buckets and all
+        self.mesh_devices = mesh_devices or 0
+        if (self.mesh_devices >= 2 and backend != "host"
+                and self.device.type == "cuda" and torch.cuda.device_count() >= 2):
+            raise NotImplementedError(
+                "mesh_devices >= 2 on several GPUs: sharding is the "
+                "multi-GPU slice queued in ROADMAP.md")
         # the per-kind parts, chosen once: hashes, signing, verify, recovery
         if kind == "ecdsa":
             self.curve = ec.SECP256K1
@@ -204,6 +212,8 @@ class CryptoSuite:
         return self._host_hash(pub_bytes)[12:]
 
     def sign(self, kp, digest: bytes) -> bytes:
+        if hasattr(kp, "sign_digest"):  # HSM-backed: the secret stays inside
+            return kp.sign_digest(digest)
         return self._sign(kp, digest)
 
     # -- verification / recovery (batch-native) ----------------------------

@@ -12,9 +12,12 @@
 //   whose products are out of line (`fp_mul_out`, `fp_mul2_out`: one copy
 //   of the product's code for the ladder's step loop, operands by value).
 // * Only the per-lane Q table (k*Q, k < 16) is built, normalised to affine
-//   with one inversion (Montgomery's trick over its 14 Z values); phi(Q)
-//   entries are (beta*x, y) formed at lookup, so the per-thread table is
-//   16 x 2 x 8 words rather than twice that.
+//   with one inversion (Montgomery's trick over its 14 Z values, the
+//   inverse modinv.cuh's safegcd); phi(Q) entries are (beta*x, y) formed
+//   at lookup, so the per-thread table is 16 x 2 x 8 words rather than
+//   twice that. It stays in local memory: read from shared memory instead
+//   (a 128 KB block) it was no faster at 16,384 lanes and slower at more
+//   (PERF.md).
 // * The G and phi(G) tables (2 x 16 affine points) are indexed by each
 //   lane's own digit, so they sit in shared memory (constant memory would
 //   serialise the divergent reads); the kernel stages them per block.
@@ -79,12 +82,41 @@ struct SecpFp {
         r[0] = 1;
     }
     static __device__ __forceinline__ void inv(u32 r[8], const u32 a[8]) {
-        u32 e[8], one1[8];
-        set8(e, FP_INV_E);
-        one(one1);
-        pow_fixed<FpOps>(r, a, e, one1);
+        W8 x;
+        set8(x.w, a);
+        W8 y = modinv<ModP>(x);
+        set8(r, y.w);
     }
 };
+
+__device__ __forceinline__ W8 fp_sqr_n(W8 x, int n) {
+#pragma unroll 1
+    for (int i = 0; i < n; ++i) x = fp_mul_out(x, x);
+    return x;
+}
+
+// a^((p+1)/4) mod p, a square root of a where one exists (p = 3 mod 4),
+// by libsecp256k1's addition chain (secp256k1_fe_sqrt): the exponent's
+// runs of ones have lengths 223, 22 and 2, built from 2^k - 1 for k in
+// 1, 2, 3, 6, 9, 11, 22, 44, 88, 176, 220, 223: 253 squarings and 13
+// products, against ~326 for 4-bit windows, and no table of powers. The
+// chain is written for secp256k1's p, which ops/consts.kernel_words checks.
+__device__ W8 fp_sqrt(W8 a) {
+    W8 x2 = fp_mul_out(fp_mul_out(a, a), a);
+    W8 x3 = fp_mul_out(fp_mul_out(x2, x2), a);
+    W8 x6 = fp_mul_out(fp_sqr_n(x3, 3), x3);
+    W8 x9 = fp_mul_out(fp_sqr_n(x6, 3), x3);
+    W8 x11 = fp_mul_out(fp_sqr_n(x9, 2), x2);
+    W8 x22 = fp_mul_out(fp_sqr_n(x11, 11), x11);
+    W8 x44 = fp_mul_out(fp_sqr_n(x22, 22), x22);
+    W8 x88 = fp_mul_out(fp_sqr_n(x44, 44), x44);
+    W8 x176 = fp_mul_out(fp_sqr_n(x88, 88), x88);
+    W8 x220 = fp_mul_out(fp_sqr_n(x176, 44), x44);
+    W8 x223 = fp_mul_out(fp_sqr_n(x220, 3), x3);
+    W8 t = fp_mul_out(fp_sqr_n(x223, 23), x22);
+    t = fp_mul_out(fp_sqr_n(t, 6), x2);
+    return fp_sqr_n(t, 2);
+}
 
 // k (canonical mod n) -> signed halves: k = (+-m1) + (+-m2) * lambda (mod n),
 // |m1|, |m2| < 2^136, exactly ops/ec._glv_split_device.

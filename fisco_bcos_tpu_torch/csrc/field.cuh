@@ -1,8 +1,9 @@
 // secp256k1 field and group-order arithmetic, one 256-bit value per thread.
 //
 // Replaces the field layer of fisco_bcos_tpu/ops/pallas_fp.py
-// (solinas_mul_body :82, mont_mul_body :109, pow_digits_values :281) as
-// device functions inlined into the verify and recover kernels.
+// (solinas_mul_body :82, mont_mul_body :109) as device functions inlined
+// into the verify and recover kernels; their inverses mod p and n are
+// modinv.cuh's, their square root ec.cuh's `fp_sqrt`.
 //
 // Design: the TPU kernels carry 16 limbs of 16 bits so that a limb product
 // fits a uint32 lane. Hopper has a 32x32->64 multiply, so here a value is
@@ -17,6 +18,7 @@
 // Every function returns a canonical value (< modulus) for canonical input.
 #pragma once
 #include "bigint.cuh"
+#include "modinv.cuh"
 
 // Every constant the kernels read sits in one __constant__ block, filled
 // from ops/consts.py (`kernel_words`, field order `SECP_FIELDS`) through
@@ -24,24 +26,29 @@
 // carry no copy of their own. The mod-p fold below is written for the
 // shape of secp256k1's p, which kernel_words checks.
 struct SecpConsts {
-    u32 p[8], sqrt_e[8], inv_e_p[8], b[8];  // p, (p+1)/4, p-2, curve b
-    u32 n[8], r2[8], one[8], inv_e_n[8];    // n, R^2 and R mod n, n-2
+    u32 p[8], b[8];                         // p, curve b
+    u32 n[8], r2[8];                        // n, R^2 mod n
     u32 beta[8], g1[8], g2[8];              // GLV: beta, round(2^384 b_i / n)
     u32 mb1r[8], mb2r[8], lamr[8];          // -b1 R, -b2 R, lambda R (mod n)
     u32 half_n[8];
     u32 np0;                                // -n^-1 mod 2^32
+    ModInv30 pinv, ninv;                    // p and n for modinv.cuh
 };
 static __constant__ SecpConsts SC;
 
 #define FP_P (SC.p)
-#define FP_SQRT_E (SC.sqrt_e)
-#define FP_INV_E (SC.inv_e_p)
 #define FP_B (SC.b)
 #define FN_N (SC.n)
 #define FN_NP0 (SC.np0)
 #define FN_R2 (SC.r2)
-#define FN_ONE (SC.one)
-#define FN_INV_E (SC.inv_e_n)
+
+// the moduli of modinv.cuh's inverses
+struct ModP {
+    static __device__ __forceinline__ const ModInv30 &mod() { return SC.pinv; }
+};
+struct ModN {
+    static __device__ __forceinline__ const ModInv30 &mod() { return SC.ninv; }
+};
 
 // ---------------------------------------------------------------- mod p
 
@@ -151,17 +158,3 @@ __device__ __forceinline__ void fn_reduce(u32 r[8], const u32 a[8]) {
     u32 d[8];
     if (sub8(d, a, FN_N) == 0) set8(r, d); else set8(r, a);
 }
-
-// ---------------------------------------------------------------- powers
-
-struct FpOps {
-    static __device__ __forceinline__ void mul(u32 r[8], const u32 a[8], const u32 b[8]) {
-        fp_mul(r, a, b);
-    }
-};
-
-struct FnMontOps {
-    static __device__ __forceinline__ void mul(u32 r[8], const u32 a[8], const u32 b[8]) {
-        fn_mont_mul(r, a, b);
-    }
-};

@@ -6,14 +6,18 @@
 // ecdsa_verify_fused (:262 -> _verify_call :211, body _verify_kernel_body
 // :160). Same function, not the same blocking: the TPU kernel works on a
 // 256-lane block of 16-bit limb planes and inverts through a per-block
-// product tree; here each thread owns one signature in 8 x 32-bit words and
-// inverts with its own Fermat power (the inverse is unique, so outputs are
-// identical; zero still maps to zero).
+// product tree with a Fermat power at its root; here each thread owns one
+// signature in 8 x 32-bit words and inverts with its own safegcd inverse
+// (modinv.cuh: a few thousand logic ops, about a sixth of a window
+// power's time, and no block to wait on). The inverse is unique, so
+// outputs are identical; zero still maps to zero. The square root is an
+// addition chain (ec.cuh `fp_sqrt`).
 //
-// What bounds it: integer multiply-adds. A recovery is about 3,500 field
-// multiplies of 64 wide 32x32->64 products each (sqrt, r^-1 and Z^-1 powers,
-// the Q table, 136 doublings and up to 136 mixed adds); nothing is read
-// from device memory after the 5 input columns and the shared G tables.
+// What bounds it: integer multiply-adds. A recovery is about 2,700 field
+// multiplies of 64 wide 32x32->64 products each (the square root's 266,
+// the Q table's ~150, 136 doublings and up to 136 mixed adds) and three
+// inversions; nothing is read from device memory after the 5 input
+// columns and the shared G tables.
 //
 // Boundary: lane-major [16, B] int32 columns of 16-bit limbs, the JAX
 // package's layout, so adjacent threads read adjacent addresses per limb.

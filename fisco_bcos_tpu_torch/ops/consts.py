@@ -94,9 +94,11 @@ def derive_consts() -> dict[str, torch.Tensor]:
 
 
 # the fields of struct SecpConsts in csrc/field.cuh, in order: 8 words each,
-# then np0 as one word
-SECP_FIELDS = ("p", "sqrt_e", "inv_e_p", "b", "n", "r2", "one", "inv_e_n",
-               "beta", "g1", "g2", "mb1r", "mb2r", "lamr", "half_n")
+# then np0 as one word, then a ModInv30 (csrc/modinv.cuh) for each of
+# SECP_MODINV: 9 limbs of 30 bits and m^-1 mod 2^30
+SECP_FIELDS = ("p", "b", "n", "r2", "beta", "g1", "g2", "mb1r", "mb2r", "lamr",
+               "half_n")
+SECP_MODINV = ("p", "n")
 # the columns of glv_consts (pallas_verify._secp_consts), in order
 GLV_COLUMNS = ("p", "b", "beta", "n", "nprime", "r2", "one", "half_n", "g1",
                "g2", "mb1r", "mb2r", "lamr")
@@ -115,6 +117,12 @@ def _words(v: dict[str, int], fields) -> list[int]:
     return [(v[f] >> (32 * i)) & 0xFFFFFFFF for f in fields for i in range(8)]
 
 
+def modinv30_words(m: int) -> list[int]:
+    """struct ModInv30 of an odd modulus m < 2^256: its 9 limbs of 30
+    bits, then m^-1 mod 2^30."""
+    return [(m >> (30 * i)) & 0x3FFFFFFF for i in range(9)] + [pow(m, -1, 1 << 30)]
+
+
 def kernel_words(c: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """The kernels' constant blocks as little-endian uint32 words: "verify"
     is struct SecpConsts (csrc/field.cuh) from the glv_consts columns,
@@ -123,11 +131,13 @@ def kernel_words(c: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     "sm3" the IV then the 64 rotated round constants (csrc/sm3.cuh)."""
     glv = c["glv_consts"]
     v = {k: _int(glv[:, j].tolist()) for j, k in enumerate(GLV_COLUMNS)}
-    p, n = v["p"], v["n"]
+    p = v["p"]
     if p != 2 ** 256 - 2 ** 32 - 977:
-        raise ValueError("field.cuh's mod-p fold is written for secp256k1's p")
-    v.update(sqrt_e=(p + 1) // 4, inv_e_p=p - 2, inv_e_n=n - 2)
+        raise ValueError("field.cuh's mod-p fold and ec.cuh's square-root chain are "
+                         "written for secp256k1's p")
     secp = _words(v, SECP_FIELDS) + [v["nprime"] & 0xFFFFFFFF]
+    for m in (v[k] for k in SECP_MODINV):
+        secp += modinv30_words(m)
     rc = np.stack([c["keccak_rc_lo"].numpy(), c["keccak_rc_hi"].numpy()], axis=1)
     smc = c["sm2_consts"]
     v = {k: _int(smc[:, j].tolist()) for j, k in enumerate(SM2_COLUMNS)}

@@ -2,9 +2,10 @@
 and whole SM2 verify.
 
 Sources: `csrc/verify.cu` (secp256k1 kernels), `csrc/ecdsa.cuh`
-(per-signature bodies), `csrc/ec.cuh` (GLV ladder), `csrc/field.cuh`
-(secp256k1 field); `csrc/sm2.cu` and `csrc/sm2.cuh` (SM2); `point.cuh`,
-`bigint.cuh` and `lanes.cuh` shared. They replace `ecdsa_recover_fused`,
+(per-signature bodies), `csrc/ec.cuh` (GLV ladder, square root),
+`csrc/field.cuh` (secp256k1 field), `csrc/modinv.cuh` (the inverse);
+`csrc/sm2.cu` and `csrc/sm2.cuh` (SM2); `point.cuh`, `bigint.cuh` and
+`lanes.cuh` shared. They replace `ecdsa_recover_fused`,
 `ecdsa_verify_fused` and `sm2_verify_fused` of
 fisco_bcos_tpu/ops/pallas_verify.py. The plain versions are
 `ops.ec.ecdsa_recover_plain` / `ecdsa_verify_plain` / `sm2_verify_plain`.

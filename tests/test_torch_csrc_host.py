@@ -1,7 +1,8 @@
 """The port's CUDA arithmetic (csrc/bigint.cuh, sm2.cuh, field.cuh,
-point.cuh) compiled for the host with g++ and held to Python integers and
-to the plain PyTorch point formulas of ops/ec, on seeded operands and on
-carry-extreme ones.
+point.cuh, modinv.cuh, ec.cuh, ecdsa.cuh) compiled for the host with g++
+and held to Python integers, to the plain PyTorch point formulas of ops/ec
+and to the pure-Python oracle, on seeded operands and on carry-extreme
+ones.
 
 The device code is plain C++ behind `__device__`: with empty
 `__device__`, `__forceinline__`, `__noinline__` and `__constant__`, and
@@ -23,6 +24,7 @@ import torch
 from fisco_bcos_tpu_torch.crypto import refimpl
 from fisco_bcos_tpu_torch.ops import bigint, ec
 from fisco_bcos_tpu_torch.ops.consts import derive_consts, kernel_words
+import test_torch_vectors as vectors  # tests/ is on sys.path under pytest
 
 CSRC = Path(__file__).resolve().parent.parent / "fisco_bcos_tpu_torch" / "csrc"
 S, C = refimpl.SM2P256V1, refimpl.SECP256K1
@@ -38,8 +40,10 @@ HARNESS = r"""
 #include <cstring>
 #include <iostream>
 #include <string>
-#include "ec.cuh"
+#include "ecdsa.cuh"
 #include "sm2.cuh"
+
+static u32 SG[2 * TBL * 16];  // the G and phi(G) tables, as stage_tables lays them out
 
 // a 256-bit value as 64 hex digits, most significant first
 static void rd(u32 w[8]) {
@@ -70,7 +74,40 @@ int main() {
         Jac P, Q, Rj;
         if (op == "wide") {
             rd(a); rd(b); mul_wide8(t, a, b); wr(t, 16);
-
+        } else if (op == "inv_p" || op == "inv_n" || op == "sqrt") {
+            W8 x, y;
+            rd(x.w);
+            if (op == "inv_p") y = modinv<ModP>(x);
+            else if (op == "inv_n") y = modinv<ModN>(x);
+            else y = fp_sqrt(x);
+            wr(y.w, 8);
+        } else if (op == "qtab") {  // q_table's Z product and its inverse, then the table
+            u32 tx[TBL][8], ty[TBL][8], z[8];
+            rd(a); rd(b);
+            Jac Pq;
+            set8(Pq.X, a); set8(Pq.Y, b); SecpFp::one(Pq.Z);
+            set8(z, Pq.Z);
+            jac_double<SecpFp>(Pq, Pq);
+            for (int k = 2; k < TBL; ++k) {
+                if (k > 2) jac_madd<SecpFp>(Pq, Pq, a, b);
+                SecpFp::mul(z, z, Pq.Z);
+            }
+            SecpFp::inv(r, z);
+            wr(z, 8); printf(" "); wr(r, 8);
+            q_table<SecpFp>(tx, ty, a, b);
+            for (int k = 1; k < TBL; ++k) { printf(" "); wr(tx[k], 8); printf(" "); wr(ty[k], 8); }
+        } else if (op == "gtab") {
+            for (int i = 0; i < 2 * TBL * 16; ++i) { std::string h; std::cin >> h; SG[i] = (u32)strtoul(h.c_str(), 0, 16); }
+            printf("0");
+        } else if (op == "recover") {
+            u32 e[8], rr[8], ss[8], qx[8], qy[8], v;
+            rd(e); rd(rr); rd(ss); std::cin >> v;
+            bool ok = recover_one(qx, qy, e, rr, ss, v, SG);
+            printf("%d ", ok ? 1 : 0); wr(qx, 8); printf(" "); wr(qy, 8);
+        } else if (op == "verify") {
+            u32 e[8], rr[8], ss[8], qx[8], qy[8];
+            rd(e); rd(rr); rd(ss); rd(qx); rd(qy);
+            printf("%d", verify_one(e, rr, ss, qx, qy, SG) ? 1 : 0);
         } else if (op == "sm2mul") {
             rd(a); rd(b); Sm2Fp::mul(r, a, b); wr(r, 8);
         } else if (op == "secpmul") {
@@ -230,3 +267,139 @@ def test_sm2_point_ops_match_plain(harness, op):
     got = [tuple(g) for g in harness(lines)]
     assert got == _words_of(want)
 
+
+
+# -- the safegcd inverse (modinv.cuh) and the square-root chain (ec.cuh) ----
+
+MODULI = {"p": C.p, "n": C.n}
+# inputs below the modulus m at the edges of the 30-bit limbs and the
+# 32-bit words, by name
+EDGE_INPUTS = {
+    "zero": lambda m: 0, "one": lambda m: 1, "two": lambda m: 2,
+    "m-1": lambda m: m - 1, "m-2": lambda m: m - 2,
+    **{f"2^{k}": (lambda k: lambda m: 1 << k)(k) for k in (29, 30, 31, 32, 60, 128, 240, 255)},
+    **{f"m-2^{k}": (lambda k: lambda m: m - (1 << k))(k) for k in (30, 32, 128, 255)},
+    "R mod m": lambda m: R % m, "R^2 mod m": lambda m: R * R % m,
+    "words ffffffff": lambda m: (R - 1) % m,
+    "words ffffffff 00000000": lambda m: int("ffffffff00000000" * 4, 16) % m,
+    "words 00000000 ffffffff": lambda m: int("00000000ffffffff" * 4, 16) % m,
+    "low 30-bit limbs full": lambda m: (1 << 240) - 1,
+    "30-bit limbs alternate": lambda m: sum(((1 << 30) - 1) << (60 * i) for i in range(4)),
+}
+SEEDED_INPUTS = 8
+INPUT_IDS = list(EDGE_INPUTS) + [f"seeded {i}" for i in range(SEEDED_INPUTS)]
+
+
+def _inputs(m: int) -> dict[str, int]:
+    xs = {name: f(m) for name, f in EDGE_INPUTS.items()}
+    rng = random.Random(m % 1000)
+    xs.update({f"seeded {i}": rng.randrange(m) for i in range(SEEDED_INPUTS)})
+    assert all(0 <= x < m for x in xs.values()), xs
+    return xs
+
+
+@pytest.fixture(scope="module")
+def unary_results(harness):
+    """(op, input name) -> the harness's result, one run for all."""
+    keys, lines = [], []
+    for op, m in (("inv_p", C.p), ("inv_n", C.n), ("sqrt", C.p)):
+        for name, x in _inputs(m).items():
+            keys.append((op, name))
+            lines.append(f"{op} {_h(x)}")
+    return {k: g[0] for k, g in zip(keys, harness(lines))}
+
+
+@pytest.mark.parametrize("name", INPUT_IDS)
+@pytest.mark.parametrize("modulus", ["p", "n"])
+def test_safegcd_inverse_matches_python(unary_results, modulus, name):
+    """modinv over secp256k1's p and n: x^-1 mod m as Python's
+    pow(x, -1, m), and 0 for 0."""
+    m = MODULI[modulus]
+    x = _inputs(m)[name]
+    assert unary_results["inv_" + modulus, name] == (pow(x, -1, m) if x else 0)
+
+
+@pytest.mark.parametrize("name", INPUT_IDS)
+def test_sqrt_chain_matches_python(unary_results, name):
+    """fp_sqrt: x^((p+1)/4) mod p as Python's pow, square or not."""
+    x = _inputs(C.p)[name]
+    assert unary_results["sqrt", name] == pow(x, (C.p + 1) // 4, C.p)
+
+
+def _ladder_edge_qs() -> dict[str, tuple[int, int]]:
+    """The affine Q of each edge of ec.LADDER_EDGES that sets one."""
+    n = len(ec.LADDER_EDGES)
+    _, _, qx, qy = ec.ladder_edge_lanes(C, [3] * n, [5] * n, [C.gx] * n, [C.gy] * n)
+    return {name: (x, y) for name, x, y in zip(ec.LADDER_EDGES, qx, qy) if "Q" in name}
+
+
+@pytest.mark.parametrize("edge", list(_ladder_edge_qs()))
+def test_q_table_inverse_on_ladder_edges(harness, edge):
+    """The Q table's one inversion (SecpFp::inv, modinv mod p) on the
+    product of Z values that the table of an edge Q of ec.LADDER_EDGES
+    builds: Python's inverse, 0 for the off-curve (5, 0) whose product is
+    0; the affine table is k Q (zeros throughout for (5, 0))."""
+    qx, qy = _ladder_edge_qs()[edge]
+    z, zi, *tab = harness([f"qtab {_h(qx, qy)}"])[0]
+    on_curve = (qy * qy - qx ** 3 - 7) % C.p == 0
+    assert (z == 0) == (not on_curve)
+    assert zi == (pow(z, -1, C.p) if z else 0)
+    want = []
+    for k in range(1, 16):
+        P = refimpl.ec_mul(C, k, (qx, qy)) if on_curve else (0, 0)
+        want += list(P)
+    assert tab == want
+
+
+
+def _gtab_line() -> str:
+    g = derive_consts()["gtab"].reshape(-1).numpy().astype(np.int64) & 0xFFFF
+    words = g[0::2] | (g[1::2] << 16)
+    return "gtab " + " ".join(f"{int(w):08x}" for w in words)
+
+
+def _signed_lanes(n: int):
+    """n host signatures by 4 keys over seeded digests: (e, r, s, v, Q)."""
+    rng = random.Random(41)
+    keys = [refimpl.keygen(C, seed=b"host" + bytes([k])) for k in range(4)]
+    out = []
+    for i in range(n):
+        sk, pub = keys[i % 4]
+        h = rng.getrandbits(256).to_bytes(32, "big")
+        r, s, v = refimpl.ecdsa_sign(C, sk, h)
+        out.append(dict(e=int.from_bytes(h, "big"), r=r, s=s, v=v, qx=pub[0], qy=pub[1]))
+    return out
+
+
+def test_recover_one_matches_oracle(harness):
+    """recover_one (the recover kernel's per-lane body) on signed lanes,
+    test_torch_vectors' edge lanes (r, s at 1, n - 2 and n - 1, x = r + n near p, a
+    key at infinity, x = 5) and corrupted ones, against
+    refimpl.ecdsa_recover: ok, and the key (zeros where ok is 0)."""
+    recs, _ = vectors.ecdsa_edge_lanes()
+    lanes = [dict(d) for d in _signed_lanes(12)] + recs
+    lanes[1]["v"] ^= 1
+    lanes[2]["e"] ^= 1
+    lanes[3]["s"] = C.n - lanes[3]["s"]
+    got = harness([_gtab_line()] + [f"recover {_h(d['e'], d['r'], d['s'])} {d['v']}"
+                                    for d in lanes])[1:]
+    for d, g in zip(lanes, got):
+        Q = refimpl.ecdsa_recover(C, d["e"].to_bytes(32, "big"), d["r"], d["s"], d["v"])
+        assert g == ([1, Q[0], Q[1]] if Q is not None else [0, 0, 0]), d
+
+
+def test_verify_one_matches_oracle(harness):
+    """verify_one on signed lanes, test_torch_vectors' edge lanes (r, s at 1, n - 2
+    and n - 1, Q = -G, Q = (5, 0)) and corrupted ones, against
+    refimpl.ecdsa_verify."""
+    _, vers = vectors.ecdsa_edge_lanes()
+    lanes = [dict(d) for d in _signed_lanes(12)] + vers
+    lanes[1]["e"] ^= 1 << 200
+    lanes[2]["qx"], lanes[2]["qy"] = lanes[3]["qx"], lanes[3]["qy"] + 1
+    lanes[4]["r"] = C.n - lanes[4]["r"]
+    got = harness([_gtab_line()] + [
+        f"verify {_h(d['e'], d['r'], d['s'], d['qx'], d['qy'])}" for d in lanes])[1:]
+    want = [refimpl.ecdsa_verify(C, (d["qx"], d["qy"]), d["e"].to_bytes(32, "big"),
+                                 d["r"], d["s"]) for d in lanes]
+    assert [g[0] for g in got] == [int(w) for w in want]
+    assert sum(want) >= len(lanes) - 6

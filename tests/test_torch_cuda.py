@@ -44,7 +44,7 @@ def _vectors():
 
 
 def test_recover_kernel_matches_plain_and_oracle(dev):
-    vs = _vectors()
+    vs = _vectors() + vectors.ecdsa_edge_lanes()[0]
     e, r, s = (_lane([d[k] for d in vs], dev) for k in "ers")
     v = torch.tensor([d["v"] for d in vs], device=dev)
     qx, qy, ok = cuda_verify.ecdsa_recover(e, r, s, v)
@@ -59,7 +59,7 @@ def test_recover_kernel_matches_plain_and_oracle(dev):
 
 
 def test_verify_kernel_matches_plain_and_oracle(dev):
-    vs = _vectors()
+    vs = _vectors() + vectors.ecdsa_edge_lanes()[1]
     args = [_lane([d[k] for d in vs], dev) for k in ("e", "r", "s", "qx", "qy")]
     ok = cuda_verify.ecdsa_verify(*args)
     assert torch.equal(ok.bool(), ec.ecdsa_verify_plain(ec.SECP256K1, *args))

@@ -81,23 +81,33 @@ def test_kernel_words_match_the_cuda_structs():
     csrc = Path(consts.__file__).resolve().parent.parent / "csrc"
     body = re.search(r"struct SecpConsts \{(.*?)\};",
                      (csrc / "field.cuh").read_text(), re.S).group(1)
-    decl = re.findall(r"(\w+)(\[8\])?[,;]", re.sub(r"//[^\n]*|\bu32\b", "", body))
+    decl = re.findall(r"(\w+)(\[8\])?[,;]",
+                      re.sub(r"//[^\n]*|\bu32\b|\bModInv30\b", "", body))
     assert [n for n, arr in decl if arr] == list(consts.SECP_FIELDS)
-    assert [n for n, arr in decl if not arr] == ["np0"]
+    assert [n for n, arr in decl if not arr] == ["np0"] + [
+        m + "inv" for m in consts.SECP_MODINV]
+    mi = re.search(r"struct ModInv30 \{(.*?)\};",
+                   (csrc / "modinv.cuh").read_text(), re.S).group(1)
+    assert re.findall(r"(\w+)(?:\[\d\])?;", mi) == ["m", "inv30"]
     w = consts.kernel_words(consts.derive_consts())
     words = w["verify"]
-    assert words.shape == (8 * len(consts.SECP_FIELDS) + 1,)
+    nf = 8 * len(consts.SECP_FIELDS)
+    assert words.shape == (nf + 1 + 10 * len(consts.SECP_MODINV),)
     val = {f: sum(int(words[8 * j + i]) << (32 * i) for i in range(8))
            for j, f in enumerate(consts.SECP_FIELDS)}
     R = 1 << 256
     assert val == {
-        "p": C.p, "sqrt_e": (C.p + 1) // 4, "inv_e_p": C.p - 2, "b": C.b,
-        "n": C.n, "r2": R * R % C.n, "one": R % C.n, "inv_e_n": C.n - 2,
+        "p": C.p, "b": C.b, "n": C.n, "r2": R * R % C.n,
         "beta": refimpl.GLV_BETA, "g1": refimpl._GLV_G1, "g2": refimpl._GLV_G2,
         "mb1r": refimpl._GLV_MINUS_B1 * R % C.n,
         "mb2r": refimpl._GLV_MINUS_B2 * R % C.n,
         "lamr": refimpl.GLV_LAMBDA * R % C.n, "half_n": C.n // 2}
-    assert (int(words[-1]) * C.n) % (1 << 32) == (1 << 32) - 1
+    assert (int(words[nf]) * C.n) % (1 << 32) == (1 << 32) - 1
+    for j, m in enumerate((C.p, C.n)):  # ModInv30: 30-bit limbs, m^-1 mod 2^30
+        mw = [int(x) for x in words[nf + 1 + 10 * j:nf + 11 + 10 * j]]
+        assert all(0 <= x < 1 << 30 for x in mw[:9])
+        assert sum(x << (30 * i) for i, x in enumerate(mw[:9])) == m
+        assert mw[9] * m % (1 << 30) == 1
     rc = w["keccak"].view("<u8")
     assert w["keccak"].dtype == np.uint32 and rc.shape == (24,)
     assert int(rc[0]) == 1 and int(rc[23]) == 0x8000000080008008

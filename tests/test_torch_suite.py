@@ -151,13 +151,19 @@ def test_buckets_and_chunk_match_jax():
         assert psuite._chunks(n) == jsuite._chunks(n)
 
 
-def test_unported_configurations_raise():
-    """Several GPUs are not ported; the SM chain is (it raised before its
-    slice), and like the default chain it never drops to the CPU."""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        psuite.make_suite(mesh_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        psuite.make_suite(sm_crypto=True, mesh_devices=2, device="cpu")
+def test_unported_configurations_raise(monkeypatch):
+    """Sharding over several GPUs is not ported: mesh_devices >= 2 raises
+    where two cards exist (stood in for here). The SM chain is ported (it
+    raised before its slice), and like the default chain it never drops to
+    the CPU."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 2)
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            psuite.make_suite(mesh_devices=2)
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            psuite.make_suite(sm_crypto=True, mesh_devices=2)
+        assert psuite.make_suite(mesh_devices=1).mesh_devices == 1
     sm = psuite.make_suite(sm_crypto=True, device="cpu")
     assert (sm.kind, sm.hash_name, sm.signature_size) == ("sm", "sm3", 128)
     if not torch.cuda.is_available():
@@ -167,6 +173,91 @@ def test_unported_configurations_raise():
             psuite.make_suite(sm_crypto=True)
     assert psuite.make_suite(backend="host").backend == "host"
     assert psuite.make_suite(sm_crypto=True, backend="host").backend == "host"
+
+
+class _DuckKeyPair:
+    """A key pair whose secret is kept elsewhere, as an HSM keeps it:
+    `secret` is None and `sign_digest` signs."""
+
+    def __init__(self, suite, secret: int):
+        self.secret = None
+        self._kp = suite.keypair_from_secret(secret)
+        self._suite = suite
+        self.pub_bytes = self._kp.pub_bytes
+        self.calls = 0
+
+    def sign_digest(self, digest: bytes) -> bytes:
+        self.calls += 1
+        return self._suite.sign(self._kp, digest)
+
+
+@pytest.mark.parametrize("sm", [False, True], ids=["ecdsa", "sm"])
+def test_sign_goes_through_a_key_pairs_sign_digest(sm):
+    """CryptoSuite.sign takes kp.sign_digest when the key pair has one, as
+    the JAX suite does; the signature equals the one of the same secret
+    held in a KeyPair, on the port and signed by the JAX suite itself, and
+    verifies (the port's host oracle and the JAX suite)."""
+    port = psuite.make_suite(sm_crypto=sm, device="cpu")
+    port_host = psuite.make_suite(sm_crypto=sm, backend="host")
+    jax_host = jsuite.make_suite(sm_crypto=sm, backend="host")
+    kp = _DuckKeyPair(port, 0x1234567)
+    d = bytes(range(32))
+    sig = port.sign(kp, d)
+    assert kp.calls == 1
+    assert sig == jax_host.sign(kp, d) == port.sign(port.keypair_from_secret(0x1234567), d)
+    assert sig == jax_host.sign(jax_host.keypair_from_secret(0x1234567), d)
+    assert port_host.verify(kp.pub_bytes, d, sig) and jax_host.verify(kp.pub_bytes, d, sig)
+
+
+def test_sign_with_an_hsm_key_pair(tmp_path):
+    """An hsm.HsmKeyPair over a SoftHsmProvider (key 1) signs on the port's
+    SM suite as on the JAX suite; the signature verifies on both and
+    recovers the key pair's address."""
+    from fisco_bcos_tpu.crypto import hsm
+
+    port = psuite.make_suite(sm_crypto=True, device="cpu")
+    port_host = psuite.make_suite(sm_crypto=True, backend="host")
+    jax_suite = jsuite.make_suite(sm_crypto=True, backend="host")
+    provider = hsm.SoftHsmProvider(str(tmp_path / "keystore"), b"pw")
+    provider.generate_key(1)
+    kp = hsm.HsmKeyPair(provider, 1, port)
+    assert kp.secret is None
+    d = bytes(range(32))
+    sig = port.sign(kp, d)
+    assert sig == jax_suite.sign(hsm.HsmKeyPair(provider, 1, jax_suite), d)
+    assert len(sig) == 128 and sig[64:] == kp.pub_bytes
+    assert port_host.verify(kp.pub_bytes, d, sig) and jax_suite.verify(kp.pub_bytes, d, sig)
+    assert list(port_host.recover_addresses([d], [sig])[0]) == [kp.address]
+
+
+def test_mesh_devices_run_unsharded_below_two_gpus():
+    """CryptoSuite(mesh_devices=2) on the CPU constructs and runs
+    unsharded, as the JAX suite does on one device: on both chains the
+    same buckets as mesh_devices=None; on the default chain recovery and
+    verify equal to mesh_devices=None's and the JAX host suite's on a
+    small batch with bad lanes."""
+    for kind in ("ecdsa", "sm"):
+        port = psuite.CryptoSuite(kind, mesh_devices=2, device="cpu")
+        plain = psuite.CryptoSuite(kind, device="cpu")
+        assert port.mesh_devices == 2 and port._bucket_for(5) == 8
+        assert ([port._bucket_for(n) for n in (1, 9, 4096, 16384)]
+                == [plain._bucket_for(n) for n in (1, 9, 4096, 16384)] == [8, 64, 4096, 16384])
+    jax_host = jsuite.make_suite(backend="host")
+    port = psuite.CryptoSuite(mesh_devices=2, device="cpu")
+    plain = psuite.CryptoSuite(device="cpu")
+    kp = port.keypair_from_secret(77)
+    d = [bytes([i]) * 32 for i in range(5)]
+    sigs = [port.sign(kp, x) for x in d]
+    sigs[2] = bytes(32) + sigs[2][32:]
+    pubs = [kp.pub_bytes] * 5
+    pubs[3] = port.keypair_from_secret(78).pub_bytes
+    got = port.verify_batch(d, sigs, pubs)
+    assert list(got) == list(plain.verify_batch(d, sigs, pubs))
+    assert list(got) == list(jax_host.verify_batch(d, sigs, pubs))
+    assert list(got) == [True, True, False, False, True]
+    rec = port.recover_batch(d, sigs)
+    assert rec[0] == plain.recover_batch(d, sigs)[0] == jax_host.recover_batch(d, sigs)[0]
+    assert list(rec[1]) == [True, True, False, True, True]
 
 
 def _port_sources():

@@ -4,6 +4,8 @@ and the tests that hold the vectors to what they claim to be."""
 
 from __future__ import annotations
 
+import random
+
 import numpy as np
 import torch
 
@@ -129,6 +131,79 @@ def ladder_lanes(c, n: int, seed: int):
     pts = [refimpl.keygen(c, seed=bytes([seed % 256]) + i.to_bytes(2, "big"))[1]
            for i in range(n)]
     return ec.ladder_edge_lanes(c, k1, k2, [q[0] for q in pts], [q[1] for q in pts])
+
+
+def lift_x(c: refimpl.CurveParams, x: int):
+    """The affine point (x, y) of c with y even, or None."""
+    rhs = (x ** 3 + c.a * x + c.b) % c.p
+    y = pow(rhs, (c.p + 1) // 4, c.p)
+    if y * y % c.p != rhs:
+        return None
+    return x, y if y % 2 == 0 else c.p - y
+
+
+def ecdsa_edge_lanes():
+    """secp256k1 lanes at the edges of the recover and verify kernels'
+    inverses and square root -> (recover lanes {e, r, s, v}, verify lanes
+    {e, r, s, qx, qy}), plain ints; chip_smoke.py takes them too.
+
+    Recovery: r at 1, n - 2 and n - 1 with every v (x = r, and x = r + n
+    where that stays below p); s at 1, n - 2 and n - 1; x = r + n the
+    largest below p on the curve; a lane whose key lands at infinity (R =
+    kG, e = s k mod n: ok 0 and zeros); x = 5, the x of the ladder's
+    off-curve edge Q = (5, 0). Verify: r at 1, n - 2 and n - 1 (the key
+    solved for from a point R with x(R) = r mod n, so that the signature
+    is valid, where such a point exists), s at 1, n - 2 and n - 1, the key
+    Q = -G (secret n - 1), each a valid signature; and the key (5, 0),
+    off the curve."""
+    c = refimpl.SECP256K1
+    rng = random.Random(7)
+    G = (c.gx, c.gy)
+    edges = (1, c.n - 2, c.n - 1)
+    rec = []
+    for r in edges:
+        for v in range(4):
+            rec.append(dict(e=rng.getrandbits(256), r=r, s=rng.randrange(1, c.n), v=v))
+    for s in edges:
+        R = refimpl.ec_mul(c, rng.randrange(1, c.n), G)
+        rec.append(dict(e=rng.getrandbits(256), r=R[0] % c.n, s=s,
+                        v=(R[1] & 1) | 2 * (R[0] >= c.n)))
+    x = c.p - 1
+    while lift_x(c, x) is None:
+        x -= 1
+    rec.append(dict(e=rng.getrandbits(256), r=x - c.n, s=rng.randrange(1, c.n), v=2))
+    rec.append(dict(rec[-1], v=3))
+    k = rng.randrange(1, c.n)
+    R = refimpl.ec_mul(c, k, G)
+    s = rng.randrange(1, c.n)
+    rec.append(dict(e=s * k % c.n, r=R[0] % c.n, s=s, v=(R[1] & 1) | 2 * (R[0] >= c.n)))
+    for v in range(2):
+        rec.append(dict(e=rng.getrandbits(256), r=5, s=rng.randrange(1, c.n), v=v))
+
+    def signed(R, r, s):
+        """e and the key Q under which (r, s) verifies: Q = u2^-1 (R - u1 G)."""
+        e = rng.getrandbits(256)
+        w = pow(s, -1, c.n)
+        u1, u2 = e % c.n * w % c.n, r * w % c.n
+        minus = refimpl.ec_mul(c, (c.n - u1) % c.n, G)
+        Q = refimpl.ec_mul(c, pow(u2, -1, c.n), refimpl.ec_add(c, R, minus))
+        return dict(e=e, r=r, s=s, qx=Q[0], qy=Q[1])
+
+    ver = []
+    for r in edges:
+        R = lift_x(c, r) or (lift_x(c, r + c.n) if r + c.n < c.p else None)
+        if R is None:  # no point has x = r mod n: a signature that fails
+            ver.append(dict(signed(refimpl.ec_mul(c, 3, G), 7, 5), r=r))
+        else:
+            ver.append(signed(R, r, rng.randrange(1, c.n)))
+    for s in edges:
+        R = refimpl.ec_mul(c, rng.randrange(1, c.n), G)
+        ver.append(signed(R, R[0] % c.n, s))
+    h = rng.getrandbits(256).to_bytes(32, "big")
+    r, s, _ = refimpl.ecdsa_sign(c, c.n - 1, h)
+    ver.append(dict(e=int.from_bytes(h, "big"), r=r, s=s, qx=c.gx, qy=c.p - c.gy))
+    ver.append(dict(ver[-1], qx=5, qy=0))
+    return rec, ver
 
 
 def limbs(xs) -> torch.Tensor:
