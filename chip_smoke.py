@@ -20,7 +20,8 @@ version or to the CPU):
    n - 1, x = r + n near p, a recovered key at infinity, x = 5 and the
    off-curve key (5, 0), Q = -G) also held to the pure-Python oracle, then
    bit-exact at 65,536 and 131,072 lanes (the inputs tiled) and their lane
-   sweeps (as in 4); Keccak over 65,536 messages of 1-8 blocks, Merkle
+   sweeps (as in 4); Keccak over 65,536 messages of 1-8 blocks and over
+   65,536 one-block 64-byte keys (the address hash's shape), Merkle
    trees at n in {1, 2, 17, 4097, 65535, 65536}. Kernel times are medians of CUDA event timings
    after a warm-up; the plain version runs once.
 3. The default chain's slice: a 65,536-tx block through the port's
@@ -59,10 +60,12 @@ version or to the CPU):
    call and no other kernel's counter may move; the profiler (warmed up
    on a small step) records the 65,536-pair step, whose kernel calls must
    equal the counters.
-8. The pow kernel (csrc/fp.cu) against the plain window loop on the
-   card, bit-exact, at [16, 16,384] and [16, 1]: (p+1)/4 on secp256k1's
-   p, n - 2 on secp256k1's and SM2's n, p - 2 on SM2's p, with edge lanes
-   0, 1, n - 1 and R mod n.
+8. The pow kernel (csrc/fp.cu) in each of its modes against the plain
+   window loop on the card, bit-exact, at [16, 16,384] and [16, 1], each
+   timed at both widths: the inverse (m - 2) on secp256k1's p and n and
+   SM2's p and n, the square root ((p+1)/4) on secp256k1's p, the window
+   loop (m - 3) on all four, with edge lanes 0, 1, n - 1 and R mod n and
+   one-lane launches on n - 1 and 0.
 9. The ladder kernel (csrc/ladder.cu) against ec.ladder_plain on the card
    at 16,384 lanes in both forms (GLV on secp256k1, plain on SM2),
    Jacobian bit-exact, on the edge lanes of ec.LADDER_EDGES (zero
@@ -512,10 +515,10 @@ def ptxas_summary(text: str) -> dict:
     return out
 
 
-def sass_counts(lib, dump=None) -> dict:
-    """Static SASS counts of a built library, by function: instructions
-    (NOPs left out), LDL, STL, CALL and BRA, from cuobjdump -sass (whose
-    text goes to the file `dump` when one is given)."""
+def sass_opcodes(lib, dump=None) -> dict:
+    """Static SASS opcodes of a built library, {function: {opcode: count}}
+    with NOPs left out, from cuobjdump -sass (whose text goes to the file
+    `dump` when one is given)."""
     from fisco_bcos_tpu_torch.ops import _cuda
 
     exe = shutil.which("cuobjdump") or str(Path(_cuda.nvcc_path()).parent / "cuobjdump")
@@ -527,14 +530,20 @@ def sass_counts(lib, dump=None) -> dict:
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = funcs.setdefault(m.group(1), dict(instructions=0, LDL=0, STL=0, CALL=0, BRA=0))
+            cur = funcs.setdefault(m.group(1), {})
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if m and cur is not None and m.group(1) != "NOP":
-            cur["instructions"] += 1
-            if m.group(1) in ("LDL", "STL", "CALL", "BRA"):
-                cur[m.group(1)] += 1
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
     return funcs
+
+
+def sass_counts(lib, dump=None) -> dict:
+    """Static SASS counts of a built library, by function: instructions
+    (NOPs left out), LDL, STL, CALL and BRA (sass_opcodes)."""
+    return {fn: dict(instructions=sum(ops.values()),
+                     **{k: ops.get(k, 0) for k in ("LDL", "STL", "CALL", "BRA")})
+            for fn, ops in sass_opcodes(lib, dump).items()}
 
 
 def phase_card():
@@ -548,7 +557,7 @@ def phase_card():
     for k, v in _cuda.PTXAS_LOG.items():
         for fn, info in ptxas_summary(v).items():
             log(f"[ptxas {k}] {fn}: {info}")
-    for k in ("ladder", "sm2", "verify"):
+    for k in ("ladder", "sm2", "verify", "fp", "keccak", "merkle"):
         for fn, c in sass_counts(_cuda._lib_path(k)).items():
             log(f"[kernel] sass {k} {fn}: {c}")
     return smi, name
@@ -593,6 +602,53 @@ def tree_row(dev, nrng, alg: str) -> dict:
         replaces="fisco_bcos_tpu/ops/pallas_merkle.py:220", mismatches=mism,
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
         library_ms=None, shape=f"n={n}, whole tree, one launch per level")
+
+
+def keccak_row(dev, nrng) -> dict:
+    """Kernel 3 against keccak256_varlen_plain on the card, bit-exact, at
+    the mixed shape (65,536 messages of 1-8 blocks, as the tx payloads
+    spread) and at the address hash's (65,536 equal one-block 64-byte
+    keys), each timed by CUDA events around a call (median of 20, the
+    host's launch included) and by its device time (kernel_device_ms)."""
+    from fisco_bcos_tpu_torch.ops import cuda_hash, keccak
+
+    lens = nrng.integers(0, 8 * 136, NTX)  # 1..8 blocks after padding
+    flat = nrng.integers(0, 256, int(lens.sum()), dtype=np.uint8).tobytes()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    msgs = [flat[offs[i]:offs[i + 1]] for i in range(len(lens))]
+    keys = np.frombuffer(nrng.bytes(64 * NTX), np.uint8).reshape(NTX, 64)
+    shapes = {}
+    for shape, batch in (("mixed", msgs), ("one_block", [bytes(k) for k in keys])):
+        blocks, nvalid = keccak.pad_batch_np(batch)
+        bt, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
+        got = cuda_hash.keccak256_varlen(bt, nv)
+        plain, plain_ms = wall_ms(lambda: keccak.keccak256_varlen_plain(bt, nv))
+        ms = cuda_ms(lambda: cuda_hash.keccak256_varlen(bt, nv), 20)
+        dev_ms = kernel_device_ms(lambda: cuda_hash.keccak256_varlen(bt, nv),
+                                  "keccak256_varlen_kernel")
+        perms = int(nvalid.sum())
+        bound, by = keccak_bound(perms, perms * 136 + 4 * len(batch) + 32 * len(batch))
+        shapes[shape] = dict(
+            mismatches=int((got != plain).any(1).sum()),
+            max_abs_err=int((got.int() - plain.int()).abs().max()), ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by, perms=perms,
+            nblocks=blocks.shape[1])
+        log(f"[kernel] keccak {shape} B={len(batch)} ({perms} permutations, "
+            f"{blocks.shape[1]} blocks max): mismatches {shapes[shape]['mismatches']}, "
+            f"{ms:.4f} ms a call, {dev_ms:.4f} ms device (plain {plain_ms:.0f} ms), "
+            f"bound {bound:.4f} ms ({by})")
+    mx, one = shapes["mixed"], shapes["one_block"]
+    return dict(
+        name="keccak256_varlen", route="cuda", source="fisco_bcos_tpu_torch/csrc/keccak.cu",
+        replaces="fisco_bcos_tpu/ops/pallas_hash.py:125",
+        mismatches=mx["mismatches"] + one["mismatches"],
+        max_abs_err=max(mx["max_abs_err"], one["max_abs_err"]), ms=mx["ms"],
+        plain_ms=mx["plain_ms"], bound_ms=mx["bound_ms"], bound_by=mx["bound_by"],
+        library_ms=None, device_ms=mx["device_ms"], one_block_ms=one["ms"],
+        one_block_device_ms=one["device_ms"], one_block_plain_ms=one["plain_ms"],
+        one_block_bound_ms=one["bound_ms"],
+        shape=f"B={NTX}, 1-{mx['nblocks']} blocks, {mx['perms']} permutations (one-block "
+              f"64-byte keys: {one['ms']:.4f} ms, bound {one['bound_ms']:.4f} ms)")
 
 
 def recover_tensors(vs, dev):
@@ -645,7 +701,7 @@ def verify_oracle_misses(vs, lanes, ok) -> int:
 
 
 def phase_kernels(dev, signed, rng):
-    from fisco_bcos_tpu_torch.ops import cuda_hash, cuda_verify, ec, keccak
+    from fisco_bcos_tpu_torch.ops import cuda_verify, ec
 
     rows = {}
     B = EC_B
@@ -709,25 +765,7 @@ def phase_kernels(dev, signed, rng):
         f"valid lanes {int(ok.sum())}")
     # -- keccak -------------------------------------------------------------
     nrng = np.random.default_rng(SEED)
-    lens = nrng.integers(0, 8 * 136, NTX)  # 1..8 blocks after padding
-    flat = nrng.integers(0, 256, int(lens.sum()), dtype=np.uint8).tobytes()
-    offs = np.concatenate([[0], np.cumsum(lens)])
-    msgs = [flat[offs[i]:offs[i + 1]] for i in range(len(lens))]
-    blocks, nvalid = keccak.pad_batch_np(msgs)
-    bt, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
-    got = cuda_hash.keccak256_varlen(bt, nv)
-    plain, plain_ms = wall_ms(lambda: keccak.keccak256_varlen_plain(bt, nv))
-    mism = int((got != plain).any(1).sum())
-    ms = cuda_ms(lambda: cuda_hash.keccak256_varlen(bt, nv), 20)
-    perms = int(nvalid.sum())
-    bound, by = keccak_bound(perms, perms * 136 + 4 * len(msgs) + 32 * len(msgs))
-    rows["keccak256_varlen"] = dict(
-        name="keccak256_varlen", route="cuda", source="fisco_bcos_tpu_torch/csrc/keccak.cu",
-        replaces="fisco_bcos_tpu/ops/pallas_hash.py:125", mismatches=mism,
-        max_abs_err=int((got.int() - plain.int()).abs().max()), ms=ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"B={NTX}, {blocks.shape[1]} blocks max, {perms} permutations")
-    log(f"[kernel] keccak B={NTX}: mismatches {mism}, {ms:.3f} ms (plain {plain_ms:.0f} ms)")
+    rows["keccak256_varlen"] = keccak_row(dev, nrng)
     # -- merkle -------------------------------------------------------------
     rows["merkle_keccak_level"] = tree_row(dev, nrng, "keccak256")
     bad = {k: r["mismatches"] for k, r in rows.items() if r["mismatches"]}
@@ -1111,6 +1149,18 @@ def slice_counters(kind: str, route: str = "fused") -> dict:
     return {**ec_k, **hashes, **composed_counters()}
 
 
+# the kernels a counter counts, where they are more than `<counter>_kernel`:
+# kernel G has one kernel a mode (csrc/fp.cu; the inverse's one-lane form
+# its own), counted as one launch each
+POW_KERNELS = {"window": "fp_pow_kernel", "inverse": "fp_pow_inv_kernel",
+               "inverse one lane": "fp_pow_inv_var_kernel", "sqrt": "fp_pow_sqrt_kernel"}
+KERNEL_NAMES = {"fp_pow": tuple(POW_KERNELS.values())}
+
+
+def kernel_names(counter: str) -> tuple:
+    return KERNEL_NAMES.get(counter, (counter + "_kernel",))
+
+
 def composed_counters() -> dict:
     from fisco_bcos_tpu_torch.ops import cuda_ec, cuda_fp
 
@@ -1180,10 +1230,12 @@ def phase_slice(dev, suite, data, rng, expect=None):
     off = {k: (launches[k], n) for k, n in expect.items() if launches[k] != n}
     if off:
         fail(f"{tag} launches (counted, expected) off the route's: {off}")
-    seen = {k: calls.get(k + "_kernel", 0) for k in launches}
+    seen = {k: sum(calls.get(n, 0) for n in kernel_names(k)) for k in launches}
     if seen != launches:
         fail(f"the profiler recorded kernel calls {seen}, the counters {launches}; "
-             f"events: { {k + '_kernel': LAST_EVENTS.get(k + '_kernel') for k in launches} }")
+             f"events: { {n: LAST_EVENTS.get(n) for k in launches for n in kernel_names(k)} }")
+    log(f"{tag} device us by counter: " + ", ".join(
+        f"{k} {sum(device_us.get(n, 0.0) for n in kernel_names(k)):.1f}" for k in launches))
 
     # -- checks ---------------------------------------------------------------
     hashes = [t._hash for t in txs]
@@ -1566,61 +1618,100 @@ DBL = {"secp256k1": 7, "sm2p256v1": SM2_DBL}
 
 
 def pow_cases():
-    """Kernel G's fields and exponents on the composed route: recovery's
-    square root, and the inversions' n - 2 and p - 2."""
+    """Kernel G's fields and exponents, with each product's wide-multiply
+    slots: every field's inverse (m - 2, the roots of the composed route's
+    batched inversions), the square root on secp256k1's p ((p+1)/4,
+    recovery's), and m - 3, a window-loop exponent as long as m - 2."""
     from fisco_bcos_tpu_torch.crypto import refimpl
     from fisco_bcos_tpu_torch.ops import fp
 
     c, m = refimpl.SECP256K1, refimpl.SM2P256V1
-    return [("secp256k1_p", fp.SolinasField(c.p), (c.p + 1) // 4, FP_MUL),
-            ("secp256k1_n", fp.MontField(c.n), c.n - 2, FN_MUL),
-            ("sm2_n", fp.MontField(m.n), m.n - 2, FN_MUL),
-            ("sm2_p", fp.MontField(m.p), m.p - 2, sm2_fp_mul())]
+    fields = [("secp256k1_p", fp.SolinasField(c.p), FP_MUL),
+              ("secp256k1_n", fp.MontField(c.n), FN_MUL),
+              ("sm2_n", fp.MontField(m.n), FN_MUL),
+              ("sm2_p", fp.MontField(m.p), sm2_fp_mul())]
+    cases = []
+    for name, f, slots in fields:
+        n = f.n_int
+        cases.append((name, f, n - 2, slots))
+        if name == "secp256k1_p":
+            cases.append((name, f, (n + 1) // 4, slots))
+        cases.append((name, f, n - 3, slots))
+    return cases
+
+
+# Kernel G's bound by mode, in wide-multiply slots a launch of B lanes:
+# the window loop's products (`_pow_muls`); the square root's 266-product
+# chain; an inverse priced as the EC bounds price batched inversions
+# (`ec_batch_inversions`): INV_LANE products a lane and one Fermat power a
+# launch, as if the launch's lanes shared one inversion by Montgomery's
+# trick.
+def pow_bound(mode: str, e: int, B: int, slots: float):
+    if mode == "inverse":
+        prods = INV_LANE * B + _pow_muls(e)
+    elif mode == "sqrt":
+        prods = SQRT_CHAIN * B
+    else:
+        prods = _pow_muls(e) * B
+    ops_ms = ec_bound_ms(prods * slots)
+    bytes_ms = B * 2 * LANE_BYTES / H100_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def phase_pow_kernel(dev):
-    """(8) Kernel G against the plain window loop (a field built without
-    kernels) on the card, bit-exact, at [16, EC_B] and [16, 1], lanes 0-3
-    the edges 0, 1, n - 1 and R mod n. `ms` is the device time at
-    (p+1)/4 on secp256k1's p, recovery's square root (kernel_device_ms);
-    `one_lane_ms` the device time of a [16, 1] launch, bound by the
-    latency of its dependent products."""
+    """(8) Kernel G in every mode (ops/cuda_fp.pow_mode) against the plain
+    window loop (a field built without kernels) on the card, bit-exact, at
+    [16, EC_B] and [16, 1] on four fields, lanes 0-3 the edges 0, 1, n - 1
+    and R mod n, the one-lane launches on n - 1 and on 0. Device time of
+    every case at both widths (kernel_device_ms, by the mode's kernel);
+    `ms` is the square root at [16, EC_B], the composed route's 16,384-lane
+    launch, and `one_lane_ms` each mode's [16, 1] time on secp256k1's n
+    (the inverse: recovery's and verify's r^-1 and s^-1 roots) or p."""
     from fisco_bcos_tpu_torch.ops import cuda_fp, fp
 
     nrng = np.random.default_rng(SEED + 5)
-    mism, err, row = 0, 0, None
-    for name, f, e, mul_slots in pow_cases():
+    mism, err, times = 0, 0, {}
+    for name, f, e, slots in pow_cases():
+        mode = cuda_fp.pow_mode(f, e)
+        kname, kname1 = POW_KERNELS[mode], POW_KERNELS.get(mode + " one lane", POW_KERNELS[mode])
         a = fp_lanes(nrng, f.n_int, EC_B, dev)
-        one = a[:, 2:3].contiguous()  # n - 1
+        ones = {"n-1": a[:, 2:3].contiguous(), "0": a[:, 0:1].contiguous()}
         got = cuda_fp.pow_const(f, a, e)
         want, pms = wall_ms(lambda: f.pow_const(a, e))
-        got1 = cuda_fp.pow_const(f, one, e)
-        bad = int((got != want).any(0).sum()) + int((got1 != want[:, 2:3]).any())
+        bad = int((got != want).any(0).sum())
+        err = max(err, int((got - want).abs().max()))
+        for j, x in zip((2, 0), ones.values()):
+            g1 = cuda_fp.pow_const(f, x, e)
+            bad += int((g1 != want[:, j:j + 1]).any())
+            err = max(err, int((g1 - want[:, j:j + 1]).abs().max()))
         mism += bad
-        err = max(err, int((got - want).abs().max()), int((got1 - want[:, 2:3]).abs().max()))
-        call = cuda_ms(lambda: cuda_fp.pow_const(f, a, e), 20)
-        log(f"[pow] {name} e={'(p+1)/4' if name == 'secp256k1_p' else 'm-2'} "
-            f"({len(fp.msb_digits(e))} digits): mismatched lanes {bad}, {call:.4f} ms a call "
-            f"[16, {EC_B}] (plain {pms:.1f} ms)")
-        if row is None:
-            ms = kernel_device_ms(lambda: cuda_fp.pow_const(f, a, e), "fp_pow_kernel")
-            ms1 = kernel_device_ms(lambda: cuda_fp.pow_const(f, one, e), "fp_pow_kernel")
-            prods = _pow_muls(e)
-            ops_ms = ec_bound_ms(EC_B * prods * mul_slots)
-            bytes_ms = EC_B * 2 * LANE_BYTES / H100_BYTES * 1e3
-            bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-            row = dict(
-                name="fp_pow", route="cuda", source="fisco_bcos_tpu_torch/csrc/fp.cu",
-                replaces="fisco_bcos_tpu/ops/pallas_fp.py:345", ms=ms, call_ms=call,
-                one_lane_ms=ms1, plain_ms=pms, bound_ms=bound, bound_by=by, library_ms=None,
-                shape=f"[16, {EC_B}], e=(p+1)/4 on secp256k1 p ({prods} products a lane); "
-                      f"bit-exact on 4 fields and at [16, 1]")
-            log(f"[kernel] fp_pow: {ms:.4f} ms device, {call:.4f} ms a call (plain "
-                f"{pms:.1f} ms), bound {bound:.4f} ms ({by}); one lane {ms1:.4f} ms device "
-                f"(latency of {14 + 5 * (len(fp.msb_digits(e)) - 1)} dependent products)")
+        ms = kernel_device_ms(lambda: cuda_fp.pow_const(f, a, e), kname)
+        ms1 = kernel_device_ms(lambda: cuda_fp.pow_const(f, ones["n-1"], e), kname1)
+        bound, by = pow_bound(mode, e, EC_B, slots)
+        bound1, _ = pow_bound(mode, e, 1, slots)
+        times[name, mode] = dict(ms=ms, one_lane_ms=ms1, plain_ms=pms, bound_ms=bound,
+                                 bound_by=by, one_lane_bound_ms=bound1)
+        log(f"[pow] {name} {mode} ({len(fp.msb_digits(e))} digits): mismatched lanes {bad}; "
+            f"[16, {EC_B}] {ms:.4f} ms device (plain {pms:.1f} ms), bound {bound:.4f} ms "
+            f"({by}); [16, 1] {ms1:.4f} ms device")
     if mism:
         fail(f"pow kernel vs plain mismatches: {mism}")
-    row.update(mismatches=mism, max_abs_err=err)
+    sq = times["secp256k1_p", "sqrt"]
+    one_lane = {"inverse": times["secp256k1_n", "inverse"]["one_lane_ms"],
+                "inverse_p": times["secp256k1_p", "inverse"]["one_lane_ms"],
+                "sqrt": sq["one_lane_ms"],
+                "window": times["secp256k1_p", "window"]["one_lane_ms"]}
+    row = dict(
+        name="fp_pow", route="cuda", source="fisco_bcos_tpu_torch/csrc/fp.cu",
+        replaces="fisco_bcos_tpu/ops/pallas_fp.py:345", mismatches=mism, max_abs_err=err,
+        ms=sq["ms"], one_lane_ms=one_lane, plain_ms=sq["plain_ms"], bound_ms=sq["bound_ms"],
+        bound_by=sq["bound_by"], library_ms=None,
+        modes={f"{k[0]} {k[1]}": v for k, v in times.items()},
+        shape=f"[16, {EC_B}], square-root mode on secp256k1 p (its 266-product chain); "
+              f"inverse and window modes in `modes`; bit-exact on 4 fields and at [16, 1]")
+    log(f"[kernel] fp_pow: sqrt {sq['ms']:.4f} ms device at [16, {EC_B}], bound "
+        f"{sq['bound_ms']:.4f} ms; one lane: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                            one_lane.items()) + " ms")
     return {"fp_pow": row}
 
 

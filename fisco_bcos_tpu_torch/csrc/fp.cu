@@ -30,34 +30,20 @@
 // Kernel G replaces pallas_fp.pow_const (:345 -> _pow_call :303, body
 // pow_digits_values :281), which the composed EC route launches for
 // recovery's square root and at the [16, 1] root of every batched
-// inversion (ops/fp.py pow_const, inv_batch). Same sequence of products as
-// the TPU kernel: a 16-entry window table of 14 products, then per further
-// 4-bit digit 4 squarings and one product by the digit's entry (entry 0,
-// the field's one, too), so every lane returns the limbs of the plain
-// window loop. The exponent rides in the launch's parameters (PowArg), as
-// the TPU kernel's digits ride in SMEM. What bounds it: at 16,384 lanes,
-// multiply throughput (~329 products a lane for (p+1)/4, 512 bytes of limbs);
-// at one lane, the latency of 329 dependent products on one thread. The
-// table is per-thread local memory (16 x 8 words), indexed by the digit.
+// inversion (ops/fp.py pow_const, inv_batch). The TPU kernel runs every
+// exponent through a 4-bit window loop; here the wrapper picks a mode for
+// the whole launch from the exponent (csrc/pow.cuh): an inverse (e = m - 2)
+// runs modinv.cuh's safegcd over a modulus passed at launch, secp256k1's
+// square root (e = (p+1)/4) ec.cuh's addition chain, any other exponent
+// the window loop. Each mode returns the plain window loop's limbs. What
+// bounds it: at 16,384 lanes, one warp a scheduler, the latency of each
+// lane's dependent chain (266 products for the square root, 600 divsteps
+// and 20 matrix updates for an inverse); at one lane, the [16, 1] root of a
+// product tree, that same chain on one thread, which the inverse mode
+// shortens most.
 #include <cuda_runtime.h>
-#include "field.cuh"
 #include "lanes.cuh"
-
-// One field as a kernel argument (passed by value, so it rides in the
-// launch's parameter space): modulus words, np0, and the Solinas flag.
-struct FieldArg {
-    u32 n[8];
-    u32 np0;
-    u32 solinas;
-};
-
-// r = a * b in the field's domain: canonical whenever one operand is below
-// the modulus and the other below 2^256 (the to_rep case, bigint.cuh)
-__device__ __forceinline__ void field_mul(u32 r[8], const u32 a[8], const u32 b[8],
-                                          const FieldArg &f) {
-    if (f.solinas) fp_mul(r, a, b);
-    else mont_mul(r, a, b, f.n, f.np0);
-}
+#include "pow.cuh"
 
 __global__ void fp_mul_kernel(const int64_t *a, const int64_t *b, int64_t *out, FieldArg f,
                               int B) {
@@ -103,28 +89,45 @@ __global__ void fp_mul_stacked_kernel(const int64_t *a, const int64_t *b, int64_
     store_limbs(out + off, B, lane, r);
 }
 
-// The exponent of kernel G: nd 4-bit digits, most significant first, and
-// the field's one in its domain (table entry 0)
-struct PowArg {
-    u32 one[8];
-    int nd;
-    unsigned char d[64];
-};
-
+// kernel G, one kernel a mode (csrc/pow.cuh); ops/cuda_fp.pow_const counts
+// each launch of any of them as one
 __global__ void fp_pow_kernel(const int64_t *a, int64_t *out, FieldArg f, PowArg e, int B) {
     int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane >= B) return;
-    u32 tbl[16][8], acc[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) tbl[0][i] = e.one[i];
-    load_limbs(tbl[1], a, B, lane);
-    for (int k = 2; k < 16; ++k) field_mul(tbl[k], tbl[k - 1], tbl[1], f);
-    set8(acc, tbl[e.d[0]]);
-    for (int i = 1; i < e.nd; ++i) {
-        for (int k = 0; k < 4; ++k) field_mul(acc, acc, acc, f);
-        field_mul(acc, acc, tbl[e.d[i]], f);
-    }
-    store_limbs(out, B, lane, acc);
+    W8 x;
+    load_limbs(x.w, a, B, lane);
+    W8 r = pow_window_field(x, e, f);
+    store_limbs(out, B, lane, r.w);
+}
+
+__global__ void fp_pow_inv_kernel(const int64_t *a, int64_t *out, FieldArg f, InvArg v, int B) {
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= B) return;
+    W8 x;
+    load_limbs(x.w, a, B, lane);
+    W8 r = pow_inverse<false>(x, f, v);
+    store_limbs(out, B, lane, r.w);
+}
+
+// the inverse mode's one-lane launches, in variable time
+__global__ void fp_pow_inv_var_kernel(const int64_t *a, int64_t *out, FieldArg f, InvArg v,
+                                      int B) {
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= B) return;
+    W8 x;
+    load_limbs(x.w, a, B, lane);
+    W8 r = pow_inverse<true>(x, f, v);
+    store_limbs(out, B, lane, r.w);
+}
+
+// secp256k1's p only (its constants from the SecpConsts block)
+__global__ void fp_pow_sqrt_kernel(const int64_t *a, int64_t *out, int B) {
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= B) return;
+    W8 x;
+    load_limbs(x.w, a, B, lane);
+    W8 r = fp_sqrt(x);
+    store_limbs(out, B, lane, r.w);
 }
 
 #define FP_THREADS 256
@@ -165,8 +168,9 @@ extern "C" int fp_mul_stacked_launch(const int64_t *a, const int64_t *b, int64_t
     return (int)cudaGetLastError();
 }
 
-// digits: nd (1..64) 4-bit digits, most significant first; one: the
-// field's one in its domain as 8 words (host memory, copied into PowArg)
+// the window mode. digits: nd (1..64) 4-bit digits, most significant
+// first; one: the field's one in its domain as 8 words (host memory,
+// copied into PowArg)
 extern "C" int fp_pow_launch(const int64_t *a, int64_t *out, const uint8_t *digits,
                              const uint32_t *one, const uint32_t *field, int nd, int B,
                              void *stream) {
@@ -178,6 +182,32 @@ extern "C" int fp_pow_launch(const int64_t *a, int64_t *out, const uint8_t *digi
     int blocks = (B + POW_THREADS - 1) / POW_THREADS;
     fp_pow_kernel<<<blocks, POW_THREADS, 0, (cudaStream_t)stream>>>(a, out, field_arg(field),
                                                                     e, B);
+    return (int)cudaGetLastError();
+}
+
+// the inverse mode, in variable time for one lane (B = 1) and constant
+// time for more. inv: struct ModInv30 of the field's modulus (9 limbs of
+// 30 bits, m^-1 mod 2^30), then R^3 mod m as 8 words (host memory,
+// ops/cuda_fp._inv_words)
+extern "C" int fp_pow_inv_launch(const int64_t *a, int64_t *out, const uint32_t *inv,
+                                 const uint32_t *field, int B, void *stream) {
+    InvArg v;
+    for (int i = 0; i < 9; ++i) v.mi.m[i] = (int32_t)inv[i];
+    v.mi.inv30 = inv[9];
+    for (int i = 0; i < 8; ++i) v.r3[i] = inv[10 + i];
+    int blocks = (B + POW_THREADS - 1) / POW_THREADS;
+    if (B == 1)
+        fp_pow_inv_var_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(a, out, field_arg(field), v, B);
+    else
+        fp_pow_inv_kernel<<<blocks, POW_THREADS, 0, (cudaStream_t)stream>>>(
+            a, out, field_arg(field), v, B);
+    return (int)cudaGetLastError();
+}
+
+// the square-root mode, secp256k1's p
+extern "C" int fp_pow_sqrt_launch(const int64_t *a, int64_t *out, int B, void *stream) {
+    int blocks = (B + POW_THREADS - 1) / POW_THREADS;
+    fp_pow_sqrt_kernel<<<blocks, POW_THREADS, 0, (cudaStream_t)stream>>>(a, out, B);
     return (int)cudaGetLastError();
 }
 

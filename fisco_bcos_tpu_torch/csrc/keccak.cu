@@ -4,44 +4,118 @@
 // Replaces fisco_bcos_tpu/ops/pallas_hash.py keccak256_varlen_fused (:125 ->
 // _keccak_call :73). The TPU kernel runs a 128-1024 lane block of (hi, lo)
 // 32-bit word planes and masks every absorb with nvalid; here each thread
-// keeps its 25 64-bit lanes in registers and simply stops absorbing after
+// keeps its 25 64-bit lanes in registers and stops absorbing after
 // nvalid[i] of the nblocks 136-byte blocks, which is what the mask computes.
 //
-// What bounds it: 64-bit logic and rotate operations (about 3,000 a
-// permutation, each two 32-bit instructions), not bytes: a message reads
-// 136 bytes per permutation and writes 32.
+// What bounds it: 64-bit logic and rotate operations (about 180 32-bit
+// instructions a round with 3-input logic and funnel shifts, 24 rounds a
+// permutation), not bytes: a message reads 136 bytes per permutation and
+// writes 32.
+//
+// Design for this card (PERF.md has the variants measured):
+// * Length-ordered (lenorder.cuh): a block of 256 threads owns 512
+//   messages, sorts them by block count in shared memory, and its warps
+//   take groups of 32 sorted messages, longest first, from a shared
+//   counter. One thread a message in arrival order ran, on a mixed batch,
+//   as many permutations a warp as its longest message (8 blocks in almost
+//   every warp of a 1-8-block batch, against a mean of 4.5); sorted with
+//   one group a warp, the warps of the longest messages ran on alone at
+//   the end of each block.
+// * Each thread reads its own message's rows, and loads the next block
+//   while it permutes the current one. Staging a warp's blocks through
+//   shared memory with coalesced loads was measured slower: the kernel is
+//   bound by logic issue, not by the rows' sectors.
+// * A block whose messages all have one length skips the sort (the
+//   address hash's 65,536 64-byte keys). Where no message has more than
+//   one block, a block owns 256 messages, one group a warp, so that two
+//   blocks share an SM and all 16 warps load their rows at once.
 #include <cuda_runtime.h>
 #include "keccak.cuh"
+#include "lenorder.cuh"
 
 #define RATE_WORDS 17
+#define KECCAK_THREADS 256
+#define KECCAK_MSGS 512  // a block's messages: 16 groups for its 8 warps
+#define KECCAK_PER_THREAD (KECCAK_MSGS / KECCAK_THREADS)
 
-__global__ void keccak256_varlen_kernel(const uint8_t *blocks, const int32_t *nvalid,
-                                        uint8_t *out, int B, int nblocks) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    int nv = nvalid[i];
-    nv = nv < 0 ? 0 : (nv > nblocks ? nblocks : nv);
-    const uint64_t *m = (const uint64_t *)(blocks + (size_t)i * nblocks * 136);
-    uint64_t s[25];
+// msgs: the messages a block owns, KECCAK_MSGS or (one-block batches) 256
+__global__ void __launch_bounds__(KECCAK_THREADS, 2)
+keccak256_varlen_kernel(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
+                        int nblocks, int msgs) {
+    __shared__ LenOrder<KECCAK_MSGS> so;
+    const int t = threadIdx.x, lane = t & 31;
+    const int base = blockIdx.x * msgs;
+    int nv[KECCAK_PER_THREAD];
+    const int nv0 = lo_nv(nvalid, base, B, nblocks);
+    bool same = true;
 #pragma unroll
-    for (int k = 0; k < 25; ++k) s[k] = 0;
-    for (int b = 0; b < nv; ++b) {
-#pragma unroll
-        for (int k = 0; k < RATE_WORDS; ++k) s[k] ^= m[b * RATE_WORDS + k];
-        keccak_f(s);
+    for (int k = 0; k < KECCAK_PER_THREAD; ++k) {
+        const int i = t + k * KECCAK_THREADS;
+        nv[k] = i < msgs ? lo_nv(nvalid, base + i, B, nblocks) : 0;
+        same = same && (i >= msgs || nv[k] == nv0);
+        lo_clear(so, i);
     }
-    uint64_t *o = (uint64_t *)(out + (size_t)i * 32);
+    if (__syncthreads_and(same)) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) o[k] = s[k];
+        for (int k = 0; k < KECCAK_PER_THREAD; ++k) {
+            const int i = t + k * KECCAK_THREADS;
+            if (i < msgs) lo_identity(so, i, base, B, nv[k]);
+        }
+    } else {
+        int rank[KECCAK_PER_THREAD];
+#pragma unroll
+        for (int k = 0; k < KECCAK_PER_THREAD; ++k)
+            rank[k] = t + k * KECCAK_THREADS < msgs ? lo_count(so, nv[k]) : 0;
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < KECCAK_PER_THREAD; ++k)
+            lo_scan(so, t + k * KECCAK_THREADS, nblocks);
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < KECCAK_PER_THREAD; ++k) {
+            const int i = t + k * KECCAK_THREADS;
+            if (i < msgs) lo_place(so, i, base, B, nv[k], rank[k]);
+        }
+    }
+    __syncthreads();
+    const uint64_t *src = (const uint64_t *)blocks;
+    uint64_t *o = (uint64_t *)out;
+    for (;;) {
+        int q = 0;
+        if (lane == 0) q = atomicAdd(&so.next, 1);
+        const int g = lo_group_slot(__shfl_sync(0xFFFFFFFFu, q, 0), msgs);
+        if (g < 0) break;
+        const int msg = so.msg[g + lane], n = so.nv[g + lane];
+        const uint64_t *m = src + (size_t)(msg < 0 ? 0 : msg) * nblocks * RATE_WORDS;
+        uint64_t s[25], nx[RATE_WORDS];
+#pragma unroll
+        for (int k = 0; k < 25; ++k) s[k] = 0;
+        if (n > 0) {
+#pragma unroll
+            for (int k = 0; k < RATE_WORDS; ++k) nx[k] = m[k];
+        }
+        for (int b = 0; b < n; ++b) {
+#pragma unroll
+            for (int k = 0; k < RATE_WORDS; ++k) s[k] ^= nx[k];
+            if (b + 1 < n) {
+#pragma unroll
+                for (int k = 0; k < RATE_WORDS; ++k) nx[k] = m[(b + 1) * RATE_WORDS + k];
+            }
+            keccak_f(s);
+        }
+        if (msg >= 0) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) o[(size_t)msg * 4 + k] = s[k];
+        }
+    }
 }
-
-#define KECCAK_THREADS 128
 
 extern "C" int keccak256_varlen_launch(const uint8_t *blocks, const int32_t *nvalid,
                                        uint8_t *out, int B, int nblocks, void *stream) {
-    int grid = (B + KECCAK_THREADS - 1) / KECCAK_THREADS;
+    const int msgs = nblocks <= 1 ? KECCAK_THREADS : KECCAK_MSGS;
+    int grid = (B + msgs - 1) / msgs;
     keccak256_varlen_kernel<<<grid, KECCAK_THREADS, 0, (cudaStream_t)stream>>>(
-        blocks, nvalid, out, B, nblocks);
+        blocks, nvalid, out, B, nblocks, msgs);
     return (int)cudaGetLastError();
 }
 

@@ -15,16 +15,19 @@
 // divsteps run on the low limbs of f and g alone and yield a 2x2
 // transition matrix, which is then applied to (f, g) and to (d, e) with
 // 32x32->64 multiply-adds. The modulus (odd, below 2^256) comes as its
-// limbs and m^-1 mod 2^30 (`ModInv30`), from the kernels' constant block:
-// `M::mod()` names it, so one template serves secp256k1's p and n.
+// limbs and m^-1 mod 2^30 (`ModInv30`): from the kernels' constant block,
+// where `M::mod()` names it, so one template serves secp256k1's p and n;
+// or from a launch's parameters (kernel G's inverse mode, any field).
 //
 // The constant-time form: 20 batches of 30 branch-free divsteps (600 >=
 // 590, the bound for 256-bit inputs), the same instruction stream on every
-// lane of a warp. libsecp256k1's variable-time form (divsteps that skip
-// runs of zeros and stop at g = 0; allowed, since every input the kernels
-// invert is public) was measured beside it and was no faster: its lanes
-// take different step counts and a warp waits for its slowest
-// (tools/ec_kernel_probe.py --var-inverse). Zero maps to zero, as the
+// lane of a warp. libsecp256k1's variable-time form (`modinv_var_of`:
+// divsteps that skip runs of zeros and stop at g = 0; allowed, since every
+// input the kernels invert is public) was measured beside it and was no
+// faster in the recover and verify kernels or at 16,384 lanes: its lanes
+// take different step counts and a warp waits for its slowest. On one
+// lane, where no warp waits, it is (kernel G's [16, 1] roots of the
+// batched inversions, csrc/fp.cu; PERF.md). Zero maps to zero, as the
 // Fermat power did.
 #pragma once
 #include "bigint.cuh"
@@ -179,10 +182,11 @@ __device__ __forceinline__ void normalize30(S30 &d, int32_t fsign, const ModInv3
     }
 }
 
-// a^-1 mod m for a < m, 0 for a = 0: 20 batches of 30 constant-time divsteps
-template <class M>
-__device__ __noinline__ W8 modinv(W8 a) {
-    const ModInv30 &mi = M::mod();
+// a^-1 mod m for a < m, 0 for a = 0: 20 batches of 30 constant-time
+// divsteps, the modulus `mi` read where the caller keeps it (the kernels'
+// constant block through `modinv<M>`, or a launch's parameters in kernel
+// G's inverse mode, csrc/fp.cu)
+__device__ __forceinline__ W8 modinv_of(W8 a, const ModInv30 &mi) {
     S30 d, e, f, g;
 #pragma unroll
     for (int i = 0; i < 9; ++i) {
@@ -201,6 +205,83 @@ __device__ __noinline__ W8 modinv(W8 a) {
         update_fg30(f, g, t);
     }
     // g = 0 and f = +-1 (+-gcd); d = +-a^-1
+    normalize30(d, f.v[8], mi);
+    W8 r;
+    from_s30(r.w, d);
+    return r;
+}
+
+// modinv_of over the modulus M::mod() names, one out-of-line copy a modulus
+template <class M>
+__device__ __noinline__ W8 modinv(W8 a) {
+    return modinv_of(a, M::mod());
+}
+
+// libsecp256k1's variable-time divsteps (secp256k1_modinv32_divsteps_30_var),
+// eta = -delta: a run of zeros of g at once, then up to 8 low bits of g
+// cancelled by a multiple of f
+__device__ __forceinline__ int32_t divsteps30_var(int32_t eta, u32 f, u32 g, Trans30 &t) {
+    u32 u = 1, v = 0, q = 0, r = 1;
+    int i = 30;
+    for (;;) {
+        const int zeros = __ffs(g | (0xFFFFFFFFu << i)) - 1;  // i bounds the count
+        g >>= zeros;
+        u <<= zeros;
+        v <<= zeros;
+        eta -= zeros;
+        i -= zeros;
+        if (i == 0) break;
+        if (eta < 0) {
+            u32 x;
+            eta = -eta;
+            x = f, f = g, g = 0u - x;
+            x = u, u = q, q = 0u - x;
+            x = v, v = r, r = 0u - x;
+        }
+        const int limit = (eta + 1) > i ? i : (eta + 1);
+        const u32 m = (0xFFFFFFFFu >> (32 - limit)) & 255u;
+        // f^-1 mod 2^12 by two Newton steps (f odd, so f f = 1 mod 8), in
+        // place of libsecp256k1's table of inverses mod 256
+        u32 fi = f;
+        fi *= 2u - f * fi;
+        fi *= 2u - f * fi;
+        const u32 w = (0u - g * fi) & m;
+        g += f * w;
+        q += u * w;
+        r += v * w;
+    }
+    t.u = (int32_t)u;
+    t.v = (int32_t)v;
+    t.q = (int32_t)q;
+    t.r = (int32_t)r;
+    return eta;
+}
+
+// a^-1 mod m for a < m, 0 for a = 0, in variable time: batches of 30
+// divsteps until g = 0 (secp256k1_modinv32_var at full length; at most 25
+// batches, since 724 divsteps bound a 256-bit input of this divstep)
+__device__ __forceinline__ W8 modinv_var_of(W8 a, const ModInv30 &mi) {
+    S30 d, e, f, g;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        d.v[i] = 0;
+        e.v[i] = 0;
+        f.v[i] = mi.m[i];
+    }
+    e.v[0] = 1;
+    to_s30(g, a.w);
+    int32_t eta = -1;
+#pragma unroll 1
+    for (int it = 0; it < 25; ++it) {
+        int32_t live = 0;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) live |= g.v[i];
+        if (!live) break;
+        Trans30 t;
+        eta = divsteps30_var(eta, (u32)f.v[0], (u32)g.v[0], t);
+        update_de30(d, e, t, mi);
+        update_fg30(f, g, t);
+    }
     normalize30(d, f.v[8], mi);
     W8 r;
     from_s30(r.w, d);

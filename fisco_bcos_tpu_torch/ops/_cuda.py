@@ -45,7 +45,9 @@ SIGNATURES = {
     "fp": {"fp_mul_launch": [_P] * 4 + [_I, _P],
            "fp_mul_const_launch": [_P] * 4 + [_I, _P],
            "fp_mul_stacked_launch": [_P] * 4 + [_I, _I, _P],
-           "fp_pow_launch": [_P] * 5 + [_I, _I, _P]},
+           "fp_pow_launch": [_P] * 5 + [_I, _I, _P],
+           "fp_pow_inv_launch": [_P] * 4 + [_I, _P],
+           "fp_pow_sqrt_launch": [_P] * 2 + [_I, _P]},
     "ladder": {"ladder_launch": [_P] * 5 + [_I, _I, _I, _I, _P]},
 }
 # which blocks of consts.kernel_words() each source's set_consts takes,

@@ -8,6 +8,11 @@ fisco_bcos_tpu/ops/pallas_fp.py and are reached through
 `kernels=True`. Their plain versions are the field's `mul_plain` and the
 `pow_const` window loop of a field built without kernels.
 
+`pow_const` picks kernel G's mode for the whole launch from the exponent
+(`pow_mode`): the safegcd inverse for e = m - 2, secp256k1's square-root
+chain for e = (p + 1) / 4, the window loop for any other e; each mode
+returns the window loop's limbs.
+
 Each wrapper takes the field and int64 lane-major operands of 16-bit limbs
 on one CUDA device (the plain field layer's dtype, so a Poseidon round
 converts nothing between its adds and its products), launches once on the
@@ -21,12 +26,14 @@ call; of the Solinas fields only secp256k1's p has a kernel (the fold of
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from . import _cuda
 from .bigint import NLIMBS
+from .consts import modinv30_words
 from .fp import msb_digits
 
 I64 = torch.int64
@@ -124,19 +131,88 @@ def _words(limbs) -> np.ndarray:
     return np.ascontiguousarray(v[0::2] | (v[1::2] << 16), dtype=np.uint32)
 
 
+# kernel G's modes (csrc/pow.cuh)
+INVERSE, SQRT, WINDOW = "inverse", "sqrt", "window"
+_MR_BASES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53)
+
+
+@functools.lru_cache(maxsize=None)
+def _is_prime(m: int) -> bool:
+    """Miller-Rabin over 16 fixed bases (a composite passes with
+    probability below 4^-16): m - 2 is an inverse's exponent only where
+    m is prime."""
+    if m < 2 or m % 2 == 0:
+        return m == 2
+    d, r = m - 1, 0
+    while d % 2 == 0:
+        d, r = d // 2, r + 1
+    for b in _MR_BASES:
+        if b % m == 0:
+            continue
+        x = pow(b, d, m)
+        if x in (1, m - 1):
+            continue
+        for _ in range(r - 1):
+            x = x * x % m
+            if x == m - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def pow_mode(field, e: int) -> str:
+    """Kernel G's mode for a^e on `field`: INVERSE for e = m - 2 on a
+    prime modulus m, SQRT for e = (p + 1) / 4 on secp256k1's p, WINDOW for
+    every other exponent."""
+    m = field.n_int
+    if e == m - 2 and _is_prime(m):
+        return INVERSE
+    if getattr(field, "c_int", None) == SECP256K1_C and e == (m + 1) // 4:
+        return SQRT
+    return WINDOW
+
+
+def _inv_words(field) -> np.ndarray:
+    """The inverse mode's host words: struct ModInv30 of the modulus (9
+    limbs of 30 bits, m^-1 mod 2^30), then R^3 mod m (R = 2^256) as 8 words
+    for a Montgomery field's domain fix-up (zeros for the Solinas field's
+    plain domain, which needs none)."""
+    key = ("inv", type(field).__name__, field.n_int)
+    w = _WORDS.get(key)
+    if w is None:
+        m = field.n_int
+        r3 = 0 if getattr(field, "c_int", None) is not None else pow(1 << 256, 3, m)
+        w = np.array(modinv30_words(m) + [(r3 >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
+                     dtype=np.uint32)
+        _WORDS[key] = w
+    return w
+
+
 def pow_const(field, a, e: int):
     """a^e of a [16, B] int64 operand in the field's domain -> [16, B]
-    int64, for a static 0 < e < 2^256. The exponent goes to the launch as
-    its 4-bit MSB-first digits (`fp.msb_digits`), with the field's one."""
+    int64, for a static 0 < e < 2^256, in the mode `pow_mode` picks: the
+    inverse takes the modulus's ModInv30 words and R^3 mod m
+    (`_inv_words`), the square root nothing, the window loop the
+    exponent's 4-bit MSB-first digits (`fp.msb_digits`) and the field's
+    one. One launch, counted once, whatever the mode."""
     _cuda.require(a, "a", I64, (NLIMBS, None))
     if not 0 < e < 1 << (4 * MAX_POW_DIGITS):
         raise ValueError(f"pow_const: exponent out of range (0, 2^256): {e}")
-    digits = np.ascontiguousarray(msb_digits(e, 4), dtype=np.uint8)
-    one = _words(field.encode_int(1))
+    mode = pow_mode(field, e)
     out = torch.empty_like(a)
-    if a.shape[1]:
-        _launch("fp_pow_launch", field, a, out, host=(digits, one),
-                dims=(len(digits), a.shape[1]))
+    B = a.shape[1]
+    if B:
+        if mode == INVERSE:
+            _launch("fp_pow_inv_launch", field, a, out, host=(_inv_words(field),), dims=(B,))
+        elif mode == SQRT:
+            lib = _cuda.library("fp", a.device)
+            rc = lib.fp_pow_sqrt_launch(_cuda.ptr(a), _cuda.ptr(out), B, _cuda.stream_ptr(a))
+            _cuda.check(lib, rc, "fp_pow_sqrt_launch")
+        else:
+            digits = np.ascontiguousarray(msb_digits(e, 4), dtype=np.uint8)
+            one = _words(field.encode_int(1))
+            _launch("fp_pow_launch", field, a, out, host=(digits, one), dims=(len(digits), B))
         pow_const.launches += 1
     return out
 

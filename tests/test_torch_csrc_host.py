@@ -1,5 +1,6 @@
 """The port's CUDA arithmetic (csrc/bigint.cuh, sm2.cuh, field.cuh,
-point.cuh, modinv.cuh, ec.cuh, ecdsa.cuh) compiled for the host with g++
+point.cuh, modinv.cuh, ec.cuh, ecdsa.cuh, pow.cuh) and the varlen Keccak
+kernel's steps (keccak.cuh, lenorder.cuh) compiled for the host with g++
 and held to Python integers, to the plain PyTorch point formulas of ops/ec
 and to the pure-Python oracle, on seeded operands and on carry-extreme
 ones.
@@ -22,8 +23,9 @@ import pytest
 import torch
 
 from fisco_bcos_tpu_torch.crypto import refimpl
-from fisco_bcos_tpu_torch.ops import bigint, ec
+from fisco_bcos_tpu_torch.ops import bigint, cuda_fp, ec, fp
 from fisco_bcos_tpu_torch.ops.consts import derive_consts, kernel_words
+from fisco_bcos_tpu_torch.zk import poseidon
 import test_torch_vectors as vectors  # tests/ is on sys.path under pytest
 
 CSRC = Path(__file__).resolve().parent.parent / "fisco_bcos_tpu_torch" / "csrc"
@@ -40,10 +42,28 @@ HARNESS = r"""
 #include <cstring>
 #include <iostream>
 #include <string>
+#include <array>
+#include <vector>
+// lenorder.cuh's ranks: one thread at a time here, so a plain add
+static int atomicAdd(int *p, int v) { int o = *p; *p += v; return o; }
+static int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 #include "ecdsa.cuh"
 #include "sm2.cuh"
+#include "pow.cuh"
+#include "keccak.cuh"
+#include "lenorder.cuh"
 
 static u32 SG[2 * TBL * 16];  // the G and phi(G) tables, as stage_tables lays them out
+
+static u32 rdw() { std::string h; std::cin >> h; return (u32)strtoul(h.c_str(), 0, 16); }
+// FieldArg from ops/cuda_fp._field_words: n[0..7], np0, solinas
+static FieldArg rd_field() {
+    FieldArg f;
+    for (int i = 0; i < 8; ++i) f.n[i] = rdw();
+    f.np0 = rdw();
+    f.solinas = rdw();
+    return f;
+}
 
 // a 256-bit value as 64 hex digits, most significant first
 static void rd(u32 w[8]) {
@@ -59,6 +79,66 @@ static void wr_jac(const Jac &P) {
     wr(P.X, 8); printf(" "); wr(P.Y, 8); printf(" "); wr(P.Z, 8);
 }
 
+// keccak256_varlen_kernel (keccak.cu) on the host, block by block, through
+// the same steps in the kernel's order: each step of lenorder.cuh for
+// every slot of the block before the next step (the kernel's barriers),
+// then the groups of 32 slots in the order the warps take them, each
+// message hashed from its own rows. A block owns M messages, or M / 2
+// where no message has more than one block, as the launch sets. Exits
+// non-zero if a message is not in exactly one slot or the slots are out
+// of length order.
+template <int M>
+static void keccak_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
+                          int nblocks) {
+    const int W = 17;
+    const int msgs = nblocks <= 1 ? M / 2 : M;
+    const uint64_t *src = (const uint64_t *)blocks;
+    uint64_t *o = (uint64_t *)out;
+    static LenOrder<M> so;
+    for (int base = 0; base < B; base += msgs) {
+        std::vector<int> nv(M, 0), rank(M), seen(M, 0);
+        const int nv0 = lo_nv(nvalid, base, B, nblocks);
+        bool same = true;
+        for (int i = 0; i < M; ++i) {
+            if (i < msgs) nv[i] = lo_nv(nvalid, base + i, B, nblocks);
+            same = same && (i >= msgs || nv[i] == nv0);
+            lo_clear(so, i);
+        }
+        if (same) {
+            for (int i = 0; i < msgs; ++i) lo_identity(so, i, base, B, nv[i]);
+        } else {
+            for (int i = 0; i < msgs; ++i) rank[i] = lo_count(so, nv[i]);
+            for (int i = 0; i < M; ++i) lo_scan(so, i, nblocks);
+            for (int i = 0; i < msgs; ++i) lo_place(so, i, base, B, nv[i], rank[i]);
+        }
+        for (int i = 0; i < msgs; ++i) {
+            if (so.msg[i] >= 0) seen[so.msg[i] - base] += 1;
+            if (i > 0 && lo_bin<M>(so.nv[i]) < lo_bin<M>(so.nv[i - 1])) {
+                fprintf(stderr, "slot %d out of length order\n", i);
+                exit(2);
+            }
+        }
+        for (int i = 0; i < msgs && base + i < B; ++i) {
+            if (seen[i] != 1) { fprintf(stderr, "message %d in %d slots\n", base + i, seen[i]); exit(2); }
+        }
+        for (int q = 0;; ++q) {
+            const int g = lo_group_slot(q, msgs);
+            if (g < 0) break;
+            for (int lane = 0; lane < 32; ++lane) {
+                const int msg = so.msg[g + lane], n = so.nv[g + lane];
+                const uint64_t *m = src + (size_t)(msg < 0 ? 0 : msg) * nblocks * W;
+                uint64_t st[25] = {0};
+                for (int b = 0; b < n; ++b) {
+                    for (int k = 0; k < W; ++k) st[k] ^= m[b * W + k];
+                    keccak_f(st);
+                }
+                if (msg >= 0)
+                    for (int k = 0; k < 4; ++k) o[(size_t)msg * 4 + k] = st[k];
+            }
+        }
+    }
+}
+
 int main() {
     std::string op;
     int n;
@@ -69,6 +149,9 @@ int main() {
     std::cin >> op >> n;
     for (int i = 0; i < n; ++i) { std::string h; std::cin >> h; w[i] = (u32)strtoul(h.c_str(), 0, 16); }
     memcpy(&S2, w, sizeof(Sm2Consts));
+    std::cin >> op >> n;  // the "keccak" words: the round constants
+    for (int i = 0; i < n; ++i) { std::string h; std::cin >> h; w[i] = (u32)strtoul(h.c_str(), 0, 16); }
+    memcpy(KECCAK_RC, w, sizeof(KECCAK_RC));
     while (std::cin >> op) {
         u32 a[8], b[8], r[8], t[16];
         Jac P, Q, Rj;
@@ -81,6 +164,44 @@ int main() {
             else if (op == "inv_n") y = modinv<ModN>(x);
             else y = fp_sqrt(x);
             wr(y.w, 8);
+        } else if (op == "powinv" || op == "powinvvar") {  // kernel G's inverse mode: field, InvArg words, a
+            FieldArg f = rd_field();
+            InvArg v;
+            for (int i = 0; i < 9; ++i) v.mi.m[i] = (int32_t)rdw();
+            v.mi.inv30 = rdw();
+            for (int i = 0; i < 8; ++i) v.r3[i] = rdw();
+            W8 x;
+            rd(x.w);
+            W8 y = op == "powinv" ? pow_inverse<false>(x, f, v) : pow_inverse<true>(x, f, v);
+            wr(y.w, 8);
+        } else if (op == "powwin") {  // the window mode: field, one, digits (hex, MSB first), a
+            FieldArg f = rd_field();
+            PowArg e;
+            rd(e.one);
+            std::string d;
+            std::cin >> d;
+            e.nd = (int)d.size();
+            for (int i = 0; i < e.nd; ++i) e.d[i] = (unsigned char)strtoul(d.substr(i, 1).c_str(), 0, 16);
+            W8 x;
+            rd(x.w);
+            W8 y = pow_window_field(x, e, f);
+            wr(y.w, 8);
+        } else if (op == "keccak") {  // M B nblocks, nvalid[B], the blocks as hex -> B digests
+            int M, B, nb;
+            std::cin >> M >> B >> nb;
+            std::vector<int32_t> nv(B);
+            for (auto &x : nv) std::cin >> x;
+            std::string h;
+            std::cin >> h;
+            std::vector<uint8_t> blk((size_t)B * nb * 136 + 8), dg((size_t)B * 32);
+            for (size_t i = 0; i < (size_t)B * nb * 136; ++i)
+                blk[i] = (uint8_t)strtoul(h.substr(2 * i, 2).c_str(), 0, 16);
+            if (M == 512) keccak_launch<512>(blk.data(), nv.data(), dg.data(), B, nb);
+            else keccak_launch<64>(blk.data(), nv.data(), dg.data(), B, nb);
+            for (int i = 0; i < B; ++i) {
+                if (i) printf(" ");
+                for (int k = 0; k < 32; ++k) printf("%02x", dg[(size_t)i * 32 + k]);
+            }
         } else if (op == "qtab") {  // q_table's Z product and its inverse, then the table
             u32 tx[TBL][8], ty[TBL][8], z[8];
             rd(a); rd(b);
@@ -142,7 +263,7 @@ def harness(tmp_path_factory):
                    timeout=600)
     words = kernel_words(derive_consts())
     head = " ".join(f"{k} {len(words[k])} " + " ".join(f"{x:08x}" for x in words[k])
-                    for k in ("verify", "sm2"))
+                    for k in ("verify", "sm2", "keccak"))
 
     def run(lines: list[str]) -> list[list[int]]:
         out = subprocess.run([str(exe)], input=head + "\n" + "\n".join(lines) + "\n",
@@ -324,6 +445,169 @@ def test_sqrt_chain_matches_python(unary_results, name):
     """fp_sqrt: x^((p+1)/4) mod p as Python's pow, square or not."""
     x = _inputs(C.p)[name]
     assert unary_results["sqrt", name] == pow(x, (C.p + 1) // 4, C.p)
+
+
+# -- kernel G's modes (pow.cuh): the inverse over a modulus passed at
+# launch, with the Montgomery fix-up, and the window loop it replaces --
+
+POW_FIELDS = {"secp256k1_p": fp.SolinasField(C.p), "secp256k1_n": fp.MontField(C.n),
+              "sm2_p": fp.MontField(S.p), "sm2_n": fp.MontField(S.n),
+              "bn254_r": fp.MontField(poseidon.P)}
+# values in the field's domain (what the kernel reads), by name; the loose
+# ones lie in [m, 2^256), which the Solinas field's window loop takes
+POW_INPUTS = {
+    "zero": lambda m: 0, "one": lambda m: 1, "m-1": lambda m: m - 1, "m-2": lambda m: m - 2,
+    "R mod m": lambda m: R % m, "R^2 mod m": lambda m: R * R % m,
+    **{f"seeded {i}": (lambda i: lambda m: random.Random(m % 997 + i).randrange(m))(i)
+       for i in range(6)},
+    "loose m": lambda m: m, "loose m+1": lambda m: m + 1, "loose 2^256-1": lambda m: R - 1,
+    **{f"loose seeded {i}": (lambda i: lambda m: random.Random(m % 991 + i).randrange(m, R))(i)
+       for i in range(3)},
+}
+
+
+def _field_line(f) -> str:
+    return " ".join(f"{int(x):08x}" for x in cuda_fp._field_words(f))
+
+
+def _word_int(words) -> int:
+    return sum(int(x) << (32 * i) for i, x in enumerate(words))
+
+
+def _powwin_line(f, e: int, x: int) -> str:
+    digits = "".join(f"{int(d):x}" for d in fp.msb_digits(e, 4))
+    one = _word_int(cuda_fp._words(f.encode_int(1)))
+    return f"powwin {_field_line(f)} {_h(one)} {digits} {_h(x)}"
+
+
+def _pow_want(f, x: int, e: int) -> int:
+    """x^e in the field's domain (x a domain value, maybe loose), canonical."""
+    m = f.n_int
+    r = 1 if getattr(f, "c_int", None) is not None else R % m
+    v = x % m * pow(r, -1, m) % m
+    return pow(v, e, m) * r % m
+
+
+@pytest.fixture(scope="module")
+def pow_results(harness):
+    """(field, input name) -> (inverse mode, window loop at m - 2, window
+    loop at (p+1)/4 for secp256k1's p, square-root chain), one run."""
+    keys, lines = [], []
+    for name, f in POW_FIELDS.items():
+        m = f.n_int
+        inv = " ".join(f"{int(x):08x}" for x in cuda_fp._inv_words(f))
+        for xname, g in POW_INPUTS.items():
+            x = g(m)
+            for op, form in (("powinv", "inverse"), ("powinvvar", "inverse var")):
+                keys.append((name, xname, form))
+                lines.append(f"{op} {_field_line(f)} {inv} {_h(x)}")
+            keys.append((name, xname, "window m-2"))
+            lines.append(_powwin_line(f, m - 2, x))
+            if name == "secp256k1_p":
+                keys.append((name, xname, "window sqrt"))
+                lines.append(_powwin_line(f, (m + 1) // 4, x))
+                keys.append((name, xname, "sqrt"))
+                lines.append(f"sqrt {_h(x)}")
+    return {k: g[0] for k, g in zip(keys, harness(lines))}
+
+
+@pytest.mark.parametrize("form", ["inverse", "inverse var"])
+@pytest.mark.parametrize("xname", list(POW_INPUTS))
+@pytest.mark.parametrize("field", list(POW_FIELDS))
+def test_pow_inverse_mode_matches_python(pow_results, field, xname, form):
+    """pow_inverse, constant-time and variable-time (the one-lane form),
+    with the modulus's ModInv30 words and R^3 mod m from
+    cuda_fp._inv_words (as the launch passes them): Python's
+    pow(x, m - 2, m) in the field's domain, loose inputs reduced first; and,
+    on canonical inputs, the limbs of the window loop at m - 2."""
+    f = POW_FIELDS[field]
+    m = f.n_int
+    x = POW_INPUTS[xname](m)
+    got = pow_results[field, xname, form]
+    assert got == _pow_want(f, x, m - 2)
+    if x < m or field == "secp256k1_p":
+        assert got == pow_results[field, xname, "window m-2"]
+
+
+@pytest.mark.parametrize("xname", list(POW_INPUTS))
+def test_pow_sqrt_mode_matches_window_loop(pow_results, xname):
+    """fp_sqrt, the square-root mode, returns the limbs of the window
+    loop at (p+1)/4 on secp256k1's p, loose inputs included, and both are
+    Python's pow."""
+    f = POW_FIELDS["secp256k1_p"]
+    x = POW_INPUTS[xname](f.n_int)
+    got = pow_results["secp256k1_p", xname, "sqrt"]
+    assert got == pow_results["secp256k1_p", xname, "window sqrt"]
+    assert got == _pow_want(f, x, (f.n_int + 1) // 4)
+
+
+@pytest.mark.parametrize("field", list(POW_FIELDS))
+def test_pow_window_mode_generic_exponents(harness, field):
+    """The window loop (the mode of every other exponent) at 65,537, a
+    seeded 256-bit exponent and 1 against Python's pow, on seeded
+    canonical inputs with 0, 1 and m - 1."""
+    f = POW_FIELDS[field]
+    m = f.n_int
+    rng = random.Random(m % 1009)
+    xs = [0, 1, m - 1] + [rng.randrange(m) for _ in range(5)]
+    es = [65537, rng.getrandbits(256) | 1 << 255, 1]
+    cases = [(e, x) for e in es for x in xs]
+    got = harness([_powwin_line(f, e, x) for e, x in cases])
+    assert [g[0] for g in got] == [_pow_want(f, x, e) for e, x in cases]
+
+
+# -- the varlen Keccak kernel's length-ordered schedule (lenorder.cuh) ------
+
+def _keccak_batch(lens_blocks, nblocks, seed):
+    """Random pre-padded blocks [B, nblocks, 136] and nvalid as given (may
+    be out of [0, nblocks]); the digest each message must get, by
+    refimpl.keccak256 over the message its clamped nvalid blocks hold."""
+    from fisco_bcos_tpu_torch.ops import keccak
+
+    rng = np.random.default_rng(seed)
+    B = len(lens_blocks)
+    blocks = np.zeros((B, max(nblocks, 1), 136), dtype=np.uint8)
+    want = []
+    for i, nv in enumerate(lens_blocks):
+        k = min(max(nv, 0), nblocks)
+        if k:
+            msg = rng.bytes(int(rng.integers(136 * (k - 1), 136 * k)))
+            blocks[i, :k] = keccak.pad_message_np(msg)
+            want.append(refimpl.keccak256(msg))
+        else:
+            blocks[i] = rng.integers(0, 256, blocks[i].shape, dtype=np.uint8)
+            want.append(bytes(32))  # nothing absorbed: the zero state's lanes
+    return blocks[:, :nblocks], np.asarray(lens_blocks, dtype=np.int32), want
+
+
+KECCAK_SCHEDULES = {
+    # messages a block (the kernel's 512, or 64), B, nblocks, nvalid of message i
+    "B=1": (512, 1, 3, lambda i, r: 2),
+    "B=129 mixed": (512, 129, 4, lambda i, r: int(r.integers(0, 5))),
+    "B=513 mixed with 0, -1 and above nblocks": (
+        512, 513, 3, lambda i, r: int(r.choice([-1, 0, 1, 2, 3, 4, 9]))),
+    "B=1100 all equal, the last block short": (512, 1100, 2, lambda i, r: 2),
+    "B=1024 all equal": (512, 1024, 1, lambda i, r: 1),
+    "B=70 all zero": (512, 70, 1, lambda i, r: 0),
+    "B=600 one block or none, 256 a block": (512, 600, 1, lambda i, r: int(r.integers(-1, 3))),
+    "M=64 B=150 past the last bin": (64, 150, 70, lambda i, r: int(r.integers(55, 75))),
+    "M=64 B=65 descending": (64, 65, 6, lambda i, r: 6 - i % 7),
+}
+
+
+@pytest.mark.parametrize("case", list(KECCAK_SCHEDULES))
+def test_keccak_length_ordered_schedule(harness, case):
+    """keccak256_varlen_kernel's steps run block by block on the host:
+    each message in exactly one slot, slots in length order (the harness
+    exits non-zero otherwise), every digest refimpl.keccak256's at the
+    message's own index, nvalid clamped to [0, nblocks]."""
+    M, B, nblocks, nv = KECCAK_SCHEDULES[case]
+    r = np.random.default_rng(B + nblocks)
+    blocks, nvalid, want = _keccak_batch([nv(i, r) for i in range(B)], nblocks, seed=B)
+    line = (f"keccak {M} {B} {nblocks} " + " ".join(str(int(x)) for x in nvalid) + " "
+            + blocks.tobytes().hex())
+    got = harness([line])[0]
+    assert got == [int.from_bytes(w, "big") for w in want]
 
 
 def _ladder_edge_qs() -> dict[str, tuple[int, int]]:

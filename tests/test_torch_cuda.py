@@ -80,6 +80,44 @@ def test_keccak_kernel_matches_plain(dev):
     assert [bytes(x) for x in got.cpu().numpy()] == [refimpl.keccak256(m) for m in msgs]
 
 
+@pytest.mark.parametrize("B", [1, 129, 513])
+def test_keccak_kernel_length_order_edges(dev, B):
+    """The length-ordered kernel at B not a multiple of its 256-thread
+    blocks, on mixed lengths with nvalid of -1, 0 and above nblocks
+    (clamped to [0, nblocks], as the plain version masks), against
+    keccak256_varlen_plain and, where nvalid is the message's own,
+    refimpl."""
+    rng = np.random.default_rng(B)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 4 * 136, B)]
+    blocks, nvalid = keccak.pad_batch_np(msgs)
+    own = nvalid.copy()
+    tweak = rng.integers(0, 4, B)
+    nvalid[tweak == 1] = -1
+    nvalid[tweak == 2] = 0
+    nvalid[tweak == 3] = blocks.shape[1] + 5
+    if B == 1:
+        nvalid[0] = own[0]
+    b, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
+    n0 = cuda_hash.keccak256_varlen.launches
+    got = cuda_hash.keccak256_varlen(b, nv)
+    assert cuda_hash.keccak256_varlen.launches == n0 + 1
+    assert torch.equal(got, keccak.keccak256_varlen_plain(b, nv))
+    clamped = np.clip(nvalid, 0, blocks.shape[1])
+    for i in np.flatnonzero(clamped == own):
+        assert bytes(got[i].cpu().numpy()) == refimpl.keccak256(msgs[i]), i
+    assert not got[torch.as_tensor(clamped == 0, device=dev)].any()
+
+
+def test_keccak_kernel_one_block_keys(dev):
+    """The address hash's shape: equal 64-byte one-block messages."""
+    rng = np.random.default_rng(7)
+    msgs = [rng.bytes(64) for _ in range(3000)]
+    blocks, nvalid = keccak.pad_batch_np(msgs)
+    b, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
+    got = cuda_hash.keccak256_varlen(b, nv)
+    assert [bytes(x) for x in got.cpu().numpy()] == [refimpl.keccak256(m) for m in msgs]
+
+
 @pytest.mark.parametrize("n", [1, 2, 17, 4097])
 def test_merkle_kernel_matches_plain(dev, n):
     rng = np.random.default_rng(n)
@@ -255,17 +293,43 @@ def test_fp_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 @pytest.mark.parametrize("name", sorted(FP_FIELDS))
 def test_pow_kernel_matches_plain(dev, name):
-    """At 4,096 lanes (edges 0, 1, n - 1, R mod n first) and at one lane,
-    the [16, 1] root of a batched inversion, through a kernels=True field."""
+    """Every mode of kernel G against the plain window loop at [16, 1]
+    (the root of a batched inversion), [16, 3] and [16, 16,384] (edges 0,
+    1, n - 1, R mod n first), through a kernels=True field: the inverse at
+    m - 2, secp256k1's square root at (p+1)/4, the window loop at the
+    other exponents. One launch a call, whatever the mode."""
     mk, mod = FP_FIELDS[name]
     f, kf = mk(mod), mk(mod, kernels=True)
-    a = _fp_lanes(mod, 4096, 3, dev)
-    one = a[:, 2:3].contiguous()
+    a = _fp_lanes(mod, 16384, 3, dev)
+    modes = set()
     for e in (1, 0x1234, (mod + 1) // 4, mod - 2):
-        n0 = cuda_fp.pow_const.launches
+        modes.add(cuda_fp.pow_mode(f, e))
+        want = f.pow_const(a, e)
+        for B in (1, 3, 16384):
+            x = a[:, 2:2 + B].contiguous() if B == 1 else a[:, :B].contiguous()
+            n0 = cuda_fp.pow_const.launches
+            got = kf.pow_const(x, e)
+            assert cuda_fp.pow_const.launches == n0 + 1
+            assert torch.equal(got, want[:, 2:3] if B == 1 else want[:, :B]), (e, B)
+    want_modes = {cuda_fp.WINDOW, cuda_fp.INVERSE} | (
+        {cuda_fp.SQRT} if name == "secp_p" else set())
+    assert modes == want_modes
+
+
+@pytest.mark.parametrize("name", sorted(FP_FIELDS))
+def test_pow_kernel_generic_exponents_take_the_window_loop(dev, name):
+    """65,537 and a seeded 256-bit exponent are no inverse and no square
+    root: the window mode, bit-exact against the plain loop at [16, 1] and
+    [16, 4,096]."""
+    mk, mod = FP_FIELDS[name]
+    f = mk(mod)
+    a = _fp_lanes(mod, 4096, 4, dev)
+    rng = np.random.default_rng(5)
+    for e in (65537, int.from_bytes(rng.bytes(32), "big") | 1 << 255):
+        assert cuda_fp.pow_mode(f, e) == cuda_fp.WINDOW
         assert torch.equal(cuda_fp.pow_const(f, a, e), f.pow_const(a, e))
-        assert torch.equal(kf.pow_const(one, e), f.pow_const(one, e))
-        assert cuda_fp.pow_const.launches == n0 + 2
+        one = a[:, 5:6].contiguous()
+        assert torch.equal(cuda_fp.pow_const(f, one, e), f.pow_const(one, e))
 
 
 @pytest.mark.parametrize("curve", ["secp256k1", "sm2"])

@@ -211,6 +211,40 @@ def test_np0_is_the_low_word_of_nprime(kfields):
     assert sum(int(w) << (32 * i) for i, w in enumerate(words[:8])) == mod
 
 
+def test_pow_mode_picks_by_exponent(kfields):
+    """Kernel G's mode for a launch (ops/cuda_fp.pow_mode): the safegcd
+    inverse for m - 2 (every kernel field is a prime above 2^253),
+    secp256k1's square-root chain for (p + 1) / 4 on its p only, the
+    window loop for every other exponent."""
+    f, _, mod = kfields
+    assert cuda_fp.pow_mode(f, mod - 2) == cuda_fp.INVERSE
+    sqrt = cuda_fp.SQRT if isinstance(f, fp.SolinasField) else cuda_fp.WINDOW
+    assert cuda_fp.pow_mode(f, (mod + 1) // 4) == sqrt
+    for e in (1, 3, 65537, mod - 1, mod - 3, (mod - 1) // 2):
+        assert cuda_fp.pow_mode(f, e) == cuda_fp.WINDOW
+
+
+@pytest.mark.parametrize("mod", [(1 << 255) + 1, 3 * R, SM2_P * 3 % (1 << 256) | 1],
+                         ids=["2^255+1", "3r", "odd composite near 2^256"])
+def test_pow_mode_inverse_needs_a_prime(mod):
+    """m - 2 is an inverse's exponent only for a prime m: a composite
+    modulus keeps the window loop."""
+    assert cuda_fp.pow_mode(fp.MontField(mod), mod - 2) == cuda_fp.WINDOW
+
+
+def test_inv_words_of_the_kernel_fields(kfields):
+    """The inverse mode's launch words: struct ModInv30 (9 limbs of 30
+    bits, m^-1 mod 2^30) and R^3 mod m for a Montgomery field's domain
+    fix-up, zeros for the Solinas field."""
+    f, _, mod = kfields
+    w = [int(x) for x in cuda_fp._inv_words(f)]
+    assert len(w) == 18 and all(x < 1 << 30 for x in w[:9])
+    assert sum(x << (30 * i) for i, x in enumerate(w[:9])) == mod
+    assert w[9] * mod % (1 << 30) == 1
+    r3 = 0 if isinstance(f, fp.SolinasField) else pow(1 << 256, 3, mod)
+    assert sum(x << (32 * i) for i, x in enumerate(w[10:])) == r3
+
+
 def test_fp_kernels_refuse_other_solinas_fields():
     with pytest.raises(ValueError, match="Solinas"):
         cuda_fp._field_words(fp.SolinasField((1 << 256) - 189, kernels=True))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Probe the port's EC kernels (csrc/ladder.cu, csrc/sm2.cu and the
-secp256k1 recover and verify kernels of csrc/verify.cu) on one NVIDIA
-card, for one or more copies of their sources.
+secp256k1 recover and verify kernels of csrc/verify.cu), kernel G (the
+pow kernels of csrc/fp.cu) and the varlen Keccak kernel (csrc/keccak.cu)
+on one NVIDIA card, for one or more copies of their sources.
 
     python3 tools/ec_kernel_probe.py [--out DIR] [--kernels K,...] [COPY ...]
 
@@ -10,7 +11,7 @@ A COPY is a copy of csrc/ or a tree that holds fisco_bcos_tpu_torch/csrc/
 probes the port's own fisco_bcos_tpu_torch/csrc/. Several copies (at
 different steps of a change) are built in parallel and measured in one
 process on one card, in turns, so that their times compare. K is any of
-ladder, sm2, verify (default all). For each copy it prints:
+ladder, sm2, verify, fp, keccak (default all). For each copy it prints:
 
 - ptxas registers and stack of each kernel, and the static SASS counts of
   each function (instructions, LDL, STL, CALL, BRA; cuobjdump -sass);
@@ -24,7 +25,17 @@ ladder, sm2, verify (default all). For each copy it prints:
   the card): the ladder on chip_smoke.py's lanes (edge, carry-stress and
   flipped-sign lanes), SM2 verify on its 1% adversarial and carry-stress
   lanes, recover and verify on chip_smoke.py's lanes (1% corrupted, the
-  inversion-stress lanes of chip_smoke.ecdsa_cases).
+  inversion-stress lanes of chip_smoke.ecdsa_cases);
+- with fp: kernel G at each of chip_smoke.pow_cases' fields and exponents
+  (every field's m - 2, secp256k1's (p+1)/4, m - 3), bit-exact against the
+  plain window loop, device ms at [16, 16,384] and [16, 1] (the profiler's
+  mean of 20, chip_smoke.kernel_device_ms), through the copy's mode launch where it has one (a copy without
+  them runs every exponent through its window loop);
+- with keccak: the varlen kernel on chip_smoke's two shapes (65,536
+  messages of 1-8 blocks, 65,536 one-block 64-byte keys), bit-exact
+  against the plain version, device ms as for fp, and the SASS opcodes of
+  one Keccak round (`probe_keccak_round`, where the copy's keccak.cuh has
+  `keccak_round`).
 
 Builds go to fisco_bcos_tpu_torch/_build/probe/<copy>/, the SASS text of
 the one-product kernels to DIR (default: the same build directory). A
@@ -67,14 +78,25 @@ __device__ __forceinline__ void one_mul(u32 *o, const u32 *a, const u32 *b) {
 __global__ void probe_sm2_mul(u32 *o, const u32 *a, const u32 *b) { one_mul<Sm2Fp>(o, a, b); }
 __global__ void probe_secp_mul(u32 *o, const u32 *a, const u32 *b) { one_mul<SecpFp>(o, a, b); }
 """
-
+# one Keccak round on a state in device memory, for its SASS
+PROBE_KECCAK_SRC = r"""
+#include "keccak.cuh"
+__global__ void probe_keccak_round(uint64_t *s, uint64_t rc) {
+    uint64_t a[25];
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int k = 0; k < 25; ++k) a[k] = s[25 * i + k];
+    keccak_round(a, rc);
+    for (int k = 0; k < 25; ++k) s[25 * i + k] = a[k];
+}
+"""
+PROBES = {"probe_mul": PROBE_SRC, "probe_keccak": PROBE_KECCAK_SRC}
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-KERNELS = ("ladder", "sm2", "verify")
+KERNELS = ("ladder", "sm2", "verify", "fp", "keccak")
 
 
 def build(todo: dict[str, tuple[Path, list[str]]]) -> dict:
@@ -89,9 +111,9 @@ def build(todo: dict[str, tuple[Path, list[str]]]) -> dict:
         out.mkdir(parents=True, exist_ok=True)
         for name in names:
             src = d / f"{name}.cu"
-            if name == "probe_mul":
-                src = out / "probe_mul.cu"
-                src.write_text(PROBE_SRC)
+            if name in PROBES:
+                src = out / f"{name}.cu"
+                src.write_text(PROBES[name])
             lib = out / f"lib{name}.so"
             cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(d), "-o", str(lib), str(src)]
             procs[c, name] = (lib, subprocess.Popen(
@@ -156,6 +178,8 @@ def load(lib_path: Path, name: str, dev, words: np.ndarray) -> ctypes.CDLL:
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     for fn, argtypes in {**_cuda.SIGNATURES[name], "set_consts": [_cuda._P, _cuda._I]}.items():
+        if not hasattr(lib, fn):  # an older copy without this entry point
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     words = np.ascontiguousarray(words, dtype=np.uint32)
@@ -211,6 +235,41 @@ def verify_call(lib, gtab, args):
     return ok
 
 
+def pow_call(lib, f, a, e: int):
+    """Kernel G of a copy's fp library at a^e: through its mode launch
+    (cuda_fp.pow_mode) where the library has one, else its window loop."""
+    from fisco_bcos_tpu_torch.ops import _cuda, cuda_fp, fp
+
+    B = a.shape[1]
+    out = torch.empty_like(a)
+    fw = cuda_fp._field_words(f).ctypes.data_as(ctypes.c_void_p)
+    mode = cuda_fp.pow_mode(f, e)
+    st = _cuda.stream_ptr(a)
+    if mode == cuda_fp.INVERSE and hasattr(lib, "fp_pow_inv_launch"):
+        iw = cuda_fp._inv_words(f).ctypes.data_as(ctypes.c_void_p)
+        rc = lib.fp_pow_inv_launch(_cuda.ptr(a), _cuda.ptr(out), iw, fw, B, st)
+    elif mode == cuda_fp.SQRT and hasattr(lib, "fp_pow_sqrt_launch"):
+        rc = lib.fp_pow_sqrt_launch(_cuda.ptr(a), _cuda.ptr(out), B, st)
+    else:
+        digits = np.ascontiguousarray(fp.msb_digits(e, 4), dtype=np.uint8)
+        one = cuda_fp._words(f.encode_int(1))
+        rc = lib.fp_pow_launch(_cuda.ptr(a), _cuda.ptr(out),
+                               digits.ctypes.data_as(ctypes.c_void_p),
+                               one.ctypes.data_as(ctypes.c_void_p), fw, len(digits), B, st)
+    _cuda.check(lib, rc, "fp_pow")
+    return out
+
+
+def keccak_call(lib, blocks, nvalid):
+    from fisco_bcos_tpu_torch.ops import _cuda
+
+    out = torch.empty((blocks.shape[0], 32), dtype=torch.uint8, device=blocks.device)
+    rc = lib.keccak256_varlen_launch(_cuda.ptr(blocks), _cuda.ptr(nvalid), _cuda.ptr(out),
+                                     blocks.shape[0], blocks.shape[1], _cuda.stream_ptr(out))
+    _cuda.check(lib, rc, "keccak256_varlen")
+    return out
+
+
 def ladder_tiles(lib, curve, nsteps, gts, digs, negs, qp):
     """k -> a launch of the ladder on the inputs tiled k times"""
     def make(k):
@@ -248,7 +307,9 @@ def main() -> int:
     if len(set(names)) != len(names):
         raise SystemExit("probe: the copies need distinct names")
     # every copy's libraries
-    todo = {c: (d, list(kernels) + (["probe_mul"] if {"ladder", "sm2"} & set(kernels) else []))
+    todo = {c: (d, list(kernels) + (["probe_mul"] if {"ladder", "sm2"} & set(kernels) else [])
+                + (["probe_keccak"] if "keccak" in kernels
+                   and "keccak_round" in (d / "keccak.cuh").read_text() else []))
             for c, (d, _) in zip(names, copies)}
     dev = torch.device("cuda")
     log(f"[probe] {cs.phase_card_line()}")
@@ -262,6 +323,12 @@ def main() -> int:
         dump = sass_out / f"{copy}_{name}.sass" if name == "probe_mul" else None
         for fn, c in cs.sass_counts(lib, dump).items():
             log(f"[sass {copy}/{name}] {fn}: {c}")
+        if name == "probe_keccak":
+            ops = next(v for k, v in cs.sass_opcodes(lib).items() if "probe_keccak_round" in k)
+            logic = {k: v for k, v in ops.items() if k not in ("LDG", "STG", "LDC", "S2R",
+                                                                "IMAD", "EXIT", "BRA", "ULDC")}
+            log(f"[sass {copy}/keccak round] {sum(logic.values())} instructions a round "
+                f"past the state's loads and stores: {logic} (all: {ops})")
 
     # -- inputs at B = 16,384 and the plain versions, once --------------------
     # each case: (kernel, form, k -> a launcher of the inputs tiled k times
@@ -309,6 +376,48 @@ def main() -> int:
                       verify_call(lib, gtab, a),
                       lambda ok: int((ok.bool() != vok).sum())))
 
+    # kernel G and Keccak: bit-exact, then ms at fixed shapes, copies in turns
+    # (library, case, launcher(lib) -> a function, kernel name(lib), mismatch(out) -> int)
+    timed = []
+    if "fp" in kernels:
+        from fisco_bcos_tpu_torch.ops import cuda_fp
+
+        nrng = np.random.default_rng(cs.SEED + 5)
+        for name, f, e, _ in cs.pow_cases():
+            a = cs.fp_lanes(nrng, f.n_int, cs.EC_B, dev)
+            want = f.pow_const(a, e)
+            one = a[:, 2:3].contiguous()
+            mode = cuda_fp.pow_mode(f, e)
+            launch = {cuda_fp.INVERSE: "fp_pow_inv_launch", cuda_fp.SQRT: "fp_pow_sqrt_launch"}
+            for x, w, width in ((a, want, cs.EC_B), (one, want[:, 2:3], 1)):
+                kname = cs.POW_KERNELS[mode]
+                if width == 1:
+                    kname = cs.POW_KERNELS.get(mode + " one lane", kname)
+                timed.append(("fp", f"pow {name} {mode} [16, {width}]",
+                              lambda lib, f=f, x=x, e=e: lambda: pow_call(lib, f, x, e),
+                              lambda lib, k=kname, fn=launch.get(mode): k
+                              if fn and hasattr(lib, fn) else "fp_pow_kernel",
+                              lambda out, w=w: int((out != w).any(0).sum())))
+    if "keccak" in kernels:
+        from fisco_bcos_tpu_torch.ops import keccak
+
+        nrng = np.random.default_rng(cs.SEED)
+        lens = nrng.integers(0, 8 * 136, cs.NTX)
+        flat = nrng.integers(0, 256, int(lens.sum()), dtype=np.uint8).tobytes()
+        offs = np.concatenate([[0], np.cumsum(lens)])
+        keys = np.frombuffer(nrng.bytes(64 * cs.NTX), np.uint8).reshape(cs.NTX, 64)
+        for shape, batch in (("mixed 1-8 blocks", [flat[offs[i]:offs[i + 1]]
+                                                   for i in range(cs.NTX)]),
+                             ("one-block 64-byte keys", [bytes(k) for k in keys])):
+            blocks, nvalid = keccak.pad_batch_np(batch)
+            bt = torch.as_tensor(blocks, device=dev)
+            nv = torch.as_tensor(nvalid, device=dev).to(torch.int32).contiguous()
+            want = keccak.keccak256_varlen_plain(bt, nv)
+            timed.append(("keccak", f"keccak {shape} B={cs.NTX}",
+                          lambda lib, bt=bt, nv=nv: lambda: keccak_call(lib, bt, nv),
+                          lambda lib: "keccak256_varlen_kernel",
+                          lambda out, w=want: int((out != w).any(1).sum())))
+
     # -- every copy: bit-exact, then the sweep, copies in turns ---------------
     words = {c: const_words(t, kernels) for c, (_, t) in zip(names, copies)}
     libs = {(c, k): load(built[c, k][0], k, dev, words[c][k]) for c in names for k in kernels}
@@ -318,6 +427,23 @@ def main() -> int:
             n = mism(launcher(libs[c, lib_name], 1)())
             bad += n
             log(f"[probe {c}] {kern}: mismatched lanes {n} of {cs.EC_B}")
+    for c in names:
+        for lib_name, case, launcher, _, mism in timed:
+            n = mism(launcher(libs[c, lib_name])())
+            bad += n
+            log(f"[probe {c}] {case}: mismatched lanes {n}")
+    # device time (the profiler's, L2 evicted before each call: a one-lane
+    # launch is shorter than the host's launch through Python)
+    fixed = {c: {} for c in names}
+    for rep in range(2):  # copies in turns, twice
+        for c in names:
+            for lib_name, case, launcher, kname, _ in timed:
+                lib = libs[c, lib_name]
+                fixed[c].setdefault(case, []).append(
+                    cs.kernel_device_ms(launcher(lib), kname(lib)))
+    for c in names:
+        for case, ms in fixed[c].items():
+            log(f"[time {c}] {case}: device ms {', '.join(f'{m:.4f}' for m in ms)}")
     sweep = {c: {} for c in names}
     for rep in range(2):  # copies in turns, twice
         for c in names:

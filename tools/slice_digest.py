@@ -2,7 +2,9 @@
 """Run another tree's chip_smoke.py with the results digest of this
 tree's chip_smoke.py printed after each slice, so that two trees' slice
 outputs (senders, ok masks, roots, seal verdicts on both chains and both
-EC routes) compare by their `results digest` lines.
+EC routes) compare by their `results digest` lines, and each slice's
+device time by kernel (`device us by kernel` lines, every kernel of the
+port, as this tree's chip_smoke.py prints them by counter).
 
     python3 tools/slice_digest.py OTHER_TREE
 
@@ -41,7 +43,18 @@ def main() -> int:
               f"{ours.results_digest(results)}", flush=True)
         return launches, phases, results
 
+    events = theirs.device_events
+
+    def device_events(prof, tag):
+        us, calls = events(prof, tag)
+        if tag.startswith("[slice"):
+            print(f"{tag} device us by kernel: " + ", ".join(
+                f"{k} {v:.1f} ({calls[k]})" for k, v in sorted(us.items())
+                if k.endswith("_kernel")), flush=True)
+        return us, calls
+
     theirs.phase_slice = phase_slice
+    theirs.device_events = device_events
     sys.argv = [str(other / "chip_smoke.py")]
     return theirs.main()
 
