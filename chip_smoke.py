@@ -246,13 +246,27 @@ WIDE = 64
 INV_LANE = 3  # multiplies per lane of a batched inversion
 # a^((p+1)/4) mod secp256k1's p by its addition chain (ec.cuh fp_sqrt):
 # 253 squarings and 13 multiplies
-SQRT_CHAIN = 253 + 13
+SQRT_SQR, SQRT_MUL = 253, 13
+SQRT_CHAIN = SQRT_SQR + SQRT_MUL
+# A 256x256-bit squaring needs 36 wide multiplies (8 diagonal, 28 cross),
+# not 64: kernel G's bound (`pow_bound`) prices its squarings so. The EC
+# bounds (recover_products' chain, the ladders' doublings and
+# ec_batch_inversions' powers) still price every squaring as a full
+# product.
+SQR_SAVING = WIDE - 36
 KECCAK_PERM_OPS = 24 * 180 + 34
 
 
-def _pow_muls(e: int) -> int:
+def _pow_ops(e: int) -> tuple[int, int]:
+    """(squarings, multiplies) of a^e by the 4-bit window loop: the table's
+    14 entries (tbl[2k] = tbl[k]^2, tbl[2k+1] = tbl[2k] a), then 4
+    squarings a digit and a multiply a nonzero digit."""
     digits = [(e >> (4 * i)) & 15 for i in range((e.bit_length() + 3) // 4)]
-    return 14 + 4 * (len(digits) - 1) + sum(1 for d in digits[:-1] if d)
+    return 7 + 4 * (len(digits) - 1), 7 + sum(1 for d in digits[:-1] if d)
+
+
+def _pow_muls(e: int) -> int:
+    return sum(_pow_ops(e))
 
 
 def _glv_nonzero(k: int) -> int:
@@ -604,21 +618,27 @@ def tree_row(dev, nrng, alg: str) -> dict:
         library_ms=None, shape=f"n={n}, whole tree, one launch per level")
 
 
-def keccak_row(dev, nrng) -> dict:
-    """Kernel 3 against keccak256_varlen_plain on the card, bit-exact, at
-    the mixed shape (65,536 messages of 1-8 blocks, as the tx payloads
-    spread) and at the address hash's (65,536 equal one-block 64-byte
-    keys), each timed by CUDA events around a call (median of 20, the
-    host's launch included) and by its device time (kernel_device_ms)."""
-    from fisco_bcos_tpu_torch.ops import cuda_hash, keccak
-
+def keccak_cases(nrng):
+    """Kernel 3's two shapes, drawn from nrng: NTX messages of 1-8 blocks
+    (as the tx payloads spread) and NTX equal one-block 64-byte keys (the
+    address hash's) -> [(shape, messages)]."""
     lens = nrng.integers(0, 8 * 136, NTX)  # 1..8 blocks after padding
     flat = nrng.integers(0, 256, int(lens.sum()), dtype=np.uint8).tobytes()
     offs = np.concatenate([[0], np.cumsum(lens)])
     msgs = [flat[offs[i]:offs[i + 1]] for i in range(len(lens))]
     keys = np.frombuffer(nrng.bytes(64 * NTX), np.uint8).reshape(NTX, 64)
+    return [("mixed", msgs), ("one_block", [bytes(k) for k in keys])]
+
+
+def keccak_row(dev, nrng) -> dict:
+    """Kernel 3 against keccak256_varlen_plain on the card, bit-exact, at
+    both of keccak_cases' shapes, each timed by CUDA events around a call
+    (median of 20, the host's launch included) and by its device time
+    (kernel_device_ms)."""
+    from fisco_bcos_tpu_torch.ops import cuda_hash, keccak
+
     shapes = {}
-    for shape, batch in (("mixed", msgs), ("one_block", [bytes(k) for k in keys])):
+    for shape, batch in keccak_cases(nrng):
         blocks, nvalid = keccak.pad_batch_np(batch)
         bt, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
         got = cuda_hash.keccak256_varlen(bt, nv)
@@ -1640,20 +1660,20 @@ def pow_cases():
     return cases
 
 
-# Kernel G's bound by mode, in wide-multiply slots a launch of B lanes:
-# the window loop's products (`_pow_muls`); the square root's 266-product
-# chain; an inverse priced as the EC bounds price batched inversions
-# (`ec_batch_inversions`): INV_LANE products a lane and one Fermat power a
-# launch, as if the launch's lanes shared one inversion by Montgomery's
-# trick.
+# Kernel G's bound by mode, in wide-multiply slots a launch of B lanes,
+# a squaring at `slots - SQR_SAVING` (the same reduction, a 36-multiply
+# product) and a multiply at `slots`: the window loop's (`_pow_ops`); the
+# square root's chain of 253 squarings and 13 multiplies; an inverse
+# priced as the EC bounds price batched inversions (`ec_batch_inversions`):
+# INV_LANE products a lane and one Fermat power a launch, as if the
+# launch's lanes shared one inversion by Montgomery's trick.
 def pow_bound(mode: str, e: int, B: int, slots: float):
-    if mode == "inverse":
-        prods = INV_LANE * B + _pow_muls(e)
-    elif mode == "sqrt":
-        prods = SQRT_CHAIN * B
-    else:
-        prods = _pow_muls(e) * B
-    ops_ms = ec_bound_ms(prods * slots)
+    sqr, mul = _pow_ops(e)
+    if mode == "sqrt":
+        sqr, mul = SQRT_SQR, SQRT_MUL
+    work = sqr * (slots - SQR_SAVING) + mul * slots
+    work = INV_LANE * B * slots + work if mode == "inverse" else work * B
+    ops_ms = ec_bound_ms(work)
     bytes_ms = B * 2 * LANE_BYTES / H100_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -1707,7 +1727,8 @@ def phase_pow_kernel(dev):
         ms=sq["ms"], one_lane_ms=one_lane, plain_ms=sq["plain_ms"], bound_ms=sq["bound_ms"],
         bound_by=sq["bound_by"], library_ms=None,
         modes={f"{k[0]} {k[1]}": v for k, v in times.items()},
-        shape=f"[16, {EC_B}], square-root mode on secp256k1 p (its 266-product chain); "
+        shape=f"[16, {EC_B}], square-root mode on secp256k1 p (its chain: 253 squarings, "
+              f"13 products); "
               f"inverse and window modes in `modes`; bit-exact on 4 fields and at [16, 1]")
     log(f"[kernel] fp_pow: sqrt {sq['ms']:.4f} ms device at [16, {EC_B}], bound "
         f"{sq['bound_ms']:.4f} ms; one lane: " + ", ".join(f"{k} {v:.4f}" for k, v in

@@ -33,86 +33,43 @@
 #include "keccak.cuh"
 #include "lenorder.cuh"
 
-#define RATE_WORDS 17
 #define KECCAK_THREADS 256
 #define KECCAK_MSGS 512  // a block's messages: 16 groups for its 8 warps
 #define KECCAK_PER_THREAD (KECCAK_MSGS / KECCAK_THREADS)
 
-// msgs: the messages a block owns, KECCAK_MSGS or (one-block batches) 256
+// msgs: the messages a block owns (lo_block_msgs); the schedule's steps,
+// the group walk's slots and each message's absorb are lenorder.cuh's and
+// keccak.cuh's, which the host tests run in this order
 __global__ void __launch_bounds__(KECCAK_THREADS, 2)
 keccak256_varlen_kernel(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
                         int nblocks, int msgs) {
     __shared__ LenOrder<KECCAK_MSGS> so;
     const int t = threadIdx.x, lane = t & 31;
     const int base = blockIdx.x * msgs;
-    int nv[KECCAK_PER_THREAD];
-    const int nv0 = lo_nv(nvalid, base, B, nblocks);
-    bool same = true;
-#pragma unroll
-    for (int k = 0; k < KECCAK_PER_THREAD; ++k) {
-        const int i = t + k * KECCAK_THREADS;
-        nv[k] = i < msgs ? lo_nv(nvalid, base + i, B, nblocks) : 0;
-        same = same && (i >= msgs || nv[k] == nv0);
-        lo_clear(so, i);
-    }
-    if (__syncthreads_and(same)) {
-#pragma unroll
-        for (int k = 0; k < KECCAK_PER_THREAD; ++k) {
-            const int i = t + k * KECCAK_THREADS;
-            if (i < msgs) lo_identity(so, i, base, B, nv[k]);
-        }
-    } else {
-        int rank[KECCAK_PER_THREAD];
-#pragma unroll
-        for (int k = 0; k < KECCAK_PER_THREAD; ++k)
-            rank[k] = t + k * KECCAK_THREADS < msgs ? lo_count(so, nv[k]) : 0;
+    int nv[KECCAK_PER_THREAD], rank[KECCAK_PER_THREAD];
+    const bool same = __syncthreads_and(lo_load<KECCAK_MSGS, KECCAK_THREADS>(
+        so, nv, nvalid, t, base, B, nblocks, msgs));
+    lo_rank<KECCAK_MSGS, KECCAK_THREADS>(so, nv, rank, same, t, base, B, msgs);
+    if (!same) {
         __syncthreads();
-#pragma unroll
-        for (int k = 0; k < KECCAK_PER_THREAD; ++k)
-            lo_scan(so, t + k * KECCAK_THREADS, nblocks);
+        lo_scan_bins<KECCAK_MSGS, KECCAK_THREADS>(so, t, nblocks);
         __syncthreads();
-#pragma unroll
-        for (int k = 0; k < KECCAK_PER_THREAD; ++k) {
-            const int i = t + k * KECCAK_THREADS;
-            if (i < msgs) lo_place(so, i, base, B, nv[k], rank[k]);
-        }
+        lo_place_msgs<KECCAK_MSGS, KECCAK_THREADS>(so, nv, rank, t, base, B, msgs);
     }
     __syncthreads();
-    const uint64_t *src = (const uint64_t *)blocks;
-    uint64_t *o = (uint64_t *)out;
     for (;;) {
         int q = 0;
         if (lane == 0) q = atomicAdd(&so.next, 1);
         const int g = lo_group_slot(__shfl_sync(0xFFFFFFFFu, q, 0), msgs);
         if (g < 0) break;
-        const int msg = so.msg[g + lane], n = so.nv[g + lane];
-        const uint64_t *m = src + (size_t)(msg < 0 ? 0 : msg) * nblocks * RATE_WORDS;
-        uint64_t s[25], nx[RATE_WORDS];
-#pragma unroll
-        for (int k = 0; k < 25; ++k) s[k] = 0;
-        if (n > 0) {
-#pragma unroll
-            for (int k = 0; k < RATE_WORDS; ++k) nx[k] = m[k];
-        }
-        for (int b = 0; b < n; ++b) {
-#pragma unroll
-            for (int k = 0; k < RATE_WORDS; ++k) s[k] ^= nx[k];
-            if (b + 1 < n) {
-#pragma unroll
-                for (int k = 0; k < RATE_WORDS; ++k) nx[k] = m[(b + 1) * RATE_WORDS + k];
-            }
-            keccak_f(s);
-        }
-        if (msg >= 0) {
-#pragma unroll
-            for (int k = 0; k < 4; ++k) o[(size_t)msg * 4 + k] = s[k];
-        }
+        keccak256_rows((const uint64_t *)blocks, (uint64_t *)out, so.msg[g + lane],
+                       so.nv[g + lane], nblocks);
     }
 }
 
 extern "C" int keccak256_varlen_launch(const uint8_t *blocks, const int32_t *nvalid,
                                        uint8_t *out, int B, int nblocks, void *stream) {
-    const int msgs = nblocks <= 1 ? KECCAK_THREADS : KECCAK_MSGS;
+    const int msgs = lo_block_msgs(KECCAK_MSGS, KECCAK_THREADS, nblocks);
     int grid = (B + msgs - 1) / msgs;
     keccak256_varlen_kernel<<<grid, KECCAK_THREADS, 0, (cudaStream_t)stream>>>(
         blocks, nvalid, out, B, nblocks, msgs);

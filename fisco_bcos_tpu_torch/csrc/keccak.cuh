@@ -118,3 +118,33 @@ __device__ __forceinline__ void keccak_f(uint64_t a[25]) {
 #pragma unroll 1
     for (int round = 0; round < 24; ++round) keccak_round(a, KECCAK_RC[round]);
 }
+
+// Keccak-256 of message `msg`'s first n pre-padded 136-byte blocks, its
+// rows nblocks x 17 lanes apart in src, digest lanes to out[4 msg ..]; a
+// thread of the varlen kernel loads the next block while it permutes the
+// current one. An empty slot (msg < 0, n = 0) reads and writes nothing.
+__device__ __forceinline__ void keccak256_rows(const uint64_t *src, uint64_t *out, int msg,
+                                               int n, int nblocks) {
+    const int W = 17;  // the rate: 136 bytes
+    const uint64_t *m = src + (size_t)(msg < 0 ? 0 : msg) * nblocks * W;
+    uint64_t s[25], nx[W];
+#pragma unroll
+    for (int k = 0; k < 25; ++k) s[k] = 0;
+    if (n > 0) {
+#pragma unroll
+        for (int k = 0; k < W; ++k) nx[k] = m[k];
+    }
+    for (int b = 0; b < n; ++b) {
+#pragma unroll
+        for (int k = 0; k < W; ++k) s[k] ^= nx[k];
+        if (b + 1 < n) {
+#pragma unroll
+            for (int k = 0; k < W; ++k) nx[k] = m[(b + 1) * W + k];
+        }
+        keccak_f(s);
+    }
+    if (msg >= 0) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) out[(size_t)msg * 4 + k] = s[k];
+    }
+}

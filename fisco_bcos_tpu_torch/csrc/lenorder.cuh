@@ -7,11 +7,12 @@
 // Each message is still hashed by one thread, which writes its digest at
 // the message's own index.
 //
-// The steps are plain functions of a slot index over a block's shared
-// `LenOrder`, split where the kernel puts a barrier, so that a host build
-// can run them slot by slot in the same order (tests/
-// test_torch_csrc_host.py). Ranks within a bin come from atomicAdd, so
-// which thread takes which message of equal length varies from run to
+// The steps are plain functions of a thread index over a block's shared
+// `LenOrder` (lo_load, lo_rank, lo_scan_bins, lo_place_msgs, then
+// lo_group_slot), split where the kernel puts a barrier, so that a host
+// build runs the kernel's own schedule thread by thread in the same order
+// (tests/test_torch_csrc_host.py). Ranks within a bin come from atomicAdd,
+// so which thread takes which message of equal length varies from run to
 // run; the digests do not. A block whose messages all have one length (the
 // address hash's 64-byte keys) skips the sort.
 #pragma once
@@ -40,45 +41,80 @@ __device__ __forceinline__ int lo_nv(const int32_t *nvalid, int i, int B, int nb
     return nv < 0 ? 0 : (nv > nblocks ? nblocks : nv);
 }
 
-// step 1, each i < M: clear bin i (and the group counter)
-template <int M>
-__device__ __forceinline__ void lo_clear(LenOrder<M> &s, int i) {
-    s.hist[i] = 0;
-    if (i == 0) s.next = 0;
+// the messages a launch gives a block of T threads with room for M: M, or
+// T (one group a warp) where no message has more than one block
+inline int lo_block_msgs(int M, int T, int nblocks) { return nblocks <= 1 ? T : M; }
+
+// Thread t of a block of T, which owns messages base .. base + msgs - 1
+// (msgs <= M); its messages are t, t + T, ... of the block (M / T of them).
+
+// step 1: their clamped block counts into nv, their bins (and the group
+// counter) cleared; -> whether they all have message base's count (the
+// kernel ANDs it over the block at the barrier)
+template <int M, int T>
+__device__ __forceinline__ bool lo_load(LenOrder<M> &s, int nv[M / T], const int32_t *nvalid,
+                                        int t, int base, int B, int nblocks, int msgs) {
+    const int nv0 = lo_nv(nvalid, base, B, nblocks);
+    bool same = true;
+    if (t == 0) s.next = 0;
+#pragma unroll
+    for (int k = 0; k < M / T; ++k) {
+        const int i = t + k * T;
+        nv[k] = i < msgs ? lo_nv(nvalid, base + i, B, nblocks) : 0;
+        same = same && (i >= msgs || nv[k] == nv0);
+        s.hist[i] = 0;
+    }
+    return same;
 }
 
-// a block whose messages all have one length keeps arrival order: each
-// slot i after a barrier, in place of steps 2-4
-template <int M>
-__device__ __forceinline__ void lo_identity(LenOrder<M> &s, int i, int base, int B, int nv) {
-    s.msg[i] = base + i < B ? base + i : -1;
-    s.nv[i] = nv;
+// step 2, after the barrier, `same` the block's: one length keeps arrival
+// order (the schedule is then ready after a barrier); otherwise each
+// message's rank within its bin, and steps 3 and 4 follow
+template <int M, int T>
+__device__ __forceinline__ void lo_rank(LenOrder<M> &s, const int nv[M / T], int rank[M / T],
+                                        bool same, int t, int base, int B, int msgs) {
+#pragma unroll
+    for (int k = 0; k < M / T; ++k) {
+        const int i = t + k * T;
+        if (same) {
+            if (i < msgs) {
+                s.msg[i] = base + i < B ? base + i : -1;
+                s.nv[i] = nv[k];
+            }
+        } else {
+            rank[k] = i < msgs ? atomicAdd(&s.hist[lo_bin<M>(nv[k])], 1) : 0;
+        }
+    }
 }
 
-// step 2, each message after a barrier: its rank within its bin
-template <int M>
-__device__ __forceinline__ int lo_count(LenOrder<M> &s, int nv) {
-    return atomicAdd(&s.hist[lo_bin<M>(nv)], 1);
-}
-
-// step 3, each slot i after a barrier: bin i's first slot, the sum of the
-// bins below it (bins past min(nblocks, M - 1) are empty)
-template <int M>
-__device__ __forceinline__ void lo_scan(LenOrder<M> &s, int i, int nblocks) {
+// step 3, after a barrier: the first slot of bins t, t + T, ..., the sum
+// of the bins below (bins past min(nblocks, M - 1) are empty)
+template <int M, int T>
+__device__ __forceinline__ void lo_scan_bins(LenOrder<M> &s, int t, int nblocks) {
     const int nbins = (nblocks < M - 1 ? nblocks : M - 1) + 1;
-    if (i >= nbins) return;
-    int sum = 0;
-    for (int j = 0; j < i; ++j) sum += s.hist[j];
-    s.start[i] = sum;
+#pragma unroll
+    for (int k = 0; k < M / T; ++k) {
+        const int i = t + k * T;
+        if (i >= nbins) continue;
+        int sum = 0;
+        for (int j = 0; j < i; ++j) sum += s.hist[j];
+        s.start[i] = sum;
+    }
 }
 
-// step 4, message base + i after a barrier: into its slot
-template <int M>
-__device__ __forceinline__ void lo_place(LenOrder<M> &s, int i, int base, int B, int nv,
-                                         int rank) {
-    const int slot = s.start[lo_bin<M>(nv)] + rank;
-    s.msg[slot] = base + i < B ? base + i : -1;
-    s.nv[slot] = nv;
+// step 4, after a barrier: each message into its slot
+template <int M, int T>
+__device__ __forceinline__ void lo_place_msgs(LenOrder<M> &s, const int nv[M / T],
+                                              const int rank[M / T], int t, int base, int B,
+                                              int msgs) {
+#pragma unroll
+    for (int k = 0; k < M / T; ++k) {
+        const int i = t + k * T;
+        if (i >= msgs) continue;
+        const int slot = s.start[lo_bin<M>(nv[k])] + rank[k];
+        s.msg[slot] = base + i < B ? base + i : -1;
+        s.nv[slot] = nv[k];
+    }
 }
 
 // after a barrier, a warp's q-th group of 32 slots (longest first) of a

@@ -133,40 +133,26 @@ def _words(limbs) -> np.ndarray:
 
 # kernel G's modes (csrc/pow.cuh)
 INVERSE, SQRT, WINDOW = "inverse", "sqrt", "window"
-_MR_BASES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53)
 
 
-@functools.lru_cache(maxsize=None)
-def _is_prime(m: int) -> bool:
-    """Miller-Rabin over 16 fixed bases (a composite passes with
-    probability below 4^-16): m - 2 is an inverse's exponent only where
-    m is prime."""
-    if m < 2 or m % 2 == 0:
-        return m == 2
-    d, r = m - 1, 0
-    while d % 2 == 0:
-        d, r = d // 2, r + 1
-    for b in _MR_BASES:
-        if b % m == 0:
-            continue
-        x = pow(b, d, m)
-        if x in (1, m - 1):
-            continue
-        for _ in range(r - 1):
-            x = x * x % m
-            if x == m - 1:
-                break
-        else:
-            return False
-    return True
+@functools.cache
+def _prime_moduli() -> frozenset:
+    """The moduli of the five fields the kernels serve, all prime:
+    secp256k1's p and n, SM2's p and n, and BN254's r (Poseidon's)."""
+    from ..crypto import refimpl
+    from ..zk import poseidon
+
+    c, s = refimpl.SECP256K1, refimpl.SM2P256V1
+    return frozenset((c.p, c.n, s.p, s.n, poseidon.P))
 
 
 def pow_mode(field, e: int) -> str:
-    """Kernel G's mode for a^e on `field`: INVERSE for e = m - 2 on a
-    prime modulus m, SQRT for e = (p + 1) / 4 on secp256k1's p, WINDOW for
-    every other exponent."""
+    """Kernel G's mode for a^e on `field`: INVERSE for e = m - 2 where m
+    is one of the kernels' prime moduli (`_prime_moduli`; a^(m - 2) is an
+    inverse only for a prime m), SQRT for e = (p + 1) / 4 on secp256k1's
+    p, WINDOW for every other exponent."""
     m = field.n_int
-    if e == m - 2 and _is_prime(m):
+    if e == m - 2 and m in _prime_moduli():
         return INVERSE
     if getattr(field, "c_int", None) == SECP256K1_C and e == (m + 1) // 4:
         return SQRT

@@ -80,36 +80,30 @@ static void wr_jac(const Jac &P) {
 }
 
 // keccak256_varlen_kernel (keccak.cu) on the host, block by block, through
-// the same steps in the kernel's order: each step of lenorder.cuh for
-// every slot of the block before the next step (the kernel's barriers),
-// then the groups of 32 slots in the order the warps take them, each
-// message hashed from its own rows. A block owns M messages, or M / 2
-// where no message has more than one block, as the launch sets. Exits
-// non-zero if a message is not in exactly one slot or the slots are out
-// of length order.
-template <int M>
+// the kernel's own steps (lenorder.cuh) in its order: each step for every
+// thread of the block before the next (the kernel's barriers), then the
+// groups of 32 slots in the order the warps take them, each slot hashed by
+// keccak.cuh's keccak256_rows. A block of T threads owns lo_block_msgs of
+// at most M messages, as the launch sets. Exits non-zero if a message is
+// not in exactly one slot or the slots are out of length order.
+template <int M, int T>
 static void keccak_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
                           int nblocks) {
-    const int W = 17;
-    const int msgs = nblocks <= 1 ? M / 2 : M;
-    const uint64_t *src = (const uint64_t *)blocks;
-    uint64_t *o = (uint64_t *)out;
+    const int K = M / T;
+    const int msgs = lo_block_msgs(M, T, nblocks);
     static LenOrder<M> so;
     for (int base = 0; base < B; base += msgs) {
-        std::vector<int> nv(M, 0), rank(M), seen(M, 0);
-        const int nv0 = lo_nv(nvalid, base, B, nblocks);
+        std::vector<std::array<int, K>> nv(T), rank(T);
+        std::vector<int> seen(M, 0);
         bool same = true;
-        for (int i = 0; i < M; ++i) {
-            if (i < msgs) nv[i] = lo_nv(nvalid, base + i, B, nblocks);
-            same = same && (i >= msgs || nv[i] == nv0);
-            lo_clear(so, i);
-        }
-        if (same) {
-            for (int i = 0; i < msgs; ++i) lo_identity(so, i, base, B, nv[i]);
-        } else {
-            for (int i = 0; i < msgs; ++i) rank[i] = lo_count(so, nv[i]);
-            for (int i = 0; i < M; ++i) lo_scan(so, i, nblocks);
-            for (int i = 0; i < msgs; ++i) lo_place(so, i, base, B, nv[i], rank[i]);
+        for (int t = 0; t < T; ++t)
+            same = lo_load<M, T>(so, nv[t].data(), nvalid, t, base, B, nblocks, msgs) && same;
+        for (int t = 0; t < T; ++t)
+            lo_rank<M, T>(so, nv[t].data(), rank[t].data(), same, t, base, B, msgs);
+        if (!same) {
+            for (int t = 0; t < T; ++t) lo_scan_bins<M, T>(so, t, nblocks);
+            for (int t = 0; t < T; ++t)
+                lo_place_msgs<M, T>(so, nv[t].data(), rank[t].data(), t, base, B, msgs);
         }
         for (int i = 0; i < msgs; ++i) {
             if (so.msg[i] >= 0) seen[so.msg[i] - base] += 1;
@@ -124,17 +118,9 @@ static void keccak_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t 
         for (int q = 0;; ++q) {
             const int g = lo_group_slot(q, msgs);
             if (g < 0) break;
-            for (int lane = 0; lane < 32; ++lane) {
-                const int msg = so.msg[g + lane], n = so.nv[g + lane];
-                const uint64_t *m = src + (size_t)(msg < 0 ? 0 : msg) * nblocks * W;
-                uint64_t st[25] = {0};
-                for (int b = 0; b < n; ++b) {
-                    for (int k = 0; k < W; ++k) st[k] ^= m[b * W + k];
-                    keccak_f(st);
-                }
-                if (msg >= 0)
-                    for (int k = 0; k < 4; ++k) o[(size_t)msg * 4 + k] = st[k];
-            }
+            for (int lane = 0; lane < 32; ++lane)
+                keccak256_rows((const uint64_t *)blocks, (uint64_t *)out, so.msg[g + lane],
+                               so.nv[g + lane], nblocks);
         }
     }
 }
@@ -196,8 +182,8 @@ int main() {
             std::vector<uint8_t> blk((size_t)B * nb * 136 + 8), dg((size_t)B * 32);
             for (size_t i = 0; i < (size_t)B * nb * 136; ++i)
                 blk[i] = (uint8_t)strtoul(h.substr(2 * i, 2).c_str(), 0, 16);
-            if (M == 512) keccak_launch<512>(blk.data(), nv.data(), dg.data(), B, nb);
-            else keccak_launch<64>(blk.data(), nv.data(), dg.data(), B, nb);
+            if (M == 512) keccak_launch<512, 256>(blk.data(), nv.data(), dg.data(), B, nb);
+            else keccak_launch<64, 32>(blk.data(), nv.data(), dg.data(), B, nb);
             for (int i = 0; i < B; ++i) {
                 if (i) printf(" ");
                 for (int k = 0; k < 32; ++k) printf("%02x", dg[(size_t)i * 32 + k]);

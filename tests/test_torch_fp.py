@@ -227,8 +227,8 @@ def test_pow_mode_picks_by_exponent(kfields):
 @pytest.mark.parametrize("mod", [(1 << 255) + 1, 3 * R, SM2_P * 3 % (1 << 256) | 1],
                          ids=["2^255+1", "3r", "odd composite near 2^256"])
 def test_pow_mode_inverse_needs_a_prime(mod):
-    """m - 2 is an inverse's exponent only for a prime m: a composite
-    modulus keeps the window loop."""
+    """m - 2 is an inverse's exponent only for a prime m: a modulus that
+    is not one of the kernels' five primes keeps the window loop."""
     assert cuda_fp.pow_mode(fp.MontField(mod), mod - 2) == cuda_fp.WINDOW
 
 

@@ -28,11 +28,12 @@ ladder, sm2, verify, fp, keccak (default all). For each copy it prints:
   inversion-stress lanes of chip_smoke.ecdsa_cases);
 - with fp: kernel G at each of chip_smoke.pow_cases' fields and exponents
   (every field's m - 2, secp256k1's (p+1)/4, m - 3), bit-exact against the
-  plain window loop, device ms at [16, 16,384] and [16, 1] (the profiler's
-  mean of 20, chip_smoke.kernel_device_ms), through the copy's mode launch where it has one (a copy without
-  them runs every exponent through its window loop);
-- with keccak: the varlen kernel on chip_smoke's two shapes (65,536
-  messages of 1-8 blocks, 65,536 one-block 64-byte keys), bit-exact
+  plain window loop, device ms at [16, 16,384] and [16, 1] (the
+  profiler's mean of 20, chip_smoke.kernel_device_ms), through the copy's
+  mode launch where it has one (a copy without them runs every exponent
+  through its window loop);
+- with keccak: the varlen kernel on chip_smoke.keccak_cases' two shapes
+  (65,536 messages of 1-8 blocks, 65,536 one-block 64-byte keys), bit-exact
   against the plain version, device ms as for fp, and the SASS opcodes of
   one Keccak round (`probe_keccak_round`, where the copy's keccak.cuh has
   `keccak_round`).
@@ -401,14 +402,7 @@ def main() -> int:
     if "keccak" in kernels:
         from fisco_bcos_tpu_torch.ops import keccak
 
-        nrng = np.random.default_rng(cs.SEED)
-        lens = nrng.integers(0, 8 * 136, cs.NTX)
-        flat = nrng.integers(0, 256, int(lens.sum()), dtype=np.uint8).tobytes()
-        offs = np.concatenate([[0], np.cumsum(lens)])
-        keys = np.frombuffer(nrng.bytes(64 * cs.NTX), np.uint8).reshape(cs.NTX, 64)
-        for shape, batch in (("mixed 1-8 blocks", [flat[offs[i]:offs[i + 1]]
-                                                   for i in range(cs.NTX)]),
-                             ("one-block 64-byte keys", [bytes(k) for k in keys])):
+        for shape, batch in cs.keccak_cases(np.random.default_rng(cs.SEED)):
             blocks, nvalid = keccak.pad_batch_np(batch)
             bt = torch.as_tensor(blocks, device=dev)
             nv = torch.as_tensor(nvalid, device=dev).to(torch.int32).contiguous()
