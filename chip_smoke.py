@@ -22,8 +22,12 @@ version or to the CPU):
    bit-exact at 65,536 and 131,072 lanes (the inputs tiled) and their lane
    sweeps (as in 4); Keccak over 65,536 messages of 1-8 blocks and over
    65,536 one-block 64-byte keys (the address hash's shape), Merkle
-   trees at n in {1, 2, 17, 4097, 65535, 65536}. Kernel times are medians of CUDA event timings
-   after a warm-up; the plain version runs once.
+   trees (one launch a tree) at n in {1, 2, 17, 4097, 65535, 65536, 65537}
+   and 200 launches at n = 65,536 and 4,097 that must all give the plain
+   root (the arrival order varies from launch to launch). Kernel times are
+   medians of CUDA event timings after a warm-up, with the profiler's
+   device time beside them for Keccak and the trees; the plain version
+   runs once.
 3. The default chain's slice: a 65,536-tx block through the port's
    protocol entry points (batch_recover_senders, Block.calculate_txs_root
    and calculate_receipts_root), and a commit-seal span of 16,384 lanes
@@ -33,8 +37,10 @@ version or to the CPU):
    and 65,536-leaf roots. The launch counters are zeroed just before and
    read just after; every kernel must have launched, and the profiler
    (warmed up on a small step) must record as many calls of each kernel.
-4. The SM chain's kernels as in 2: SM3 over the 65,536 tx encodings of the
-   SM block (2-17 blocks), SM3 Merkle trees at the same n, SM2 verify at
+4. The SM chain's kernels as in 2: SM3 at the SM block's three shapes,
+   each timed apart (its 65,536 tx encodings of 3-18 blocks, its 65,536
+   receipt encodings, its 65,536 senders' 64-byte keys), SM3 Merkle trees
+   at the same n and repeats, SM2 verify at
    one CHUNK of host-signed vectors with 1% adversarial lanes and 8
    carry-stress lanes (r and s at n - 1 and n - 2, a digest of 2^256 - 1,
    keys G, -2G and one with x near p - 1), then its lane sweep: ms at
@@ -109,7 +115,10 @@ EC_B = 16384
 NTX = 65536
 NSIGNED = 1024  # distinct (key, tx) pairs signed on the host, then tiled
 NSEAL = 16384
-MERKLE_NS = (1, 2, 17, 4097, 65535, 65536)
+MERKLE_NS = (1, 2, 17, 4097, 65535, 65536, 65537)
+MERKLE_N = 65536  # a block's tree, timed
+MERKLE_REPEAT_NS = (65536, 4097)  # launched MERKLE_REPEATS times each
+MERKLE_REPEATS = 200
 # the ZK plane: chain_bench --proof-bench's largest rows
 FP_B = 65536  # one Poseidon CHUNK of lanes
 NPAIRS = 65536
@@ -191,14 +200,16 @@ def device_events(prof, tag: str):
     return device_us, calls
 
 
-def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3) -> float:
-    """Mean device time in ms of the kernel `name` over reps calls of fn,
-    by the profiler's device events (CUPTI), each call after a 256 MB
-    write that evicts the 50 MB L2, so the kernel reads its inputs from
-    device memory as the bound assumes. For a kernel shorter than its
-    launch, where CUDA events around one call time the host's launch. The
-    warm-up calls' events are left out (device_events); a profiler session
-    that lost events is run again, up to `tries` times."""
+def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3,
+                     per_call: int = 1) -> float:
+    """Mean device time in ms of the kernel `name` a call of fn (which
+    launches it per_call times) over reps calls, by the profiler's device
+    events (CUPTI), each call after a 256 MB write that evicts the 50 MB
+    L2, so the kernel reads its inputs from device memory as the bound
+    assumes. For a kernel shorter than its launch, where CUDA events
+    around one call time the host's launch. The warm-up calls' events are
+    left out (device_events; LAST_EVENTS then holds the counted ones); a
+    profiler session that lost events is run again, up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -215,10 +226,10 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3) -> float:
                 torch.cuda.synchronize()
         device_us, calls = device_events(prof, f"[{name}]")
         us, calls = device_us.get(name, 0.0), calls.get(name, 0)
-        if calls == reps:
-            return us / calls / 1e3
-        log(f"[profiler] recorded {calls} of {reps} calls of {name}; again")
-    fail(f"the profiler recorded {calls} calls of {name}, expected {reps}")
+        if calls == reps * per_call:
+            return us / reps / 1e3
+        log(f"[profiler] recorded {calls} of {reps * per_call} calls of {name}; again")
+    fail(f"the profiler recorded {calls} calls of {name}, expected {reps * per_call}")
 
 
 def wall_ms(fn):
@@ -578,13 +589,19 @@ def phase_card():
 
 
 def tree_row(dev, nrng, alg: str) -> dict:
-    """The Merkle level kernel of `alg` against the plain tree (and the
-    host levels up to n = 4,097) at every n of MERKLE_NS; timed as the
-    whole tree at the largest n."""
+    """The tree kernel of `alg` against the plain tree (and the host levels
+    up to n = 4,097) at every n of MERKLE_NS; then MERKLE_REPEATS launches
+    at each n of MERKLE_REPEAT_NS, every root equal to the plain one (the
+    levels are joined by arrival counters, whose order varies from launch
+    to launch: a race would show as a rare mismatch); timed as the whole
+    tree at n = MERKLE_N by CUDA events around a call (the host's launch
+    included) and by the profiler's device time."""
     from fisco_bcos_tpu_torch.ops import cuda_merkle, merkle
 
-    name = "merkle_keccak_level" if alg == "keccak256" else "merkle_sm3_level"
+    tree = cuda_merkle.TREES[alg]
+    name = tree.__name__
     mism = err = 0
+    kept = {}
     for n in MERKLE_NS:
         leaves = nrng.integers(0, 256, (n, 32), dtype=np.uint8)
         lt = torch.as_tensor(leaves, device=dev)
@@ -598,24 +615,37 @@ def tree_row(dev, nrng, alg: str) -> dict:
             bad |= bytes(root.cpu().numpy()) != host
         mism += int(bad)
         err = max(err, int((root.int() - proot.int()).abs().max()))
+        kept[n] = (lt, proot, pms)
         log(f"[kernel] merkle {alg} n={n}: {'MISMATCH' if bad else 'ok'}")
-    ms = cuda_ms(lambda: cuda_merkle.merkle_root(lt, n, alg), 20)
-    parents, m = 0, n
+    repeats = {}
+    for n in MERKLE_REPEAT_NS:
+        lt, proot, _ = kept[n]
+        roots = torch.stack([cuda_merkle.merkle_root(lt, n, alg) for _ in range(MERKLE_REPEATS)])
+        repeats[n] = int((roots != proot).any(1).sum())
+        mism += repeats[n]
+    lt, _, pms = kept[MERKLE_N]
+    ms = cuda_ms(lambda: cuda_merkle.merkle_root(lt, MERKLE_N, alg), 20)
+    dev_ms = kernel_device_ms(lambda: cuda_merkle.merkle_root(lt, MERKLE_N, alg),
+                              name + "_kernel")
+    parents, m = 0, MERKLE_N
     while m > 1:
         m = (m + 15) // 16
         parents += m
-    nbytes = 32 * (n + parents) + 32 * parents
+    nbytes = 32 * (MERKLE_N + parents) + 32 * parents
     if alg == "keccak256":  # 4 permutations or 9 compressions a parent
         bound, by = keccak_bound(4 * parents, nbytes)
     else:
         bound, by = sm3_bound(9 * parents, nbytes)
-    log(f"[kernel] merkle {alg} n={n} tree: {ms:.3f} ms (plain {pms:.0f} ms), "
-        f"bound {bound:.4f} ms")
+    log(f"[kernel] merkle {alg} repeats: {MERKLE_REPEATS} launches at n in "
+        f"{MERKLE_REPEAT_NS}, roots not the plain one: {repeats}")
+    log(f"[kernel] merkle {alg} n={MERKLE_N} tree: {ms:.4f} ms a call, {dev_ms:.4f} ms device "
+        f"(plain {pms:.0f} ms), bound {bound:.4f} ms")
     return dict(
         name=name, route="cuda", source="fisco_bcos_tpu_torch/csrc/merkle.cu",
         replaces="fisco_bcos_tpu/ops/pallas_merkle.py:220", mismatches=mism,
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
-        library_ms=None, shape=f"n={n}, whole tree, one launch per level")
+        library_ms=None, device_ms=dev_ms, repeat_mismatches=repeats,
+        shape=f"n={MERKLE_N}, whole tree, one launch")
 
 
 def keccak_cases(nrng):
@@ -787,7 +817,7 @@ def phase_kernels(dev, signed, rng):
     nrng = np.random.default_rng(SEED)
     rows["keccak256_varlen"] = keccak_row(dev, nrng)
     # -- merkle -------------------------------------------------------------
-    rows["merkle_keccak_level"] = tree_row(dev, nrng, "keccak256")
+    rows["merkle_keccak_tree"] = tree_row(dev, nrng, "keccak256")
     bad = {k: r["mismatches"] for k, r in rows.items() if r["mismatches"]}
     if bad:
         fail(f"kernel vs plain mismatches: {bad}")
@@ -881,36 +911,65 @@ def sm2_inputs(rng: random.Random, B: int):
     return out, bad
 
 
+def sm3_cases(data) -> list:
+    """Kernel A's three launches on the SM block's main path, by shape:
+    [(shape, messages)] of its tx encodings (the tx hashes), its receipt
+    encodings (the receipt hashes) and its senders' 64-byte keys (the
+    address hash, two blocks each)."""
+    return [("tx encodings", [t.encode_unsigned() for t in data["txs"]]),
+            ("receipts", [r.encode() for r in data["receipts"]]),
+            ("address keys", [t.signature[64:128] for t in data["txs"]])]
+
+
+def sm3_row(dev, data, rng) -> dict:
+    """Kernel A against sm3_varlen_plain on the card, bit-exact, and 16
+    sampled messages of each shape against refimpl.sm3, at each of
+    sm3_cases' shapes, each timed apart by CUDA events around a call
+    (median of 20) and by its device time, with its own bound."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
+    from fisco_bcos_tpu_torch.ops import cuda_sm3, sm3
+
+    shapes = {}
+    for shape, msgs in sm3_cases(data):
+        blocks, nvalid = sm3.pad_batch_np(msgs)
+        bt, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
+        got = cuda_sm3.sm3_varlen(bt, nv)
+        plain, plain_ms = wall_ms(lambda: sm3.sm3_varlen_plain(bt, nv))
+        mism = int((got != plain).any(1).sum())
+        for i in rng.sample(range(len(msgs)), 16):
+            mism += bytes(got[i].cpu().numpy()) != refimpl.sm3(msgs[i])
+        ms = cuda_ms(lambda: cuda_sm3.sm3_varlen(bt, nv), 20)
+        dev_ms = kernel_device_ms(lambda: cuda_sm3.sm3_varlen(bt, nv), "sm3_varlen_kernel")
+        comp = int(nvalid.sum())
+        bound, by = sm3_bound(comp, comp * 64 + 4 * len(msgs) + 32 * len(msgs))
+        shapes[shape] = dict(
+            mismatches=mism, max_abs_err=int((got.int() - plain.int()).abs().max()), ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            shape=f"B={len(msgs)}, {int(nvalid.min())}-{int(nvalid.max())} blocks, "
+                  f"{comp} compressions")
+        log(f"[kernel] sm3 {shape} {shapes[shape]['shape']}: mismatches {mism}, "
+            f"{ms:.4f} ms a call, {dev_ms:.4f} ms device (plain {plain_ms:.0f} ms), "
+            f"bound {bound:.4f} ms ({by})")
+    tx = shapes["tx encodings"]
+    return dict(
+        name="sm3_varlen", route="cuda", source="fisco_bcos_tpu_torch/csrc/sm3.cu",
+        replaces="fisco_bcos_tpu/ops/pallas_hash.py:174",
+        mismatches=sum(v["mismatches"] for v in shapes.values()),
+        max_abs_err=max(v["max_abs_err"] for v in shapes.values()), ms=tx["ms"],
+        plain_ms=tx["plain_ms"], bound_ms=tx["bound_ms"], bound_by=tx["bound_by"],
+        library_ms=None, device_ms=tx["device_ms"], shape=f"tx encodings, {tx['shape']}",
+        by_shape=shapes)
+
+
 def phase_sm_kernels(dev, data, rng):
     """Kernels A, B and C against their plain versions on the card at the
     SM path's shapes, bit-exact."""
     from fisco_bcos_tpu_torch.crypto import refimpl
-    from fisco_bcos_tpu_torch.ops import cuda_sm3, cuda_verify, ec, sm3
+    from fisco_bcos_tpu_torch.ops import cuda_verify, ec
 
-    rows = {}
-    # -- A: SM3 over the SM block's tx encodings ------------------------------
-    msgs = [t.encode_unsigned() for t in data["txs"]]
-    blocks, nvalid = sm3.pad_batch_np(msgs)
-    bt, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
-    got = cuda_sm3.sm3_varlen(bt, nv)
-    plain, plain_ms = wall_ms(lambda: sm3.sm3_varlen_plain(bt, nv))
-    mism = int((got != plain).any(1).sum())
-    for i in rng.sample(range(len(msgs)), 16):
-        mism += bytes(got[i].cpu().numpy()) != refimpl.sm3(msgs[i])
-    ms = cuda_ms(lambda: cuda_sm3.sm3_varlen(bt, nv), 20)
-    comp = int(nvalid.sum())
-    bound, by = sm3_bound(comp, comp * 64 + 4 * len(msgs) + 32 * len(msgs))
-    rows["sm3_varlen"] = dict(
-        name="sm3_varlen", route="cuda", source="fisco_bcos_tpu_torch/csrc/sm3.cu",
-        replaces="fisco_bcos_tpu/ops/pallas_hash.py:174", mismatches=mism,
-        max_abs_err=int((got.int() - plain.int()).abs().max()), ms=ms,
-        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-        shape=f"B={len(msgs)}, {int(nvalid.min())}-{int(nvalid.max())} blocks, "
-              f"{comp} compressions")
-    log(f"[kernel] sm3 B={len(msgs)}: mismatches {mism}, {ms:.3f} ms "
-        f"(plain {plain_ms:.0f} ms), bound {bound:.4f} ms")
+    rows = {"sm3_varlen": sm3_row(dev, data, rng)}
     # -- B: SM3 Merkle trees ----------------------------------------------------
-    rows["merkle_sm3_level"] = tree_row(dev, np.random.default_rng(SEED + 2), "sm3")
+    rows["merkle_sm3_tree"] = tree_row(dev, np.random.default_rng(SEED + 2), "sm3")
     # -- C: SM2 verify at one CHUNK --------------------------------------------
     t0 = time.perf_counter()
     vs, bad = sm2_inputs(rng, EC_B)
@@ -1159,11 +1218,11 @@ def slice_counters(kind: str, route: str = "fused") -> dict:
         ec_k = {"ecdsa_recover": cuda_verify.ecdsa_recover,
                 "ecdsa_verify": cuda_verify.ecdsa_verify}
         hashes = {"keccak256_varlen": cuda_hash.keccak256_varlen,
-                  "merkle_keccak_level": cuda_merkle.merkle_level}
+                  "merkle_keccak_tree": cuda_merkle.merkle_keccak_tree}
     else:
         ec_k = {"sm2_verify": cuda_verify.sm2_verify}
         hashes = {"sm3_varlen": cuda_sm3.sm3_varlen,
-                  "merkle_sm3_level": cuda_merkle.merkle_sm3_level}
+                  "merkle_sm3_tree": cuda_merkle.merkle_sm3_tree}
     if route == "fused":
         return {**ec_k, **hashes}
     return {**ec_k, **hashes, **composed_counters()}

@@ -1,5 +1,5 @@
 // Keccak-f[1600] on 25 64-bit lanes held in registers, shared by the
-// varlen hash kernel (keccak.cu) and the Merkle level kernel (merkle.cu).
+// varlen hash kernel (keccak.cu) and the Merkle tree kernel (merkle.cu).
 // Lane index i = x + 5*y, little-endian lanes, as in ops/keccak.py.
 #pragma once
 #include <stdint.h>

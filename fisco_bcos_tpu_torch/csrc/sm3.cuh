@@ -41,41 +41,38 @@ __device__ __forceinline__ void sm3_init(uint32_t V[8]) {
     for (int i = 0; i < 8; ++i) V[i] = SM3K.iv[i];
 }
 
-// V = CF(V, W) for 16 big-endian message words; w is used as the window
-__device__ __forceinline__ void sm3_compress(uint32_t V[8], uint32_t w[16]) {
-    uint32_t A = V[0], B = V[1], C = V[2], D = V[3];
-    uint32_t E = V[4], F = V[5], G = V[6], H = V[7];
-#pragma unroll
-    for (int j = 0; j < 64; ++j) {
-        if (j >= 12) {
-            const int k = j + 4;  // W[k] into the slot of W[k - 16]
-            uint32_t x = w[(k - 16) & 15] ^ w[(k - 9) & 15] ^ sm3_rotl(w[(k - 3) & 15], 15);
-            w[k & 15] = (x ^ sm3_rotl(x, 15) ^ sm3_rotl(x, 23))
-                        ^ sm3_rotl(w[(k - 13) & 15], 7) ^ w[(k - 6) & 15];
-        }
-        uint32_t wj = w[j & 15], wj4 = w[(j + 4) & 15];
-        uint32_t a12 = sm3_rotl(A, 12);
-        uint32_t ss1 = sm3_rotl(a12 + E + SM3K.tj[j], 7);
-        uint32_t ss2 = ss1 ^ a12;
-        uint32_t ff, gg;
-        if (j < 16) {
-            ff = A ^ B ^ C;
-            gg = E ^ F ^ G;
-        } else {
-            ff = (A & B) | (A & C) | (B & C);
-            gg = (E & F) | (~E & G);
-        }
-        uint32_t tt1 = ff + D + ss2 + (wj ^ wj4);
-        uint32_t tt2 = gg + H + ss1 + wj;
-        D = C;
-        C = sm3_rotl(B, 9);
-        B = A;
-        A = tt1;
-        H = G;
-        G = sm3_rotl(F, 19);
-        F = E;
-        E = tt2 ^ sm3_rotl(tt2, 9) ^ sm3_rotl(tt2, 17);
+// round j of the compression on the state words A .. H, given W[j] and
+// W'[j] = W[j] ^ W[j + 4]
+__device__ __forceinline__ void sm3_round(int j, uint32_t &A, uint32_t &B, uint32_t &C,
+                                          uint32_t &D, uint32_t &E, uint32_t &F, uint32_t &G,
+                                          uint32_t &H, uint32_t wj, uint32_t wpj) {
+    uint32_t a12 = sm3_rotl(A, 12);
+    uint32_t ss1 = sm3_rotl(a12 + E + SM3K.tj[j], 7);
+    uint32_t ss2 = ss1 ^ a12;
+    uint32_t ff, gg;
+    if (j < 16) {
+        ff = A ^ B ^ C;
+        gg = E ^ F ^ G;
+    } else {
+        ff = (A & B) | (A & C) | (B & C);
+        gg = (E & F) | (~E & G);
     }
+    uint32_t tt1 = ff + D + ss2 + wpj;
+    uint32_t tt2 = gg + H + ss1 + wj;
+    D = C;
+    C = sm3_rotl(B, 9);
+    B = A;
+    A = tt1;
+    H = G;
+    G = sm3_rotl(F, 19);
+    F = E;
+    E = tt2 ^ sm3_rotl(tt2, 9) ^ sm3_rotl(tt2, 17);
+}
+
+// V ^= the state words A .. H (the compression's feed-forward)
+__device__ __forceinline__ void sm3_feed(uint32_t V[8], uint32_t A, uint32_t B, uint32_t C,
+                                         uint32_t D, uint32_t E, uint32_t F, uint32_t G,
+                                         uint32_t H) {
     V[0] ^= A;
     V[1] ^= B;
     V[2] ^= C;
@@ -84,4 +81,29 @@ __device__ __forceinline__ void sm3_compress(uint32_t V[8], uint32_t w[16]) {
     V[5] ^= F;
     V[6] ^= G;
     V[7] ^= H;
+}
+
+// the window's step before round j: from round 12 on, W[j + 4] into the
+// slot of W[j - 12]; round j then reads W[j] and W[j + 4] at j & 15 and
+// (j + 4) & 15
+__device__ __forceinline__ void sm3_expand_step(uint32_t w[16], int j) {
+    if (j >= 12) {
+        const int k = j + 4;  // W[k] into the slot of W[k - 16]
+        uint32_t x = w[(k - 16) & 15] ^ w[(k - 9) & 15] ^ sm3_rotl(w[(k - 3) & 15], 15);
+        w[k & 15] = (x ^ sm3_rotl(x, 15) ^ sm3_rotl(x, 23))
+                    ^ sm3_rotl(w[(k - 13) & 15], 7) ^ w[(k - 6) & 15];
+    }
+}
+
+// V = CF(V, W) for 16 big-endian message words; w is used as the window
+__device__ __forceinline__ void sm3_compress(uint32_t V[8], uint32_t w[16]) {
+    uint32_t A = V[0], B = V[1], C = V[2], D = V[3];
+    uint32_t E = V[4], F = V[5], G = V[6], H = V[7];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+        sm3_expand_step(w, j);
+        uint32_t wj = w[j & 15], wj4 = w[(j + 4) & 15];
+        sm3_round(j, A, B, C, D, E, F, G, H, wj, wj ^ wj4);
+    }
+    sm3_feed(V, A, B, C, D, E, F, G, H);
 }

@@ -31,15 +31,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C interface of every source: function -> argument types (all return
-# a CUDA error code as int); every source also has set_consts(words, n)
+# an int, a CUDA error code but for merkle_tree_scratch_words); every
+# source also has set_consts(words, n)
 SIGNATURES = {
     "verify": {
         "ecdsa_recover_launch": [_P] * 8 + [_I, _P],
         "ecdsa_verify_launch": [_P] * 7 + [_I, _P],
     },
     "keccak": {"keccak256_varlen_launch": [_P, _P, _P, _I, _I, _P]},
-    "merkle": {"merkle_keccak_level_launch": [_P, _I, _I, _P, _I, _P],
-               "merkle_sm3_level_launch": [_P, _I, _I, _P, _I, _P]},
+    "merkle": {"merkle_keccak_tree_launch": [_P, _I, _I, _P, _I, _P, _P],
+               "merkle_sm3_tree_launch": [_P, _I, _I, _P, _I, _P, _P],
+               "merkle_tree_scratch_words": [_I]},
     "sm3": {"sm3_varlen_launch": [_P, _P, _P, _I, _I, _P]},
     "sm2": {"sm2_verify_launch": [_P] * 7 + [_I, _P]},
     "fp": {"fp_mul_launch": [_P] * 4 + [_I, _P],
@@ -53,7 +55,7 @@ SIGNATURES = {
 # which blocks of consts.kernel_words() each source's set_consts takes,
 # concatenated in this order
 CONST_BLOCK = {"verify": ("verify",), "keccak": ("keccak",),
-               "merkle": ("keccak", "sm3"), "sm3": ("sm3",), "sm2": ("sm2",),
+               "merkle": ("keccak", "sm3", "sm3_pad"), "sm3": ("sm3",), "sm2": ("sm2",),
                "fp": ("verify",), "ladder": ("verify", "sm2")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -128,7 +128,9 @@ def kernel_words(c: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     is struct SecpConsts (csrc/field.cuh) from the glv_consts columns,
     "keccak" the 24 round constants as (lo, hi) pairs (csrc/keccak.cuh),
     "sm2" struct Sm2Consts (csrc/sm2.cu) from the sm2_consts columns,
-    "sm3" the IV then the 64 rotated round constants (csrc/sm3.cuh)."""
+    "sm3" the IV then the 64 rotated round constants (csrc/sm3.cuh),
+    "sm3_pad" the expanded words W[0..63] and W'[0..63] of the padding
+    block of a 512-byte Merkle node (csrc/merkle.cuh)."""
     glv = c["glv_consts"]
     v = {k: _int(glv[:, j].tolist()) for j, k in enumerate(GLV_COLUMNS)}
     p = v["p"]
@@ -145,7 +147,8 @@ def kernel_words(c: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
         raise ValueError("sm2.cuh's special-form reduction is written for SM2's p")
     v["inv_e_p"] = v["p"] - 2
     sm2 = _words(v, SM2_FIELDS) + [v["pnp"] & 0xFFFFFFFF]
-    sm3 = np.concatenate([c["sm3_iv"].numpy(), c["sm3_tjrot"].numpy()])
+    sm3w = np.concatenate([c["sm3_iv"].numpy(), c["sm3_tjrot"].numpy()])
     return {"verify": np.array(secp, np.uint32),
             "keccak": rc.reshape(-1).astype(np.uint32),
-            "sm2": np.array(sm2, np.uint32), "sm3": sm3.astype(np.uint32)}
+            "sm2": np.array(sm2, np.uint32), "sm3": sm3w.astype(np.uint32),
+            "sm3_pad": np.array(sm3.pad_block_words(512), np.uint32)}

@@ -1,6 +1,6 @@
 """Width-16 Merkle roots (Keccak-256 or SM3): plain PyTorch tree, dispatch
-to the level kernels (kernel 4 for Keccak, kernel B for SM3), and the host
-levels and proofs.
+to the tree kernels (kernel 4 for Keccak, kernel B for SM3, the whole tree
+in one launch), and the host levels and proofs.
 
 Counterpart of fisco_bcos_tpu/ops/merkle.py. Canonical tree (the
 protocol's definition, identical on every path):
@@ -32,7 +32,7 @@ def _check_alg(alg: str) -> None:
 
 def _hash_nodes(nodes: torch.Tensor, alg: str) -> torch.Tensor:
     """[k, WIDTH*DIGEST] uint8 -> [k, DIGEST] digests. A 512-byte node is
-    5 Keccak rate blocks or 9 SM3 blocks after padding."""
+    4 Keccak rate blocks (512 // 136 + 1) or 9 SM3 blocks after padding."""
     k, nbytes = nodes.shape
     if alg == "keccak256":
         rate = _keccak.RATE_BYTES
@@ -52,7 +52,7 @@ def _hash_nodes(nodes: torch.Tensor, alg: str) -> torch.Tensor:
 
 def merkle_root_bucketed_plain(leaves: torch.Tensor, n: int,
                                alg: str = "keccak256") -> torch.Tensor:
-    """Plain version of the level kernels (fisco_bcos_tpu/ops/merkle.py
+    """Plain version of the tree kernels (fisco_bcos_tpu/ops/merkle.py
     `_merkle_root_bucketed`): leaves [N_bucket, 32] uint8 zero-padded, n
     the logical count -> [32] root."""
     nodes = leaves
@@ -77,7 +77,7 @@ def merkle_root_bucketed_plain(leaves: torch.Tensor, n: int,
 
 def merkle_root(leaves: torch.Tensor, alg: str = "keccak256") -> torch.Tensor:
     """Root [32] uint8 of [n, 32] uint8 leaf digests. A CUDA tensor runs
-    the alg's level kernel once per level; a CPU tensor runs the plain
+    the alg's tree kernel, one launch a tree; a CPU tensor runs the plain
     bucketed tree."""
     _check_alg(alg)
     n = leaves.shape[0]

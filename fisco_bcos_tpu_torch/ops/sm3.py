@@ -41,13 +41,29 @@ def _p1(x):
     return x ^ _rotl(x, 15) ^ _rotl(x, 23)
 
 
-def compress(V: list, W: list) -> list:
-    """One SM3 compression on 8 state words and 16 message words (lists
-    of int64 tensors of one shape, values < 2^32) -> the next 8 words."""
+def expand(W: list) -> list:
+    """The message expansion: 16 words -> W[0..67] (ints, or int64 tensors
+    of one shape, values < 2^32)."""
     W = list(W)
     for j in range(16, 68):
         W.append(_p1(W[j - 16] ^ W[j - 9] ^ _rotl(W[j - 3], 15))
                  ^ _rotl(W[j - 13], 7) ^ W[j - 6])
+    return W
+
+
+def pad_block_words(nbytes: int) -> list[int]:
+    """W[0..63], then W'[j] = W[j] ^ W[j + 4] for j < 64, of the padding
+    block of an nbytes-byte message whose length is a multiple of 64 (one
+    block: 0x80, zeros, the bit length), as ints."""
+    assert nbytes % BLOCK_BYTES == 0
+    W = expand([0x80000000] + [0] * 13 + [(8 * nbytes) >> 32, (8 * nbytes) & M32])
+    return W[:64] + [W[j] ^ W[j + 4] for j in range(64)]
+
+
+def compress(V: list, W: list) -> list:
+    """One SM3 compression on 8 state words and 16 message words (lists
+    of int64 tensors of one shape, values < 2^32) -> the next 8 words."""
+    W = expand(W)
     A, B, C, D, E, F, G, H = V
     for j in range(64):
         a12 = _rotl(A, 12)

@@ -1,18 +1,20 @@
 """The port's CUDA arithmetic (csrc/bigint.cuh, sm2.cuh, field.cuh,
-point.cuh, modinv.cuh, ec.cuh, ecdsa.cuh, pow.cuh) and the varlen Keccak
-kernel's steps (keccak.cuh, lenorder.cuh) compiled for the host with g++
-and held to Python integers, to the plain PyTorch point formulas of ops/ec
-and to the pure-Python oracle, on seeded operands and on carry-extreme
-ones.
+point.cuh, modinv.cuh, ec.cuh, ecdsa.cuh, pow.cuh), the varlen Keccak
+kernel's steps (keccak.cuh, lenorder.cuh) and the Merkle tree kernels'
+schedule and node hashes (merkle.cuh) compiled for the host with g++ and
+held to Python integers, to the plain PyTorch point formulas of ops/ec, to
+the pure-Python oracle, to the host Merkle levels and to the JAX
+package's tree, on seeded operands and on carry-extreme ones.
 
 The device code is plain C++ behind `__device__`: with empty
-`__device__`, `__forceinline__`, `__noinline__` and `__constant__`, and
-a host build runs the code the card runs. The constant blocks are filled from
+`__device__`, `__host__`, `__forceinline__`, `__noinline__` and
+`__constant__`, and a host build runs the code the card runs. The constant blocks are filled from
 ops/consts.kernel_words(), as ops/_cuda.library fills them on the card.
 
 Tolerance: bit-exact (integer arithmetic). Skips only where g++ is absent.
 """
 
+import functools
 import random
 import shutil
 import subprocess
@@ -22,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+from fisco_bcos_tpu.ops import merkle as jmerkle
 from fisco_bcos_tpu_torch.crypto import refimpl
-from fisco_bcos_tpu_torch.ops import bigint, cuda_fp, ec, fp
+from fisco_bcos_tpu_torch.ops import bigint, cuda_fp, ec, fp, merkle
 from fisco_bcos_tpu_torch.ops.consts import derive_consts, kernel_words
 from fisco_bcos_tpu_torch.zk import poseidon
 import test_torch_vectors as vectors  # tests/ is on sys.path under pytest
@@ -34,6 +37,7 @@ R = 1 << 256
 
 HARNESS = r"""
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __noinline__
 #define __constant__
@@ -44,14 +48,26 @@ HARNESS = r"""
 #include <string>
 #include <array>
 #include <vector>
-// lenorder.cuh's ranks: one thread at a time here, so a plain add
+#include <algorithm>
+#include <utility>
+// lenorder.cuh's ranks and merkle.cuh's arrivals: one thread at a time
+// here, so a plain add; a thread's stores are seen by the next at once
 static int atomicAdd(int *p, int v) { int o = *p; *p += v; return o; }
 static int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+static void __threadfence() {}
+static void __syncwarp(unsigned = 0xFFFFFFFFu) {}
+template <class T>
+static T __shfl_sync(unsigned, T v, int) { return v; }
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
+static uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
+static uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
 #include "ecdsa.cuh"
 #include "sm2.cuh"
 #include "pow.cuh"
 #include "keccak.cuh"
 #include "lenorder.cuh"
+#include "merkle.cuh"
 
 static u32 SG[2 * TBL * 16];  // the G and phi(G) tables, as stage_tables lays them out
 
@@ -125,6 +141,97 @@ static void keccak_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t 
     }
 }
 
+// The warp node hashes of the tree kernels (merkle.cuh), lane by lane in
+// the kernel's order. Keccak: each of a round's two stages for all 32
+// lanes before the next, a lane's get(src) reading lane src's value of the
+// stage before (the kernel's __shfl_sync); SM3: lanes 0-7 expand, then
+// lane 0's rounds.
+struct KeccakWarp {
+    static void hash(uint8_t *out, const uint8_t *src8, int live) {
+        const uint64_t *src = (const uint64_t *)src8;
+        uint64_t A[32], R[32], nx[32];
+        K25Lane l[32];
+        for (int t = 0; t < 32; ++t) {
+            l[t] = k25_lane(t);
+            A[t] = 0;
+            nx[t] = k25_word(src, live, t, 0);
+        }
+        for (int b = 0; b < 4; ++b) {
+            for (int t = 0; t < 32; ++t) {
+                A[t] ^= nx[t];
+                if (b < 3) nx[t] = k25_word(src, live, t, b + 1);
+            }
+            for (int r = 0; r < 24; ++r) {
+                for (int t = 0; t < 32; ++t)
+                    R[t] = k25_theta_rho(A[t], l[t], [&](int s) { return A[s]; });
+                for (int t = 0; t < 32; ++t)
+                    A[t] = k25_pi_chi(l[t], [&](int s) { return R[s]; }, KECCAK_RC[r]);
+            }
+        }
+        for (int t = 0; t < 4; ++t) ((uint64_t *)out)[t] = A[t];
+    }
+};
+struct Sm3Warp {
+    static void hash(uint8_t *out, const uint8_t *src, int live) {
+        static S8Shared m;
+        for (int k = 0; k < 8; ++k) s8_expand(m, (const uint4 *)src, live, k);
+        s8_rounds((uint4 *)out, m);
+    }
+};
+
+// A tree kernel on the host (merkle.cuh merkle_tree), warp by warp: a
+// warp's first step hashes its 16 nodes of level 1 one a lane (merkle_leaf
+// with the hash's one-thread form H), then, as each step after it, a node
+// with the warp form G, stores it and counts its arrival (merkle_arrive).
+// order 0 runs warp 0's steps to its end, then warp 1's, ...; order 1 the
+// warps in reverse; order 2 takes each next step at random (xorshift64 of
+// `seed`) among the pending ones, so the warps' steps interleave. -> the
+// nodes hashed, the root into root[32].
+template <class H, class G>
+static long merkle_launch(const uint8_t *leaves, int rows, int n, int order, uint64_t seed,
+                          uint8_t *root) {
+    const MerkleShape s = merkle_shape(n, rows);
+    std::vector<int32_t> scratch(merkle_scratch_words(s) + 4, 0);  // counters zeroed
+    int *arrivals = scratch.data();
+    uint8_t *nodes = (uint8_t *)(scratch.data() + merkle_counter_words(s));
+    long hashes = 0;
+    auto step = [&](int L, int p) -> int {
+        if (L == 2)
+            for (int t = 0; t < MERKLE_WIDTH; ++t)
+                if (MERKLE_WIDTH * p + t < s.count[1]) {
+                    merkle_leaf<H>(s, leaves, nodes, root, MERKLE_WIDTH * p + t);
+                    ++hashes;
+                }
+        G::hash(merkle_out(s, nodes, root, L, p), merkle_children(s, leaves, nodes, L, p),
+                merkle_live(s, L, p));
+        ++hashes;
+        if (L == s.levels) return -1;
+        return merkle_arrive(s, arrivals, L, p) ? p / MERKLE_WIDTH : -1;
+    };
+    std::vector<std::pair<int, int>> pending;  // (level, node) of each warp's next step
+    if (s.levels == 1) pending.push_back({1, 0});
+    for (int w = 0; s.levels > 1 && w < s.count[2]; ++w) pending.push_back({2, w});
+    if (order == 1) std::reverse(pending.begin(), pending.end());
+    if (order < 2) {
+        for (auto [L, p] : pending)
+            for (; p >= 0; ++L) p = step(L, p);
+        return hashes;
+    }
+    uint64_t x = seed;
+    while (!pending.empty()) {
+        x ^= x << 13;
+        x ^= x >> 7;
+        x ^= x << 17;
+        const size_t k = x % pending.size();
+        const auto [L, p] = pending[k];
+        pending[k] = pending.back();
+        pending.pop_back();
+        const int q = step(L, p);
+        if (q >= 0) pending.push_back({L + 1, q});
+    }
+    return hashes;
+}
+
 int main() {
     std::string op;
     int n;
@@ -138,6 +245,12 @@ int main() {
     std::cin >> op >> n;  // the "keccak" words: the round constants
     for (int i = 0; i < n; ++i) { std::string h; std::cin >> h; w[i] = (u32)strtoul(h.c_str(), 0, 16); }
     memcpy(KECCAK_RC, w, sizeof(KECCAK_RC));
+    std::cin >> op >> n;  // the "sm3" words, then the "sm3_pad" words
+    for (int i = 0; i < n; ++i) { std::string h; std::cin >> h; w[i] = (u32)strtoul(h.c_str(), 0, 16); }
+    memcpy(&SM3K, w, sizeof(SM3K));
+    std::cin >> op >> n;
+    for (int i = 0; i < n; ++i) { std::string h; std::cin >> h; w[i] = (u32)strtoul(h.c_str(), 0, 16); }
+    memcpy(&SM3PAD, w, sizeof(SM3PAD));
     while (std::cin >> op) {
         u32 a[8], b[8], r[8], t[16];
         Jac P, Q, Rj;
@@ -188,6 +301,22 @@ int main() {
                 if (i) printf(" ");
                 for (int k = 0; k < 32; ++k) printf("%02x", dg[(size_t)i * 32 + k]);
             }
+        } else if (op == "merkle") {  // alg n rows order seed, the leaf rows as hex
+            std::string alg;
+            int nn, rows, order;
+            unsigned long long seed;
+            std::string h;
+            std::cin >> alg >> nn >> rows >> order >> seed >> h;
+            std::vector<uint8_t> lv((size_t)rows * 32 + 16);
+            for (size_t i = 0; i < (size_t)rows * 32; ++i)
+                lv[i] = (uint8_t)strtoul(h.substr(2 * i, 2).c_str(), 0, 16);
+            uint8_t root[32];
+            const long hashes =
+                alg == "keccak256"
+                    ? merkle_launch<KeccakTree, KeccakWarp>(lv.data(), rows, nn, order, seed, root)
+                    : merkle_launch<Sm3Tree, Sm3Warp>(lv.data(), rows, nn, order, seed, root);
+            printf("%lx %x ", hashes, merkle_scratch_words(merkle_shape(nn, rows)));
+            for (int k = 0; k < 32; ++k) printf("%02x", root[k]);
         } else if (op == "qtab") {  // q_table's Z product and its inverse, then the table
             u32 tx[TBL][8], ty[TBL][8], z[8];
             rd(a); rd(b);
@@ -249,7 +378,7 @@ def harness(tmp_path_factory):
                    timeout=600)
     words = kernel_words(derive_consts())
     head = " ".join(f"{k} {len(words[k])} " + " ".join(f"{x:08x}" for x in words[k])
-                    for k in ("verify", "sm2", "keccak"))
+                    for k in ("verify", "sm2", "keccak", "sm3", "sm3_pad"))
 
     def run(lines: list[str]) -> list[list[int]]:
         out = subprocess.run([str(exe)], input=head + "\n" + "\n".join(lines) + "\n",
@@ -673,3 +802,99 @@ def test_verify_one_matches_oracle(harness):
                                  d["r"], d["s"]) for d in lanes]
     assert [g[0] for g in got] == [int(w) for w in want]
     assert sum(want) >= len(lanes) - 6
+
+
+# -- the Merkle tree kernels' schedule and node hashes (merkle.cuh) ----------
+
+MERKLE_NS = [2, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097]
+MERKLE_BIG = 65537  # five levels, a ragged group at each
+# orders of arrivals (merkle_launch in the harness): (order, seed)
+ORDERS = {"in order": (0, 0), "reversed": (1, 0), "shuffle 1": (2, 11),
+          "shuffle 2": (2, 22), "shuffle 3": (2, 33)}
+MERKLE_ALGS = ["keccak256", "sm3"]
+
+
+def _merkle_leaves(n: int, rows: int) -> np.ndarray:
+    return np.random.default_rng(1000 + n).integers(0, 256, (rows, 32), dtype=np.uint8)
+
+
+def _merkle_line(alg: str, n: int, rows: int, order: str) -> str:
+    mode, seed = ORDERS[order]
+    return (f"merkle {alg} {n} {rows} {mode} {seed} "
+            + _merkle_leaves(n, rows).tobytes().hex())
+
+
+def _level_counts(n: int) -> list[int]:
+    counts = [n]
+    while counts[-1] > 1:
+        counts.append(-(-counts[-1] // 16))
+    return counts
+
+
+@pytest.fixture(scope="module")
+def merkle_runs(harness):
+    """(alg, n, order) -> (steps, scratch words, root) of the harness's
+    tree over n leaves of n + 3 rows (the last 3 random: they must read as
+    zero), one run for all; n = MERKLE_BIG in order only."""
+    keys = [(alg, n, order) for alg in MERKLE_ALGS for n in MERKLE_NS for order in ORDERS]
+    keys += [(alg, MERKLE_BIG, "in order") for alg in MERKLE_ALGS]
+    got = harness([_merkle_line(alg, n, n + 3, order) for alg, n, order in keys])
+    return {k: (g[0], g[1], g[2].to_bytes(32, "big")) for k, g in zip(keys, got)}
+
+
+@functools.lru_cache(maxsize=None)
+def _host_root(alg: str, n: int) -> bytes:
+    leaves = _merkle_leaves(n, n + 3)[:n]
+    return merkle.merkle_levels_host([bytes(x) for x in leaves], alg)[-1][0]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_root(alg: str, n: int) -> bytes:
+    nb = max(16, 1 << (n - 1).bit_length())
+    bucketed = np.zeros((nb, 32), np.uint8)
+    bucketed[:n] = _merkle_leaves(n, n + 3)[:n]
+    return bytes(np.asarray(jmerkle._merkle_root_bucketed(bucketed, np.int32(n), alg)))
+
+
+def _check_run(run, alg: str, n: int) -> None:
+    """A harness tree's root is merkle_levels_host's, each node was hashed
+    once, and its scratch is the arrival counters of the levels above level
+    2 (rounded up to 16 bytes) and the rows of the levels below the
+    root's."""
+    steps, words, root = run
+    counts = _level_counts(n)
+    assert root == _host_root(alg, n)
+    assert steps == sum(counts[1:])
+    assert words == ((sum(counts[3:]) + 3) & ~3) + 8 * sum(counts[1:-1])
+
+
+@pytest.mark.parametrize("order", list(ORDERS))
+@pytest.mark.parametrize("n", MERKLE_NS)
+@pytest.mark.parametrize("alg", MERKLE_ALGS)
+def test_merkle_tree_schedule_in_any_arrival_order(merkle_runs, alg, n, order):
+    """The tree kernel's steps (merkle_leaf, the warp node hash and
+    merkle_arrive) run on the host in an order of arrivals: the root equals merkle_levels_host's
+    and the JAX package's bucketed tree on the same leaves, bit-exact,
+    whatever the order, with rows past n read as zero."""
+    run = merkle_runs[alg, n, order]
+    _check_run(run, alg, n)
+    assert run[2] == _jax_root(alg, n)
+
+
+@pytest.mark.parametrize("alg", MERKLE_ALGS)
+def test_merkle_tree_schedule_five_levels(merkle_runs, alg):
+    """n = 65,537: five levels (4,097, 257, 17, 2, 1 nodes), a ragged group
+    at each, in one order, against merkle_levels_host."""
+    _check_run(merkle_runs[alg, MERKLE_BIG, "in order"], alg, MERKLE_BIG)
+
+
+@pytest.mark.parametrize("alg", MERKLE_ALGS)
+def test_merkle_tree_reads_missing_leaf_rows_as_zero(harness, alg):
+    """n = 40 leaves of which only 20 rows exist: the 20 missing ones read
+    as zero (the wrapper's min(rows, n))."""
+    leaves = _merkle_leaves(40, 40)
+    line = f"merkle {alg} 40 20 2 7 " + leaves[:20].tobytes().hex()
+    steps, _, root = harness([line])[0]
+    want = merkle.merkle_levels_host([bytes(x) for x in leaves[:20]] + [bytes(32)] * 20, alg)
+    assert root.to_bytes(32, "big") == want[-1][0]
+    assert steps == 4  # 3 nodes of level 1, the root

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (slice 1: recover, verify, Keccak, Keccak
-Merkle level; the SM chain: SM3, SM3 Merkle level, SM2 verify; the ZK
+"""The port's CUDA kernels (slice 1: recover, verify, Keccak, the Keccak
+Merkle tree; the SM chain: SM3, the SM3 Merkle tree, SM2 verify; the ZK
 plane: the standalone field multiplies under batched Poseidon; the
 composed EC route: the pow and ladder kernels) against their plain
 PyTorch versions, on the card. Marked `cuda`; every test skips (inside the fixture) where
@@ -118,26 +118,59 @@ def test_keccak_kernel_one_block_keys(dev):
     assert [bytes(x) for x in got.cpu().numpy()] == [refimpl.keccak256(m) for m in msgs]
 
 
-@pytest.mark.parametrize("n", [1, 2, 17, 4097])
-def test_merkle_kernel_matches_plain(dev, n):
+# the host harness's tree sizes (tests/test_torch_csrc_host.py), and n = 1
+MERKLE_NS = [1, 2, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65537]
+
+
+def _plain_root(leaves: torch.Tensor, n: int, alg: str) -> torch.Tensor:
+    """The plain tree over the first n rows, on the leaves' device."""
+    nb = max(16, 1 << (n - 1).bit_length())
+    padded = torch.zeros((nb, 32), dtype=torch.uint8, device=leaves.device)
+    padded[:n] = leaves[:n]
+    return merkle.merkle_root_bucketed_plain(padded, n, alg)
+
+
+@pytest.mark.parametrize("n", MERKLE_NS)
+@pytest.mark.parametrize("alg", ["keccak256", "sm3"])
+def test_merkle_kernel_matches_plain(dev, alg, n):
+    """The tree kernel of each hash, one launch a tree (none at n = 1),
+    against the plain tree and, up to 4,097 leaves, merkle_levels_host."""
     rng = np.random.default_rng(n)
     leaves = rng.integers(0, 256, (n, 32), dtype=np.uint8)
-    got = cuda_merkle.merkle_root(torch.as_tensor(leaves, device=dev), n)
-    plain = merkle.merkle_root(torch.as_tensor(leaves))
-    assert torch.equal(got.cpu(), plain)
-    if n <= 17:
+    lt = torch.as_tensor(leaves, device=dev)
+    tree = cuda_merkle.TREES[alg]
+    n0 = tree.launches
+    got = cuda_merkle.merkle_root(lt, n, alg)
+    assert tree.launches == n0 + (n > 1)
+    assert torch.equal(got, _plain_root(lt, n, alg))
+    if n <= 4097:
         assert bytes(got.cpu().numpy()) == merkle.merkle_levels_host(
-            [bytes(x) for x in leaves])[-1][0]
+            [bytes(x) for x in leaves], alg)[-1][0]
 
 
-@pytest.mark.parametrize("n", [2, 17, 40])
-def test_merkle_kernel_reads_rows_past_n_as_zero(dev, n):
+@pytest.mark.parametrize("n", MERKLE_NS[1:])
+@pytest.mark.parametrize("alg", ["keccak256", "sm3"])
+def test_merkle_kernel_reads_rows_past_n_as_zero(dev, alg, n):
     rng = np.random.default_rng(100 + n)
-    leaves = torch.as_tensor(rng.integers(0, 256, (64, 32), dtype=np.uint8), device=dev)
-    got = cuda_merkle.merkle_root(leaves, n)
-    assert torch.equal(got, cuda_merkle.merkle_root(leaves[:n].contiguous(), n))
-    assert bytes(got.cpu().numpy()) == merkle.merkle_levels_host(
-        [bytes(x) for x in leaves[:n].cpu().numpy()])[-1][0]
+    leaves = torch.as_tensor(rng.integers(0, 256, (n + 24, 32), dtype=np.uint8), device=dev)
+    got = cuda_merkle.merkle_root(leaves, n, alg)
+    assert torch.equal(got, cuda_merkle.merkle_root(leaves[:n].contiguous(), n, alg))
+    assert torch.equal(got, _plain_root(leaves, n, alg))
+    if n <= 257:
+        assert bytes(got.cpu().numpy()) == merkle.merkle_levels_host(
+            [bytes(x) for x in leaves[:n].cpu().numpy()], alg)[-1][0]
+
+
+@pytest.mark.parametrize("n", [65536, 4097])
+@pytest.mark.parametrize("alg", ["keccak256", "sm3"])
+def test_merkle_kernel_repeats_give_one_root(dev, alg, n):
+    """100 launches on the same leaves: the arrival order differs from
+    launch to launch, the root must not (a race in the arrival counters
+    would show as a rare other root)."""
+    lt = torch.as_tensor(np.random.default_rng(300 + n).integers(0, 256, (n, 32),
+                                                                  dtype=np.uint8), device=dev)
+    roots = torch.stack([cuda_merkle.merkle_root(lt, n, alg) for _ in range(100)])
+    assert torch.equal(roots, _plain_root(lt, n, alg).expand(100, 32))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

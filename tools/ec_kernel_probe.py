@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Probe the port's EC kernels (csrc/ladder.cu, csrc/sm2.cu and the
 secp256k1 recover and verify kernels of csrc/verify.cu), kernel G (the
-pow kernels of csrc/fp.cu) and the varlen Keccak kernel (csrc/keccak.cu)
-on one NVIDIA card, for one or more copies of their sources.
+pow kernels of csrc/fp.cu), the varlen Keccak kernel (csrc/keccak.cu) and
+the Merkle tree kernels (csrc/merkle.cu) on one NVIDIA card, for one or
+more copies of their sources.
 
     python3 tools/ec_kernel_probe.py [--out DIR] [--kernels K,...] [COPY ...]
 
@@ -11,7 +12,8 @@ A COPY is a copy of csrc/ or a tree that holds fisco_bcos_tpu_torch/csrc/
 probes the port's own fisco_bcos_tpu_torch/csrc/. Several copies (at
 different steps of a change) are built in parallel and measured in one
 process on one card, in turns, so that their times compare. K is any of
-ladder, sm2, verify, fp, keccak (default all). For each copy it prints:
+ladder, sm2, verify, fp, keccak, merkle (default all). For each copy it
+prints:
 
 - ptxas registers and stack of each kernel, and the static SASS counts of
   each function (instructions, LDL, STL, CALL, BRA; cuobjdump -sass);
@@ -36,7 +38,15 @@ ladder, sm2, verify, fp, keccak (default all). For each copy it prints:
   (65,536 messages of 1-8 blocks, 65,536 one-block 64-byte keys), bit-exact
   against the plain version, device ms as for fp, and the SASS opcodes of
   one Keccak round (`probe_keccak_round`, where the copy's keccak.cuh has
-  `keccak_round`).
+  `keccak_round`);
+- with merkle: the Keccak and SM3 trees at n = 65,536 and n = 16 leaves,
+  bit-exact against the plain tree in 50 launches each, device ms a tree (the profiler's, as
+  for fp) and, for a copy that launches once a level, each level's; ms a
+  tree by CUDA events (the host's launches included); the SASS of one
+  Keccak round and one SM3 compression (`probe_sm3_compress`), and each
+  tree's chain floor at n = 65,536: levels x steps a node (96 Keccak
+  rounds, 9 SM3 compressions) x SASS instructions a step, over the SM
+  clock that nvidia-smi reads while the card runs trees.
 
 Builds go to fisco_bcos_tpu_torch/_build/probe/<copy>/, the SASS text of
 the one-product kernels to DIR (default: the same build directory). A
@@ -90,14 +100,38 @@ __global__ void probe_keccak_round(uint64_t *s, uint64_t rc) {
     for (int k = 0; k < 25; ++k) s[25 * i + k] = a[k];
 }
 """
-PROBES = {"probe_mul": PROBE_SRC, "probe_keccak": PROBE_KECCAK_SRC}
+# one SM3 compression on a state in device memory, for its SASS
+PROBE_SM3_SRC = r"""
+#include "sm3.cuh"
+__global__ void probe_sm3_compress(uint32_t *s, const uint32_t *m) {
+    uint32_t V[8], w[16];
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int k = 0; k < 8; ++k) V[k] = s[8 * i + k];
+    for (int k = 0; k < 16; ++k) w[k] = m[16 * i + k];
+    sm3_compress(V, w);
+    for (int k = 0; k < 8; ++k) s[8 * i + k] = V[k];
+}
+"""
+PROBES = {"probe_mul": PROBE_SRC, "probe_keccak": PROBE_KECCAK_SRC, "probe_sm3": PROBE_SM3_SRC}
+# the opcodes left out of a probe's count: its state's loads and stores and
+# the index arithmetic around them
+NOT_STEP = ("LDG", "STG", "LDC", "S2R", "IMAD", "EXIT", "BRA", "ULDC")
+# the entry points of older copies, which _cuda.SIGNATURES no longer lists:
+# older copies of csrc/merkle.cu, one launch a level
+LEGACY_SIGNATURES = {"merkle": {
+    "merkle_keccak_level_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_void_p],
+    "merkle_sm3_level_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                ctypes.c_int, ctypes.c_void_p]}}
+MERKLE_NS = (65536, 16)
+MERKLE_STEPS = {"keccak256": 96, "sm3": 9}  # rounds, compressions a node
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-KERNELS = ("ladder", "sm2", "verify", "fp", "keccak")
+KERNELS = ("ladder", "sm2", "verify", "fp", "keccak", "merkle")
 
 
 def build(todo: dict[str, tuple[Path, list[str]]]) -> dict:
@@ -178,7 +212,8 @@ def load(lib_path: Path, name: str, dev, words: np.ndarray) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.cuda_error_string.argtypes = [ctypes.c_int]
-    for fn, argtypes in {**_cuda.SIGNATURES[name], "set_consts": [_cuda._P, _cuda._I]}.items():
+    for fn, argtypes in {**_cuda.SIGNATURES[name], **LEGACY_SIGNATURES.get(name, {}),
+                         "set_consts": [_cuda._P, _cuda._I]}.items():
         if not hasattr(lib, fn):  # an older copy without this entry point
             continue
         getattr(lib, fn).argtypes = argtypes
@@ -271,6 +306,73 @@ def keccak_call(lib, blocks, nvalid):
     return out
 
 
+def merkle_levels(n: int) -> int:
+    levels = 0
+    while n > 1:
+        n, levels = -(-n // 16), levels + 1
+    return levels
+
+
+def merkle_call(lib, alg: str, leaves, n: int):
+    """A copy's tree of `alg` over the first n rows of leaves -> its root:
+    one launch (the tree kernels) or one a level (older copies' level
+    kernels)."""
+    from fisco_bcos_tpu_torch.ops import _cuda
+
+    h = "keccak" if alg == "keccak256" else "sm3"
+    st = _cuda.stream_ptr(leaves)
+    if hasattr(lib, f"merkle_{h}_tree_launch"):
+        words = lib.merkle_tree_scratch_words(n)
+        scratch = torch.empty((words,), dtype=torch.int32, device=leaves.device)
+        root = torch.empty((32,), dtype=torch.uint8, device=leaves.device)
+        rc = getattr(lib, f"merkle_{h}_tree_launch")(
+            _cuda.ptr(leaves), leaves.shape[0], n, _cuda.ptr(scratch), scratch.numel(),
+            _cuda.ptr(root), st)
+        _cuda.check(lib, rc, f"merkle_{h}_tree")
+        return root
+    nodes, count = leaves, n
+    while count > 1:
+        out = torch.empty((-(-nodes.shape[0] // 16), 32), dtype=torch.uint8, device=leaves.device)
+        rc = getattr(lib, f"merkle_{h}_level_launch")(
+            _cuda.ptr(nodes), nodes.shape[0], count, _cuda.ptr(out), out.shape[0], st)
+        _cuda.check(lib, rc, f"merkle_{h}_level")
+        nodes, count = out, -(-count // 16)
+    return nodes[0]
+
+
+def merkle_kernel(lib, alg: str, n: int) -> tuple[str, int]:
+    """A copy's tree kernel's name and its launches a tree."""
+    h = "keccak" if alg == "keccak256" else "sm3"
+    if hasattr(lib, f"merkle_{h}_tree_launch"):
+        return f"merkle_{h}_tree_kernel", 1
+    return f"merkle_{h}_level_kernel", merkle_levels(n)
+
+
+def sm_clock_under(fn, seconds: float = 1.5) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while the card runs fn()
+    over and over."""
+    import threading
+
+    got = {}
+
+    def query():
+        time.sleep(0.5)
+        got["smi"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+
+    t = threading.Thread(target=query)
+    t.start()
+    t0 = time.perf_counter()
+    while t.is_alive() or time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+    t.join()
+    log(f"[probe] nvidia-smi under load: clocks.sm, clocks.max.sm = {got['smi']}")
+    return float(got["smi"].split(",")[0].split()[0])
+
+
 def ladder_tiles(lib, curve, nsteps, gts, digs, negs, qp):
     """k -> a launch of the ladder on the inputs tiled k times"""
     def make(k):
@@ -309,8 +411,9 @@ def main() -> int:
         raise SystemExit("probe: the copies need distinct names")
     # every copy's libraries
     todo = {c: (d, list(kernels) + (["probe_mul"] if {"ladder", "sm2"} & set(kernels) else [])
-                + (["probe_keccak"] if "keccak" in kernels
-                   and "keccak_round" in (d / "keccak.cuh").read_text() else []))
+                + (["probe_keccak"] if {"keccak", "merkle"} & set(kernels)
+                   and "keccak_round" in (d / "keccak.cuh").read_text() else [])
+                + (["probe_sm3"] if "merkle" in kernels else []))
             for c, (d, _) in zip(names, copies)}
     dev = torch.device("cuda")
     log(f"[probe] {cs.phase_card_line()}")
@@ -318,6 +421,7 @@ def main() -> int:
     built = build(todo)
     sass_out.mkdir(parents=True, exist_ok=True)
     log(f"[probe] {len(built)} builds in parallel: {time.perf_counter() - t0:.1f} s")
+    step_sass = {}  # (copy, alg) -> SASS instructions a step of the node's chain
     for (copy, name), (lib, text) in sorted(built.items()):
         for fn, info in cs.ptxas_summary(text).items():
             log(f"[ptxas {copy}/{name}] {fn}: {info}")
@@ -326,10 +430,16 @@ def main() -> int:
             log(f"[sass {copy}/{name}] {fn}: {c}")
         if name == "probe_keccak":
             ops = next(v for k, v in cs.sass_opcodes(lib).items() if "probe_keccak_round" in k)
-            logic = {k: v for k, v in ops.items() if k not in ("LDG", "STG", "LDC", "S2R",
-                                                                "IMAD", "EXIT", "BRA", "ULDC")}
+            logic = {k: v for k, v in ops.items() if k not in NOT_STEP}
+            step_sass[copy, "keccak256"] = sum(logic.values())
             log(f"[sass {copy}/keccak round] {sum(logic.values())} instructions a round "
                 f"past the state's loads and stores: {logic} (all: {ops})")
+        if name == "probe_sm3":
+            ops = next(v for k, v in cs.sass_opcodes(lib).items() if "probe_sm3_compress" in k)
+            logic = {k: v for k, v in ops.items() if k not in NOT_STEP}
+            step_sass[copy, "sm3"] = sum(logic.values())
+            log(f"[sass {copy}/sm3 compression] {sum(logic.values())} instructions a "
+                f"compression past the state's loads and stores: {logic} (all: {ops})")
 
     # -- inputs at B = 16,384 and the plain versions, once --------------------
     # each case: (kernel, form, k -> a launcher of the inputs tiled k times
@@ -377,8 +487,9 @@ def main() -> int:
                       verify_call(lib, gtab, a),
                       lambda ok: int((ok.bool() != vok).sum())))
 
-    # kernel G and Keccak: bit-exact, then ms at fixed shapes, copies in turns
-    # (library, case, launcher(lib) -> a function, kernel name(lib), mismatch(out) -> int)
+    # kernel G, Keccak, Merkle: bit-exact, then ms at fixed shapes, copies in
+    # turns (library, case, launcher(lib) -> a function, kernel name(lib) or
+    # (name, launches a call), mismatch(out) -> int)
     timed = []
     if "fp" in kernels:
         from fisco_bcos_tpu_torch.ops import cuda_fp
@@ -411,6 +522,20 @@ def main() -> int:
                           lambda lib, bt=bt, nv=nv: lambda: keccak_call(lib, bt, nv),
                           lambda lib: "keccak256_varlen_kernel",
                           lambda out, w=want: int((out != w).any(1).sum())))
+    if "merkle" in kernels:
+        from fisco_bcos_tpu_torch.ops import merkle
+
+        nrng = np.random.default_rng(cs.SEED + 7)
+        for alg in ("keccak256", "sm3"):
+            for n in MERKLE_NS:
+                lt = torch.as_tensor(nrng.integers(0, 256, (n, 32), dtype=np.uint8), device=dev)
+                nb = max(16, 1 << (n - 1).bit_length())
+                padded = torch.cat([lt, torch.zeros((nb - n, 32), dtype=torch.uint8, device=dev)])
+                want = merkle.merkle_root_bucketed_plain(padded, n, alg)
+                timed.append(("merkle", f"merkle {alg} n={n}",
+                              lambda lib, a=alg, x=lt, n=n: lambda: merkle_call(lib, a, x, n),
+                              lambda lib, a=alg, n=n: merkle_kernel(lib, a, n),
+                              lambda out, w=want: int(not torch.equal(out, w))))
 
     # -- every copy: bit-exact, then the sweep, copies in turns ---------------
     words = {c: const_words(t, kernels) for c, (_, t) in zip(names, copies)}
@@ -423,21 +548,53 @@ def main() -> int:
             log(f"[probe {c}] {kern}: mismatched lanes {n} of {cs.EC_B}")
     for c in names:
         for lib_name, case, launcher, _, mism in timed:
-            n = mism(launcher(libs[c, lib_name])())
+            # a tree's schedule depends on the order of arrivals: 50 launches
+            reps = 50 if lib_name == "merkle" else 1
+            n = sum(mism(launcher(libs[c, lib_name])()) for _ in range(reps))
             bad += n
-            log(f"[probe {c}] {case}: mismatched lanes {n}")
+            log(f"[probe {c}] {case}: mismatched lanes {n}"
+                + (f" (trees, in {reps} launches)" if reps > 1 else ""))
     # device time (the profiler's, L2 evicted before each call: a one-lane
     # launch is shorter than the host's launch through Python)
     fixed = {c: {} for c in names}
+    by_launch = {c: {} for c in names}  # device ms of each launch of a call
+    events = {c: {} for c in names}  # CUDA-event ms a call, the host's launches included
     for rep in range(2):  # copies in turns, twice
         for c in names:
             for lib_name, case, launcher, kname, _ in timed:
                 lib = libs[c, lib_name]
+                kn = kname(lib)
+                kn, per = (kn, 1) if isinstance(kn, str) else kn
                 fixed[c].setdefault(case, []).append(
-                    cs.kernel_device_ms(launcher(lib), kname(lib)))
+                    cs.kernel_device_ms(launcher(lib), kn, per_call=per))
+                if per > 1:
+                    ev = sorted(cs.LAST_EVENTS[kn])
+                    by_launch[c].setdefault(case, []).append(
+                        [float(np.mean([e[2] for e in ev[k::per]])) / 1e3 for k in range(per)])
+                if lib_name == "merkle":
+                    events[c].setdefault(case, []).append(cs.cuda_ms(launcher(lib), 20))
+                log(f"[turn {rep} {c}] {case}: device ms {fixed[c][case][-1]:.4f}")
     for c in names:
         for case, ms in fixed[c].items():
             log(f"[time {c}] {case}: device ms {', '.join(f'{m:.4f}' for m in ms)}")
+            for ls in by_launch[c].get(case, []):
+                log(f"[time {c}] {case}: device ms by launch (level) "
+                    f"{', '.join(f'{m:.4f}' for m in ls)}")
+            if case in events[c]:
+                log(f"[time {c}] {case}: ms a call by CUDA events "
+                    f"{', '.join(f'{m:.4f}' for m in events[c][case])}")
+    if "merkle" in kernels:  # the chain floor at the card's clock under load
+        big = next(launcher for lib_name, case, launcher, _, _ in timed
+                   if case == f"merkle keccak256 n={MERKLE_NS[0]}")
+        mhz = sm_clock_under(big(libs[names[-1], "merkle"]))
+        levels = merkle_levels(MERKLE_NS[0])
+        for c in names:
+            for alg, steps in MERKLE_STEPS.items():
+                sass = step_sass.get((c, alg))
+                if sass:
+                    log(f"[chain {c}] merkle {alg} n={MERKLE_NS[0]}: {levels} levels x {steps} "
+                        f"steps x {sass} SASS instructions / {mhz:.0f} MHz = chain floor "
+                        f"{levels * steps * sass / (mhz * 1e3):.4f} ms")
     sweep = {c: {} for c in names}
     for rep in range(2):  # copies in turns, twice
         for c in names:
