@@ -39,7 +39,10 @@ version or to the CPU):
    (warmed up on a small step) must record as many calls of each kernel.
 4. The SM chain's kernels as in 2: SM3 at the SM block's three shapes,
    each timed apart (its 65,536 tx encodings of 3-18 blocks, its 65,536
-   receipt encodings, its 65,536 senders' 64-byte keys), SM3 Merkle trees
+   receipt encodings, its 65,536 senders' 64-byte keys) with the
+   compressions each schedule issues, then the tx encodings in 50
+   launches (a message's slot varies between launches) and ragged at
+   B = 65,537 with nvalid of -1, 0 and past nblocks, SM3 Merkle trees
    at the same n and repeats, SM2 verify at
    one CHUNK of host-signed vectors with 1% adversarial lanes and 8
    carry-stress lanes (r and s at n - 1 and n - 2, a digest of 2^256 - 1,
@@ -259,12 +262,18 @@ INV_LANE = 3  # multiplies per lane of a batched inversion
 # 253 squarings and 13 multiplies
 SQRT_SQR, SQRT_MUL = 253, 13
 SQRT_CHAIN = SQRT_SQR + SQRT_MUL
-# A 256x256-bit squaring needs 36 wide multiplies (8 diagonal, 28 cross),
-# not 64: kernel G's bound (`pow_bound`) prices its squarings so. The EC
-# bounds (recover_products' chain, the ladders' doublings and
-# ec_batch_inversions' powers) still price every squaring as a full
-# product.
+# One convention for every bound: a 256x256-bit squaring needs 36 wide
+# multiplies (8 diagonal, 28 cross), not 64, and keeps its product's
+# reduction, so it is priced at SQR_SAVING fewer slots than any other
+# product, whatever form a kernel computes it in (`priced`): kernel G's
+# powers (`pow_bound`), the square root's chain, the points' doublings and
+# adds, and the batched inversions' Fermat powers.
 SQR_SAVING = WIDE - 36
+# (products, squarings among them) of the point formulas (csrc/point.cuh):
+# a secp256k1 doubling (a = 0: Y^2, X^2, Y^4, M^2), an SM2 one (a = -3:
+# Z^2 too), a mixed add (Z^2, H^2, R^2), a Jacobian add (Z1^2, Z2^2, H^2,
+# R^2); a table entry's normalisation (zi^2, then 5 multiplies)
+SECP_DBL, SM2_DBL_OPS, MADD, JADD, NORM = (7, 4), (8, 4), (11, 3), (16, 4), (6, 1)
 KECCAK_PERM_OPS = 24 * 180 + 34
 
 
@@ -276,8 +285,16 @@ def _pow_ops(e: int) -> tuple[int, int]:
     return 7 + 4 * (len(digits) - 1), 7 + sum(1 for d in digits[:-1] if d)
 
 
-def _pow_muls(e: int) -> int:
-    return sum(_pow_ops(e))
+def priced(products: float, squarings: float, per: float) -> float:
+    """Wide-multiply slots of `products` products of `per` slots each, of
+    which `squarings` are squarings (SQR_SAVING fewer each)."""
+    return products * per - squarings * SQR_SAVING
+
+
+def pow_slots(e: int, per: float) -> float:
+    """Slots of a^e by the 4-bit window loop (`_pow_ops`)."""
+    sqr, mul = _pow_ops(e)
+    return priced(sqr + mul, sqr, per)
 
 
 def _glv_nonzero(k: int) -> int:
@@ -291,18 +308,21 @@ def _glv_nonzero(k: int) -> int:
     return nz
 
 
-def _ladder_products(u1: int, u2: int) -> int:
-    from fisco_bcos_tpu_torch.crypto import refimpl
-
-    p = refimpl.SECP256K1.p
-    table = 7 + 13 * 11 + 14 + INV_LANE + 14 * 6
+def _ladder_products(u1: int, u2: int) -> float:
+    """Wide-multiply slots of the GLV ladder of recover and verify: the Q
+    table (2Q, 13 mixed adds, 14 prefix products, the batched inversion, 14
+    entries normalised), 34 steps of 4 doublings, a mixed add a nonzero
+    digit, the GLV splits."""
     nz = _glv_nonzero(u1) + _glv_nonzero(u2)
-    fp = table + 136 * 7 + 11 * nz + nz // 4  # phi(Q): one extra multiply
+    dbl, madd, norm = SECP_DBL, MADD, NORM
+    prods = (dbl[0] + 13 * madd[0] + 14 + INV_LANE + 14 * norm[0] + 136 * dbl[0]
+             + madd[0] * nz + nz // 4)  # phi(Q): one extra multiply
+    sqrs = dbl[1] + 13 * madd[1] + 14 * norm[1] + 136 * dbl[1] + madd[1] * nz
     fn = 2 * 3 + 2  # two GLV splits, three Montgomery multiplies each
-    return fp * FP_MUL + fn * FN_MUL + 4 * WIDE
+    return priced(prods, sqrs, FP_MUL) + fn * FN_MUL + 4 * WIDE
 
 
-def recover_products(e, r, s, v) -> int:
+def recover_products(e, r, s, v) -> float:
     from fisco_bcos_tpu_torch.crypto import refimpl
 
     c = refimpl.SECP256K1
@@ -311,35 +331,36 @@ def recover_products(e, r, s, v) -> int:
     x = r + (v >> 1) * c.n
     if x >= c.p:
         return 0
-    total = (3 + SQRT_CHAIN) * FP_MUL
+    total = priced(3 + SQRT_CHAIN, 2 + SQRT_SQR, FP_MUL)  # x^2, x^3, the chain, y^2
     ysq = (x ** 3 + 7) % c.p
     if pow(ysq, (c.p + 1) // 4, c.p) ** 2 % c.p != ysq:
         return total
     rinv = pow(r, -1, c.n)
     u1, u2 = (-e * rinv) % c.n, (s * rinv) % c.n
     total += (4 + INV_LANE) * FN_MUL
-    return total + _ladder_products(u1, u2) + (INV_LANE + 3) * FP_MUL
+    return total + _ladder_products(u1, u2) + priced(INV_LANE + 3, 1, FP_MUL)  # and Z^-2
 
 
-def verify_products(e, r, s, qx, qy) -> int:
+def verify_products(e, r, s, qx, qy) -> float:
     from fisco_bcos_tpu_torch.crypto import refimpl
 
     c = refimpl.SECP256K1
     if not (0 < r < c.n and 0 < s < c.n and qx < c.p and qy < c.p):
         return 0
     if (qx, qy) == (0, 0) or (qy * qy - qx ** 3 - 7) % c.p:
-        return 4 * FP_MUL
+        return priced(4, 2, FP_MUL)  # qx^2, qy^2
     w = pow(s, -1, c.n)
     u1, u2 = e % c.n * w % c.n, r * w % c.n
-    return 11 * FP_MUL + (4 + INV_LANE) * FN_MUL + _ladder_products(u1, u2)
+    fixed = priced(11, 3, FP_MUL)  # qx^2, qy^2 and Z^2
+    return fixed + (4 + INV_LANE) * FN_MUL + _ladder_products(u1, u2)
 
 
-def ec_batch_inversions(n_inv: int, p_inv: int) -> int:
-    """Products of the per-batch Fermat powers: n_inv mod-n, p_inv mod-p."""
+def ec_batch_inversions(n_inv: int, p_inv: int) -> float:
+    """Slots of the per-batch Fermat powers: n_inv mod-n, p_inv mod-p."""
     from fisco_bcos_tpu_torch.crypto import refimpl
 
     c = refimpl.SECP256K1
-    return n_inv * _pow_muls(c.n - 2) * FN_MUL + p_inv * _pow_muls(c.p - 2) * FP_MUL
+    return n_inv * pow_slots(c.n - 2, FN_MUL) + p_inv * pow_slots(c.p - 2, FP_MUL)
 
 
 def ec_bound_ms(products: float) -> float:
@@ -357,15 +378,14 @@ def keccak_bound(perms: int, nbytes: int):
 # expanded word (52), ~16 per round (64), 8 for the feed-forward and 16
 # byte swaps of the block's words.
 SM3_COMPRESS_OPS = 52 * 7 + 64 * 16 + 8 + 16
-# SM2 counts products mod p as csrc/sm2.cuh and point.cuh make them: 8 per
-# a = -3 doubling, 11 per mixed add. SM2's p = 2^256 - 2^224 - 2^96 + 2^64 - 1
-# is a generalized-Mersenne prime, as NIST P-256's is: a product needs its
-# 64 wide multiplies and a fold of the high half by word adds and subtracts
-# only, two terms to a 3-input add of one issue slot (`sm2_fp_mul`). The
-# kernels' product is of that form too (csrc/sm2.cuh, a special-form
-# Montgomery reduction); their domain conversions are their design, not
-# the work, and are not priced.
-SM2_DBL, SM2_MADD = 8, 11
+# SM2 counts products mod p as csrc/sm2.cuh and point.cuh make them
+# (SM2_DBL_OPS an a = -3 doubling, MADD a mixed add). SM2's
+# p = 2^256 - 2^224 - 2^96 + 2^64 - 1 is a generalized-Mersenne prime, as
+# NIST P-256's is: a product needs its 64 wide multiplies and a fold of the
+# high half by word adds and subtracts only, two terms to a 3-input add of
+# one issue slot (`sm2_fp_mul`). The kernels' product is of that form too
+# (csrc/sm2.cuh, a special-form Montgomery reduction); their domain
+# conversions are their design, not the work, and are not priced.
 
 
 def sm3_bound(compressions: int, nbytes: int):
@@ -415,23 +435,28 @@ def sm2_products(e, r, s, qx, qy) -> float:
     c = refimpl.SM2P256V1
     if not (0 < r < c.n and 0 < s < c.n and qx < c.p and qy < c.p) or (qx, qy) == (0, 0):
         return 0
-    checks = 3  # y^2 == x^3 + a x + b: y^2, x^2, x^3 (a x = -3 x is adds)
+    # y^2 == x^3 + a x + b: y^2, x^2, x^3 (a x is adds)
+    checks = priced(3, 2, sm2_fp_mul())
     t = (r + s) % c.n
     if (qy * qy - qx ** 3 - c.a * qx - c.b) % c.p or t == 0:
-        return checks * sm2_fp_mul()
-    table = SM2_DBL + 13 * SM2_MADD + 14 + INV_LANE + 14 * 6 + 5
+        return checks
+    dbl, madd, norm = SM2_DBL_OPS, MADD, NORM
+    table = (dbl[0] + 13 * madd[0] + 14 + INV_LANE + 14 * norm[0] + 5,
+             dbl[1] + 13 * madd[1] + 14 * norm[1])
     nz = sum(1 for k in (s, t) for j in range(64) if (k >> (4 * j)) & 15)
-    ladder = 256 * SM2_DBL + (nz - 1) * SM2_MADD  # the first add lands on infinity
+    # 256 doublings; the first add lands on infinity
+    ladder = (256 * dbl[0] + (nz - 1) * madd[0], 256 * dbl[1] + (nz - 1) * madd[1])
     cand = (r - e % c.n) % c.n
     final = 2 + (cand + c.n < c.p)  # Z^2, c Z^2, and (c + n) Z^2 where c + n < p
-    return (checks + table + ladder + final) * sm2_fp_mul()
+    return checks + priced(table[0] + ladder[0] + final, table[1] + ladder[1] + 1,
+                          sm2_fp_mul())
 
 
 def sm2_batch_inversion() -> float:
     """Wide-multiply slots of the one mod-p Fermat power a batch would share."""
     from fisco_bcos_tpu_torch.crypto import refimpl
 
-    return _pow_muls(refimpl.SM2P256V1.p - 2) * sm2_fp_mul()
+    return pow_slots(refimpl.SM2P256V1.p - 2, sm2_fp_mul())
 
 
 # ---------------------------------------------------------------------------
@@ -921,20 +946,69 @@ def sm3_cases(data) -> list:
             ("address keys", [t.signature[64:128] for t in data["txs"]])]
 
 
+SM3_REPEATS = 50  # launches of the tx encodings' shape that must all be bit-exact
+
+
+def sm3_block_msgs(nblocks: int) -> int:
+    """The messages a block of kernel A sorts (csrc/sm3.cuh sm3_block_msgs;
+    0: none, one thread a message in arrival order)."""
+    return 0 if nblocks <= 2 else 512
+
+
+def sm3_issued(nvalid: np.ndarray, nblocks: int) -> dict:
+    """Compressions a warp issues for these block counts, summed over warps
+    (32 x the warp's longest message), under each schedule: one thread a
+    message in arrival order (warps of 32 consecutive messages: the
+    kernel's form where sm3_block_msgs is 0, and its earlier one for every
+    batch) and length-ordered (blocks of 512 messages sorted, groups of 32
+    slots; slots past B count 0); `kernel`: the kernel's."""
+    nv = np.clip(nvalid.astype(np.int64), 0, nblocks)
+    arrival = int(np.pad(nv, (0, -len(nv) % 32)).reshape(-1, 32).max(1).sum() * 32)
+    blocks = np.sort(np.pad(nv, (0, -len(nv) % 512)).reshape(-1, 512), axis=1)
+    ordered = int(blocks.reshape(-1, 32).max(1).sum() * 32)
+    return dict(needed=int(nv.sum()), arrival=arrival, length_ordered=ordered,
+                kernel=ordered if sm3_block_msgs(nblocks) else arrival)
+
+
+def sm3_ragged(bt, nv, rng, dev):
+    """The tx encodings' blocks with one message more (B = 65,537, a block
+    of 512 holding one), every fifth message's nvalid -1, 0 or nblocks + 5
+    in turn (clamped to [0, nblocks] as the plain version masks) -> kernel
+    A's rows that differ from sm3_varlen_plain's, plus those of 16 sampled
+    clamped-to-0 messages that are not the IV's bytes."""
+    from fisco_bcos_tpu_torch.ops import cuda_sm3, sm3
+
+    bt = torch.cat([bt, bt[:1]])
+    nv = torch.cat([nv, nv[:1]]).to(torch.int32)
+    tweak = torch.arange(len(nv), device=dev) % 15
+    nv = torch.where(tweak == 1, -1, torch.where(tweak == 6, 0, torch.where(
+        tweak == 11, bt.shape[1] + 5, nv))).to(torch.int32)
+    got = cuda_sm3.sm3_varlen(bt, nv)
+    mism = int((got != sm3.sm3_varlen_plain(bt, nv)).any(1).sum())
+    iv = torch.as_tensor(sm3.IV.astype(">u4").view(np.uint8), device=dev)
+    none = torch.nonzero(nv <= 0).flatten().tolist()
+    return mism + sum(int(not torch.equal(got[i], iv)) for i in rng.sample(none, 16))
+
+
 def sm3_row(dev, data, rng) -> dict:
     """Kernel A against sm3_varlen_plain on the card, bit-exact, and 16
     sampled messages of each shape against refimpl.sm3, at each of
     sm3_cases' shapes, each timed apart by CUDA events around a call
-    (median of 20) and by its device time, with its own bound."""
+    (median of 20) and by its device time, with its own bound and the
+    compressions each schedule issues (sm3_issued); then the tx
+    encodings' shape in SM3_REPEATS launches (ranks within a length come
+    from atomicAdd, so the slot a message takes varies between launches)
+    and ragged (sm3_ragged), both bit-exact."""
     from fisco_bcos_tpu_torch.crypto import refimpl
     from fisco_bcos_tpu_torch.ops import cuda_sm3, sm3
 
-    shapes = {}
+    shapes, kept = {}, {}
     for shape, msgs in sm3_cases(data):
         blocks, nvalid = sm3.pad_batch_np(msgs)
         bt, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
         got = cuda_sm3.sm3_varlen(bt, nv)
         plain, plain_ms = wall_ms(lambda: sm3.sm3_varlen_plain(bt, nv))
+        kept[shape] = (bt, nv, plain)
         mism = int((got != plain).any(1).sum())
         for i in rng.sample(range(len(msgs)), 16):
             mism += bytes(got[i].cpu().numpy()) != refimpl.sm3(msgs[i])
@@ -942,23 +1016,32 @@ def sm3_row(dev, data, rng) -> dict:
         dev_ms = kernel_device_ms(lambda: cuda_sm3.sm3_varlen(bt, nv), "sm3_varlen_kernel")
         comp = int(nvalid.sum())
         bound, by = sm3_bound(comp, comp * 64 + 4 * len(msgs) + 32 * len(msgs))
+        issued = sm3_issued(nvalid, blocks.shape[1])
         shapes[shape] = dict(
             mismatches=mism, max_abs_err=int((got.int() - plain.int()).abs().max()), ms=ms,
-            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, issued=issued,
             shape=f"B={len(msgs)}, {int(nvalid.min())}-{int(nvalid.max())} blocks, "
                   f"{comp} compressions")
         log(f"[kernel] sm3 {shape} {shapes[shape]['shape']}: mismatches {mism}, "
             f"{ms:.4f} ms a call, {dev_ms:.4f} ms device (plain {plain_ms:.0f} ms), "
-            f"bound {bound:.4f} ms ({by})")
+            f"bound {bound:.4f} ms ({by}); compressions issued / needed: arrival order "
+            f"{issued['arrival'] / comp:.3f}, length-ordered "
+            f"{issued['length_ordered'] / comp:.3f}, this kernel {issued['kernel'] / comp:.3f}")
+    bt, nv, plain = kept["tx encodings"]
+    repeats = sum(int((cuda_sm3.sm3_varlen(bt, nv) != plain).any(1).sum())
+                  for _ in range(SM3_REPEATS))
+    ragged = sm3_ragged(bt, nv, rng, dev)
+    log(f"[kernel] sm3 tx encodings in {SM3_REPEATS} launches: rows not the plain ones "
+        f"{repeats}; ragged B={len(nv) + 1} (nvalid -1, 0 and past nblocks): mismatches {ragged}")
     tx = shapes["tx encodings"]
     return dict(
         name="sm3_varlen", route="cuda", source="fisco_bcos_tpu_torch/csrc/sm3.cu",
         replaces="fisco_bcos_tpu/ops/pallas_hash.py:174",
-        mismatches=sum(v["mismatches"] for v in shapes.values()),
+        mismatches=sum(v["mismatches"] for v in shapes.values()) + repeats + ragged,
         max_abs_err=max(v["max_abs_err"] for v in shapes.values()), ms=tx["ms"],
         plain_ms=tx["plain_ms"], bound_ms=tx["bound_ms"], bound_by=tx["bound_by"],
         library_ms=None, device_ms=tx["device_ms"], shape=f"tx encodings, {tx['shape']}",
-        by_shape=shapes)
+        by_shape=shapes, repeat_mismatches=repeats, ragged_mismatches=ragged)
 
 
 def phase_sm_kernels(dev, data, rng):
@@ -1127,6 +1210,21 @@ def plain_tx_hashes(suite, txs) -> list[bytes]:
     return [bytes(x) for x in out.cpu().numpy()]
 
 
+def block_payloads():
+    """The slice's NTX unsigned txs (seeded payloads of 64-1,024 bytes to
+    seeded addresses) and NTX receipts, the same on either chain."""
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    nrng = np.random.default_rng(SEED + 1)
+    lens = nrng.integers(64, 1025, NTX)
+    txs = [T.Transaction(nonce=str(i), block_limit=1000, to=nrng.bytes(20),
+                         input=nrng.bytes(int(lens[i]))) for i in range(NTX)]
+    receipts = [T.Receipt(gas_used=int(nrng.integers(21000, 10 ** 6)),
+                          status=0, output=nrng.bytes(32), block_number=7)
+                for _ in range(NTX)]
+    return txs, receipts
+
+
 def build_slice(suite, rng):
     """The slice's data on `suite`: a 65,536-tx block (seeded payloads,
     16 senders, 1% of lanes corrupted), 65,536 receipts, and a 16,384-lane
@@ -1140,15 +1238,9 @@ def build_slice(suite, rng):
     from fisco_bcos_tpu_torch.protocol import types as T
 
     c, kind = suite.params, suite.kind
-    nrng = np.random.default_rng(SEED + 1)
     t0 = time.perf_counter()
     kps = [suite.generate_keypair(b"sender" + bytes([k])) for k in range(16)]
-    txs = []
-    lens = nrng.integers(64, 1025, NTX)
-    for i in range(NTX):
-        txs.append(T.Transaction(
-            nonce=str(i), block_limit=1000, to=nrng.bytes(20),
-            input=nrng.bytes(int(lens[i]))))
+    txs, receipts = block_payloads()
     signed_hash = []
     for i in range(NSIGNED):
         txs[i].sign(suite, kps[i % 16])
@@ -1174,9 +1266,6 @@ def build_slice(suite, rng):
     for t in txs:
         object.__setattr__(t, "_hash", None)
         object.__setattr__(t, "_sender", None)
-    receipts = [T.Receipt(gas_used=int(nrng.integers(21000, 10 ** 6)),
-                          status=0, output=nrng.bytes(32), block_number=7)
-                for _ in range(NTX)]
     block = T.Block(header=T.BlockHeader(number=7), transactions=txs,
                     receipts=receipts)
     # seals: 256 headers x 4 sealers, tiled to 16,384 lanes
@@ -1692,8 +1781,7 @@ def phase_poseidon(dev, suite, rng):
 # Products a ladder needs: a window table entry past 2Q adds Q (Z = 1), a
 # mixed add; each step 4 doublings; a G entry (Z = 1) a mixed add, a Q
 # entry a full add (a mixed one for entry 1).
-JAC_ADD, MIXED_ADD = 16, 11
-DBL = {"secp256k1": 7, "sm2p256v1": SM2_DBL}
+DBL = {"secp256k1": SECP_DBL, "sm2p256v1": SM2_DBL_OPS}
 
 
 def pow_cases():
@@ -1730,7 +1818,7 @@ def pow_bound(mode: str, e: int, B: int, slots: float):
     sqr, mul = _pow_ops(e)
     if mode == "sqrt":
         sqr, mul = SQRT_SQR, SQRT_MUL
-    work = sqr * (slots - SQR_SAVING) + mul * slots
+    work = priced(sqr + mul, sqr, slots)
     work = INV_LANE * B * slots + work if mode == "inverse" else work * B
     ops_ms = ec_bound_ms(work)
     bytes_ms = B * 2 * LANE_BYTES / H100_BYTES * 1e3
@@ -1851,19 +1939,21 @@ def sweep_line(name: str, sweep: dict) -> str:
         f"B={B} {ms:.3f} ms ({ms * 1e6 / B:.1f} ns a lane)" for B, ms in sweep.items())
 
 
-def ladder_products(cv, nsteps: int, digs, skip: int) -> int:
-    """Products mod p that a ladder launch needs for these digits, over
-    lanes skip.. (the edge lanes before `skip` are counted at none, since
-    their cancellations leave the accumulator at infinity): per pair the
+def ladder_products(cv, nsteps: int, digs, skip: int, k: int = 0) -> int:
+    """Products mod p (k = 0; the squarings among them, k = 1) that a
+    ladder launch needs for these digits, over lanes skip.. (the edge lanes
+    before `skip` are counted at none, since their cancellations leave the
+    accumulator at infinity): per pair the
     window table up to its largest Q digit m (2Q a doubling, then m - 2
     mixed adds); from a lane's first nonzero digit on, whose add is a copy
     onto infinity, 4 doublings a step and an add per nonzero digit."""
-    n_pairs, dbl = digs.shape[0] // 2, DBL[cv.params.name]
+    n_pairs, dbl = digs.shape[0] // 2, DBL[cv.params.name][k]
+    madd, jadd = MADD[k], JADD[k]
     d = digs[:, :, skip:].long()
     m = d[1::2].amax(1)
-    table = int(torch.where(m >= 2, dbl + (m - 2) * MIXED_ADD, 0).sum())
-    cost = torch.where(d == 0, 0, MIXED_ADD)
-    cost[1::2] = torch.where(d[1::2] >= 2, JAC_ADD, cost[1::2])
+    table = int(torch.where(m >= 2, dbl + (m - 2) * madd, 0).sum())
+    cost = torch.where(d == 0, 0, madd)
+    cost[1::2] = torch.where(d[1::2] >= 2, jadd, cost[1::2])
     seq = cost.transpose(0, 1).reshape(nsteps * 2 * n_pairs, -1)  # add order
     nz = seq != 0
     first = nz.int().argmax(0)
@@ -1915,8 +2005,8 @@ def phase_ladder_kernel(dev, rng):
         log(sweep_line(f"ladder {c.name}", sweep))
         skip = len(ec.LADDER_EDGES)
         prods = ladder_products(cv, nsteps, digs, skip)
-        slots = FP_MUL if cv.has_endo else sm2_fp_mul()
-        bound = ec_bound_ms(prods * slots)
+        sqrs = ladder_products(cv, nsteps, digs, skip, k=1)
+        bound = ec_bound_ms(priced(prods, sqrs, FP_MUL if cv.has_endo else sm2_fp_mul()))
         times[c.name] = dict(ms=ms, plain_ms=pms, bound_ms=bound, products=prods, sweep=sweep)
         form = "GLV, 2 pairs" if cv.has_endo else "plain, 1 pair"
         log(f"[kernel] ladder {c.name} ({form}, {nsteps} steps) B={EC_B}: mismatched lanes "

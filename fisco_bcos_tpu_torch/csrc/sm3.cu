@@ -11,42 +11,76 @@
 //
 // What bounds it: 32-bit integer issue, about 1,400 instructions a
 // compression (52 expansion words of ~7, 64 rounds of ~16, with 3-input
-// logic and adds fused), not bytes: a compression reads 64 bytes.
+// logic and adds fused), not bytes: a compression reads 64 bytes. In SASS
+// a compression is 1,269 instructions, 592 of them funnel shifts (SHF,
+// the rotates).
+//
+// Design for this card (PERF.md has the variants measured):
+// * Length-ordered, as the varlen Keccak kernel (lenorder.cuh): a block of
+//   256 threads sorts its 512 messages by block count in shared memory,
+//   and its 8 warps take the 16 groups of 32 sorted messages, longest
+//   first, from a shared counter. In arrival order a warp ran as many
+//   compressions as its longest message: 17 or 18 in almost every warp of
+//   the SM block's 3-18-block tx encodings, against a mean of 10.2. One
+//   group a warp (at 4, 8 or 16 warps an SM) and 4 warps an SM with four
+//   groups each were measured slower: two groups a warp let the warps
+//   finish together, and two warps a scheduler keep it issuing.
+// * Each thread loads its message's next block while it compresses the
+//   current one (sm3.cuh sm3_rows).
+// * Where no message has more than two blocks (the SM block's receipts
+//   and senders' keys), one thread a message in arrival order: measured
+//   faster than the schedule there. A block of the sorted form whose
+//   messages all have one length skips the sort.
 #include <cuda_runtime.h>
 #include "sm3.cuh"
+#include "lenorder.cuh"
 
-__global__ void sm3_varlen_kernel(const uint8_t *blocks, const int32_t *nvalid,
-                                  uint8_t *out, int B, int nblocks) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    int nv = nvalid[i];
-    nv = nv < 0 ? 0 : (nv > nblocks ? nblocks : nv);
-    const uint4 *m = (const uint4 *)(blocks + (size_t)i * nblocks * 64);
-    uint32_t V[8], w[16];
-    sm3_init(V);
-    for (int b = 0; b < nv; ++b) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {  // 16-byte loads
-            uint4 v = m[b * 4 + q];
-            w[4 * q] = sm3_bswap(v.x);
-            w[4 * q + 1] = sm3_bswap(v.y);
-            w[4 * q + 2] = sm3_bswap(v.z);
-            w[4 * q + 3] = sm3_bswap(v.w);
-        }
-        sm3_compress(V, w);
+constexpr int SM3_THREADS = SM3_VARLEN_THREADS, SM3_MSGS = SM3_VARLEN_MSGS;
+constexpr int SM3_PER_THREAD = SM3_MSGS / SM3_THREADS;
+
+// msgs: the messages a block owns and sorts (sm3_block_msgs; 0: one a
+// thread, unsorted); the schedule's steps, the group walk's slots and each
+// message's absorb are lenorder.cuh's and sm3.cuh's, which the host tests
+// run in this order
+__global__ void __launch_bounds__(SM3_THREADS, 2)
+sm3_varlen_kernel(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
+                  int nblocks, int msgs) {
+    __shared__ LenOrder<SM3_MSGS> so;
+    const int t = threadIdx.x, lane = t & 31;
+    if (msgs == 0) {
+        const int i = blockIdx.x * SM3_THREADS + t;
+        sm3_rows((const uint4 *)blocks, (uint4 *)out, i < B ? i : -1,
+                 lo_nv(nvalid, i, B, nblocks), nblocks);
+        return;
     }
-    uint4 *o = (uint4 *)(out + (size_t)i * 32);
-    o[0] = make_uint4(sm3_bswap(V[0]), sm3_bswap(V[1]), sm3_bswap(V[2]), sm3_bswap(V[3]));
-    o[1] = make_uint4(sm3_bswap(V[4]), sm3_bswap(V[5]), sm3_bswap(V[6]), sm3_bswap(V[7]));
+    const int base = blockIdx.x * msgs;
+    int nv[SM3_PER_THREAD], rank[SM3_PER_THREAD];
+    const bool same = __syncthreads_and(
+        lo_load<SM3_MSGS, SM3_THREADS>(so, nv, nvalid, t, base, B, nblocks, msgs));
+    lo_rank<SM3_MSGS, SM3_THREADS>(so, nv, rank, same, t, base, B, msgs);
+    if (!same) {
+        __syncthreads();
+        lo_scan_bins<SM3_MSGS, SM3_THREADS>(so, t, nblocks);
+        __syncthreads();
+        lo_place_msgs<SM3_MSGS, SM3_THREADS>(so, nv, rank, t, base, B, msgs);
+    }
+    __syncthreads();
+    for (;;) {
+        int q = 0;
+        if (lane == 0) q = atomicAdd(&so.next, 1);
+        const int g = lo_group_slot(__shfl_sync(0xFFFFFFFFu, q, 0), msgs);
+        if (g < 0) break;
+        sm3_rows((const uint4 *)blocks, (uint4 *)out, so.msg[g + lane], so.nv[g + lane],
+                 nblocks);
+    }
 }
-
-#define SM3_THREADS 128
 
 extern "C" int sm3_varlen_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out,
                                  int B, int nblocks, void *stream) {
-    int grid = (B + SM3_THREADS - 1) / SM3_THREADS;
+    const int msgs = sm3_block_msgs(nblocks), per_block = msgs ? msgs : SM3_THREADS;
+    int grid = (B + per_block - 1) / per_block;
     sm3_varlen_kernel<<<grid, SM3_THREADS, 0, (cudaStream_t)stream>>>(
-        blocks, nvalid, out, B, nblocks);
+        blocks, nvalid, out, B, nblocks, msgs);
     return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,7 @@
 // window index is a compile-time constant and the window stays in
 // registers (68 live words would spill).
 #pragma once
+#include <stddef.h>
 #include <stdint.h>
 
 // IV and the 64 rotated round constants T_j <<< (j mod 32), set from
@@ -106,4 +107,53 @@ __device__ __forceinline__ void sm3_compress(uint32_t V[8], uint32_t w[16]) {
         sm3_round(j, A, B, C, D, E, F, G, H, wj, wj ^ wj4);
     }
     sm3_feed(V, A, B, C, D, E, F, G, H);
+}
+
+// The varlen kernel's launch shape (sm3.cu), here so that the host tests
+// run its schedule with the kernel's numbers: threads a block, and room for
+// SM3_VARLEN_MSGS messages (16 groups for its 8 warps)
+constexpr int SM3_VARLEN_THREADS = 256, SM3_VARLEN_MSGS = 512;
+
+// the messages a launch gives a block to sort: SM3_VARLEN_MSGS, or none
+// (0: one thread a message in arrival order, SM3_VARLEN_THREADS a block)
+// where no message has more than two blocks and a warp loses at most one
+// compression to its longest lane
+inline int sm3_block_msgs(int nblocks) { return nblocks <= 2 ? 0 : SM3_VARLEN_MSGS; }
+
+// SM3 of message `msg`'s first n pre-padded 64-byte blocks, its rows
+// nblocks x 4 uint4 apart in src, the digest's big-endian words to
+// out[2 msg ..]; a thread of the varlen kernel loads the next block while
+// it compresses the current one. n = 0 leaves the IV (the TPU kernel's
+// mask keeps the IV for nvalid <= 0). An empty slot (msg < 0, n = 0) reads
+// and writes nothing.
+__device__ __forceinline__ void sm3_rows(const uint4 *src, uint4 *out, int msg, int n,
+                                         int nblocks) {
+    const uint4 *m = src + (size_t)(msg < 0 ? 0 : msg) * nblocks * 4;
+    uint32_t V[8], w[16];
+    uint4 nx[4];
+    sm3_init(V);
+    if (n > 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) nx[q] = m[q];
+    }
+    for (int b = 0; b < n; ++b) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            w[4 * q] = sm3_bswap(nx[q].x);
+            w[4 * q + 1] = sm3_bswap(nx[q].y);
+            w[4 * q + 2] = sm3_bswap(nx[q].z);
+            w[4 * q + 3] = sm3_bswap(nx[q].w);
+        }
+        if (b + 1 < n) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) nx[q] = m[(b + 1) * 4 + q];
+        }
+        sm3_compress(V, w);
+    }
+    if (msg >= 0) {
+        out[(size_t)msg * 2] =
+            make_uint4(sm3_bswap(V[0]), sm3_bswap(V[1]), sm3_bswap(V[2]), sm3_bswap(V[3]));
+        out[(size_t)msg * 2 + 1] =
+            make_uint4(sm3_bswap(V[4]), sm3_bswap(V[5]), sm3_bswap(V[6]), sm3_bswap(V[7]));
+    }
 }

@@ -1,10 +1,10 @@
 """The port's CUDA arithmetic (csrc/bigint.cuh, sm2.cuh, field.cuh,
-point.cuh, modinv.cuh, ec.cuh, ecdsa.cuh, pow.cuh), the varlen Keccak
-kernel's steps (keccak.cuh, lenorder.cuh) and the Merkle tree kernels'
-schedule and node hashes (merkle.cuh) compiled for the host with g++ and
-held to Python integers, to the plain PyTorch point formulas of ops/ec, to
-the pure-Python oracle, to the host Merkle levels and to the JAX
-package's tree, on seeded operands and on carry-extreme ones.
+point.cuh, modinv.cuh, ec.cuh, ecdsa.cuh, pow.cuh), the varlen Keccak and
+SM3 kernels' steps (keccak.cuh, sm3.cuh, lenorder.cuh) and the Merkle tree
+kernels' schedule and node hashes (merkle.cuh) compiled for the host with
+g++ and held to Python integers, to the plain PyTorch point formulas of
+ops/ec, to the pure-Python oracle, to the host Merkle levels and to the
+JAX package's tree, on seeded operands and on carry-extreme ones.
 
 The device code is plain C++ behind `__device__`: with empty
 `__device__`, `__host__`, `__forceinline__`, `__noinline__` and
@@ -95,18 +95,17 @@ static void wr_jac(const Jac &P) {
     wr(P.X, 8); printf(" "); wr(P.Y, 8); printf(" "); wr(P.Z, 8);
 }
 
-// keccak256_varlen_kernel (keccak.cu) on the host, block by block, through
-// the kernel's own steps (lenorder.cuh) in its order: each step for every
-// thread of the block before the next (the kernel's barriers), then the
-// groups of 32 slots in the order the warps take them, each slot hashed by
-// keccak.cuh's keccak256_rows. A block of T threads owns lo_block_msgs of
-// at most M messages, as the launch sets. Exits non-zero if a message is
-// not in exactly one slot or the slots are out of length order.
-template <int M, int T>
-static void keccak_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
-                          int nblocks) {
+// A varlen kernel's length-ordered schedule on the host (keccak.cu,
+// sm3.cu), block by block, through the kernel's own steps (lenorder.cuh)
+// in its order: each step for every thread of the block before the next
+// (the kernel's barriers), then the groups of 32 slots in the order the
+// warps take them, each slot hashed by rows(msg, nv). A block of T threads
+// owns `msgs` of at most M messages, as the launch sets. Exits non-zero if
+// a message is not in exactly one slot or the slots are out of length
+// order.
+template <int M, int T, class Rows>
+static void lenorder_launch(const int32_t *nvalid, int B, int nblocks, int msgs, Rows rows) {
     const int K = M / T;
-    const int msgs = lo_block_msgs(M, T, nblocks);
     static LenOrder<M> so;
     for (int base = 0; base < B; base += msgs) {
         std::vector<std::array<int, K>> nv(T), rank(T);
@@ -134,11 +133,36 @@ static void keccak_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t 
         for (int q = 0;; ++q) {
             const int g = lo_group_slot(q, msgs);
             if (g < 0) break;
-            for (int lane = 0; lane < 32; ++lane)
-                keccak256_rows((const uint64_t *)blocks, (uint64_t *)out, so.msg[g + lane],
-                               so.nv[g + lane], nblocks);
+            for (int lane = 0; lane < 32; ++lane) rows(so.msg[g + lane], so.nv[g + lane]);
         }
     }
+}
+
+// keccak256_varlen_kernel (keccak.cu): lo_block_msgs of M, each slot by
+// keccak.cuh's keccak256_rows
+template <int M, int T>
+static void keccak_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
+                          int nblocks) {
+    lenorder_launch<M, T>(nvalid, B, nblocks, lo_block_msgs(M, T, nblocks), [&](int msg, int n) {
+        keccak256_rows((const uint64_t *)blocks, (uint64_t *)out, msg, n, nblocks);
+    });
+}
+
+// sm3_varlen_kernel (sm3.cu): a block of T threads owns and sorts `msgs`
+// messages (the kernel's sm3_block_msgs where M and T are its own), or, at
+// msgs = 0, each thread hashes one message in arrival order; each message
+// by sm3.cuh's sm3_rows
+template <int M, int T>
+static void sm3_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
+                       int nblocks, int msgs) {
+    auto rows = [&](int msg, int n) {
+        sm3_rows((const uint4 *)blocks, (uint4 *)out, msg, n, nblocks);
+    };
+    if (msgs == 0) {
+        for (int i = 0; i < B; ++i) rows(i, lo_nv(nvalid, i, B, nblocks));
+        return;
+    }
+    lenorder_launch<M, T>(nvalid, B, nblocks, msgs, rows);
 }
 
 // The warp node hashes of the tree kernels (merkle.cuh), lane by lane in
@@ -297,6 +321,26 @@ int main() {
                 blk[i] = (uint8_t)strtoul(h.substr(2 * i, 2).c_str(), 0, 16);
             if (M == 512) keccak_launch<512, 256>(blk.data(), nv.data(), dg.data(), B, nb);
             else keccak_launch<64, 32>(blk.data(), nv.data(), dg.data(), B, nb);
+            for (int i = 0; i < B; ++i) {
+                if (i) printf(" ");
+                for (int k = 0; k < 32; ++k) printf("%02x", dg[(size_t)i * 32 + k]);
+            }
+        } else if (op == "sm3") {  // M B nblocks, nvalid[B], the blocks as hex -> B digests
+            // M = 0: the kernel's own shape (SM3_VARLEN_MSGS, SM3_VARLEN_THREADS,
+            // sm3_block_msgs); else M messages sorted in a block of 32 threads
+            int M, B, nb;
+            std::cin >> M >> B >> nb;
+            std::vector<int32_t> nv(B);
+            for (auto &x : nv) std::cin >> x;
+            std::string h;
+            std::cin >> h;
+            std::vector<uint8_t> blk((size_t)B * nb * 64 + 16), dg((size_t)B * 32);
+            for (size_t i = 0; i < (size_t)B * nb * 64; ++i)
+                blk[i] = (uint8_t)strtoul(h.substr(2 * i, 2).c_str(), 0, 16);
+            if (M == 0)
+                sm3_launch<SM3_VARLEN_MSGS, SM3_VARLEN_THREADS>(blk.data(), nv.data(), dg.data(),
+                                                                B, nb, sm3_block_msgs(nb));
+            else sm3_launch<64, 32>(blk.data(), nv.data(), dg.data(), B, nb, 64);
             for (int i = 0; i < B; ++i) {
                 if (i) printf(" ");
                 for (int k = 0; k < 32; ++k) printf("%02x", dg[(size_t)i * 32 + k]);
@@ -720,6 +764,63 @@ def test_keccak_length_ordered_schedule(harness, case):
     r = np.random.default_rng(B + nblocks)
     blocks, nvalid, want = _keccak_batch([nv(i, r) for i in range(B)], nblocks, seed=B)
     line = (f"keccak {M} {B} {nblocks} " + " ".join(str(int(x)) for x in nvalid) + " "
+            + blocks.tobytes().hex())
+    got = harness([line])[0]
+    assert got == [int.from_bytes(w, "big") for w in want]
+
+
+# -- the varlen SM3 kernel's schedule (lenorder.cuh) and absorb (sm3_rows) --
+
+def _sm3_batch(lens_blocks, nblocks, seed):
+    """Random pre-padded blocks [B, nblocks, 64] and nvalid as given (may
+    be out of [0, nblocks]); the digest each message must get, by
+    refimpl.sm3 over the message its clamped nvalid blocks hold, the IV's
+    bytes where that is none."""
+    from fisco_bcos_tpu_torch.ops import sm3
+
+    rng = np.random.default_rng(seed)
+    B = len(lens_blocks)
+    blocks = np.zeros((B, max(nblocks, 1), 64), dtype=np.uint8)
+    want = []
+    for i, nv in enumerate(lens_blocks):
+        k = min(max(nv, 0), nblocks)
+        if k:
+            msg = rng.bytes(int(rng.integers(max(0, 64 * k - 72), 64 * k - 8)))
+            blocks[i, :k] = sm3.pad_message_np(msg)
+            want.append(refimpl.sm3(msg))
+        else:
+            blocks[i] = rng.integers(0, 256, blocks[i].shape, dtype=np.uint8)
+            want.append(sm3.IV.astype(">u4").tobytes())  # nothing compressed
+    return blocks[:, :nblocks], np.asarray(lens_blocks, dtype=np.int32), want
+
+
+SM3_SCHEDULES = {
+    # messages a block (0: the kernel's own shape, sm3_block_msgs; else a
+    # block of 32 threads), B, nblocks, nvalid of message i
+    "B=1": (0, 1, 3, lambda i, r: 2),
+    "B=700 mixed 3-18 blocks": (0, 700, 18, lambda i, r: int(r.integers(3, 19))),
+    "B=545 mixed with 0, -1 and above nblocks": (
+        0, 545, 4, lambda i, r: int(r.choice([-1, 0, 1, 2, 3, 4, 9]))),
+    "B=600 all equal, the last block short": (0, 600, 2, lambda i, r: 2),
+    "B=512 all equal": (0, 512, 2, lambda i, r: 2),
+    "B=1100 all equal five blocks, the last block short": (0, 1100, 5, lambda i, r: 5),
+    "B=70 none: -1 and 0": (0, 70, 2, lambda i, r: -(i % 2)),
+    "M=64 B=150 past the last bin": (64, 150, 70, lambda i, r: int(r.integers(55, 75))),
+    "M=64 B=65 descending": (64, 65, 6, lambda i, r: 6 - i % 7),
+}
+
+
+@pytest.mark.parametrize("case", list(SM3_SCHEDULES))
+def test_sm3_length_ordered_schedule(harness, case):
+    """sm3_varlen_kernel's steps run block by block on the host with the
+    kernel's messages a block: each message in exactly one slot, slots in
+    length order (the harness exits non-zero otherwise), every digest
+    refimpl.sm3's at the message's own index (the IV for no block), nvalid
+    clamped to [0, nblocks]."""
+    M, B, nblocks, nv = SM3_SCHEDULES[case]
+    r = np.random.default_rng(B + nblocks)
+    blocks, nvalid, want = _sm3_batch([nv(i, r) for i in range(B)], nblocks, seed=B)
+    line = (f"sm3 {M} {B} {nblocks} " + " ".join(str(int(x)) for x in nvalid) + " "
             + blocks.tobytes().hex())
     got = harness([line])[0]
     assert got == [int.from_bytes(w, "big") for w in want]

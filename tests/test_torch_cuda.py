@@ -212,6 +212,60 @@ def test_sm3_kernel_matches_plain_and_oracle(dev):
     assert torch.equal(got, sm3.sm3_varlen_plain(b, nv))
     want = [refimpl.sm3(m) for m in msgs]
     assert [bytes(x) for i, x in enumerate(got.cpu().numpy()) if i != 3] == want[:3] + want[4:]
+    # the senders' keys' shape: equal 64-byte messages, two blocks each
+    # (one length, so no block sorts), B not a multiple of a block's 256
+    keys = [rng.bytes(64) for _ in range(3000)]
+    blocks, nvalid = sm3.pad_batch_np(keys)
+    got = cuda_sm3.sm3_varlen(torch.as_tensor(blocks, device=dev),
+                              torch.as_tensor(nvalid, device=dev))
+    assert [bytes(x) for x in got.cpu().numpy()] == [refimpl.sm3(m) for m in keys]
+
+
+def _sm3_ragged(B: int, seed: int):
+    """B messages of 3-18 blocks (the SM block's tx encodings' spread), with
+    nvalid -1, 0 and above nblocks on a quarter of them each -> (messages,
+    blocks, nvalid, the padded block counts)."""
+    rng = np.random.default_rng(seed)
+    msgs = [rng.bytes(int(n)) for n in rng.integers(120, 18 * 64 - 8, B)]
+    blocks, nvalid = sm3.pad_batch_np(msgs)
+    own = nvalid.copy()
+    tweak = rng.integers(0, 4, B)
+    nvalid[tweak == 1] = -1
+    nvalid[tweak == 2] = 0
+    nvalid[tweak == 3] = blocks.shape[1] + 5
+    if B == 1:
+        nvalid[0] = own[0]
+    return msgs, blocks, nvalid, own
+
+
+@pytest.mark.parametrize("B", [1, 129, 513, 65537])
+def test_sm3_kernel_length_order_edges(dev, B):
+    """The length-ordered kernel at B not a multiple of its blocks' 512
+    messages nor of 32, on mixed lengths with nvalid of -1, 0 and above
+    nblocks (clamped to [0, nblocks], as the plain version masks), against
+    sm3_varlen_plain; where nvalid is the message's own, up to 64 messages
+    against refimpl; where it is none, the IV."""
+    msgs, blocks, nvalid, own = _sm3_ragged(B, B)
+    b, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev)
+    n0 = cuda_sm3.sm3_varlen.launches
+    got = cuda_sm3.sm3_varlen(b, nv)
+    assert cuda_sm3.sm3_varlen.launches == n0 + 1
+    assert torch.equal(got, sm3.sm3_varlen_plain(b, nv))
+    clamped = np.clip(nvalid, 0, blocks.shape[1])
+    for i in np.flatnonzero(clamped == own)[:64]:
+        assert bytes(got[i].cpu().numpy()) == refimpl.sm3(msgs[i]), i
+    iv = sm3.IV.astype(">u4").tobytes()
+    assert all(bytes(x) == iv for x in got[torch.as_tensor(clamped == 0, device=dev)].cpu().numpy())
+
+
+def test_sm3_kernel_repeated_launches(dev):
+    """65,536 messages of 3-18 blocks in 50 launches, each bit-exact
+    against sm3_varlen_plain: ranks within a length come from atomicAdd,
+    so the slot a message takes varies between launches."""
+    _, blocks, _, own = _sm3_ragged(65536, 11)
+    b, nv = torch.as_tensor(blocks, device=dev), torch.as_tensor(own, device=dev)
+    want = sm3.sm3_varlen_plain(b, nv)
+    assert sum(int((cuda_sm3.sm3_varlen(b, nv) != want).any(1).sum()) for _ in range(50)) == 0
 
 
 @pytest.mark.parametrize("n", [1, 2, 17, 300, 4097])

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Probe the port's EC kernels (csrc/ladder.cu, csrc/sm2.cu and the
 secp256k1 recover and verify kernels of csrc/verify.cu), kernel G (the
-pow kernels of csrc/fp.cu), the varlen Keccak kernel (csrc/keccak.cu) and
-the Merkle tree kernels (csrc/merkle.cu) on one NVIDIA card, for one or
-more copies of their sources.
+pow kernels of csrc/fp.cu), the varlen Keccak and SM3 kernels
+(csrc/keccak.cu, csrc/sm3.cu) and the Merkle tree kernels
+(csrc/merkle.cu) on one NVIDIA card, for one or more copies of their
+sources.
 
     python3 tools/ec_kernel_probe.py [--out DIR] [--kernels K,...] [COPY ...]
 
@@ -12,7 +13,7 @@ A COPY is a copy of csrc/ or a tree that holds fisco_bcos_tpu_torch/csrc/
 probes the port's own fisco_bcos_tpu_torch/csrc/. Several copies (at
 different steps of a change) are built in parallel and measured in one
 process on one card, in turns, so that their times compare. K is any of
-ladder, sm2, verify, fp, keccak, merkle (default all). For each copy it
+ladder, sm2, verify, fp, keccak, sm3, merkle (default all). For each copy it
 prints:
 
 - ptxas registers and stack of each kernel, and the static SASS counts of
@@ -39,6 +40,13 @@ prints:
   against the plain version, device ms as for fp, and the SASS opcodes of
   one Keccak round (`probe_keccak_round`, where the copy's keccak.cuh has
   `keccak_round`);
+- with sm3: the varlen kernel on the SM block's three shapes (chip_smoke's
+  65,536 tx encodings of 3-18 blocks and 65,536 receipt encodings, from
+  chip_smoke.block_payloads, and 65,536 seeded 64-byte keys, two blocks
+  each), bit-exact against the plain version in 50 launches a shape (the
+  slot a message takes varies between launches), device ms as for fp, ms
+  a call by CUDA events, the kernel's SASS opcodes and those of one SM3
+  compression (`probe_sm3_compress`);
 - with merkle: the Keccak and SM3 trees at n = 65,536 and n = 16 leaves,
   bit-exact against the plain tree in 50 launches each, device ms a tree (the profiler's, as
   for fp) and, for a copy that launches once a level, each level's; ms a
@@ -131,7 +139,7 @@ def log(*a):
     print(*a, flush=True)
 
 
-KERNELS = ("ladder", "sm2", "verify", "fp", "keccak", "merkle")
+KERNELS = ("ladder", "sm2", "verify", "fp", "keccak", "sm3", "merkle")
 
 
 def build(todo: dict[str, tuple[Path, list[str]]]) -> dict:
@@ -306,6 +314,25 @@ def keccak_call(lib, blocks, nvalid):
     return out
 
 
+def sm3_call(lib, blocks, nvalid):
+    from fisco_bcos_tpu_torch.ops import _cuda
+
+    out = torch.empty((blocks.shape[0], 32), dtype=torch.uint8, device=blocks.device)
+    rc = lib.sm3_varlen_launch(_cuda.ptr(blocks), _cuda.ptr(nvalid), _cuda.ptr(out),
+                               blocks.shape[0], blocks.shape[1], _cuda.stream_ptr(out))
+    _cuda.check(lib, rc, "sm3_varlen")
+    return out
+
+
+def sm3_cases():
+    """The SM block's three SM3 launches: [(shape, messages)]."""
+    txs, receipts = cs.block_payloads()
+    keys = np.random.default_rng(cs.SEED + 8).integers(0, 256, (cs.NTX, 64), dtype=np.uint8)
+    return [("tx encodings", [t.encode_unsigned() for t in txs]),
+            ("receipts", [r.encode() for r in receipts]),
+            ("address keys", [bytes(k) for k in keys])]
+
+
 def merkle_levels(n: int) -> int:
     levels = 0
     while n > 1:
@@ -413,7 +440,7 @@ def main() -> int:
     todo = {c: (d, list(kernels) + (["probe_mul"] if {"ladder", "sm2"} & set(kernels) else [])
                 + (["probe_keccak"] if {"keccak", "merkle"} & set(kernels)
                    and "keccak_round" in (d / "keccak.cuh").read_text() else [])
-                + (["probe_sm3"] if "merkle" in kernels else []))
+                + (["probe_sm3"] if {"sm3", "merkle"} & set(kernels) else []))
             for c, (d, _) in zip(names, copies)}
     dev = torch.device("cuda")
     log(f"[probe] {cs.phase_card_line()}")
@@ -434,6 +461,9 @@ def main() -> int:
             step_sass[copy, "keccak256"] = sum(logic.values())
             log(f"[sass {copy}/keccak round] {sum(logic.values())} instructions a round "
                 f"past the state's loads and stores: {logic} (all: {ops})")
+        if name == "sm3":
+            for fn, ops in cs.sass_opcodes(lib).items():
+                log(f"[sass {copy}/sm3] {fn} opcodes: {dict(sorted(ops.items()))}")
         if name == "probe_sm3":
             ops = next(v for k, v in cs.sass_opcodes(lib).items() if "probe_sm3_compress" in k)
             logic = {k: v for k, v in ops.items() if k not in NOT_STEP}
@@ -522,6 +552,20 @@ def main() -> int:
                           lambda lib, bt=bt, nv=nv: lambda: keccak_call(lib, bt, nv),
                           lambda lib: "keccak256_varlen_kernel",
                           lambda out, w=want: int((out != w).any(1).sum())))
+    if "sm3" in kernels:
+        from fisco_bcos_tpu_torch.ops import sm3
+
+        for shape, batch in sm3_cases():
+            blocks, nvalid = sm3.pad_batch_np(batch)
+            bt = torch.as_tensor(blocks, device=dev)
+            nv = torch.as_tensor(nvalid, device=dev).to(torch.int32).contiguous()
+            want = sm3.sm3_varlen_plain(bt, nv)
+            log(f"[probe] sm3 {shape}: B={len(batch)}, {int(nvalid.min())}-"
+                f"{int(nvalid.max())} blocks, {int(nvalid.sum())} compressions")
+            timed.append(("sm3", f"sm3 {shape}",
+                          lambda lib, bt=bt, nv=nv: lambda: sm3_call(lib, bt, nv),
+                          lambda lib: "sm3_varlen_kernel",
+                          lambda out, w=want: int((out != w).any(1).sum())))
     if "merkle" in kernels:
         from fisco_bcos_tpu_torch.ops import merkle
 
@@ -548,12 +592,13 @@ def main() -> int:
             log(f"[probe {c}] {kern}: mismatched lanes {n} of {cs.EC_B}")
     for c in names:
         for lib_name, case, launcher, _, mism in timed:
-            # a tree's schedule depends on the order of arrivals: 50 launches
-            reps = 50 if lib_name == "merkle" else 1
+            # a tree's schedule depends on the order of arrivals, a varlen
+            # SM3 message's slot on the order of ranks: 50 launches
+            reps = 50 if lib_name in ("merkle", "sm3") else 1
             n = sum(mism(launcher(libs[c, lib_name])()) for _ in range(reps))
             bad += n
             log(f"[probe {c}] {case}: mismatched lanes {n}"
-                + (f" (trees, in {reps} launches)" if reps > 1 else ""))
+                + (f" (in {reps} launches)" if reps > 1 else ""))
     # device time (the profiler's, L2 evicted before each call: a one-lane
     # launch is shorter than the host's launch through Python)
     fixed = {c: {} for c in names}
@@ -571,7 +616,7 @@ def main() -> int:
                     ev = sorted(cs.LAST_EVENTS[kn])
                     by_launch[c].setdefault(case, []).append(
                         [float(np.mean([e[2] for e in ev[k::per]])) / 1e3 for k in range(per)])
-                if lib_name == "merkle":
+                if lib_name in ("merkle", "sm3"):
                     events[c].setdefault(case, []).append(cs.cuda_ms(launcher(lib), 20))
                 log(f"[turn {rep} {c}] {case}: device ms {fixed[c][case][-1]:.4f}")
     for c in names:
