@@ -949,25 +949,17 @@ def sm3_cases(data) -> list:
 SM3_REPEATS = 50  # launches of the tx encodings' shape that must all be bit-exact
 
 
-def sm3_block_msgs(nblocks: int) -> int:
-    """The messages a block of kernel A sorts (csrc/sm3.cuh sm3_block_msgs;
-    0: none, one thread a message in arrival order)."""
-    return 0 if nblocks <= 2 else 512
-
-
 def sm3_issued(nvalid: np.ndarray, nblocks: int) -> dict:
-    """Compressions a warp issues for these block counts, summed over warps
-    (32 x the warp's longest message), under each schedule: one thread a
-    message in arrival order (warps of 32 consecutive messages: the
-    kernel's form where sm3_block_msgs is 0, and its earlier one for every
-    batch) and length-ordered (blocks of 512 messages sorted, groups of 32
-    slots; slots past B count 0); `kernel`: the kernel's."""
+    """A host model, from the block counts alone, of the compressions that
+    warps issue, summed over warps (32 x the warp's longest message): one
+    thread a message in arrival order (warps of 32 consecutive messages)
+    and length-ordered (blocks of 512 messages sorted, groups of 32 slots;
+    slots past B count 0). Nothing here is measured on the card."""
     nv = np.clip(nvalid.astype(np.int64), 0, nblocks)
     arrival = int(np.pad(nv, (0, -len(nv) % 32)).reshape(-1, 32).max(1).sum() * 32)
     blocks = np.sort(np.pad(nv, (0, -len(nv) % 512)).reshape(-1, 512), axis=1)
     ordered = int(blocks.reshape(-1, 32).max(1).sum() * 32)
-    return dict(needed=int(nv.sum()), arrival=arrival, length_ordered=ordered,
-                kernel=ordered if sm3_block_msgs(nblocks) else arrival)
+    return dict(needed=int(nv.sum()), arrival=arrival, length_ordered=ordered)
 
 
 def sm3_ragged(bt, nv, rng, dev):
@@ -994,11 +986,11 @@ def sm3_row(dev, data, rng) -> dict:
     """Kernel A against sm3_varlen_plain on the card, bit-exact, and 16
     sampled messages of each shape against refimpl.sm3, at each of
     sm3_cases' shapes, each timed apart by CUDA events around a call
-    (median of 20) and by its device time, with its own bound and the
-    compressions each schedule issues (sm3_issued); then the tx
-    encodings' shape in SM3_REPEATS launches (ranks within a length come
-    from atomicAdd, so the slot a message takes varies between launches)
-    and ragged (sm3_ragged), both bit-exact."""
+    (median of 20) and by its device time, with its own bound; the log
+    line adds sm3_issued's host model of each schedule's compressions;
+    then the tx encodings' shape in SM3_REPEATS launches (ranks within a
+    length come from atomicAdd, so the slot a message takes varies
+    between launches) and ragged (sm3_ragged), both bit-exact."""
     from fisco_bcos_tpu_torch.crypto import refimpl
     from fisco_bcos_tpu_torch.ops import cuda_sm3, sm3
 
@@ -1019,14 +1011,14 @@ def sm3_row(dev, data, rng) -> dict:
         issued = sm3_issued(nvalid, blocks.shape[1])
         shapes[shape] = dict(
             mismatches=mism, max_abs_err=int((got.int() - plain.int()).abs().max()), ms=ms,
-            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, issued=issued,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             shape=f"B={len(msgs)}, {int(nvalid.min())}-{int(nvalid.max())} blocks, "
                   f"{comp} compressions")
         log(f"[kernel] sm3 {shape} {shapes[shape]['shape']}: mismatches {mism}, "
             f"{ms:.4f} ms a call, {dev_ms:.4f} ms device (plain {plain_ms:.0f} ms), "
-            f"bound {bound:.4f} ms ({by}); compressions issued / needed: arrival order "
-            f"{issued['arrival'] / comp:.3f}, length-ordered "
-            f"{issued['length_ordered'] / comp:.3f}, this kernel {issued['kernel'] / comp:.3f}")
+            f"bound {bound:.4f} ms ({by}); host model from nvalid, compressions issued / "
+            f"needed: arrival order {issued['arrival'] / comp:.3f}, length-ordered "
+            f"{issued['length_ordered'] / comp:.3f}")
     bt, nv, plain = kept["tx encodings"]
     repeats = sum(int((cuda_sm3.sm3_varlen(bt, nv) != plain).any(1).sum())
                   for _ in range(SM3_REPEATS))

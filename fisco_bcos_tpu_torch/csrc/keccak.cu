@@ -35,36 +35,18 @@
 
 #define KECCAK_THREADS 256
 #define KECCAK_MSGS 512  // a block's messages: 16 groups for its 8 warps
-#define KECCAK_PER_THREAD (KECCAK_MSGS / KECCAK_THREADS)
 
-// msgs: the messages a block owns (lo_block_msgs); the schedule's steps,
-// the group walk's slots and each message's absorb are lenorder.cuh's and
-// keccak.cuh's, which the host tests run in this order
+// msgs: the messages a block owns (lo_block_msgs); the schedule is
+// lenorder.cuh's lo_run and each message's absorb keccak.cuh's, which the
+// host tests run step by step
 __global__ void __launch_bounds__(KECCAK_THREADS, 2)
 keccak256_varlen_kernel(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
                         int nblocks, int msgs) {
     __shared__ LenOrder<KECCAK_MSGS> so;
-    const int t = threadIdx.x, lane = t & 31;
-    const int base = blockIdx.x * msgs;
-    int nv[KECCAK_PER_THREAD], rank[KECCAK_PER_THREAD];
-    const bool same = __syncthreads_and(lo_load<KECCAK_MSGS, KECCAK_THREADS>(
-        so, nv, nvalid, t, base, B, nblocks, msgs));
-    lo_rank<KECCAK_MSGS, KECCAK_THREADS>(so, nv, rank, same, t, base, B, msgs);
-    if (!same) {
-        __syncthreads();
-        lo_scan_bins<KECCAK_MSGS, KECCAK_THREADS>(so, t, nblocks);
-        __syncthreads();
-        lo_place_msgs<KECCAK_MSGS, KECCAK_THREADS>(so, nv, rank, t, base, B, msgs);
-    }
-    __syncthreads();
-    for (;;) {
-        int q = 0;
-        if (lane == 0) q = atomicAdd(&so.next, 1);
-        const int g = lo_group_slot(__shfl_sync(0xFFFFFFFFu, q, 0), msgs);
-        if (g < 0) break;
-        keccak256_rows((const uint64_t *)blocks, (uint64_t *)out, so.msg[g + lane],
-                       so.nv[g + lane], nblocks);
-    }
+    lo_run<KECCAK_MSGS, KECCAK_THREADS>(
+        so, nvalid, blockIdx.x * msgs, B, nblocks, msgs, [&](int msg, int nv) {
+            keccak256_rows((const uint64_t *)blocks, (uint64_t *)out, msg, nv, nblocks);
+        });
 }
 
 extern "C" int keccak256_varlen_launch(const uint8_t *blocks, const int32_t *nvalid,

@@ -11,7 +11,8 @@
 // `LenOrder` (lo_load, lo_rank, lo_scan_bins, lo_place_msgs, then
 // lo_group_slot), split where the kernel puts a barrier, so that a host
 // build runs the kernel's own schedule thread by thread in the same order
-// (tests/test_torch_csrc_host.py). Ranks within a bin come from atomicAdd,
+// (tests/test_torch_csrc_host.py). lo_run holds the barriers and the warps'
+// group loop, and each kernel calls it with its own per-message hash. Ranks within a bin come from atomicAdd,
 // so which thread takes which message of equal length varies from run to
 // run; the digests do not. A block whose messages all have one length (the
 // address hash's 64-byte keys) skips the sort.
@@ -123,3 +124,34 @@ __device__ __forceinline__ void lo_place_msgs(LenOrder<M> &s, const int nv[M / T
 __device__ __forceinline__ int lo_group_slot(int q, int msgs) {
     return q < msgs / 32 ? msgs - 32 * (q + 1) : -1;
 }
+
+#ifdef __CUDACC__
+// The schedule as a kernel runs it, in a block of T threads that owns
+// `msgs` messages from `base`: steps 1-4 with their barriers, then each
+// warp takes groups of 32 slots, longest first, until none is left, and
+// each lane hashes its slot by rows(msg, nv). (The host tests run the same
+// steps one at a time, with the barriers between them.)
+template <int M, int T, class Rows>
+__device__ __forceinline__ void lo_run(LenOrder<M> &s, const int32_t *nvalid, int base, int B,
+                                       int nblocks, int msgs, Rows rows) {
+    const int t = threadIdx.x, lane = t & 31;
+    int nv[M / T], rank[M / T];
+    const bool same =
+        __syncthreads_and(lo_load<M, T>(s, nv, nvalid, t, base, B, nblocks, msgs));
+    lo_rank<M, T>(s, nv, rank, same, t, base, B, msgs);
+    if (!same) {
+        __syncthreads();
+        lo_scan_bins<M, T>(s, t, nblocks);
+        __syncthreads();
+        lo_place_msgs<M, T>(s, nv, rank, t, base, B, msgs);
+    }
+    __syncthreads();
+    for (;;) {
+        int q = 0;
+        if (lane == 0) q = atomicAdd(&s.next, 1);
+        const int g = lo_group_slot(__shfl_sync(0xFFFFFFFFu, q, 0), msgs);
+        if (g < 0) break;
+        rows(s.msg[g + lane], s.nv[g + lane]);
+    }
+}
+#endif

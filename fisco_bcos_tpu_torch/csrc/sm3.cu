@@ -36,43 +36,23 @@
 #include "lenorder.cuh"
 
 constexpr int SM3_THREADS = SM3_VARLEN_THREADS, SM3_MSGS = SM3_VARLEN_MSGS;
-constexpr int SM3_PER_THREAD = SM3_MSGS / SM3_THREADS;
 
 // msgs: the messages a block owns and sorts (sm3_block_msgs; 0: one a
-// thread, unsorted); the schedule's steps, the group walk's slots and each
-// message's absorb are lenorder.cuh's and sm3.cuh's, which the host tests
-// run in this order
+// thread, unsorted); the schedule is lenorder.cuh's lo_run and each
+// message's absorb sm3.cuh's, which the host tests run step by step
 __global__ void __launch_bounds__(SM3_THREADS, 2)
 sm3_varlen_kernel(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out, int B,
                   int nblocks, int msgs) {
     __shared__ LenOrder<SM3_MSGS> so;
-    const int t = threadIdx.x, lane = t & 31;
+    auto rows = [&](int msg, int nv) {
+        sm3_rows((const uint4 *)blocks, (uint4 *)out, msg, nv, nblocks);
+    };
     if (msgs == 0) {
-        const int i = blockIdx.x * SM3_THREADS + t;
-        sm3_rows((const uint4 *)blocks, (uint4 *)out, i < B ? i : -1,
-                 lo_nv(nvalid, i, B, nblocks), nblocks);
+        const int i = blockIdx.x * SM3_THREADS + threadIdx.x;
+        rows(i < B ? i : -1, lo_nv(nvalid, i, B, nblocks));
         return;
     }
-    const int base = blockIdx.x * msgs;
-    int nv[SM3_PER_THREAD], rank[SM3_PER_THREAD];
-    const bool same = __syncthreads_and(
-        lo_load<SM3_MSGS, SM3_THREADS>(so, nv, nvalid, t, base, B, nblocks, msgs));
-    lo_rank<SM3_MSGS, SM3_THREADS>(so, nv, rank, same, t, base, B, msgs);
-    if (!same) {
-        __syncthreads();
-        lo_scan_bins<SM3_MSGS, SM3_THREADS>(so, t, nblocks);
-        __syncthreads();
-        lo_place_msgs<SM3_MSGS, SM3_THREADS>(so, nv, rank, t, base, B, msgs);
-    }
-    __syncthreads();
-    for (;;) {
-        int q = 0;
-        if (lane == 0) q = atomicAdd(&so.next, 1);
-        const int g = lo_group_slot(__shfl_sync(0xFFFFFFFFu, q, 0), msgs);
-        if (g < 0) break;
-        sm3_rows((const uint4 *)blocks, (uint4 *)out, so.msg[g + lane], so.nv[g + lane],
-                 nblocks);
-    }
+    lo_run<SM3_MSGS, SM3_THREADS>(so, nvalid, blockIdx.x * msgs, B, nblocks, msgs, rows);
 }
 
 extern "C" int sm3_varlen_launch(const uint8_t *blocks, const int32_t *nvalid, uint8_t *out,

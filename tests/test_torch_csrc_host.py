@@ -97,8 +97,8 @@ static void wr_jac(const Jac &P) {
 
 // A varlen kernel's length-ordered schedule on the host (keccak.cu,
 // sm3.cu), block by block, through the kernel's own steps (lenorder.cuh)
-// in its order: each step for every thread of the block before the next
-// (the kernel's barriers), then the groups of 32 slots in the order the
+// in the order lo_run takes them on the card: each step for every thread
+// of the block before the next (lo_run's barriers), then the groups of 32 slots in the order the
 // warps take them, each slot hashed by rows(msg, nv). A block of T threads
 // owns `msgs` of at most M messages, as the launch sets. Exits non-zero if
 // a message is not in exactly one slot or the slots are out of length
