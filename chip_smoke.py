@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's crypto paths on one NVIDIA card: the
 default chain (secp256k1 + Keccak-256), the SM chain (SM2 + SM3) and the
-ZK plane's batched Poseidon (BN254), then both chains again on the
-composed EC route.
+ZK plane's batched Poseidon (BN254), both chains again on the composed
+EC route, then each chain's node path from wire frames to the ledger and
+the seal judge.
 
     python3 chip_smoke.py
 
@@ -91,6 +92,28 @@ version or to the CPU):
    1 a secp256k1 verify chunk (none on the SM chain), the fused EC
    kernels' counters 0, and the profiler's kernel calls equal to the
    counters.
+11. The node path, as a solo node wires it (the JAX package's
+   init/node.py:299-312): genesis over the seal span's 4 sealers on a
+   Ledger over MemoryStorage, a TxPool (limit 131,072) and an IngestLane
+   (16,384 frames a dispatch); 65,536 wire frames on the default chain,
+   4,096 on the SM chain: the slices' blocks of 3 and 5, or their first
+   4,096 txs, in through submit_many_wire_nowait, the pool's block-limit
+   window at 1,000; seal and fill_block; the block's roots with
+   seeded receipts standing in for execution; prewrite_block, the header
+   rows and the storage 2PC (the scheduler's two commit steps, replayed:
+   the executor and scheduler are not ported); then a span of 4,096
+   headers (256 on the SM chain) tiling 3's sealed headers, mostly
+   cert-mode certificates, some legacy, some below quorum, one minted
+   under a foreign sealer set, 1% of the seal lanes corrupted, judged by
+   qc.verify_spans as two groups' concurrent halves through one
+   CryptoLane, which merges them into one verify_batch. Each step's
+   launches must equal the counts from the shapes and the profiler's
+   calls; every status and sender is held to the oracle (every signed
+   entry, corrupted lane and 64 sampled ones) and every sender to the
+   slice's, the hashes and roots to
+   the plain path, the committed block to the ledger's reads and a tx
+   proof, each header's verdict to the quorum of the oracle's per-seal
+   verdicts.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -203,7 +226,7 @@ def device_events(prof, tag: str):
     return device_us, calls
 
 
-def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3,
+def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
                      per_call: int = 1) -> float:
     """Mean device time in ms of the kernel `name` a call of fn (which
     launches it per_call times) over reps calls, by the profiler's device
@@ -212,12 +235,16 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 3,
     assumes. For a kernel shorter than its launch, where CUDA events
     around one call time the host's launch. The warm-up calls' events are
     left out (device_events; LAST_EVENTS then holds the counted ones); a
-    profiler session that lost events is run again, up to `tries` times."""
+    profiler session that lost events is run again, up to `tries` times.
+    On some card machines sessions have lost some, most or all of their
+    events (6 to 20 of 20 calls of the short fp and pow kernels), more
+    often at a session's start: each session pauses 0.2 s first."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.2)
             for _ in range(reps):
                 flush.zero_()
                 fn()
@@ -1261,10 +1288,8 @@ def build_slice(suite, rng):
     block = T.Block(header=T.BlockHeader(number=7), transactions=txs,
                     receipts=receipts)
     # seals: 256 headers x 4 sealers, tiled to 16,384 lanes
-    sealers = [suite.generate_keypair(b"sealer" + bytes([k])) for k in range(4)]
-    headers = [T.BlockHeader(number=1000 + h, timestamp=h,
-                             sealer_list=[k.pub_bytes for k in sealers])
-               for h in range(256)]
+    sealers = seal_keys(suite)
+    headers = seal_headers(sealers)
     seal_d, seal_s, seal_p = [], [], []
     for hd in headers:
         d = hd.hash(suite)
@@ -1287,6 +1312,20 @@ def build_slice(suite, rng):
     return dict(kps=kps, txs=txs, signed_hash=signed_hash, own=own, corrupt=corrupt,
                 receipts=receipts, block=block, seal_d=seal_d, seal_s=seal_s,
                 seal_p=seal_p, dg=dg, sg=sg, pb=pb, seal_bad=seal_bad)
+
+
+def seal_keys(suite):
+    """The 4 sealers of the slice's seal span and of the node's genesis."""
+    return [suite.generate_keypair(b"sealer" + bytes([k])) for k in range(4)]
+
+
+def seal_headers(sealers, n: int = 256):
+    """n headers tiling the slice's 256 sealed headers."""
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    return [T.BlockHeader(number=1000 + h % 256, timestamp=h % 256,
+                          sealer_list=[k.pub_bytes for k in sealers])
+            for h in range(n)]
 
 
 def slice_counters(kind: str, route: str = "fused") -> dict:
@@ -2056,6 +2095,448 @@ def phase_composed(dev, kind: str, data, fused: dict, rng):
     return launches, phases
 
 
+# ---------------------------------------------------------------------------
+# the node path: admission to the ledger, and the seal judge
+# ---------------------------------------------------------------------------
+# A solo node's wiring (the JAX package's init/node.py:299-312) at full
+# width on the default chain and at a smaller depth on the SM chain.
+NODE_TXS = {"ecdsa": NTX, "sm": 4096}  # the slice's block, or its first 4,096
+NODE_HEADERS = {"ecdsa": 4096, "sm": 256}  # a sync-sized span: 4 seals a header
+NODE_POOL_LIMIT = 131072  # the [txpool] limit a 65,536-tx block needs (the
+#                           15,000 default sheds past its 0.7 watermark)
+NODE_BLOCK_LIMIT_RANGE = 1000  # the slice's txs carry block_limit 1000: the
+#                                pool's window (600 by default) admits them
+INGEST_MAX_BATCH = 16384  # one suite CHUNK a dispatch
+INGEST_QUEUE_CAP = 65536
+NODE_STEPS = ("admission", "seal_fill", "roots", "prewrite_commit", "verify_spans")
+
+
+def node_expected_launches(kind: str, ntx: int, nlanes: int) -> dict:
+    """Each step's kernel launches, from the shapes: the ingest lane
+    dispatches INGEST_MAX_BATCH frames at a time, each one submit_columns
+    with one hash_batch (one varlen launch) and one recover_addresses
+    (recover or SM2 verify a suite CHUNK, then the keys' hash); the roots
+    hash the receipts and build two trees; the span's two halves merge
+    into one hash_batch of the headers and one verify_batch."""
+    from fisco_bcos_tpu_torch.crypto.suite import CHUNK
+
+    hashk, tree = (("keccak256_varlen", "merkle_keccak_tree") if kind == "ecdsa"
+                   else ("sm3_varlen", "merkle_sm3_tree"))
+    eck, verk = (("ecdsa_recover", "ecdsa_verify") if kind == "ecdsa"
+                 else ("sm2_verify", "sm2_verify"))
+    dispatches = [min(INGEST_MAX_BATCH, ntx - o) for o in range(0, ntx, INGEST_MAX_BATCH)]
+    admission = {hashk: 2 * len(dispatches),
+                 eck: sum(-(-k // CHUNK) for k in dispatches)}
+    return {"admission": admission, "seal_fill": {}, "roots": {hashk: 1, tree: 2},
+            "prewrite_commit": {}, "verify_spans": {hashk: 1, verk: -(-nlanes // CHUNK)}}
+
+
+def node_seal_span(suite, data, nheaders: int, rng):
+    """nheaders headers tiling the slice's 256 sealed headers, each with
+    its 4 seals: cert-mode certificates (quorum 3 of 4), every 16th a
+    legacy multi-seal header, some pushed below quorum (a 2-signer bitmap,
+    2 legacy seals), one certificate minted under a foreign sealer set,
+    and 1% of the seal lanes corrupted. -> (headers, the local sealer
+    set, the lanes [(header, digest, sig, pub)] the judge verifies, the
+    corrupted lanes, the headers with no lanes)."""
+    from fisco_bcos_tpu_torch.consensus import qc
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    c, kind = suite.params, suite.kind
+    sealers = seal_keys(suite)
+    local = [k.pub_bytes for k in sealers]
+    seal_d, seal_s = data["seal_d"], data["seal_s"]
+    headers, lanes, structural = seal_headers(sealers, nheaders), [], set()
+    for j, hd in enumerate(headers):
+        h = j % 256
+        seals = [(k, seal_s[4 * h + k]) for k in range(4)]
+        if j % 64 == 7:                              # cert below quorum
+            qc.attach(hd, qc.mint_cert(seals[:2], 4))
+            structural.add(j)
+        elif j % 64 == 39:                           # legacy below quorum
+            hd.signature_list = seals[:2]
+            structural.add(j)
+        elif j % 16 == 3:                            # legacy multi-seal
+            hd.signature_list = seals
+        else:
+            qc.attach(hd, qc.mint_cert(seals, 4))
+        if j not in structural:
+            lanes += [(j, seal_d[4 * h + k], s, local[k]) for k, s in seals]
+    # a certificate minted under a foreign sealer set: its own header, seals
+    foreign = [suite.generate_keypair(b"foreign" + bytes([k])) for k in range(4)]
+    hd = T.BlockHeader(number=999, timestamp=999, sealer_list=[k.pub_bytes for k in foreign])
+    hh = hd.hash(suite)
+    qc.attach(hd, qc.mint_cert([(k, suite.sign(kp, hh)) for k, kp in enumerate(foreign)], 4))
+    headers[11] = hd
+    lanes = [ln for ln in lanes if ln[0] != 11]
+    structural.add(11)
+    # 1% of the seal lanes corrupted, in place in their header's carriage
+    bad = {}
+    for j, i in enumerate(rng.sample(range(len(lanes)), len(lanes) // 100)):
+        hj, d, sig, pub = lanes[i]
+        _, sig2, _ = corrupt_seal(kind, j % 2, d, sig, pub, c, pub)   # r = 0, s >= n
+        lanes[i] = (hj, d, sig2, pub)
+        bad[i] = j
+        hd = headers[hj]
+        cert = qc.extract(hd)
+        if cert is None:
+            hd.signature_list = [(k, sig2 if s == sig else s) for k, s in hd.signature_list]
+        else:
+            size = suite.signature_size
+            parts = [cert.payload[o:o + size] for o in range(0, len(cert.payload), size)]
+            qc.attach(hd, qc.QuorumCert(cert.mode, cert.bitmap,
+                                        b"".join(sig2 if s == sig else s for s in parts)))
+    return headers, local, lanes, bad, structural
+
+
+def node_results_digest(results: dict) -> str:
+    """SHA-256 of the node phase's outputs: every admission result
+    (status, hash, sender), the sealed hashes, the committed header and
+    every seal verdict."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for st, th, snd in results["admitted"]:
+        h.update(st.to_bytes(4, "big") + th + (snd or b"-"))
+    h.update(b"".join(results["sealed"]) + results["header"])
+    h.update(np.asarray(results["verdicts"], dtype=np.uint8).tobytes())
+    return h.hexdigest()
+
+
+class _Together:
+    """A group's suite whose batch calls wait at a barrier for the other
+    group's, so that both groups' halves of a span reach the crypto lane
+    in one drain, as two groups syncing the same range at once do."""
+
+    def __init__(self, suite, barrier):
+        self._suite = suite
+        self._barrier = barrier
+
+    def __getattr__(self, name):
+        return getattr(self._suite, name)
+
+    def hash_batch(self, msgs):
+        self._barrier.wait(120)
+        return self._suite.hash_batch(msgs)
+
+    def verify_batch(self, digests, sigs, pubs):
+        self._barrier.wait(120)
+        return self._suite.verify_batch(digests, sigs, pubs)
+
+
+def phase_node(dev, suite, data, rng, slice_senders):
+    """(11) The node path on `suite`, as a solo node wires it: the slice's
+    block (`data`) as wire frames
+    through the ingest lane into the txpool (submit_columns), sealing and
+    fill_block, the block's roots, the ledger's prewrite and the storage
+    2PC on memory storage (the scheduler's two commit steps, replayed
+    here: scheduler/scheduler.py:300-306 and :591-606 of the JAX package;
+    the executor, scheduler and sealer are not ported yet), the pool's
+    commit notice, then a sync-sized seal span judged by qc.verify_spans
+    through two groups' LaneSuites on one CryptoLane. Each step's launch
+    counters are zeroed before it and read after it; held to the oracle,
+    the plain path, the slice's senders (`slice_senders`) and the counts
+    from the shapes. -> (launches by step, walls in ms, device ms)."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fisco_bcos_tpu_torch.consensus import qc
+    from fisco_bcos_tpu_torch.crypto.lane import CryptoLane, LaneSuite
+    from fisco_bcos_tpu_torch.ledger.ledger import (T_HASH2NUM, T_HEADER, ConsensusNode,
+                                                    Ledger, _be8)
+    from fisco_bcos_tpu_torch.ops import keccak, merkle, sm3
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.storage import Entry, MemoryStorage, StateStorage
+    from fisco_bcos_tpu_torch.txpool import IngestLane, TxPool
+
+    kind = suite.kind
+    tag = f"[node {kind}]"
+    ntx, nheaders = NODE_TXS[kind], NODE_HEADERS[kind]
+    S = T.TransactionStatus
+    t0 = time.perf_counter()
+    txs, kps, signed_hash = data["txs"][:ntx], data["kps"], data["signed_hash"]
+    own = min(data["own"], ntx)
+    corrupt = {i: j for i, j in data["corrupt"].items() if i < ntx}
+    frames = [t.encode() for t in txs]
+    headers, local, lanes, seal_bad, structural = node_seal_span(suite, data, nheaders, rng)
+    log(f"{tag} set-up ({ntx} wire frames of the slice's block, {nheaders} headers, "
+        f"{len(lanes)} seal lanes): {time.perf_counter() - t0:.1f} s")
+
+    counters = slice_counters(kind)
+    expect = node_expected_launches(kind, ntx, len(lanes))
+    # every step's batches take the suite's device path: no host fallback
+    sizes = (min(INGEST_MAX_BATCH, ntx), ntx, len(lanes) // 2, len(lanes))
+    if not all(suite._use_device(n) for n in sizes):
+        fail(f"{tag} a batch of {sizes} would take the suite's host path")
+
+    def run():
+        """One profiled run of the node path on fresh node state."""
+        for hd in headers:
+            hd._hash = None
+        storage = MemoryStorage()
+        ledger = Ledger(storage, suite)
+        genesis = ledger.build_genesis([ConsensusNode(p) for p in local], tx_count_limit=ntx)
+        pool = TxPool(suite, ledger, pool_limit=NODE_POOL_LIMIT,
+                      block_limit_range=NODE_BLOCK_LIMIT_RANGE)
+        ingest = IngestLane(pool, max_batch=INGEST_MAX_BATCH, queue_cap=INGEST_QUEUE_CAP)
+        crypto = CryptoLane(suite, wait_ms=100.0)
+        admitted, errors = [], []
+        submit_columns = pool.submit_columns
+
+        def recording(cols, broadcast=True):
+            """submit_columns, keeping each drain's results in arrival
+            order (the frames go in fire-and-forget, as gossip does)."""
+            try:
+                res = submit_columns(cols, broadcast)
+            except BaseException as exc:
+                errors.append(exc)
+                raise
+            admitted.extend(res)
+            return res
+
+        pool.submit_columns = recording
+        launches, walls, out = {}, {}, {}
+
+        def step(name, fn):
+            for c in counters.values():
+                c.launches = 0
+            out[name], walls[name] = wall_ms(fn)
+            launches[name] = {k: c.launches for k, c in counters.items()}
+
+        def admit():
+            if ingest.submit_many_wire_nowait(frames) != ntx:
+                fail(f"{tag} the ingest queue refused frames")
+            deadline = time.monotonic() + 600
+            while len(admitted) < ntx and not errors:
+                if time.monotonic() > deadline:
+                    fail(f"{tag} {len(admitted)} of {ntx} frames admitted in 600 s")
+                time.sleep(0.005)
+            if errors:
+                fail(f"{tag} submit_columns raised {errors[0]!r}")
+
+        def seal_fill():
+            limit = ledger.ledger_config().block_tx_count_limit
+            sealed, hashes = pool.seal(limit)
+            return sealed, hashes, pool.fill_block(hashes)
+
+        def roots():
+            nrng = np.random.default_rng(SEED + 3)
+            sealed = out["seal_fill"][2]
+            header = T.BlockHeader(number=1, timestamp=1_700_000_000_000,
+                                   parent_info=[T.ParentInfo(0, genesis.hash(suite))],
+                                   sealer_list=list(local))
+            block = T.Block(header=header, transactions=sealed)
+            block.receipts = [T.Receipt(gas_used=int(nrng.integers(21000, 10 ** 6)),
+                                        status=0, output=nrng.bytes(32), block_number=1)
+                              for _ in sealed]
+            header.txs_root = block.calculate_txs_root(suite)
+            header.receipts_root = block.calculate_receipts_root(suite)
+            return block
+
+        def prewrite_commit():
+            block = out["roots"]
+            header = block.header
+            state = StateStorage(storage)
+            ledger.prewrite_block(block, state)
+            changes = state.changeset()
+            changes[(T_HEADER, _be8(1))] = Entry(header.encode())
+            changes[(T_HASH2NUM, header.hash(suite))] = Entry(_be8(1))
+            storage.prepare(1, changes)
+            storage.commit(1)
+            pool.on_block_committed(1, out["seal_fill"][1],
+                                    [t.nonce for t in block.transactions])
+
+        def judge():
+            barrier = threading.Barrier(2)
+            groups = [_Together(LaneSuite(crypto, tag=f"group{g}"), barrier)
+                      for g in range(2)]
+            half = nheaders // 2
+            parts = [headers[:half], headers[half:]]
+            verdicts, failures = [None, None], []
+
+            def verify(g):
+                try:
+                    verdicts[g] = qc.verify_spans(parts[g], local, groups[g])
+                except BaseException as exc:  # re-raised on the main thread below
+                    failures.append(exc)
+                    barrier.abort()
+
+            threads = [threading.Thread(target=verify, args=(g,), name=f"sync-group{g}")
+                       for g in range(2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            if failures:
+                raise failures[0]
+            if any(th.is_alive() for th in threads):
+                fail(f"{tag} verify_spans did not return in 600 s")
+            return np.concatenate(verdicts)
+
+        # the profiler warms up on small steps through the same kernels
+        # (device_events leaves their events out): a pause, then three
+        # rounds, since a late session of the process has lost more than
+        # one round's first events
+        sub = [bytes(h) for h in signed_hash[:8]]
+        try:
+            ingest.start()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.5)
+                for _ in range(3):
+                    suite.recover_addresses(sub, [t.signature for t in txs[:8]])
+                    suite.hash_batch(frames[:8])
+                    suite.merkle_root(signed_hash[:17])
+                    suite.verify_batch(data["seal_d"][:8], data["seal_s"][:8],
+                                       data["seal_p"][:8])
+                torch.cuda.synchronize()
+                with record_function(MARK):
+                    step("admission", admit)
+                    step("seal_fill", seal_fill)
+                    step("roots", roots)
+                    step("prewrite_commit", prewrite_commit)
+                    step("verify_spans", judge)
+        finally:
+            ingest.stop()
+            crypto.stop()
+        return dict(prof=prof, launches=launches, walls=walls, out=out, admitted=admitted,
+                    ledger=ledger, pool=pool, ingest=ingest.stats(),
+                    crypto=crypto.stats()["per_op"])
+
+    # A late profiler session of the process has lost its first events (a
+    # whole warm-up round and the first measured launch). The counters are
+    # held to the shapes on every run; a run whose profiler calls differ
+    # from its counters is run again on fresh node state, up to 5 runs.
+    for _ in range(5):
+        r = run()
+        launches, walls = r["launches"], r["walls"]
+        device_us, calls = device_events(r["prof"], tag)
+        dev_ms = sum(device_us.values()) / 1e3
+        for name in NODE_STEPS:
+            log(f"{tag} {name}: {walls[name]:.1f} ms wall, launches "
+                f"{ {k: n for k, n in launches[name].items() if n} }")
+        total = sum(walls.values())
+        log(f"{tag} device time {dev_ms:.1f} ms of {total:.1f} ms wall "
+            f"(host {total - dev_ms:.1f} ms); ingest {r['ingest']}; crypto lane {r['crypto']}")
+        for name in NODE_STEPS:
+            got = {k: n for k, n in launches[name].items() if n}
+            if got != expect[name]:
+                fail(f"{tag} {name} launched {got}, the shapes give {expect[name]}")
+        summed = {k: sum(launches[s][k] for s in NODE_STEPS) for k in counters}
+        missing = [k for k, n in summed.items() if n == 0]
+        if missing:
+            fail(f"{tag} the node path did not launch {missing}")
+        seen = {k: sum(calls.get(n, 0) for n in kernel_names(k)) for k in counters}
+        if seen == summed:
+            break
+        log(f"[profiler] {tag} recorded kernel calls {seen}, the counters {summed}; "
+            f"the node path runs again on fresh node state")
+    else:
+        fail(f"{tag} the profiler recorded kernel calls {seen}, the counters {summed}, "
+             f"in 5 runs")
+    out, admitted, ledger, pool = r["out"], r["admitted"], r["ledger"], r["pool"]
+    log(f"{tag} device us by counter: " + ", ".join(
+        f"{k} {sum(device_us.get(n, 0.0) for n in kernel_names(k)):.1f}" for k in counters))
+
+    # -- checks ---------------------------------------------------------------
+    res = admitted
+    hashes = [r.tx_hash for r in res]
+    if hashes[:NSIGNED] != signed_hash:
+        fail(f"{tag} tx hashes differ from the host oracle on the signed entries")
+    if plain_tx_hashes(suite, txs) != hashes:
+        fail(f"{tag} tx hashes (in frame order) differ from the plain path")
+    bad = 0
+    for i in range(own):
+        if i not in corrupt and (res[i].status != S.OK or res[i].sender != kps[i % 16].address):
+            bad += 1
+    sample = rng.sample([i for i in range(NSIGNED, ntx) if i not in corrupt], 64)
+    oracle = data.setdefault("oracle", {})   # the slice's verdicts on these lanes
+    for i in sorted(set(corrupt) | set(sample)):
+        if ("sender", i) not in oracle:
+            oracle["sender", i] = oracle_sender(kind, hashes[i], txs[i].signature)
+        want = oracle["sender", i]
+        status = S.OK if want is not None else S.INVALID_SIGNATURE
+        if res[i].status != status or res[i].sender != want:
+            bad += 1
+    if bad:
+        fail(f"{tag} {bad} admission results differ from the host oracle")
+    if [r.sender for r in res] != list(slice_senders[:ntx]):
+        fail(f"{tag} admitted senders differ from the slice's batch_recover_senders")
+    ok_hashes = [r.tx_hash for r in res if r.status == S.OK]
+    log(f"{tag} admission: {ntx} frames, {len(ok_hashes)} admitted, "
+        f"{ntx - len(ok_hashes)} rejected ({len(corrupt)} corrupted lanes; "
+        f"{len(set(range(own)) | set(corrupt) | set(sample))} held to their signers or "
+        f"the oracle)")
+    sealed, seal_hashes, filled = out["seal_fill"]
+    if seal_hashes != ok_hashes or [t.encode() for t in filled] != \
+            [frames[i] for i, r in enumerate(res) if r.status == S.OK]:
+        fail(f"{tag} the sealed block is not the admitted txs in admission order")
+    block = out["roots"]
+    header = block.header
+    alg = suite.hash_name
+    nb = len(seal_hashes)
+    leaves = torch.as_tensor(np.frombuffer(bytearray(b"".join(seal_hashes)), np.uint8)
+                             .reshape(nb, 32), device=dev)
+    if bytes(merkle.merkle_root_bucketed_plain(leaves, nb, alg).cpu().numpy()) != \
+            header.txs_root:
+        fail(f"{tag} txs root differs from the plain path")
+    mod, plain = ((keccak, keccak.keccak256_varlen_plain) if kind == "ecdsa"
+                  else (sm3, sm3.sm3_varlen_plain))
+    blocks, nvalid = mod.pad_batch_np([r.encode() for r in block.receipts])
+    rdig = plain(torch.as_tensor(blocks, device=dev), torch.as_tensor(nvalid, device=dev))
+    if [bytes(x) for x in rdig.cpu().numpy()] != [r._hash for r in block.receipts]:
+        fail(f"{tag} receipt hashes differ from the plain path")
+    rleaves = torch.as_tensor(rdig.cpu().numpy(), device=dev)
+    if bytes(merkle.merkle_root_bucketed_plain(rleaves, nb, alg).cpu().numpy()) != \
+            header.receipts_root:
+        fail(f"{tag} receipts root differs from the plain path")
+    if ledger.current_number() != 1 or ledger.total_tx_count() != len(ok_hashes):
+        fail(f"{tag} ledger at {ledger.current_number()} with "
+             f"{ledger.total_tx_count()} txs, expected 1 and {len(ok_hashes)}")
+    if ledger.header_by_number(1).encode() != header.encode():
+        fail(f"{tag} the committed header differs from the sealed one")
+    if pool.pending_count() != 0:
+        fail(f"{tag} {pool.pending_count()} txs still pending after the commit")
+    picks = rng.sample(seal_hashes, 16)
+    for h in picks:
+        if ledger.receipt(h) is None or ledger.transaction(h) is None:
+            fail(f"{tag} a committed tx has no receipt or body")
+    t0 = time.perf_counter()
+    nproofs = 1 if nb > 16384 else 4   # a proof rebuilds the tree on the host
+    for h in picks[:nproofs]:
+        proof, root = ledger.tx_proof(h)
+        if root != header.txs_root or not merkle.verify_merkle_proof(h, proof, root, alg):
+            fail(f"{tag} tx_proof does not verify against the header's txs root")
+    log(f"{tag} ledger: block 1 committed, {ledger.total_tx_count()} txs, 16 receipts "
+        f"read, {nproofs} tx proofs verified ({time.perf_counter() - t0:.1f} s on the host)")
+    verdicts = out["verify_spans"]
+    seal_ok = {}
+    for i, (hj, d, sig, pub) in enumerate(lanes):
+        seal_ok.setdefault(hj, []).append(oracle_verify(kind, pub, d, sig)
+                                          if i in seal_bad else True)
+    for i in rng.sample(range(len(lanes)), 32):
+        if i not in seal_bad and not oracle_verify(kind, *[lanes[i][k] for k in (3, 1, 2)]):
+            fail(f"{tag} the oracle rejects one of its own seals")
+    want = []
+    for j, hd in enumerate(headers):
+        oks = seal_ok.get(j, [])
+        need = len(oks) if qc.extract(hd) is not None else 3
+        want.append(j not in structural and sum(oks) >= need)
+    if list(verdicts) != want:
+        fail(f"{tag} {sum(a != b for a, b in zip(verdicts, want))} seal verdicts differ "
+             f"from the quorum of the oracle's per-seal verdicts")
+    for j, hd in enumerate(headers):
+        if j != 11 and hd._hash != data["seal_d"][4 * (j % 256)]:
+            fail(f"{tag} a header hash differs from the host oracle's")
+    log(f"{tag} seals: {nheaders} headers, {len(lanes)} lanes in one verify_batch "
+        f"({len(seal_bad)} corrupted), {int(np.sum(verdicts))} headers at quorum; "
+        f"all agree with the oracle")
+    results = dict(admitted=[(int(r.status), r.tx_hash, r.sender) for r in res],
+                   sealed=seal_hashes, header=header.encode(), verdicts=verdicts)
+    log(f"{tag} results digest {node_results_digest(results)}")
+    return launches, walls, dev_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2085,22 +2566,25 @@ def main() -> int:
     sm_data = build_slice(sm_suite, rng)
     rows.update(phase_sm_kernels(dev, sm_data, rng))
     sm_launches, _, sm_fused = phase_slice(dev, sm_suite, sm_data, rng)
-    launches.update(sm_launches)
+    by_path = {k: {"slice_ecdsa": n} for k, n in launches.items()}
+    by_path.update({k: {"slice_sm": n} for k, n in sm_launches.items()})
     idle = {k: fn.launches for k, fn in composed_counters().items()}
     if any(idle.values()):
         fail(f"fp, pow or ladder kernels launched during phases 2-5 (the plain EC "
              f"oracles): {idle}")
     rows.update(phase_fp_kernels(dev))
     fp_launches, _ = phase_poseidon(dev, suite, rng)
-    by_path = {k: {"poseidon": n} for k, n in fp_launches.items()}
+    by_path.update({k: {"poseidon": n} for k, n in fp_launches.items()})
     rows.update(phase_pow_kernel(dev))
     rows.update(phase_ladder_kernel(dev, rng))
     for kind, d, fres in (("ecdsa", data, fused), ("sm", sm_data, sm_fused)):
         got, _ = phase_composed(dev, kind, d, fres, rng)
         for k in composed_counters():
             by_path.setdefault(k, {})[f"composed_{kind}"] = got[k]
-    for k, n in launches.items():
-        rows[k]["launches"] = n
+    for kind, s, d, fres in (("ecdsa", suite, data, fused), ("sm", sm_suite, sm_data, sm_fused)):
+        steps, _, _ = phase_node(dev, s, d, random.Random(SEED + 4), fres["senders"])
+        for k in slice_counters(kind):
+            by_path[k][f"node_{kind}"] = sum(st[k] for st in steps.values())
     for k, paths in by_path.items():
         rows[k]["launches"] = sum(paths.values())
         rows[k]["launches_by_path"] = paths
