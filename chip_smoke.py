@@ -97,8 +97,8 @@ version or to the CPU):
    Ledger over MemoryStorage, a TxPool (limit 131,072) and an IngestLane
    (16,384 frames a dispatch); 65,536 wire frames on the default chain,
    4,096 on the SM chain: the slices' blocks of 3 and 5, or their first
-   4,096 txs, in through submit_many_wire_nowait, the pool's block-limit
-   window at 1,000; seal and fill_block; the block's roots with
+   4,096 txs (block_limit 500, in the pool's default window of 600), in
+   through submit_many_wire_nowait; seal and fill_block; the block's roots with
    seeded receipts standing in for execution; prewrite_block, the header
    rows and the storage 2PC (the scheduler's two commit steps, replayed:
    the executor and scheduler are not ported); then a span of 4,096
@@ -106,7 +106,9 @@ version or to the CPU):
    cert-mode certificates, some legacy, some below quorum, one minted
    under a foreign sealer set, 1% of the seal lanes corrupted, judged by
    qc.verify_spans as two groups' concurrent halves through one
-   CryptoLane, which merges them into one verify_batch. Each step's
+   CryptoLane, which merges them into one verify_batch (15,868 seal
+   lanes; 988 on the SM chain: the 129 or 9 headers below quorum or
+   under the foreign set carry no lanes to verify). Each step's
    launches must equal the counts from the shapes and the profiler's
    calls; every status and sender is held to the oracle (every signed
    entry, corrupted lane and 64 sampled ones) and every sender to the
@@ -238,11 +240,13 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
     profiler session that lost events is run again, up to `tries` times.
     On some card machines sessions have lost some, most or all of their
     events (6 to 20 of 20 calls of the short fp and pow kernels), more
-    often at a session's start: each session pauses 0.2 s first."""
+    often at a session's start: each session pauses 0.2 s first. More
+    calls than launched cannot be a lost event and fails at once; the
+    log names the sessions each measurement took."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    for _ in range(tries):
+    for session in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(0.2)
             for _ in range(reps):
@@ -256,7 +260,11 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
                 torch.cuda.synchronize()
         device_us, calls = device_events(prof, f"[{name}]")
         us, calls = device_us.get(name, 0.0), calls.get(name, 0)
+        if calls > reps * per_call:
+            fail(f"the profiler recorded {calls} calls of {name}, more than the "
+                 f"{reps * per_call} launched")
         if calls == reps * per_call:
+            log(f"[profiler] {name}: {session} session(s)")
             return us / reps / 1e3
         log(f"[profiler] recorded {calls} of {reps * per_call} calls of {name}; again")
     fail(f"the profiler recorded {calls} calls of {name}, expected {reps * per_call}")
@@ -1231,12 +1239,14 @@ def plain_tx_hashes(suite, txs) -> list[bytes]:
 
 def block_payloads():
     """The slice's NTX unsigned txs (seeded payloads of 64-1,024 bytes to
-    seeded addresses) and NTX receipts, the same on either chain."""
+    seeded addresses) and NTX receipts, the same on either chain. Each tx
+    carries block_limit 500, as a client sets it 500 blocks past the chain's
+    height (here genesis): inside a txpool's default window of 600."""
     from fisco_bcos_tpu_torch.protocol import types as T
 
     nrng = np.random.default_rng(SEED + 1)
     lens = nrng.integers(64, 1025, NTX)
-    txs = [T.Transaction(nonce=str(i), block_limit=1000, to=nrng.bytes(20),
+    txs = [T.Transaction(nonce=str(i), block_limit=500, to=nrng.bytes(20),
                          input=nrng.bytes(int(lens[i]))) for i in range(NTX)]
     receipts = [T.Receipt(gas_used=int(nrng.integers(21000, 10 ** 6)),
                           status=0, output=nrng.bytes(32), block_number=7)
@@ -2104,8 +2114,6 @@ NODE_TXS = {"ecdsa": NTX, "sm": 4096}  # the slice's block, or its first 4,096
 NODE_HEADERS = {"ecdsa": 4096, "sm": 256}  # a sync-sized span: 4 seals a header
 NODE_POOL_LIMIT = 131072  # the [txpool] limit a 65,536-tx block needs (the
 #                           15,000 default sheds past its 0.7 watermark)
-NODE_BLOCK_LIMIT_RANGE = 1000  # the slice's txs carry block_limit 1000: the
-#                                pool's window (600 by default) admits them
 INGEST_MAX_BATCH = 16384  # one suite CHUNK a dispatch
 INGEST_QUEUE_CAP = 65536
 NODE_STEPS = ("admission", "seal_fill", "roots", "prewrite_commit", "verify_spans")
@@ -2265,10 +2273,10 @@ def phase_node(dev, suite, data, rng, slice_senders):
 
     counters = slice_counters(kind)
     expect = node_expected_launches(kind, ntx, len(lanes))
-    # every step's batches take the suite's device path: no host fallback
-    sizes = (min(INGEST_MAX_BATCH, ntx), ntx, len(lanes) // 2, len(lanes))
-    if not all(suite._use_device(n) for n in sizes):
-        fail(f"{tag} a batch of {sizes} would take the suite's host path")
+    # no host fallback: the suite sends every batch to the device, and the
+    # launch counts held to the shapes after each step show that each did
+    if suite.backend != "device":
+        fail(f"{tag} the suite's backend is {suite.backend!r}, not 'device'")
 
     def run():
         """One profiled run of the node path on fresh node state."""
@@ -2277,8 +2285,7 @@ def phase_node(dev, suite, data, rng, slice_senders):
         storage = MemoryStorage()
         ledger = Ledger(storage, suite)
         genesis = ledger.build_genesis([ConsensusNode(p) for p in local], tx_count_limit=ntx)
-        pool = TxPool(suite, ledger, pool_limit=NODE_POOL_LIMIT,
-                      block_limit_range=NODE_BLOCK_LIMIT_RANGE)
+        pool = TxPool(suite, ledger, pool_limit=NODE_POOL_LIMIT)
         ingest = IngestLane(pool, max_batch=INGEST_MAX_BATCH, queue_cap=INGEST_QUEUE_CAP)
         crypto = CryptoLane(suite, wait_ms=100.0)
         admitted, errors = [], []
@@ -2405,9 +2412,11 @@ def phase_node(dev, suite, data, rng, slice_senders):
 
     # A late profiler session of the process has lost its first events (a
     # whole warm-up round and the first measured launch). The counters are
-    # held to the shapes on every run; a run whose profiler calls differ
-    # from its counters is run again on fresh node state, up to 5 runs.
-    for _ in range(5):
+    # held to the shapes on every run; a run whose profiler recorded fewer
+    # calls than its counters is run again on fresh node state, up to 5
+    # runs. More calls than counted cannot be a lost event (it would be a
+    # wrapper that launches without counting) and fails at once.
+    for attempt in range(1, 6):
         r = run()
         launches, walls = r["launches"], r["walls"]
         device_us, calls = device_events(r["prof"], tag)
@@ -2427,7 +2436,12 @@ def phase_node(dev, suite, data, rng, slice_senders):
         if missing:
             fail(f"{tag} the node path did not launch {missing}")
         seen = {k: sum(calls.get(n, 0) for n in kernel_names(k)) for k in counters}
+        surplus = {k: (seen[k], summed[k]) for k in counters if seen[k] > summed[k]}
+        if surplus:
+            fail(f"{tag} the profiler recorded more kernel calls than the counters "
+                 f"(calls, counted): {surplus}")
         if seen == summed:
+            log(f"[profiler] {tag} calls equal the counters in run {attempt} of the node path")
             break
         log(f"[profiler] {tag} recorded kernel calls {seen}, the counters {summed}; "
             f"the node path runs again on fresh node state")
@@ -2531,6 +2545,26 @@ def phase_node(dev, suite, data, rng, slice_senders):
     log(f"{tag} seals: {nheaders} headers, {len(lanes)} lanes in one verify_batch "
         f"({len(seal_bad)} corrupted), {int(np.sum(verdicts))} headers at quorum; "
         f"all agree with the oracle")
+    # a multi-group node puts each group's suite behind a LaneSuite (the
+    # JAX package's init/group.py): its recover_addresses recovers through
+    # the lane, then hashes the valid keys in one launch on the card
+    n = min(1024, ntx)
+    lane = CryptoLane(suite)
+    try:
+        for c in counters.values():
+            c.launches = 0
+        addrs, _ = LaneSuite(lane, tag="group0").recover_addresses(
+            hashes[:n], [t.signature for t in txs[:n]])
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items() if c.launches}
+    finally:
+        lane.stop()
+    want = ({"ecdsa_recover": 1, "keccak256_varlen": 1} if kind == "ecdsa"
+            else {"sm2_verify": 1, "sm3_varlen": 1})
+    if got != want or addrs != [r.sender for r in res[:n]]:
+        fail(f"{tag} LaneSuite.recover_addresses launched {got} (expected {want}) "
+             f"or its senders differ from admission's")
+    log(f"{tag} LaneSuite.recover_addresses: {n} lanes, launches {got}, senders as admitted")
     results = dict(admitted=[(int(r.status), r.tx_hash, r.sender) for r in res],
                    sealed=seal_hashes, header=header.encode(), verdicts=verdicts)
     log(f"{tag} results digest {node_results_digest(results)}")

@@ -472,8 +472,9 @@ class LaneSuite:
     `tag` names this caller (the group id) in the lane's per-tag stats.
 
     `recover_addresses` is re-implemented (not delegated) so its inner
-    recover_batch rides the lane too; the address hashing stays host-side
-    exactly as in the base implementation.
+    recover_batch rides the lane too; the valid keys are then hashed by
+    one base-suite hash_batch, which on the device path is one kernel
+    launch.
     """
 
     def __init__(self, lane: CryptoLane, tag: str = "",
@@ -542,7 +543,7 @@ class LaneSuite:
         valid = [i for i, p in enumerate(pubs) if p is not None]
         out: list = [None] * len(pubs)
         if valid:
-            for i, d in zip(valid, self._base._host_hash_batch(
+            for i, d in zip(valid, self._base.hash_batch(
                     [pubs[i] for i in valid])):
                 out[i] = d[12:]
         return out, ok

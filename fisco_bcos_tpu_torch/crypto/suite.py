@@ -207,12 +207,6 @@ class CryptoSuite:
         pub = refimpl.ec_mul(self.params, secret, (self.params.gx, self.params.gy))
         return KeyPair(secret, pub, self)
 
-    def _host_hash_batch(self, msgs: Sequence[bytes]) -> list[bytes]:
-        """Host hashes, one a message: what crypto/lane.LaneSuite's
-        recover_addresses hashes recovered keys with, as on the JAX
-        suite's native batch."""
-        return [self._host_hash(m) for m in msgs]
-
     def address_of_pub(self, pub_bytes: bytes) -> bytes:
         """Right-160 bits of H(pubkey)."""
         return self._host_hash(pub_bytes)[12:]

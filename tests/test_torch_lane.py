@@ -163,6 +163,35 @@ def test_groups_merge_into_one_suite_call_and_match_direct_calls(kind):
     assert lane._thread is None
 
 
+@pytest.mark.parametrize("kind", frames.CHAINS)
+def test_lane_suite_addresses_hash_the_keys_in_one_device_call(kind, monkeypatch):
+    """On the port's device path LaneSuite.recover_addresses hashes the
+    valid keys by one call of the suite's varlen hash (its plain version
+    on these CPU tensors, the kernel on the card), not key by key on the
+    host, and gives the JAX suite's addresses."""
+    from fisco_bcos_tpu_torch.ops import keccak, sm3
+
+    port, jax = frames.suites(kind)
+    mod, name = (keccak, "keccak256_varlen") if kind == "ecdsa" else (sm3, "sm3_varlen")
+    real, calls = getattr(mod, name), []
+
+    def counted(blocks, nvalid):
+        calls.append(blocks.shape[0])
+        return real(blocks, nvalid)
+
+    monkeypatch.setattr(mod, name, counted)
+    ds, sg, _ = group_inputs(kind)[1]   # lane 1 corrupted
+    lane = CryptoLane(port)
+    try:
+        addrs, ok = LaneSuite(lane, tag="group0").recover_addresses(ds, sg)
+    finally:
+        lane.stop()
+    want, wok = jax.recover_addresses(ds, sg)
+    assert addrs == want and list(ok) == list(wok)
+    assert addrs[1] is None and sum(a is not None for a in addrs) == LANES - 1
+    assert calls == [LANES - 1]
+
+
 @pytest.fixture()
 def host_lane():
     counting = CountingSuite(psuite.make_suite(backend="host"))

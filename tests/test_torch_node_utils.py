@@ -1,6 +1,6 @@
 """The pieces of the port's node planes that hold no crypto, each against
 the JAX package's copy where the two must agree byte for byte: the
-metrics registry's export, trace contexts and DMC round checksums, the
+metrics registry's export, the stage histogram and trace spans, the
 profiler's thread roles and stage markers, the task futures, the
 failpoints the crypto lane fires, the lock-order checker armed, and the
 structural contracts the ledger, storage and txpool satisfy.
@@ -48,27 +48,53 @@ def test_metrics_registry_exports_what_the_jax_one_does():
     assert not hasattr(pmetrics, "MetricsServer")   # rides the RPC edge: not ported
 
 
-def test_trace_contexts_and_round_checksums_match_jax():
-    raw = "00-" + "ab" * 16 + "-" + "cd" * 8 + "-01"
-    p, j = potrace.parse_traceparent(raw), jotrace.parse_traceparent(raw)
-    assert p.traceparent() == j.traceparent() == raw
-    assert p.pack() == j.pack() and potrace.unpack_ctx(j.pack()).traceparent() == raw
-    assert potrace.parse_traceparent("junk") is None is jotrace.parse_traceparent("junk")
-    prec, jrec = ptrace.DmcStepRecorder(), jtrace.DmcStepRecorder()
-    for rnd in range(3):
-        for seq in range(4):
-            args = (rnd, seq, bytes([seq]) * 20, b"msg-%d-%d" % (rnd, seq))
-            prec.record_message(*args)
-            jrec.record_message(*args)
-        assert prec.next_round() == jrec.next_round()
-    assert prec.checksums() == jrec.checksums() and prec.summary() == jrec.summary()
-    reg = pmetrics.MetricsRegistry()
-    ptrace.observe_stage("crypto", 0.25, registry=reg)
-    assert "bcos_tx_stage_seconds" in reg.prometheus_text()
-    tracer = potrace.Tracer(sample_rate=1.0)
-    with tracer.span("ingest.admit") as span:
-        span.set_attr("n", 3)
-    assert [t["spans"] for t in tracer.list_traces()] == [1]
+def test_stage_histogram_and_trace_spans_match_jax():
+    preg, jreg = pmetrics.MetricsRegistry(), jmetrics.MetricsRegistry()
+    for stage, seconds in (("crypto", 0.25), ("ingest", 0.003)):
+        ptrace.observe_stage(stage, seconds, registry=preg)
+        jtrace.observe_stage(stage, seconds, registry=jreg)
+    assert "bcos_tx_stage_seconds" in preg.prometheus_text()
+    assert preg.prometheus_text() == jreg.prometheus_text()
+    tid, sid = bytes(range(1, 17)), bytes(range(1, 9))
+    spans = []
+    for mod, tracer in ((potrace, potrace.Tracer()), (jotrace, jotrace.Tracer())):
+        for sampled in (True, False):   # an unsampled context records nothing
+            ctx = mod.SpanContext(tid, sid, sampled)
+            with mod.ctx_scope(ctx):
+                assert mod.current() is ctx
+                tracer.record("txpool.admit", mod.current(), 1.0, 1.25, {"n": 3})
+            assert mod.current() is None
+        spans.append([(s["traceId"], s["parentSpanId"], s["name"], s["duration_ms"],
+                       s["attrs"]) for s in tracer.get_trace(tid.hex())])
+    assert spans[0] == spans[1] == [(tid.hex(), sid.hex(), "txpool.admit", 250.0, {"n": 3})]
+
+
+def test_traced_wire_frame_records_its_ingest_span():
+    """A frame submitted under a sampled context gets its queue-to-admission
+    span on the process tracer, under that context."""
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.txpool import IngestLane
+
+    class Pool:   # the one call the lane makes for wire frames
+        def submit_columns(self, cols, broadcast=True):
+            return ["admitted"] * len(cols)
+
+    frame = T.Transaction(nonce="1", block_limit=5, input=b"x", signature=bytes(65)).encode()
+    tid, sid = bytes(range(2, 18)), bytes(range(2, 10))
+    potrace.TRACER.reset()
+    lane = IngestLane(Pool(), trace_label="node0")
+    try:
+        with potrace.ctx_scope(potrace.SpanContext(tid, sid, True)):
+            traced = lane.submit_wire_async(frame)
+        plain = lane.submit_wire_async(frame)
+        lane.start()
+        assert traced.result(30) == plain.result(30) == "admitted"
+    finally:
+        lane.stop()
+    spans = potrace.TRACER.get_trace(tid.hex())
+    potrace.TRACER.reset()
+    assert [(s["name"], s["parentSpanId"], s["attrs"]) for s in spans] == [
+        ("ingest.admit", sid.hex(), {"batch": 2, "node": "node0"})]
 
 
 def test_profiler_roles_and_stage_markers_match_jax():
