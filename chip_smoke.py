@@ -3,7 +3,8 @@
 default chain (secp256k1 + Keccak-256), the SM chain (SM2 + SM3) and the
 ZK plane's batched Poseidon (BN254), both chains again on the composed
 EC route, then each chain's node path from wire frames to the ledger and
-the seal judge.
+the seal judge, and each chain's block execution through the executor
+and the scheduler.
 
     python3 chip_smoke.py
 
@@ -100,8 +101,9 @@ version or to the CPU):
    4,096 txs (block_limit 500, in the pool's default window of 600), in
    through submit_many_wire_nowait; seal and fill_block; the block's roots with
    seeded receipts standing in for execution; prewrite_block, the header
-   rows and the storage 2PC (the scheduler's two commit steps, replayed:
-   the executor and scheduler are not ported); then a span of 4,096
+   rows and the storage 2PC (the scheduler's two commit steps, replayed
+   here; phase 12 runs the executor and the scheduler themselves); then
+   a span of 4,096
    headers (256 on the SM chain) tiling 3's sealed headers, mostly
    cert-mode certificates, some legacy, some below quorum, one minted
    under a foreign sealer set, 1% of the seal lanes corrupted, judged by
@@ -116,6 +118,33 @@ version or to the CPU):
    the plain path, the committed block to the ledger's reads and a tx
    proof, each header's verdict to the quorum of the oracle's per-seal
    verdicts.
+12. Block execution as a solo node runs it (the JAX package's
+   init/node.py:341-347): TransactionExecutor and a pipelined Scheduler
+   with the state index on a Ledger over MemoryStorage, genesis over the
+   4 sealers, a TxPool and an IngestLane, the suite on backend "auto"
+   (device_min_batch 512: the block's batches on the card, the EVM's
+   single hashes and recoveries on the native host libraries, which must
+   be loaded). Two blocks of 65,536 txs on the default chain, of 16,384
+   on the SM chain: block 1 deploys a hand-written probe contract and
+   registers 65,535 accounts with balance 1,000 (benchmark/chain_bench.py's
+   workload); block 2 has one probe call in every 100 txs (KECCAK256 over
+   its calldata, a STATICCALL of ecrecover on the signature it carries,
+   an SSTORE and a LOG1) and transfers of 1 over seeded pairs, 1% of them
+   of 10^6, which revert. Default-chain txs: 1,024 signed a block, the
+   rest tiled; SM: every tx signed, natively. Steps, each timed with its
+   launches counted: admission of both blocks' wire frames, seal and
+   fill_block, execute_block of block 1, of block 2 (speculative over
+   block 1's uncommitted changeset), commit_block of both, and
+   scheduler.call of balanceOf on 64 accounts; each execute wall split
+   into the transactions, the txs and receipts roots, prewrite_block and
+   the state root. Launches must equal the counts from the shapes the
+   suite was given (one hash launch a length class, one tree a root, no
+   EC launch in execution) and the profiler's calls. Receipts,
+   changesets, the three roots and the c_balance rows must equal the
+   same blocks on the port's host suite (native, no launch); every hash
+   of the execute steps the native host hash; the balances a Python
+   replay (and their sum conserved). The state root's hash batch is
+   timed by the profiler, and its longest length class alone.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -2119,24 +2148,30 @@ INGEST_QUEUE_CAP = 65536
 NODE_STEPS = ("admission", "seal_fill", "roots", "prewrite_commit", "verify_spans")
 
 
-def node_expected_launches(kind: str, ntx: int, nlanes: int) -> dict:
+def node_expected_launches(kind: str, txs, headers, nlanes: int) -> dict:
     """Each step's kernel launches, from the shapes: the ingest lane
     dispatches INGEST_MAX_BATCH frames at a time, each one submit_columns
-    with one hash_batch (one varlen launch) and one recover_addresses
-    (recover or SM2 verify a suite CHUNK, then the keys' hash); the roots
-    hash the receipts and build two trees; the span's two halves merge
-    into one hash_batch of the headers and one verify_batch."""
+    with one hash_batch (a varlen launch a length class of its unsigned
+    encodings) and one recover_addresses (recover or SM2 verify a suite
+    CHUNK, then the keys' hash); the roots hash the receipts (set after
+    the run: they are made in the step) and build two trees; the span's
+    two halves merge into one hash_batch of the headers and one
+    verify_batch."""
     from fisco_bcos_tpu_torch.crypto.suite import CHUNK
 
     hashk, tree = (("keccak256_varlen", "merkle_keccak_tree") if kind == "ecdsa"
                    else ("sm3_varlen", "merkle_sm3_tree"))
     eck, verk = (("ecdsa_recover", "ecdsa_verify") if kind == "ecdsa"
                  else ("sm2_verify", "sm2_verify"))
-    dispatches = [min(INGEST_MAX_BATCH, ntx - o) for o in range(0, ntx, INGEST_MAX_BATCH)]
-    admission = {hashk: 2 * len(dispatches),
-                 eck: sum(-(-k // CHUNK) for k in dispatches)}
-    return {"admission": admission, "seal_fill": {}, "roots": {hashk: 1, tree: 2},
-            "prewrite_commit": {}, "verify_spans": {hashk: 1, verk: -(-nlanes // CHUNK)}}
+    ntx = len(txs)
+    dispatches = [txs[o:o + INGEST_MAX_BATCH] for o in range(0, ntx, INGEST_MAX_BATCH)]
+    admission = {hashk: sum(hash_classes(kind, [t.encode_unsigned() for t in d]) + 1
+                            for d in dispatches),
+                 eck: sum(-(-len(d) // CHUNK) for d in dispatches)}
+    return {"admission": admission, "seal_fill": {}, "roots": {tree: 2},
+            "prewrite_commit": {},
+            "verify_spans": {hashk: hash_classes(kind, [h.encode_core() for h in headers]),
+                             verk: -(-nlanes // CHUNK)}}
 
 
 def node_seal_span(suite, data, nheaders: int, rng):
@@ -2272,7 +2307,7 @@ def phase_node(dev, suite, data, rng, slice_senders):
         f"{len(lanes)} seal lanes): {time.perf_counter() - t0:.1f} s")
 
     counters = slice_counters(kind)
-    expect = node_expected_launches(kind, ntx, len(lanes))
+    expect = node_expected_launches(kind, txs, headers, len(lanes))
     # no host fallback: the suite sends every batch to the device, and the
     # launch counts held to the shapes after each step show that each did
     if suite.backend != "device":
@@ -2427,6 +2462,9 @@ def phase_node(dev, suite, data, rng, slice_senders):
         total = sum(walls.values())
         log(f"{tag} device time {dev_ms:.1f} ms of {total:.1f} ms wall "
             f"(host {total - dev_ms:.1f} ms); ingest {r['ingest']}; crypto lane {r['crypto']}")
+        hashk = "keccak256_varlen" if kind == "ecdsa" else "sm3_varlen"
+        expect["roots"][hashk] = hash_classes(
+            kind, [rc.encode() for rc in r["out"]["roots"].receipts])
         for name in NODE_STEPS:
             got = {k: n for k, n in launches[name].items() if n}
             if got != expect[name]:
@@ -2571,6 +2609,606 @@ def phase_node(dev, suite, data, rng, slice_senders):
     return launches, walls, dev_ms
 
 
+# ---------------------------------------------------------------------------
+# block execution: the executor and the scheduler, as a solo node runs them
+# ---------------------------------------------------------------------------
+# The bench's own workload (benchmark/chain_bench.py's balance `register`)
+# and DagTransfer-style transfers, plus calls of a hand-written probe
+# contract: two blocks of 65,536 txs on the default chain, of one suite
+# CHUNK on the SM chain.
+EXEC_TXS = {"ecdsa": NTX, "sm": 16384}
+EXEC_POOL_LIMIT = 262144   # both blocks pending at once, under the 0.7 watermark
+EXEC_STEPS = ("admission", "seal_fill", "execute_1", "execute_2", "commit", "call")
+EXEC_TS = 1_700_000_000_000   # block 1's timestamp (ms); block 2's is one later
+EXEC_BALANCE = 1000
+EXEC_BIG = 10 ** 6            # a transfer of more than any account holds: reverts
+
+
+def evm_push(v: int) -> bytes:
+    """The shortest PUSH of v (PUSH0 for 0)."""
+    if v == 0:
+        return b"\x5f"
+    n = (v.bit_length() + 7) // 8
+    return bytes([0x5F + n]) + v.to_bytes(n, "big")
+
+
+def evm_initcode(runtime: bytes) -> bytes:
+    """Deploy wrapper: CODECOPY the runtime to memory and RETURN it."""
+    def body(off: int) -> bytes:
+        return (evm_push(len(runtime)) + evm_push(off) + evm_push(0) + b"\x39"
+                + evm_push(len(runtime)) + evm_push(0) + b"\xf3")
+
+    off = len(body(0))
+    while len(body(off)) != off:  # the offset encodes its own length
+        off = len(body(off))
+    return body(off) + runtime
+
+
+def probe_runtime() -> bytes:
+    """The probe contract: h = KECCAK256(calldata) (the suite's hash),
+    STATICCALL ecrecover (0x01) on the calldata (digest | v | r | s),
+    SSTORE(h, the recovered address word), LOG1(that word, topic h)."""
+    return (b"\x36" + evm_push(0) + evm_push(0) + b"\x37"       # CALLDATACOPY(0, 0, size)
+            + b"\x36" + evm_push(0) + b"\x20"                     # h = KECCAK256(0, size)
+            + evm_push(32) + evm_push(128) + evm_push(128) + evm_push(0)
+            + evm_push(1) + b"\x5a" + b"\xfa" + b"\x50"           # STATICCALL(gas, 1, 0, 128, 128, 32)
+            + evm_push(128) + b"\x51" + b"\x81" + b"\x55"         # SSTORE(h, mload(128))
+            + evm_push(32) + evm_push(128) + b"\xa1"              # LOG1(128, 32, h)
+            + b"\x00")
+
+
+def probe_calldata(suite, kp, j: int) -> bytes:
+    """digest | v + 27 | r | s: ecrecover's input, signed by kp (on the SM
+    chain the 65-byte form recovers nothing, as that chain's precompile
+    defines)."""
+    d = suite.hash(b"probe %d" % j)
+    sig = suite.sign(kp, d)
+    v = sig[64] if suite.kind == "ecdsa" else 0
+    return d + (27 + v).to_bytes(32, "big") + sig[:32] + sig[32:64]
+
+
+def exec_traffic(suite, ntx: int, seed: int = SEED + 12, nsigned: int | None = None):
+    """Two blocks of ntx txs on `suite` (port objects; the tests decode
+    their frames into the JAX package's). Block 1: a deploy of the probe
+    contract, then ntx - 1 `register(acct<i>, 1000)` to BALANCE_ADDRESS.
+    Block 2: one probe call in every 100 txs (ceil(ntx / 100)), the rest
+    `transfer(acct<a>, acct<b>, 1)` over seeded pairs, 1% of them of 10^6,
+    which must revert. The first nsigned txs of each block are signed over
+    their own payload by 16 keys and the rest tile those signatures (each
+    still recovers some key); nsigned None signs every tx (the SM chain's
+    signatures carry their key). -> dict(blocks, accounts, probe address,
+    transfers [(src, dst, amount)], calls, signing seconds)."""
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    rng = np.random.default_rng(seed)
+    kps = [suite.generate_keypair(b"exec" + bytes([k])) for k in range(16)]
+    accounts = [b"acct%d" % i for i in range(1, ntx)]
+    probe = suite.hash(b"\xd6\x94" + kps[0].address + (0).to_bytes(8, "big"))[12:]
+    b1 = [T.Transaction(to=b"", input=evm_initcode(probe_runtime()), nonce="b1-0",
+                        block_limit=500)]
+    b1 += [T.Transaction(to=pc.BALANCE_ADDRESS, nonce=f"b1-{i}", block_limit=500,
+                         input=pc.encode_call("register", lambda w, a=a: w.blob(a).u64(EXEC_BALANCE)))
+           for i, a in enumerate(accounts, 1)]
+    b2, transfers, calls = [], [], []
+    src = rng.integers(0, len(accounts), ntx)
+    hop = rng.integers(1, len(accounts), ntx)
+    big = rng.random(ntx) < 0.01
+    for i in range(ntx):
+        if i % 100 == 50 or (ntx <= 50 and i == ntx - 1):
+            data = probe_calldata(suite, kps[1 + len(calls) % 15], len(calls))
+            calls.append(data)
+            b2.append(T.Transaction(to=probe, input=data, nonce=f"b2-{i}", block_limit=500))
+            continue
+        a, b = accounts[src[i]], accounts[(src[i] + hop[i]) % len(accounts)]
+        amount = EXEC_BIG if big[i] else 1
+        transfers.append((a, b, amount))
+        b2.append(T.Transaction(
+            to=pc.BALANCE_ADDRESS, nonce=f"b2-{i}", block_limit=500,
+            input=pc.encode_call("transfer", lambda w, a=a, b=b, m=amount: w.blob(a).blob(b).u64(m))))
+    t0 = time.perf_counter()
+    nsig = 0
+    for block in (b1, b2):
+        own = len(block) if nsigned is None else min(nsigned, len(block))
+        for i in range(own):
+            block[i].sign(suite, kps[i % 16])
+        nsig += own
+        for i in range(own, len(block)):
+            block[i].signature = block[i % own].signature
+        for t in block:
+            object.__setattr__(t, "_hash", None)
+            object.__setattr__(t, "_sender", None)
+    sign_s = time.perf_counter() - t0
+    return dict(blocks=(b1, b2), kps=kps, accounts=accounts, probe=probe,
+                transfers=transfers, calls=calls, sign_s=sign_s, nsig=nsig)
+
+
+def replay_balances(traffic) -> dict:
+    """The balances after both blocks by a Python replay of the traffic:
+    every account registered with 1,000, then the transfers in order, a
+    transfer of more than its source holds leaving both untouched."""
+    bal = {a: EXEC_BALANCE for a in traffic["accounts"]}
+    for a, b, amount in traffic["transfers"]:
+        if bal[a] >= amount:
+            bal[a] -= amount
+            bal[b] += amount
+    return bal
+
+
+def hash_classes(kind: str, msgs) -> int:
+    """The hash launches of one device hash_batch: its length classes."""
+    from fisco_bcos_tpu_torch.ops import keccak, sm3
+
+    lens = np.fromiter((len(m) for m in msgs), np.int64, len(msgs))
+    return len(keccak.length_classes((keccak if kind == "ecdsa" else sm3).nblocks_np(lens)))
+
+
+class _Recorder:
+    """The suite with its batch calls recorded (method, sizes, and for
+    hash_batch the messages and digests), so each step's launches can be
+    computed from the shapes the suite was given."""
+
+    def __init__(self, suite):
+        self._suite = suite
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._suite, name)
+
+    def hash_batch(self, msgs):
+        out = self._suite.hash_batch(msgs)
+        self.calls.append(("hash_batch", list(msgs), out))
+        return out
+
+    def merkle_root(self, leaves):
+        self.calls.append(("merkle_root", len(leaves), None))
+        return self._suite.merkle_root(leaves)
+
+    def recover_addresses(self, digests, sigs):
+        self.calls.append(("recover_addresses", len(digests), None))
+        return self._suite.recover_addresses(digests, sigs)
+
+    def recover_batch(self, digests, sigs):
+        self.calls.append(("recover_batch", len(digests), None))
+        return self._suite.recover_batch(digests, sigs)
+
+    def verify_batch(self, digests, sigs, pubs):
+        self.calls.append(("verify_batch", len(digests), None))
+        return self._suite.verify_batch(digests, sigs, pubs)
+
+
+def expected_launches(kind: str, suite, calls) -> dict:
+    """The launches a step's recorded suite calls give by their shapes: a
+    device hash_batch one a length class, a device merkle_root one tree, a
+    device recover_addresses one EC launch a suite CHUNK plus one address
+    hash, a device verify_batch one a CHUNK; a host-sized call none."""
+    from fisco_bcos_tpu_torch.crypto.suite import CHUNK
+
+    hashk, tree = (("keccak256_varlen", "merkle_keccak_tree") if kind == "ecdsa"
+                   else ("sm3_varlen", "merkle_sm3_tree"))
+    eck, verk = (("ecdsa_recover", "ecdsa_verify") if kind == "ecdsa"
+                 else ("sm2_verify", "sm2_verify"))
+    want: dict = {}
+
+    def add(k, n):
+        if n:
+            want[k] = want.get(k, 0) + n
+
+    for name, arg, _ in calls:
+        n = len(arg) if name == "hash_batch" else arg
+        if not suite._use_device(n):
+            continue
+        if name == "hash_batch":
+            add(hashk, hash_classes(kind, arg))
+        elif name == "merkle_root":
+            add(tree, 1)
+        elif name == "recover_addresses":
+            add(eck, -(-n // CHUNK))
+            add(hashk, 1)
+        elif name in ("recover_batch", "verify_batch"):
+            add(eck if name == "recover_batch" else verk, -(-n // CHUNK))
+    return want
+
+
+def exec_chain(suite, storage, sealers, ntx: int):
+    """A solo node's execution planes (the JAX package's init/node.py:
+    341-347): a Ledger with genesis over the sealers on `storage`, the
+    TransactionExecutor and a pipelined Scheduler with the state index."""
+    from fisco_bcos_tpu_torch.executor import TransactionExecutor
+    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode, Ledger
+    from fisco_bcos_tpu_torch.scheduler import Scheduler
+    from fisco_bcos_tpu_torch.txpool import TxPool
+
+    ledger = Ledger(storage, suite)
+    ledger.build_genesis([ConsensusNode(p) for p in sealers], tx_count_limit=ntx)
+    pool = TxPool(suite, ledger, pool_limit=EXEC_POOL_LIMIT)
+    executor = TransactionExecutor(suite)
+    sched = Scheduler(storage, ledger, executor, suite, pool, pipeline=True,
+                      state_index=True)
+    return ledger, pool, executor, sched
+
+
+def exec_block(number: int, txs, sealers):
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    header = T.BlockHeader(number=number, timestamp=EXEC_TS + number,
+                           sealer_list=list(sealers))
+    return T.Block(header=header, transactions=list(txs))
+
+
+def stop_chain(sched, executor) -> None:
+    sched.shutdown()
+    if executor._dag_pool is not None:
+        executor._dag_pool[0].shutdown(wait=True)
+        executor._dag_pool = None
+
+
+def host_blocks(host, frames, senders, sealers, ntx: int):
+    """The two blocks executed and committed by the port's Scheduler on the
+    host suite (native paths; launches nothing): the same frames decoded,
+    each tx with the sender admission gave it. -> (results, c_balance rows,
+    storage)."""
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.storage import MemoryStorage
+
+    storage = MemoryStorage()
+    ledger, pool, executor, sched = exec_chain(host, storage, sealers, ntx)
+    results = []
+    try:
+        for number in (1, 2):
+            txs = [T.Transaction.decode(f) for f in frames[(number - 1) * ntx:number * ntx]]
+            for t, s in zip(txs, senders[(number - 1) * ntx:number * ntx]):
+                t._sender = s
+            r = sched.execute_block(exec_block(number, txs, sealers))
+            if r is None:
+                fail(f"the host suite's scheduler did not execute block {number}")
+            results.append(r)
+        for r in results:
+            if not sched.commit_block(r.header):
+                fail(f"the host suite's scheduler did not commit block {r.header.number}")
+    finally:
+        stop_chain(sched, executor)
+    return results, {k: storage.get(pc.T_BALANCE, k) for k in storage.keys(pc.T_BALANCE)}
+
+
+def phase_exec(dev, suite, kind: str, rng):
+    """(12) Block execution as a solo node runs it, on `suite` (backend
+    "auto", the node's default gating): the two blocks' wire frames
+    through the ingest lane into the txpool, sealing and fill_block,
+    execute_block of block 1 and then of block 2 (speculative, over block
+    1's uncommitted changeset), commit_block of both, and scheduler.call
+    of balanceOf on 64 accounts. Each step's launch counters are zeroed
+    before it and read after it, and must equal the counts from the
+    shapes the suite was given (one hash launch a length class, one tree
+    a root, no EC launch in execution) and the profiler's calls. Held to
+    the same blocks on the port's host suite (receipts, changesets, the
+    three roots, c_balance rows), the native host hash (every hash of
+    the execute steps, the state leaves among them) and a Python replay
+    of the balances. -> (launches by step, walls in ms, timings)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fisco_bcos_tpu_torch.crypto import nativeec, nativehash
+    from fisco_bcos_tpu_torch.crypto.suite import make_suite
+    from fisco_bcos_tpu_torch.executor import nevm
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.ops import keccak, sm3
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.storage import MemoryStorage
+    from fisco_bcos_tpu_torch.txpool import IngestLane
+
+    tag = f"[exec {kind}]"
+    ntx = EXEC_TXS[kind]
+    S = T.TransactionStatus
+    if not (nativeec.available() and nevm.available() and nativehash.keccak256() is not None):
+        fail(f"{tag} a native library is not loaded (nativeec {nativeec.available()}, "
+             f"nevm {nevm.available()})")
+    if suite.backend != "auto":
+        fail(f"{tag} the suite's backend is {suite.backend!r}, not the node's 'auto'")
+    t0 = time.perf_counter()
+    tr = exec_traffic(suite, ntx, nsigned=NSIGNED if kind == "ecdsa" else None)
+    frames = [t.encode() for b in tr["blocks"] for t in b]
+    sealers = [k.pub_bytes for k in seal_keys(suite)]
+    log(f"{tag} set-up: 2 blocks of {ntx} txs ({len(tr['calls'])} probe calls, "
+        f"{len(tr['transfers'])} transfers), {tr['nsig']} native signatures in "
+        f"{tr['sign_s']:.2f} s ({tr['sign_s'] / tr['nsig'] * 1e3:.3f} ms each), "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    counters = slice_counters(kind)
+    ec_names = [k for k in counters if k in ("ecdsa_recover", "ecdsa_verify", "sm2_verify")]
+
+    def run():
+        """One profiled run on fresh node state."""
+        rec = _Recorder(suite)
+        storage = MemoryStorage()
+        ledger, pool, executor, sched = exec_chain(rec, storage, sealers, ntx)
+        ingest = IngestLane(pool, max_batch=INGEST_MAX_BATCH, queue_cap=2 * ntx)
+        admitted, errors = [], []
+        submit_columns = pool.submit_columns
+
+        def recording(cols, broadcast=True):
+            try:
+                res = submit_columns(cols, broadcast)
+            except BaseException as exc:
+                errors.append(exc)
+                raise
+            admitted.extend(res)
+            return res
+
+        pool.submit_columns = recording
+        launches, walls, out, shapes, parts = {}, {}, {}, {}, {}
+
+        def step(name, fn):
+            for c in counters.values():
+                c.launches = 0
+            rec.calls = []
+            out[name], walls[name] = wall_ms(fn)
+            launches[name] = {k: c.launches for k, c in counters.items()}
+            shapes[name] = rec.calls
+
+        def admit():
+            if ingest.submit_many_wire_nowait(frames) != len(frames):
+                fail(f"{tag} the ingest queue refused frames")
+            deadline = time.monotonic() + 600
+            while len(admitted) < len(frames) and not errors:
+                if time.monotonic() > deadline:
+                    fail(f"{tag} {len(admitted)} of {len(frames)} frames admitted in 600 s")
+                time.sleep(0.005)
+            if errors:
+                fail(f"{tag} submit_columns raised {errors[0]!r}")
+
+        def seal_fill():
+            got = []
+            for number in (1, 2):
+                _, hashes = pool.seal(ntx, for_number=number)
+                got.append(pool.fill_block(hashes))
+            return got
+
+        def execute(number):
+            def run_block():
+                block = exec_block(number, out["seal_fill"][number - 1], sealers)
+                r = sched.execute_block(block)
+                if r is None:
+                    fail(f"{tag} execute_block({number}) returned None")
+                return r
+            return run_block
+
+        def commit():
+            for number in (1, 2):
+                if not sched.commit_block(out[f"execute_{number}"].header):
+                    fail(f"{tag} commit_block({number}) failed")
+
+        picks = rng.sample(tr["accounts"], 64)
+
+        def call():
+            got = []
+            for a in picks:
+                tx = T.Transaction(to=pc.BALANCE_ADDRESS, nonce="call",
+                                   input=pc.encode_call("balanceOf", lambda w, a=a: w.blob(a)))
+                tx._sender = tr["kps"][0].address
+                got.append(sched.call(tx))
+            return got
+
+        # the executor's and the state root's parts of an execute step, by
+        # wrapping the calls the scheduler makes (host clock, synchronised)
+        ex_dag, ex_root = executor.execute_block_dag, executor.state_root_with_leaves
+        calc_txs, calc_rc = T.Block.calculate_txs_root, T.Block.calculate_receipts_root
+        prewrite = ledger.prewrite_block
+
+        def timed(name, fn):
+            def inner(*a, **k):
+                res, ms = wall_ms(lambda: fn(*a, **k))
+                parts.setdefault(cur[0], {}).setdefault(name, 0.0)
+                parts[cur[0]][name] += ms
+                return res
+            return inner
+
+        cur = [""]
+        executor.execute_block_dag = timed("transactions", ex_dag)
+        executor.state_root_with_leaves = timed("state_root", ex_root)
+        ledger.prewrite_block = timed("prewrite", prewrite)
+        sub = [bytes(32 * [k]) for k in range(8)]
+        try:
+            ingest.start()
+            T.Block.calculate_txs_root = timed("txs_receipts_roots", calc_txs)
+            T.Block.calculate_receipts_root = timed("txs_receipts_roots", calc_rc)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.5)
+                warm = make_suite(kind == "sm", device=dev)   # "device": the same kernels
+                for _ in range(3):
+                    warm.recover_addresses(sub, [t.signature for t in tr["blocks"][0][:8]])
+                    warm.hash_batch(frames[:8])
+                    warm.merkle_root(sub * 3)
+                torch.cuda.synchronize()
+                with record_function(MARK):
+                    step("admission", admit)
+                    step("seal_fill", seal_fill)
+                    cur[0] = "execute_1"
+                    step("execute_1", execute(1))
+                    cur[0] = "execute_2"
+                    step("execute_2", execute(2))
+                    step("commit", commit)
+                    step("call", call)
+        finally:
+            T.Block.calculate_txs_root, T.Block.calculate_receipts_root = calc_txs, calc_rc
+            ingest.stop()
+            stop_chain(sched, executor)
+        return dict(prof=prof, launches=launches, walls=walls, out=out, shapes=shapes,
+                    parts=parts, admitted=admitted, ledger=ledger, pool=pool,
+                    storage=storage, picks=picks)
+
+    for attempt in range(1, 6):
+        r = run()
+        launches, walls, shapes = r["launches"], r["walls"], r["shapes"]
+        device_us, calls = device_events(r["prof"], tag)
+        dev_ms = sum(device_us.values()) / 1e3
+        for name in EXEC_STEPS:
+            log(f"{tag} {name}: {walls[name]:.1f} ms wall, launches "
+                f"{ {k: n for k, n in launches[name].items() if n} }")
+        for name in ("execute_1", "execute_2"):
+            p = r["parts"][name]
+            log(f"{tag} {name} parts (ms): transactions {p['transactions']:.1f}, txs and "
+                f"receipts roots {p['txs_receipts_roots']:.1f}, prewrite_block "
+                f"{p['prewrite']:.1f}, state root {p['state_root']:.1f}")
+        total = sum(walls.values())
+        log(f"{tag} device time {dev_ms:.1f} ms of {total:.1f} ms wall "
+            f"(host {total - dev_ms:.1f} ms)")
+        for name in EXEC_STEPS:
+            got = {k: n for k, n in launches[name].items() if n}
+            want = expected_launches(kind, suite, shapes[name])
+            if got != want:
+                fail(f"{tag} {name} launched {got}, the shapes give {want}")
+            if name.startswith("execute") and any(launches[name][k] for k in ec_names):
+                fail(f"{tag} {name} launched an EC kernel: {got}")
+        summed = {k: sum(launches[s][k] for s in EXEC_STEPS) for k in counters}
+        missing = [k for k, n in summed.items() if n == 0 and k != "ecdsa_verify"]
+        if missing:
+            fail(f"{tag} block execution did not launch {missing}")
+        seen = {k: sum(calls.get(n, 0) for n in kernel_names(k)) for k in counters}
+        surplus = {k: (seen[k], summed[k]) for k in counters if seen[k] > summed[k]}
+        if surplus:
+            fail(f"{tag} the profiler recorded more kernel calls than the counters "
+                 f"(calls, counted): {surplus}")
+        if seen == summed:
+            log(f"[profiler] {tag} calls equal the counters in run {attempt}")
+            break
+        log(f"[profiler] {tag} recorded kernel calls {seen}, the counters {summed}; "
+            f"block execution runs again on fresh node state")
+    else:
+        fail(f"{tag} the profiler recorded kernel calls {seen}, the counters {summed}, "
+             f"in 5 runs")
+    log(f"{tag} device us by counter: " + ", ".join(
+        f"{k} {sum(device_us.get(n, 0.0) for n in kernel_names(k)):.1f}" for k in counters))
+
+    # -- checks ---------------------------------------------------------------
+    out, admitted, ledger = r["out"], r["admitted"], r["ledger"]
+    if [a.status for a in admitted] != [S.OK] * len(frames):
+        fail(f"{tag} {sum(a.status != S.OK for a in admitted)} frames not admitted")
+    b1, b2 = tr["blocks"]
+    want_hashes = [t.hash(suite) for t in b1[:4]]
+    if [a.tx_hash for a in admitted[:4]] != want_hashes:
+        fail(f"{tag} admission's tx hashes differ from the host hash")
+    own = ntx if kind == "sm" else NSIGNED
+    for number, block in ((1, b1), (2, b2)):
+        sent = admitted[(number - 1) * ntx:number * ntx]
+        if any(sent[i].sender != tr["kps"][i % 16].address for i in range(own)):
+            fail(f"{tag} block {number}: a sender differs from its signer's address")
+    host = make_suite(kind == "sm", backend="host")
+    lanes = rng.sample(range(len(frames)), 64)
+    addrs, _ = host.recover_addresses([admitted[i].tx_hash for i in lanes],
+                                      [T.Transaction.decode(frames[i]).signature for i in lanes])
+    if addrs != [admitted[i].sender for i in lanes]:
+        fail(f"{tag} sampled senders differ from the native host recovery")
+    filled = out["seal_fill"]
+    if [t.encode() for t in filled[0] + filled[1]] != frames:
+        fail(f"{tag} the sealed blocks are not the frames in admission order")
+    results = [out["execute_1"], out["execute_2"]]
+    t0 = time.perf_counter()
+    hres, hbal = host_blocks(host, frames, [a.sender for a in admitted], sealers, ntx)
+    host_s = time.perf_counter() - t0
+    for got, want in zip(results, hres):
+        n = got.header.number
+        if [x.encode() for x in got.receipts] != [x.encode() for x in want.receipts] or \
+                [x.message for x in got.receipts] != [x.message for x in want.receipts]:
+            fail(f"{tag} block {n}: receipts differ from the host suite's")
+        if {k: (e.value, e.deleted) for k, e in got.changes.items()} != \
+                {k: (e.value, e.deleted) for k, e in want.changes.items()}:
+            fail(f"{tag} block {n}: the changeset differs from the host suite's")
+        for root in ("state_root", "txs_root", "receipts_root"):
+            if getattr(got.header, root) != getattr(want.header, root):
+                fail(f"{tag} block {n}: {root} differs from the host suite's")
+    bal = {k: r["storage"].get(pc.T_BALANCE, k) for k in r["storage"].keys(pc.T_BALANCE)}
+    if bal != hbal:
+        fail(f"{tag} c_balance rows differ from the host suite's")
+    native_batch = nativehash.host_hash_batch(suite.hash_name)
+    for name in ("execute_1", "execute_2"):
+        for cname, msgs, digests in r["shapes"][name]:
+            if cname == "hash_batch" and native_batch(msgs) != digests:
+                fail(f"{tag} {name}: a hash_batch digest differs from the native host hash")
+    # the state roots' batches: the execute steps' hash batches past ntx leaves
+    state_batches = [c for c in r["shapes"]["execute_1"] + r["shapes"]["execute_2"]
+                     if c[0] == "hash_batch" and len(c[1]) > ntx]
+    longest = max(len(m) for _, msgs, _ in state_batches for m in msgs)
+    want_bal = replay_balances(tr)
+    if sum(want_bal.values()) != EXEC_BALANCE * len(tr["accounts"]):
+        fail(f"{tag} the replay does not conserve the balances")
+    got_bal = {k: int.from_bytes(v, "big") for k, v in bal.items()}
+    if got_bal != want_bal:
+        fail(f"{tag} {sum(got_bal.get(a) != b for a, b in want_bal.items())} balances "
+             f"differ from the Python replay")
+    for a, rc in zip(r["picks"], out["call"]):
+        if rc.status != 0 or int.from_bytes(rc.output, "big") != want_bal[a]:
+            fail(f"{tag} scheduler.call balanceOf differs from the replay")
+    rcs1, rcs2 = results[0].receipts, results[1].receipts
+    if rcs1[0].status != S.OK or rcs1[0].contract_address != tr["probe"]:
+        fail(f"{tag} the probe contract's deploy failed or landed elsewhere")
+    reverted = sum(x.status == S.REVERT for x in rcs2)
+    want_rev = sum(1 for a, b, m in tr["transfers"] if m == EXEC_BIG)
+    probes = [x for x in rcs2 if len(x.logs) == 1 and x.logs[0].address == tr["probe"]]
+    if reverted != want_rev or len(probes) != len(tr["calls"]):
+        fail(f"{tag} {reverted} transfers reverted (the replay: {want_rev}), "
+             f"{len(probes)} probe calls logged (sent {len(tr['calls'])})")
+    if kind == "ecdsa":
+        signer = tr["kps"][1].address.rjust(32, b"\x00")
+        if probes[0].logs[0].data != signer:
+            fail(f"{tag} the probe's ecrecover gave {probes[0].logs[0].data.hex()}")
+    if ledger.current_number() != 2 or ledger.total_tx_count() != 2 * ntx:
+        fail(f"{tag} the ledger is at {ledger.current_number()} with "
+             f"{ledger.total_tx_count()} txs")
+    if r["pool"].pending_count() != 0:
+        fail(f"{tag} {r['pool'].pending_count()} txs still pending after the commits")
+    log(f"{tag} receipts, changesets, state, txs and receipts roots and {len(bal)} c_balance "
+        f"rows equal the host suite's ({host_s:.1f} s on the host suite); every hash of "
+        f"the execute steps equals the native host hash; {reverted} transfers reverted, "
+        f"{len(probes)} probe calls, balances equal the replay and conserved")
+    for res in results:
+        log(f"{tag} block {res.header.number}: state root {res.header.state_root.hex()}")
+
+    # the state root's hash batch alone: its device time, and its longest
+    # message's class (one launch) alone
+    hcls = keccak if kind == "ecdsa" else sm3
+    vname = "keccak256_varlen" if kind == "ecdsa" else "sm3_varlen"
+    msgs = max(state_batches, key=lambda c: len(c[1]))[1]
+    packed = hcls.pack_batch_np(msgs)
+    top_rows, top_blocks, top_nv = packed[-1]
+    t_blocks = torch.as_tensor(top_blocks, device=dev)
+    t_nv = torch.as_tensor(top_nv, device=dev)
+    wrapper = counters[vname]
+    batch_ms = kernel_device_ms(lambda: suite.hash_batch(msgs), vname + "_kernel", reps=5,
+                                per_call=len(packed))
+    top_ms = kernel_device_ms(lambda: wrapper(t_blocks, t_nv), vname + "_kernel", reps=5)
+    nblocks = int(top_nv.max())
+    blocks_all = sum(int(nv.sum()) for _, _, nv in packed)
+    padded = sum(b.shape[0] * b.shape[1] for _, b, _ in packed)
+    bsize = keccak.RATE_BYTES if kind == "ecdsa" else sm3.BLOCK_BYTES
+    bound_fn = keccak_bound if kind == "ecdsa" else sm3_bound
+    bound, by = bound_fn(blocks_all, bsize * blocks_all + 32 * len(msgs))
+    # the state root's tree over the same leaves (the digests), alone
+    leaves = max(state_batches, key=lambda c: len(c[1]))[2]
+    tname = "merkle_keccak_tree" if kind == "ecdsa" else "merkle_sm3_tree"
+    tree_ms = kernel_device_ms(lambda: suite.merkle_root(leaves), tname + "_kernel", reps=5)
+    parents, m = 0, len(leaves)
+    while m > 1:
+        m = (m + 15) // 16
+        parents += m
+    tbytes = 32 * (len(leaves) + parents) + 32 * parents
+    tbound, tby = (keccak_bound(4 * parents, tbytes) if kind == "ecdsa"
+                   else sm3_bound(9 * parents, tbytes))
+    timings = dict(state_leaves=len(msgs), classes=len(packed), longest_blocks=nblocks,
+                   longest_bytes=longest, batch_ms=batch_ms, top_ms=top_ms,
+                   top_rows=len(top_rows), blocks=blocks_all, padded_blocks=padded,
+                   bound_ms=bound, bound_by=by, tree_ms=tree_ms, tree_bound_ms=tbound,
+                   tree_bound_by=tby, host_s=host_s, sign_s=tr["sign_s"],
+                   nsig=tr["nsig"], parts=r["parts"])
+    log(f"{tag} state-root hash batch: {len(msgs)} leaves in {len(packed)} length classes, "
+        f"{blocks_all} blocks needed, {padded} padded ({padded / blocks_all:.3f}x), "
+        f"{batch_ms:.4f} ms device a batch (bound {bound:.4f} ms by {by}); its longest "
+        f"class ({len(top_rows)} message(s) of up to {nblocks} blocks, {longest} B) "
+        f"{top_ms:.4f} ms device alone")
+    log(f"{tag} state-root tree: {len(leaves)} leaves, {tree_ms:.4f} ms device "
+        f"(bound {tbound:.5f} ms by {tby})")
+    return launches, walls, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2619,6 +3257,12 @@ def main() -> int:
         steps, _, _ = phase_node(dev, s, d, random.Random(SEED + 4), fres["senders"])
         for k in slice_counters(kind):
             by_path[k][f"node_{kind}"] = sum(st[k] for st in steps.values())
+    for kind in ("ecdsa", "sm"):
+        auto = make_suite(kind == "sm", backend="auto", device=dev)
+        steps, _, _ = phase_exec(dev, auto, kind, random.Random(SEED + 12))
+        for k in slice_counters(kind):
+            if k != "ecdsa_verify":   # the seal judge's kernel: not on this path
+                by_path[k][f"exec_{kind}"] = sum(st[k] for st in steps.values())
     for k, paths in by_path.items():
         rows[k]["launches"] = sum(paths.values())
         rows[k]["launches_by_path"] = paths

@@ -1,0 +1,232 @@
+"""Native host-path EC signatures — ctypes binding to native/ncrypto.
+
+The reference's per-signature functions are native (WeDPR FFI,
+bcos-crypto/signature/secp256k1/Secp256k1Crypto.cpp:40,57,85); this
+framework batches them on the card for large blocks (ops/ec.py) and uses this
+library as the native HOST floor — sub-threshold batches, ingest
+fallback, accelerator-free deployments — at ~100x the pure-Python oracle
+(`crypto.refimpl`), which stays untouched as the golden reference.
+
+Row format: count x 32 big-endian bytes per scalar/coordinate.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Optional
+
+_LIB_ENV = "FBTPU_NCRYPTO_LIB"
+_DEFAULT_LIB = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native", "build", "libncrypto.so")
+
+_lib = None
+_loaded = False
+_lock = threading.Lock()
+
+_CURVE_SECP, _CURVE_SM2 = 0, 1
+
+
+def load_library():
+    global _lib, _loaded
+    with _lock:
+        if _loaded:
+            return _lib
+        path = os.environ.get(_LIB_ENV, _DEFAULT_LIB)
+        try:
+            # the port's loader: a prebuilt library that does not load or
+            # is stale against ncrypto.cpp is rebuilt from it into the
+            # package's _build/ (utils/nativelib.open_library)
+            from ..utils.nativelib import open_library
+            lib = open_library("ncrypto", path)
+            if lib is None:
+                _loaded = True
+                return None
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.ncrypto_ecdsa_verify_batch.argtypes = [
+                ctypes.c_int, ctypes.c_uint64, ctypes.c_char_p,
+                ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+                ctypes.c_char_p, u8p]
+            lib.ncrypto_ecdsa_verify_batch.restype = None
+            lib.ncrypto_ecdsa_recover_batch.argtypes = [
+                ctypes.c_int, ctypes.c_uint64, ctypes.c_char_p,
+                ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+                u8p, u8p]
+            lib.ncrypto_ecdsa_recover_batch.restype = None
+            lib.ncrypto_sm2_verify_batch.argtypes = [
+                ctypes.c_uint64, ctypes.c_char_p, ctypes.c_char_p,
+                ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, u8p]
+            lib.ncrypto_sm2_verify_batch.restype = None
+            lib.ncrypto_ecdsa_sign_batch.argtypes = [
+                ctypes.c_int, ctypes.c_uint64, ctypes.c_char_p,
+                ctypes.c_char_p, ctypes.c_char_p, u8p, u8p, u8p, u8p]
+            lib.ncrypto_ecdsa_sign_batch.restype = None
+            lib.ncrypto_sm2_sign_batch.argtypes = [
+                ctypes.c_uint64, ctypes.c_char_p, ctypes.c_char_p,
+                ctypes.c_char_p, u8p, u8p, u8p]
+            lib.ncrypto_sm2_sign_batch.restype = None
+            _lib = lib
+        except (OSError, AttributeError) as exc:
+            # LOUD single-line warning: this downgrade is bit-exact but
+            # ~200x slower (38 ms vs 0.2 ms per recover) — it once hid
+            # for a whole round behind a glibc-mismatched prebuilt .so
+            import sys
+            print(f"[nativeec] {path}: load failed ({exc}) — falling back "
+                  f"to pure-Python EC (~200x slower); rebuild with "
+                  f"`make -C native`", file=sys.stderr, flush=True)
+            _lib = None
+        _loaded = True
+        return _lib
+
+
+def available() -> bool:
+    return load_library() is not None
+
+
+def _check_lens(n: int, *seqs) -> None:
+    """The C side reads n rows from EVERY buffer: a short argument list
+    would be a heap overread, so fail loudly at the boundary instead."""
+    for s in seqs:
+        if len(s) != n:
+            raise ValueError(f"batch length mismatch: {len(s)} != {n}")
+
+
+def _rows(ints, n) -> bytes:
+    return b"".join(int(v).to_bytes(32, "big") for v in ints[:n])
+
+
+def _e_rows(es, n, order: int) -> bytes:
+    """Digest ints as 32-byte rows. Digests longer than 32 bytes (allowed
+    by the suite contract) are pre-reduced mod the group order, exactly
+    what refimpl's `e % n` does for any length."""
+    return b"".join(
+        int(v if v < (1 << 256) else v % order).to_bytes(32, "big")
+        for v in es[:n])
+
+
+def ecdsa_verify_batch(es, rs, ss, qxs, qys) -> Optional[list]:
+    """ints -> [bool]; None when the library is unavailable."""
+    from . import refimpl
+
+    lib = load_library()
+    if lib is None:
+        return None
+    n = len(es)
+    _check_lens(n, rs, ss, qxs, qys)
+    ok = (ctypes.c_uint8 * n)()
+    lib.ncrypto_ecdsa_verify_batch(
+        _CURVE_SECP, n, _e_rows(es, n, refimpl.SECP256K1.n), _rows(rs, n),
+        _rows(ss, n), _rows(qxs, n), _rows(qys, n), ok)
+    return [bool(v) for v in ok]
+
+
+def sm2_verify_batch(es, rs, ss, qxs, qys) -> Optional[list]:
+    from . import refimpl
+
+    lib = load_library()
+    if lib is None:
+        return None
+    n = len(es)
+    _check_lens(n, rs, ss, qxs, qys)
+    ok = (ctypes.c_uint8 * n)()
+    lib.ncrypto_sm2_verify_batch(n, _e_rows(es, n, refimpl.SM2P256V1.n),
+                                 _rows(rs, n), _rows(ss, n), _rows(qxs, n),
+                                 _rows(qys, n), ok)
+    return [bool(v) for v in ok]
+
+
+def ecdsa_sign(secret: int, digest: bytes) -> Optional[tuple]:
+    """-> (r, s, v) byte-exact with refimpl.ecdsa_sign, or None when the
+    library is unavailable or the lane degenerated (caller falls back to
+    the oracle). The RFC 6979 nonce is derived HERE (refimpl's hmac path
+    is already native-speed); the C side does the EC work."""
+    from . import refimpl
+
+    lib = load_library()
+    if lib is None:
+        return None
+    k = refimpl._rfc6979_k(secret, digest, refimpl.SECP256K1.n)
+    e = int.from_bytes(digest, "big")
+    r = (ctypes.c_uint8 * 32)()
+    s = (ctypes.c_uint8 * 32)()
+    v = (ctypes.c_uint8 * 1)()
+    ok = (ctypes.c_uint8 * 1)()
+    lib.ncrypto_ecdsa_sign_batch(
+        _CURVE_SECP, 1, _e_rows([e], 1, refimpl.SECP256K1.n),
+        _rows([secret], 1), _rows([k], 1), r, s, v, ok)
+    if not ok[0]:
+        return None
+    return (int.from_bytes(bytes(r), "big"),
+            int.from_bytes(bytes(s), "big"), v[0])
+
+
+def sm2_sign(secret: int, digest: bytes) -> Optional[tuple]:
+    """-> (r, s) byte-exact with refimpl.sm2_sign, or None."""
+    from . import refimpl
+
+    lib = load_library()
+    if lib is None:
+        return None
+    k = refimpl._rfc6979_k(secret, digest, refimpl.SM2P256V1.n, extra=b"sm2")
+    e = int.from_bytes(digest, "big")
+    r = (ctypes.c_uint8 * 32)()
+    s = (ctypes.c_uint8 * 32)()
+    ok = (ctypes.c_uint8 * 1)()
+    lib.ncrypto_sm2_sign_batch(
+        1, _e_rows([e], 1, refimpl.SM2P256V1.n), _rows([secret], 1),
+        _rows([k], 1), r, s, ok)
+    if not ok[0]:
+        return None
+    return (int.from_bytes(bytes(r), "big"),
+            int.from_bytes(bytes(s), "big"))
+
+
+def ecdsa_recover_batch_rows(e_rows: bytes, r_rows: bytes, s_rows: bytes,
+                             vs: bytes) -> Optional[tuple]:
+    """Pre-packed row buffers -> ([pub64 | None], [bool]); None when the
+    library is unavailable.
+
+    The zero-marshalling recover door: digests and signature halves
+    arrive as the exact count x 32 big-endian rows the C side reads —
+    wire signature bytes and 32-byte tx hashes ARE this shape already
+    (the columnar arena hands out slices of it), so no per-row
+    int.from_bytes/to_bytes round trip happens on either side of the
+    FFI. Digests must be exactly 32 bytes: callers holding longer
+    digests take `ecdsa_recover_batch`, whose `_e_rows` pre-reduces
+    them mod the group order (a 32-byte value is always below 2^256,
+    so for this door the reduction is the identity)."""
+    lib = load_library()
+    if lib is None:
+        return None
+    n = len(vs)
+    if (len(e_rows) != 32 * n or len(r_rows) != 32 * n
+            or len(s_rows) != 32 * n):
+        raise ValueError("row buffer length mismatch")
+    ok = (ctypes.c_uint8 * n)()
+    pubs = (ctypes.c_uint8 * (64 * n))()
+    lib.ncrypto_ecdsa_recover_batch(
+        _CURVE_SECP, n, e_rows, r_rows, s_rows, vs, pubs, ok)
+    raw = bytes(pubs)
+    out = [raw[64 * i:64 * i + 64] if ok[i] else None for i in range(n)]
+    return out, [bool(v) for v in ok]
+
+
+def ecdsa_recover_batch(es, rs, ss, vs) -> Optional[tuple]:
+    """ints + v bytes -> ([pub64 | None], [bool]); None when unavailable."""
+    from . import refimpl
+
+    lib = load_library()
+    if lib is None:
+        return None
+    n = len(es)
+    _check_lens(n, rs, ss, vs)
+    ok = (ctypes.c_uint8 * n)()
+    pubs = (ctypes.c_uint8 * (64 * n))()
+    lib.ncrypto_ecdsa_recover_batch(
+        _CURVE_SECP, n, _e_rows(es, n, refimpl.SECP256K1.n), _rows(rs, n),
+        _rows(ss, n), bytes(v & 0xFF for v in vs[:n]), pubs, ok)
+    raw = bytes(pubs)
+    out = [raw[64 * i:64 * i + 64] if ok[i] else None for i in range(n)]
+    return out, [bool(v) for v in ok]

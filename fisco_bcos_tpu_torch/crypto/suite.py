@@ -12,8 +12,12 @@ Counterpart of fisco_bcos_tpu/crypto/suite.py, with the same batch API:
     poseidon_batch(lefts, rights)     -> digest[N]   (BN254 Poseidon, ZK plane)
 
 `backend` keeps the JAX suite's meaning: "device" always takes the tensor
-path, "host" always the host oracle (here the pure-Python `refimpl` copy),
-"auto" the tensor path at or above `device_min_batch`. The tensor path
+path, "host" always the host path, "auto" the tensor path at or above
+`device_min_batch`. The host path is the JAX suite's: the native libraries
+(`crypto/nativehash.py` for hashing, `crypto/nativeec.py` for signing,
+verify and recovery), with the pure-Python `refimpl` as the fallback where
+a library is absent; `refimpl` stays the oracle the tests hold every path
+to. The tensor path
 runs on `device`: on "cuda" it launches the kernels, on "cpu" it runs
 their plain PyTorch versions (what the CPU tests use). A suite on "cuda"
 raises when there is no card; it never drops to the CPU.
@@ -40,7 +44,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import refimpl
+from . import nativeec, nativehash, refimpl
 from ..ops import bigint, ec, keccak, merkle, sm3
 from ..zk import poseidon, poseidon_torch
 
@@ -133,11 +137,13 @@ class CryptoSuite:
             self.curve = ec.SECP256K1
             self.params = refimpl.SECP256K1
             self.hash_name = "keccak256"
-            self._host_hash = refimpl.keccak256
+            self._host_hash = nativehash.host_hash("keccak256")
+            self._host_hash_batch = nativehash.host_hash_batch("keccak256")
             self.signature_size = 65  # r(32) | s(32) | v(1)
             self._hash_np = keccak.keccak256_batch_np
             self._sign = _sign_ecdsa
             self._verify_lanes = ec.ecdsa_verify_batch
+            self._verify_native = nativeec.ecdsa_verify_batch
             self._verify_host = functools.partial(refimpl.ecdsa_verify, self.params)
             self._recover = self._recover_ecdsa
             self._addresses_device = self._ecdsa_addresses
@@ -145,11 +151,13 @@ class CryptoSuite:
             self.curve = ec.SM2P256V1
             self.params = refimpl.SM2P256V1
             self.hash_name = "sm3"
-            self._host_hash = refimpl.sm3
+            self._host_hash = nativehash.host_hash("sm3")
+            self._host_hash_batch = nativehash.host_hash_batch("sm3")
             self.signature_size = 128  # r(32) | s(32) | pub(64)
             self._hash_np = sm3.sm3_batch_np
             self._sign = _sign_sm
             self._verify_lanes = ec.sm2_verify_batch
+            self._verify_native = nativeec.sm2_verify_batch
             self._verify_host = refimpl.sm2_verify
             self._recover = self._recover_embedded
             self._addresses_device = self._sm_addresses
@@ -163,11 +171,12 @@ class CryptoSuite:
         return self._host_hash(data)
 
     def hash_batch(self, msgs: Sequence[bytes]) -> list[bytes]:
-        """Batched Keccak-256 or SM3: one kernel launch for the batch."""
+        """Batched Keccak-256 or SM3: one kernel launch a length class
+        (ops.keccak.length_classes); the host path crosses the FFI once."""
         if not msgs:
             return []
         if not self._use_device(len(msgs)):
-            return [self._host_hash(m) for m in msgs]
+            return self._host_hash_batch(msgs)
         return [bytes(row) for row in self._hash_np(list(msgs), device=self.device)]
 
     def poseidon_batch(self, lefts: Sequence[bytes],
@@ -267,6 +276,14 @@ class CryptoSuite:
             return np.zeros((0,), bool)
         rs, ss, _ = self._sig_rows(sigs)
         if not self._use_device(n):
+            native = self._verify_native(
+                [int.from_bytes(d, "big") for d in digests],
+                [int.from_bytes(r, "big") for r in rs],
+                [int.from_bytes(s, "big") for s in ss],
+                [int.from_bytes(p[:32], "big") for p in pubs],
+                [int.from_bytes(p[32:64], "big") for p in pubs])
+            if native is not None:
+                return np.array(native, dtype=bool)
             return np.array([self._verify_host(
                 (int.from_bytes(p[:32], "big"), int.from_bytes(p[32:64], "big")),
                 d, int.from_bytes(r, "big"), int.from_bytes(s, "big"))
@@ -293,6 +310,18 @@ class CryptoSuite:
 
     def _recover_host(self, digests, sigs):
         rs, ss, vs = self._sig_rows(sigs)
+        if all(len(d) == 32 for d in digests):
+            # 32-byte digests and signature halves are the count x 32
+            # big-endian rows the library reads: no int round trips
+            native = nativeec.ecdsa_recover_batch_rows(
+                b"".join(digests), b"".join(rs), b"".join(ss), bytes(vs))
+        else:
+            native = nativeec.ecdsa_recover_batch(
+                [int.from_bytes(d, "big") for d in digests],
+                [int.from_bytes(r, "big") for r in rs],
+                [int.from_bytes(s, "big") for s in ss], vs)
+        if native is not None:
+            return native[0], np.array(native[1], dtype=bool)
         out, okl = [], []
         for d, r, s, v in zip(digests, rs, ss, vs):
             Q = refimpl.ecdsa_recover(self.params, d, int.from_bytes(r, "big"),
@@ -383,12 +412,17 @@ def pub_blocks(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
 
 
 def _sign_ecdsa(kp: KeyPair, digest: bytes) -> bytes:
-    r, s, v = refimpl.ecdsa_sign(refimpl.SECP256K1, kp.secret, digest)
+    """Native EC with the RFC 6979 nonce from the oracle: byte-exact with
+    refimpl.ecdsa_sign, which stays the fallback."""
+    sig = nativeec.ecdsa_sign(kp.secret, digest)
+    r, s, v = sig if sig is not None else \
+        refimpl.ecdsa_sign(refimpl.SECP256K1, kp.secret, digest)
     return r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([v])
 
 
 def _sign_sm(kp: KeyPair, digest: bytes) -> bytes:
-    r, s = refimpl.sm2_sign(kp.secret, digest)
+    sig = nativeec.sm2_sign(kp.secret, digest)
+    r, s = sig if sig is not None else refimpl.sm2_sign(kp.secret, digest)
     return r.to_bytes(32, "big") + s.to_bytes(32, "big") + kp.pub_bytes
 
 

@@ -1,0 +1,1377 @@
+"""Precompiled system contracts.
+
+Reference counterpart: FISCO-BCOS bcos-executor/src/precompiled/ —
+~20 precompiled contracts at reserved addresses (Table/KVTable, SystemConfig,
+Consensus, BFS, Crypto, plus benchmark contracts like DagTransfer under
+precompiled/extension/). This module provides the same capability seam:
+a registry of reserved addresses -> handler objects operating on the state
+overlay. Call data uses the framework's wire codec (a Solidity-ABI codec can
+layer on top for EVM compatibility).
+
+Addresses mirror the reference's numbering scheme (Common.h precompiled
+address constants): 20-byte addresses with a small integer suffix.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+from ..codec.wire import Reader, Writer
+from ..ledger import ledger as ledger_mod
+from ..protocol import LogEntry, TransactionStatus
+from ..storage.state import StateStorage
+
+
+def addr(n: int) -> bytes:
+    return n.to_bytes(20, "big")
+
+
+SYS_CONFIG_ADDRESS = addr(0x1000)
+TABLE_ADDRESS = addr(0x1001)
+TABLE_MANAGER_ADDRESS = addr(0x1002)
+CONSENSUS_ADDRESS = addr(0x1003)
+KV_TABLE_ADDRESS = addr(0x1009)
+CRYPTO_ADDRESS = addr(0x100A)
+DAG_TRANSFER_ADDRESS = addr(0x100C)  # parallel-transfer benchmark contract
+BFS_ADDRESS = addr(0x100E)
+CAST_ADDRESS = addr(0x100F)
+BALANCE_ADDRESS = addr(0x1011)
+# extension plane (PrecompiledTypeDef.h:63,73-83)
+AUTH_MANAGER_ADDRESS = addr(0x1005)
+CONTRACT_AUTH_ADDRESS = addr(0x10002)
+ACCOUNT_MANAGER_ADDRESS = addr(0x10003)
+GROUP_SIG_ADDRESS = addr(0x5004)
+RING_SIG_ADDRESS = addr(0x5005)
+DISCRETE_ZKP_ADDRESS = addr(0x5100)
+
+
+class PrecompileError(Exception):
+    def __init__(self, msg: str, status: TransactionStatus = TransactionStatus.PRECOMPILED_ERROR):
+        super().__init__(msg)
+        self.status = status
+
+
+@dataclasses.dataclass
+class CallContext:
+    state: StateStorage
+    block_number: int
+    timestamp: int
+    sender: bytes
+    to: bytes
+    input: bytes
+    gas_limit: int
+    suite: object = None
+    logs: list = dataclasses.field(default_factory=list)
+    # critical fields this call touches, for DAG conflict analysis
+    # (dag/CriticalFields.h:45 semantics): list of opaque keys
+    criticals: list = dataclasses.field(default_factory=list)
+
+
+class Precompile:
+    """Base: dispatch on a method name string, wire-codec args."""
+
+    name = "precompile"
+
+    def methods(self) -> dict[str, Callable[[CallContext, Reader, Writer], None]]:
+        raise NotImplementedError
+
+    def call(self, ctx: CallContext) -> bytes:
+        r = Reader(ctx.input)
+        try:
+            method = r.text()
+        except Exception as exc:
+            raise PrecompileError(f"{self.name}: bad call data") from exc
+        fn = self.methods().get(method)
+        if fn is None:
+            raise PrecompileError(f"{self.name}: unknown method {method!r}")
+        w = Writer()
+        fn(ctx, r, w)
+        return w.bytes()
+
+    # critical-field helper: declare the state key this call conflicts on
+    @staticmethod
+    def touch(ctx: CallContext, *keys: bytes) -> None:
+        ctx.criticals.extend(keys)
+
+    def conflict_keys(self, input_: bytes) -> Optional[list]:
+        """Static critical-field analysis for DAG planning — parse call
+        data WITHOUT touching state and return the conflict keys this
+        call would contend on, or None if unknown (the planner then
+        serializes the tx). Keys live in one global namespace; prefix
+        with a contract-specific tag. Reference:
+        bcos-executor/src/dag/CriticalFields.h:45-60 — the reference
+        derives these from parallel-contract annotations; here each
+        precompile declares its own."""
+        return None
+
+
+def encode_call(method: str, build: Callable[[Writer], None] | None = None) -> bytes:
+    w = Writer()
+    w.text(method)
+    if build:
+        build(w)
+    return w.bytes()
+
+
+# ---------------------------------------------------------------------------
+# Balance / transfer (the executable core of the E2E slice + DagTransfer
+# benchmark semantics: precompiled/extension/DagTransferPrecompiled.cpp)
+# ---------------------------------------------------------------------------
+
+T_BALANCE = "c_balance"
+
+
+class BalancePrecompile(Precompile):
+    name = "balance"
+
+    def methods(self):
+        return {
+            "register": self._register,
+            "transfer": self._transfer,
+            "balanceOf": self._balance_of,
+        }
+
+    def conflict_keys(self, input_: bytes) -> Optional[list]:
+        try:
+            r = Reader(input_)
+            method = r.text()
+            if method == "transfer":
+                return [T_BALANCE.encode() + r.blob(),
+                        T_BALANCE.encode() + r.blob()]
+            if method in ("register", "balanceOf"):
+                return [T_BALANCE.encode() + r.blob()]
+        except Exception:
+            pass
+        return None
+
+    @staticmethod
+    def _get(ctx: CallContext, account: bytes) -> int:
+        v = ctx.state.get(T_BALANCE, account)
+        return int.from_bytes(v, "big") if v else 0
+
+    @staticmethod
+    def _set(ctx: CallContext, account: bytes, amount: int) -> None:
+        ctx.state.set(T_BALANCE, account, amount.to_bytes(16, "big"))
+
+    def _register(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        account = r.blob()
+        amount = r.u64()
+        self.touch(ctx, T_BALANCE.encode() + account)
+        if ctx.state.get(T_BALANCE, account) is not None:
+            raise PrecompileError("account exists")
+        self._set(ctx, account, amount)
+        w.u32(0)
+
+    def _transfer(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        src, dst, amount = r.blob(), r.blob(), r.u64()
+        self.touch(ctx, T_BALANCE.encode() + src, T_BALANCE.encode() + dst)
+        sb = self._get(ctx, src)
+        if sb < amount:
+            raise PrecompileError("insufficient balance",
+                                  TransactionStatus.REVERT)
+        self._set(ctx, src, sb - amount)
+        self._set(ctx, dst, self._get(ctx, dst) + amount)
+        ctx.logs.append(LogEntry(address=ctx.to, topics=[b"transfer"],
+                                 data=src + dst + amount.to_bytes(8, "big")))
+        w.u32(0)
+
+    def _balance_of(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        account = r.blob()
+        w.u64(self._get(ctx, account))
+
+
+# ---------------------------------------------------------------------------
+# Cross-group (cross-shard) atomic transfers — the coordinator precompile.
+#
+# A transfer id (client-chosen, unique) moves `amount` from `src` on THIS
+# group to `dst` on `dst_group`. The protocol is a logical 2PC riding each
+# group's block 2PC + WAL:
+#
+#   phase 1  transferOut  (source group tx): debit src into escrow, write a
+#            durable outbox intent (c_xshard_out) + pending marker — funds
+#            are locked, invisible to both balances;
+#   phase 2  credit       (dest group tx, coordinator-submitted): credit
+#            dst, record the id in the dedup inbox (c_xshard_in). Retries
+#            after a crash are IDEMPOTENT: an identical already-credited id
+#            succeeds as a no-op, a mismatched one reverts;
+#   phase 3  finish       (source group tx): ok=1 marks the escrow spent;
+#            ok=0 (dest unknown / credit reverted) REFUNDS src. Either way
+#            the pending marker clears.
+#
+# Every phase is a committed block change, so kill -9 anywhere recovers via
+# WAL replay: the coordinator's boot sweep re-drives whatever is still
+# marked pending and lands the same all-or-nothing outcome
+# (init/xshard.py CrossShardCoordinator).
+# ---------------------------------------------------------------------------
+
+XSHARD_ADDRESS = addr(0x1012)
+T_XSHARD_OUT = "c_xshard_out"    # outbox: id -> encoded intent + status
+T_XSHARD_PEND = "c_xshard_pend"  # pending markers (coordinator scan set)
+T_XSHARD_IN = "c_xshard_in"      # inbox: id -> credited record (dedup)
+
+XS_PENDING, XS_DONE, XS_ABORTED = 0, 1, 2
+
+
+def _encode_intent(status: int, dst_group: str, src: bytes, dst: bytes,
+                   amount: int) -> bytes:
+    return (Writer().u8(status).text(dst_group).blob(src).blob(dst)
+            .u64(amount).bytes())
+
+
+def decode_intent(raw: bytes) -> dict:
+    r = Reader(raw)
+    return {"status": r.u8(), "dst_group": r.text(), "src": r.blob(),
+            "dst": r.blob(), "amount": r.u64()}
+
+
+def encode_inbox_record(src_group: str, dst: bytes, amount: int) -> bytes:
+    """The dedup inbox row `credit` writes — shared with the coordinator
+    (which recognizes an already-landed credit after a crash by it) and
+    the invariant auditor (which balances outbox against inbox)."""
+    return Writer().text(src_group).blob(dst).u64(amount).bytes()
+
+
+def decode_inbox_record(raw: bytes) -> dict:
+    r = Reader(raw)
+    return {"src_group": r.text(), "dst": r.blob(), "amount": r.u64()}
+
+
+class XShardPrecompile(Precompile):
+    """Cross-group transfer legs. Balance rows are the same `c_balance`
+    table BalancePrecompile serves, so cross-shard value is ordinary value.
+    """
+
+    name = "xshard"
+
+    def methods(self):
+        return {
+            "transferOut": self._transfer_out,
+            "credit": self._credit,
+            "finish": self._finish,
+        }
+
+    def conflict_keys(self, input_: bytes) -> Optional[list]:
+        try:
+            r = Reader(input_)
+            method = r.text()
+            if method == "transferOut":
+                xid = r.blob()
+                _dst_group = r.text()
+                src = r.blob()
+                return [T_BALANCE.encode() + src,
+                        T_XSHARD_OUT.encode() + xid]
+            if method == "credit":
+                xid = r.blob()
+                _src_group = r.text()
+                dst = r.blob()
+                return [T_BALANCE.encode() + dst,
+                        T_XSHARD_IN.encode() + xid]
+            # finish reads the outbox row to learn which balance it may
+            # refund — unknowable from call data alone: stay opaque so the
+            # DAG planner serializes it
+        except Exception:
+            pass
+        return None
+
+    # -- phase 1: escrow-debit on the source group -------------------------
+    def _transfer_out(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        xid, dst_group = r.blob(), r.text()
+        src, dst, amount = r.blob(), r.blob(), r.u64()
+        if not xid:
+            raise PrecompileError("empty transfer id")
+        self.touch(ctx, T_BALANCE.encode() + src,
+                   T_XSHARD_OUT.encode() + xid)
+        if ctx.state.get(T_XSHARD_OUT, xid) is not None:
+            raise PrecompileError("duplicate transfer id",
+                                  TransactionStatus.REVERT)
+        bal = ctx.state.get(T_BALANCE, src)
+        bal = int.from_bytes(bal, "big") if bal else 0
+        if bal < amount:
+            raise PrecompileError("insufficient balance",
+                                  TransactionStatus.REVERT)
+        ctx.state.set(T_BALANCE, src, (bal - amount).to_bytes(16, "big"))
+        ctx.state.set(T_XSHARD_OUT, xid,
+                      _encode_intent(XS_PENDING, dst_group, src, dst,
+                                     amount))
+        ctx.state.set(T_XSHARD_PEND, xid, b"\x01")
+        ctx.logs.append(LogEntry(address=ctx.to, topics=[b"xshard_out"],
+                                 data=xid))
+        w.u32(0)
+
+    # -- phase 2: idempotent credit on the destination group ---------------
+    def _credit(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        xid, src_group = r.blob(), r.text()
+        dst, amount = r.blob(), r.u64()
+        self.touch(ctx, T_BALANCE.encode() + dst,
+                   T_XSHARD_IN.encode() + xid)
+        record = encode_inbox_record(src_group, dst, amount)
+        seen = ctx.state.get(T_XSHARD_IN, xid)
+        if seen is not None:
+            if seen == record:
+                w.u32(0)  # coordinator retry after a crash: already landed
+                return
+            raise PrecompileError("transfer id reused with different terms",
+                                  TransactionStatus.REVERT)
+        bal = ctx.state.get(T_BALANCE, dst)
+        bal = int.from_bytes(bal, "big") if bal else 0
+        ctx.state.set(T_BALANCE, dst, (bal + amount).to_bytes(16, "big"))
+        ctx.state.set(T_XSHARD_IN, xid, record)
+        ctx.logs.append(LogEntry(address=ctx.to, topics=[b"xshard_in"],
+                                 data=xid))
+        w.u32(0)
+
+    # -- phase 3: settle the escrow on the source group --------------------
+    def _finish(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        xid, ok = r.blob(), r.u8()
+        raw = ctx.state.get(T_XSHARD_OUT, xid)
+        if raw is None:
+            raise PrecompileError("unknown transfer id",
+                                  TransactionStatus.REVERT)
+        intent = decode_intent(raw)
+        self.touch(ctx, T_XSHARD_OUT.encode() + xid,
+                   T_BALANCE.encode() + intent["src"])
+        final = XS_DONE if ok else XS_ABORTED
+        if intent["status"] != XS_PENDING:
+            if intent["status"] == final:
+                w.u32(0)  # idempotent coordinator retry
+                return
+            raise PrecompileError("transfer already settled differently",
+                                  TransactionStatus.REVERT)
+        if not ok:
+            bal = ctx.state.get(T_BALANCE, intent["src"])
+            bal = int.from_bytes(bal, "big") if bal else 0
+            ctx.state.set(T_BALANCE, intent["src"],
+                          (bal + intent["amount"]).to_bytes(16, "big"))
+        ctx.state.set(T_XSHARD_OUT, xid,
+                      _encode_intent(final, intent["dst_group"],
+                                     intent["src"], intent["dst"],
+                                     intent["amount"]))
+        ctx.state.remove(T_XSHARD_PEND, xid)
+        ctx.logs.append(LogEntry(
+            address=ctx.to,
+            topics=[b"xshard_done" if ok else b"xshard_abort"], data=xid))
+        w.u32(0)
+
+
+# ---------------------------------------------------------------------------
+# KV table (precompiled/KVTablePrecompiled.cpp semantics)
+# ---------------------------------------------------------------------------
+
+T_USER_PREFIX = "u_"  # user tables namespaced like the reference's u_ prefix
+
+
+class KVTablePrecompile(Precompile):
+    name = "kv_table"
+
+    def methods(self):
+        return {
+            "createTable": self._create,
+            "set": self._set,
+            "get": self._get,
+        }
+
+    def conflict_keys(self, input_: bytes) -> Optional[list]:
+        try:
+            r = Reader(input_)
+            method = r.text()
+            if method in ("set", "get"):
+                table = T_USER_PREFIX + r.text()
+                return [table.encode() + b"/" + r.blob()]
+            # createTable stays OPAQUE (full barrier): set/get read the
+            # table's __meta__ row, which per-key conflict keys don't
+            # cover — a same-wave createTable+set would race. Matches
+            # the reference, where only registered parallel methods are
+            # DAG-scheduled at all.
+        except Exception:
+            pass
+        return None
+
+    def _create(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = T_USER_PREFIX + r.text()
+        self.touch(ctx, table.encode())
+        meta_key = b"\x00__meta__"
+        if ctx.state.get(table, meta_key) is not None:
+            raise PrecompileError("table exists")
+        ctx.state.set(table, meta_key, b"kv")
+        w.u32(0)
+
+    def _set(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = T_USER_PREFIX + r.text()
+        key, value = r.blob(), r.blob()
+        self.touch(ctx, table.encode() + b"/" + key)
+        if ctx.state.get(table, b"\x00__meta__") is None:
+            raise PrecompileError("no such table")
+        ctx.state.set(table, key, value)
+        w.u32(0)
+
+    def _get(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = T_USER_PREFIX + r.text()
+        key = r.blob()
+        v = ctx.state.get(table, key)
+        w.u8(1 if v is not None else 0)
+        w.blob(v or b"")
+
+
+# ---------------------------------------------------------------------------
+# System config (precompiled/SystemConfigPrecompiled.cpp: setValueByKey with
+# next-block enablement, governed keys only)
+# ---------------------------------------------------------------------------
+
+_GOVERNED_KEYS = {
+    ledger_mod.SYSTEM_KEY_TX_COUNT_LIMIT,
+    ledger_mod.SYSTEM_KEY_LEADER_PERIOD,
+    ledger_mod.SYSTEM_KEY_GAS_LIMIT,
+    ledger_mod.SYSTEM_KEY_COMPATIBILITY_VERSION,
+}
+
+
+class SystemConfigPrecompile(Precompile):
+    name = "sys_config"
+
+    def methods(self):
+        return {"setValueByKey": self._set, "getValueByKey": self._get}
+
+    def _set(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        key, value = r.text(), r.text()
+        if key not in _GOVERNED_KEYS:
+            raise PrecompileError(f"unknown system key {key}")
+        if key == ledger_mod.SYSTEM_KEY_COMPATIBILITY_VERSION:
+            # rolling upgrade governance (SystemConfigPrecompiled.cpp's
+            # checkVersion): X.Y.Z form, never a downgrade — a node fleet
+            # that partially understood a feature must not flap back
+            try:
+                new = ledger_mod.parse_version(value)
+            except ValueError as exc:
+                raise PrecompileError(f"bad compatibility_version: {exc}")
+            cur = ctx.state.get(ledger_mod.SYS_CONFIG, key.encode())
+            if cur is not None:
+                cv = ledger_mod.parse_version(Reader(cur).text())
+                if new < cv:
+                    raise PrecompileError(
+                        f"compatibility_version downgrade "
+                        f"{cv} -> {new} refused")
+        else:
+            try:
+                iv = int(value)
+            except ValueError:
+                raise PrecompileError("system config value must be integer")
+            if key == ledger_mod.SYSTEM_KEY_TX_COUNT_LIMIT and iv < 1:
+                raise PrecompileError("tx_count_limit must be >= 1")
+        self.touch(ctx, b"s_config/" + key.encode())
+        wv = Writer()
+        wv.text(value).i64(ctx.block_number + 1)  # enables next block
+        ctx.state.set(ledger_mod.SYS_CONFIG, key.encode(), wv.bytes())
+        w.u32(0)
+
+    def _get(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        key = r.text()
+        v = ctx.state.get(ledger_mod.SYS_CONFIG, key.encode())
+        if v is None:
+            w.text("")
+            w.i64(-1)
+            return
+        rr = Reader(v)
+        w.text(rr.text())
+        w.i64(rr.i64())
+
+
+# ---------------------------------------------------------------------------
+# Consensus-node management (precompiled/ConsensusPrecompiled.cpp: addSealer/
+# addObserver/remove/setWeight, effective next block)
+# ---------------------------------------------------------------------------
+
+class ConsensusPrecompile(Precompile):
+    name = "consensus"
+
+    def methods(self):
+        return {
+            "addSealer": self._add_sealer,
+            "addObserver": self._add_observer,
+            "remove": self._remove,
+            "setWeight": self._set_weight,
+        }
+
+    @staticmethod
+    def _write(ctx: CallContext, node_id: bytes, node_type: str, weight: int) -> None:
+        w = Writer()
+        w.text(node_type).u64(weight).i64(ctx.block_number + 1)
+        ctx.state.set(ledger_mod.SYS_CONSENSUS, node_id, w.bytes())
+
+    def _add_sealer(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        node_id, weight = r.blob(), r.u64()
+        if weight < 1:
+            raise PrecompileError("sealer weight must be >= 1")
+        self.touch(ctx, b"s_consensus/" + node_id)
+        self._write(ctx, node_id, "consensus_sealer", weight)
+        w.u32(0)
+
+    def _add_observer(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        node_id = r.blob()
+        self.touch(ctx, b"s_consensus/" + node_id)
+        self._write(ctx, node_id, "consensus_observer", 0)
+        w.u32(0)
+
+    def _remove(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        node_id = r.blob()
+        self.touch(ctx, b"s_consensus/" + node_id)
+        if ctx.state.get(ledger_mod.SYS_CONSENSUS, node_id) is None:
+            raise PrecompileError("node not found")
+        ctx.state.remove(ledger_mod.SYS_CONSENSUS, node_id)
+        w.u32(0)
+
+    def _set_weight(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        node_id, weight = r.blob(), r.u64()
+        v = ctx.state.get(ledger_mod.SYS_CONSENSUS, node_id)
+        if v is None:
+            raise PrecompileError("node not found")
+        rr = Reader(v)
+        node_type = rr.text()
+        self.touch(ctx, b"s_consensus/" + node_id)
+        self._write(ctx, node_id, node_type, weight)
+        w.u32(0)
+
+
+# ---------------------------------------------------------------------------
+# Crypto precompile (precompiled/CryptoPrecompiled.cpp: keccak/sm3/verify)
+# ---------------------------------------------------------------------------
+
+class CryptoPrecompile(Precompile):
+    name = "crypto"
+
+    def methods(self):
+        return {"hash": self._hash, "verify": self._verify}
+
+    def _hash(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        data = r.blob()
+        w.blob(ctx.suite.hash(data))
+
+    def _verify(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        digest, sig, pub = r.blob(), r.blob(), r.blob()
+        ok = ctx.suite.verify(pub, digest, sig)
+        w.u8(1 if ok else 0)
+
+
+# ---------------------------------------------------------------------------
+# BFS — the on-chain filesystem (precompiled/BFSPrecompiled.cpp: list/mkdir/
+# touch/link/readlink over the /apps /tables /sys tree)
+# ---------------------------------------------------------------------------
+
+T_BFS = "s_bfs"
+_BFS_ROOTS = (b"/", b"/apps", b"/tables", b"/sys", b"/usr")
+
+
+class BFSPrecompile(Precompile):
+    name = "bfs"
+
+    def methods(self):
+        return {
+            "mkdir": self._mkdir,
+            "list": self._list,
+            "touch": self._touch,
+            "link": self._link,
+            "readlink": self._readlink,
+        }
+
+    @staticmethod
+    def _norm(path: str) -> bytes:
+        if not path.startswith("/") or "//" in path or path != path.strip():
+            raise PrecompileError(f"invalid bfs path {path!r}")
+        p = path.rstrip("/") or "/"
+        return p.encode()
+
+    @staticmethod
+    def _entry(kind: str, ext: bytes = b"") -> bytes:
+        return Writer().text(kind).blob(ext).bytes()
+
+    def _get_entry(self, ctx, key: bytes):
+        if key in _BFS_ROOTS:
+            return "dir", b""
+        v = ctx.state.get(T_BFS, key)
+        if v is None:
+            return None
+        r = Reader(v)
+        return r.text(), r.blob()
+
+    def _require_parent_dir(self, ctx, key: bytes) -> None:
+        parent = key.rsplit(b"/", 1)[0] or b"/"
+        ent = self._get_entry(ctx, parent)
+        if ent is None or ent[0] != "dir":
+            raise PrecompileError(f"parent not a directory: "
+                                  f"{parent.decode()!r}")
+
+    def _mkdir(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        key = self._norm(r.text())
+        self.touch(ctx, b"bfs" + key)
+        # recursive like the reference's makeDirs
+        parts = key.split(b"/")[1:]
+        cur = b""
+        for part in parts:
+            cur += b"/" + part
+            ent = self._get_entry(ctx, cur)
+            if ent is None:
+                ctx.state.set(T_BFS, cur, self._entry("dir"))
+            elif ent[0] != "dir":
+                raise PrecompileError(f"not a directory: {cur.decode()!r}")
+        w.u32(0)
+
+    def _list(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        key = self._norm(r.text())
+        ent = self._get_entry(ctx, key)
+        if ent is None:
+            raise PrecompileError("no such path")
+        if ent[0] != "dir":  # a file lists itself
+            w.u32(1)
+            w.text(key.rsplit(b"/", 1)[1].decode()).text(ent[0])
+            return
+        prefix = (key if key != b"/" else b"") + b"/"
+        children = []
+        seen = set()
+        for k in ctx.state.keys(T_BFS, prefix):
+            rest = k[len(prefix):]
+            if not rest or b"/" in rest:
+                continue
+            if rest not in seen:
+                seen.add(rest)
+                children.append((rest, self._get_entry(ctx, k)[0]))
+        if key == b"/":
+            for root in _BFS_ROOTS[1:]:
+                nm = root[1:]
+                if nm not in seen:
+                    children.append((nm, "dir"))
+        w.u32(len(children))
+        for nm, kind in sorted(children):
+            w.text(nm.decode()).text(kind)
+
+    def _touch(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        key = self._norm(r.text())
+        kind = r.text() or "contract"
+        self.touch(ctx, b"bfs" + key)
+        if self._get_entry(ctx, key) is not None:
+            raise PrecompileError("path exists")
+        self._require_parent_dir(ctx, key)
+        ctx.state.set(T_BFS, key, self._entry(kind))
+        w.u32(0)
+
+    def _link(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        """link(name, version, contract_address, abi) -> /apps/name/version"""
+        name, version = r.text(), r.text()
+        address, abi = r.blob(), r.blob()
+        key = self._norm(f"/apps/{name}/{version}")
+        self.touch(ctx, b"bfs" + key)
+        parent = key.rsplit(b"/", 1)[0]
+        cur = b""
+        for part in parent.split(b"/")[1:]:
+            cur += b"/" + part
+            if self._get_entry(ctx, cur) is None:
+                ctx.state.set(T_BFS, cur, self._entry("dir"))
+        ctx.state.set(T_BFS, key,
+                      self._entry("link", Writer().blob(address).blob(abi)
+                                  .bytes()))
+        w.u32(0)
+
+    def _readlink(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        key = self._norm(r.text())
+        ent = self._get_entry(ctx, key)
+        if ent is None or ent[0] != "link":
+            raise PrecompileError("not a link")
+        rr = Reader(ent[1])
+        w.blob(rr.blob())  # contract address
+
+
+# ---------------------------------------------------------------------------
+# TableManager + structured Table (TableManagerPrecompiled.cpp +
+# TablePrecompiled.cpp: schema'd tables, key column + value columns, row ops
+# and bounded condition scans)
+# ---------------------------------------------------------------------------
+
+_SCHEMA_KEY = b"\x00__schema__"
+# condition comparators (TablePrecompiled.cpp Condition ops)
+_COND_OPS = {0: "eq", 1: "ne", 2: "gt", 3: "ge", 4: "lt", 5: "le"}
+
+
+def _cond_match(conds: list[tuple[int, str]], key: str) -> bool:
+    """Evaluate (op, value)[] conditions over the key column."""
+    for op, val in conds:
+        name = _COND_OPS.get(op)
+        if name is None:
+            raise PrecompileError(f"bad condition op {op}")
+        if not ((name == "eq" and key == val)
+                or (name == "ne" and key != val)
+                or (name == "gt" and key > val)
+                or (name == "ge" and key >= val)
+                or (name == "lt" and key < val)
+                or (name == "le" and key <= val)):
+            return False
+    return True
+
+
+class TableManagerPrecompile(Precompile):
+    name = "table_manager"
+
+    def methods(self):
+        return {
+            "createTable": self._create,
+            "createKVTable": self._create_kv,
+            "appendColumns": self._append,
+            "desc": self._desc,
+            "openTable": self._open,
+        }
+
+    @staticmethod
+    def _table(name: str) -> str:
+        return T_USER_PREFIX + name.strip("/")
+
+    def _create(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        """createTable(path, key_col, value_cols[])"""
+        table = self._table(r.text())
+        key_col = r.text()
+        cols = r.seq(lambda rr: rr.text())
+        self.touch(ctx, table.encode())
+        if ctx.state.get(table, _SCHEMA_KEY) is not None or \
+                ctx.state.get(table, b"\x00__meta__") is not None:
+            raise PrecompileError("table exists")
+        if not key_col or len(set(cols)) != len(cols):
+            raise PrecompileError("bad schema")
+        ctx.state.set(table, _SCHEMA_KEY,
+                      Writer().text(key_col).seq(
+                          cols, lambda ww, c: ww.text(c)).bytes())
+        w.u32(0)
+
+    def _create_kv(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = self._table(r.text())
+        _key_col, _val_col = r.text(), r.text()
+        self.touch(ctx, table.encode())
+        if ctx.state.get(table, b"\x00__meta__") is not None or \
+                ctx.state.get(table, _SCHEMA_KEY) is not None:
+            raise PrecompileError("table exists")
+        ctx.state.set(table, b"\x00__meta__", b"kv")
+        w.u32(0)
+
+    def _schema(self, ctx, table: str) -> tuple[str, list[str]]:
+        v = ctx.state.get(table, _SCHEMA_KEY)
+        if v is None:
+            raise PrecompileError("no such table")
+        r = Reader(v)
+        return r.text(), r.seq(lambda rr: rr.text())
+
+    def _append(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = self._table(r.text())
+        new_cols = r.seq(lambda rr: rr.text())
+        key_col, cols = self._schema(ctx, table)
+        if set(new_cols) & set(cols):
+            raise PrecompileError("column exists")
+        self.touch(ctx, table.encode())
+        cols = cols + new_cols
+        ctx.state.set(table, _SCHEMA_KEY,
+                      Writer().text(key_col).seq(
+                          cols, lambda ww, c: ww.text(c)).bytes())
+        w.u32(0)
+
+    def _desc(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        key_col, cols = self._schema(ctx, self._table(r.text()))
+        w.text(key_col)
+        w.seq(cols, lambda ww, c: ww.text(c))
+
+    def _open(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = self._table(r.text())
+        exists = (ctx.state.get(table, _SCHEMA_KEY) is not None
+                  or ctx.state.get(table, b"\x00__meta__") is not None)
+        w.u8(1 if exists else 0)
+
+
+class TablePrecompile(TableManagerPrecompile):
+    """Row operations on schema'd tables (TablePrecompiled.cpp). Routed via
+    an explicit table-name argument instead of per-table proxy addresses."""
+
+    name = "table"
+
+    def methods(self):
+        return {
+            "insert": self._insert,
+            "select": self._select,
+            "selectByCondition": self._select_cond,
+            "count": self._count,
+            "update": self._update,
+            "remove": self._remove,
+        }
+
+    def _row_key(self, key: str) -> bytes:
+        return b"\x01" + key.encode()
+
+    def _insert(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = self._table(r.text())
+        key = r.text()
+        values = r.seq(lambda rr: rr.text())
+        _kc, cols = self._schema(ctx, table)
+        if len(values) != len(cols):
+            raise PrecompileError("column count mismatch")
+        rk = self._row_key(key)
+        self.touch(ctx, table.encode() + rk)
+        if ctx.state.get(table, rk) is not None:
+            raise PrecompileError("row exists")
+        ctx.state.set(table, rk,
+                      Writer().seq(values, lambda ww, v: ww.text(v)).bytes())
+        w.u32(1)  # affected rows
+
+    def _read_row(self, ctx, table, key: str):
+        v = ctx.state.get(table, self._row_key(key))
+        if v is None:
+            return None
+        return Reader(v).seq(lambda rr: rr.text())
+
+    def _select(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = self._table(r.text())
+        row = self._read_row(ctx, table, r.text())
+        if row is None:
+            w.u8(0)
+            return
+        w.u8(1)
+        w.seq(row, lambda ww, v: ww.text(v))
+
+    def _iter_cond(self, ctx, r: Reader):
+        """Parse (op, value)[] over the KEY column + (offset, count) limit;
+        yield (key, row) matches in key order — bounded scan."""
+        table = self._table(r.text())
+        conds = r.seq(lambda rr: (rr.u8(), rr.text()))
+        offset, count = r.u32(), r.u32()
+        if count > 500:  # the reference's USER_TABLE_MAX_LIMIT_COUNT
+            raise PrecompileError("limit count > 500")
+        self._schema(ctx, table)  # must exist
+        out = []
+        skipped = 0
+        if count == 0:
+            return out
+        for k in ctx.state.keys(table, b"\x01"):
+            key = k[1:].decode()
+            if not _cond_match(conds, key):
+                continue
+            if skipped < offset:
+                skipped += 1
+                continue
+            out.append((key, Reader(ctx.state.get(table, k))
+                        .seq(lambda rr: rr.text())))
+            if len(out) >= count:
+                break
+        return out
+
+    def _select_cond(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        rows = self._iter_cond(ctx, r)
+        w.u32(len(rows))
+        for key, row in rows:
+            w.text(key)
+            w.seq(row, lambda ww, v: ww.text(v))
+
+    def _count(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = self._table(r.text())
+        conds = r.seq(lambda rr: (rr.u8(), rr.text()))
+        self._schema(ctx, table)
+        n = sum(1 for k in ctx.state.keys(table, b"\x01")
+                if _cond_match(conds, k[1:].decode()))
+        w.u32(n)
+
+    def _update(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = self._table(r.text())
+        key = r.text()
+        updates = r.seq(lambda rr: (rr.text(), rr.text()))
+        _kc, cols = self._schema(ctx, table)
+        row = self._read_row(ctx, table, key)
+        if row is None:
+            w.u32(0)
+            return
+        idx = {c: i for i, c in enumerate(cols)}
+        for col, val in updates:
+            if col not in idx:
+                raise PrecompileError(f"no column {col!r}")
+            row[idx[col]] = val
+        rk = self._row_key(key)
+        self.touch(ctx, table.encode() + rk)
+        ctx.state.set(table, rk,
+                      Writer().seq(row, lambda ww, v: ww.text(v)).bytes())
+        w.u32(1)
+
+    def _remove(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        table = self._table(r.text())
+        key = r.text()
+        self._schema(ctx, table)
+        rk = self._row_key(key)
+        self.touch(ctx, table.encode() + rk)
+        if ctx.state.get(table, rk) is None:
+            w.u32(0)
+            return
+        ctx.state.remove(table, rk)
+        w.u32(1)
+
+
+# ---------------------------------------------------------------------------
+# Auth plane (extension/AuthManagerPrecompiled.cpp + ContractAuthMgr
+# Precompiled.cpp): per-contract admin, method ACLs, contract freeze, and
+# chain-wide deploy ACL. All state-driven, so enforcement is deterministic
+# across nodes with no config flag.
+# ---------------------------------------------------------------------------
+
+T_AUTH = "c_auth"
+AUTH_WHITE = 1
+AUTH_BLACK = 2
+_K_DEPLOY_TYPE = b"\x00deploy_type"
+
+
+def _auth_admin_key(address: bytes) -> bytes:
+    return b"adm/" + address
+
+
+def _auth_method_key(address: bytes, selector: bytes) -> bytes:
+    return b"mth/" + address + b"/" + selector[:4]
+
+
+def _auth_status_key(address: bytes) -> bytes:
+    return b"sts/" + address
+
+
+def _deploy_acl_key(account: bytes) -> bytes:
+    return b"dpl/" + account
+
+
+def check_method_auth(state, address: bytes, selector: bytes,
+                      account: bytes) -> bool:
+    """Enforcement hook the executor calls before contract calls."""
+    admin = state.get(T_AUTH, _auth_admin_key(address))
+    if admin == account:
+        return True
+    v = state.get(T_AUTH, _auth_method_key(address, selector))
+    if v is None:
+        return True
+    r = Reader(v)
+    auth_type = r.u8()
+    acl = set(r.seq(lambda rr: rr.blob()))
+    if auth_type == AUTH_WHITE:
+        return account in acl
+    if auth_type == AUTH_BLACK:
+        return account not in acl
+    return True
+
+
+def contract_available(state, address: bytes) -> bool:
+    v = state.get(T_AUTH, _auth_status_key(address))
+    return v is None or v == b"\x00"
+
+
+def check_deploy_auth(state, account: bytes) -> bool:
+    t = state.get(T_AUTH, _K_DEPLOY_TYPE)
+    if t is None or t == b"\x00":
+        return True
+    listed = state.get(T_AUTH, _deploy_acl_key(account)) is not None
+    return listed if t == bytes([AUTH_WHITE]) else not listed
+
+
+def record_contract_admin(state, address: bytes, admin: bytes) -> None:
+    state.set(T_AUTH, _auth_admin_key(address), admin)
+
+
+class ContractAuthPrecompile(Precompile):
+    """Per-contract auth management; admin-only mutations."""
+
+    name = "contract_auth"
+
+    def methods(self):
+        return {
+            "getAdmin": self._get_admin,
+            "resetAdmin": self._reset_admin,
+            "setMethodAuthType": self._set_type,
+            "openMethodAuth": self._open,
+            "closeMethodAuth": self._close,
+            "checkMethodAuth": self._check,
+            "setContractStatus": self._set_status,
+            "contractAvailable": self._available,
+        }
+
+    def _require_admin(self, ctx: CallContext, address: bytes) -> None:
+        admin = ctx.state.get(T_AUTH, _auth_admin_key(address))
+        if admin is None:
+            raise PrecompileError("contract has no admin record")
+        if admin != ctx.sender:
+            raise PrecompileError("sender is not the contract admin",
+                                  TransactionStatus.PERMISSION_DENIED)
+
+    def _get_admin(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        w.blob(ctx.state.get(T_AUTH, _auth_admin_key(r.blob())) or b"")
+
+    def _reset_admin(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        address, new_admin = r.blob(), r.blob()
+        self._require_admin(ctx, address)
+        self.touch(ctx, b"auth/" + address)
+        ctx.state.set(T_AUTH, _auth_admin_key(address), new_admin)
+        w.u32(0)
+
+    def _acl(self, ctx, address, selector) -> tuple[int, list[bytes]]:
+        v = ctx.state.get(T_AUTH, _auth_method_key(address, selector))
+        if v is None:
+            return 0, []
+        r = Reader(v)
+        return r.u8(), r.seq(lambda rr: rr.blob())
+
+    def _write_acl(self, ctx, address, selector, auth_type, acl) -> None:
+        ctx.state.set(T_AUTH, _auth_method_key(address, selector),
+                      Writer().u8(auth_type).seq(
+                          acl, lambda ww, a: ww.blob(a)).bytes())
+
+    def _set_type(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        address, selector, auth_type = r.blob(), r.blob(), r.u8()
+        if auth_type not in (AUTH_WHITE, AUTH_BLACK):
+            raise PrecompileError("auth type must be 1 (white) or 2 (black)")
+        self._require_admin(ctx, address)
+        self.touch(ctx, b"auth/" + address)
+        self._write_acl(ctx, address, selector, auth_type, [])
+        w.u32(0)
+
+    def _open(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        """whitelist: add account; blacklist: remove account."""
+        address, selector, account = r.blob(), r.blob(), r.blob()
+        self._require_admin(ctx, address)
+        auth_type, acl = self._acl(ctx, address, selector)
+        if auth_type == 0:
+            raise PrecompileError("set auth type first")
+        self.touch(ctx, b"auth/" + address)
+        if auth_type == AUTH_WHITE and account not in acl:
+            acl.append(account)
+        elif auth_type == AUTH_BLACK and account in acl:
+            acl.remove(account)
+        self._write_acl(ctx, address, selector, auth_type, acl)
+        w.u32(0)
+
+    def _close(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        address, selector, account = r.blob(), r.blob(), r.blob()
+        self._require_admin(ctx, address)
+        auth_type, acl = self._acl(ctx, address, selector)
+        if auth_type == 0:
+            raise PrecompileError("set auth type first")
+        self.touch(ctx, b"auth/" + address)
+        if auth_type == AUTH_WHITE and account in acl:
+            acl.remove(account)
+        elif auth_type == AUTH_BLACK and account not in acl:
+            acl.append(account)
+        self._write_acl(ctx, address, selector, auth_type, acl)
+        w.u32(0)
+
+    def _check(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        address, selector, account = r.blob(), r.blob(), r.blob()
+        w.u8(1 if check_method_auth(ctx.state, address, selector, account)
+             else 0)
+
+    def _set_status(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        address, frozen = r.blob(), r.u8()
+        self._require_admin(ctx, address)
+        self.touch(ctx, b"auth/" + address)
+        ctx.state.set(T_AUTH, _auth_status_key(address), bytes([frozen]))
+        w.u32(0)
+
+    def _available(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        w.u8(1 if contract_available(ctx.state, r.blob()) else 0)
+
+
+class AuthManagerPrecompile(ContractAuthPrecompile):
+    """Chain-wide deploy ACL on top of the contract-auth surface.
+
+    The reference routes these through a governance committee contract; the
+    committee seam here is 'the governors table': accounts in it may change
+    the deploy policy. Bootstrap: the FIRST setDeployAuthType caller becomes
+    a governor (mirrors committee initialisation at genesis deploy)."""
+
+    name = "auth_manager"
+    _K_GOV = b"gov/"
+
+    def methods(self):
+        m = dict(super().methods())
+        m.update({
+            "deployType": self._deploy_type,
+            "setDeployAuthType": self._set_deploy_type,
+            "openDeployAuth": self._open_deploy,
+            "closeDeployAuth": self._close_deploy,
+            "hasDeployAuth": self._has_deploy,
+            "addGovernor": self._add_governor,
+        })
+        return m
+
+    def _is_governor(self, ctx) -> bool:
+        return ctx.state.get(T_AUTH, self._K_GOV + ctx.sender) is not None
+
+    def _any_governor(self, ctx) -> bool:
+        return next(iter(ctx.state.keys(T_AUTH, self._K_GOV)), None) is not None
+
+    def _require_governor(self, ctx) -> None:
+        if self._any_governor(ctx) and not self._is_governor(ctx):
+            raise PrecompileError("sender is not a governor",
+                                  TransactionStatus.PERMISSION_DENIED)
+
+    def _bootstrap_governor(self, ctx) -> None:
+        if not self._any_governor(ctx):
+            ctx.state.set(T_AUTH, self._K_GOV + ctx.sender, b"\x01")
+
+    def _add_governor(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        account = r.blob()
+        self._require_governor(ctx)
+        self._bootstrap_governor(ctx)
+        self.touch(ctx, b"auth/gov")
+        ctx.state.set(T_AUTH, self._K_GOV + account, b"\x01")
+        w.u32(0)
+
+    def _deploy_type(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        v = ctx.state.get(T_AUTH, _K_DEPLOY_TYPE)
+        w.u8(v[0] if v else 0)
+
+    def _set_deploy_type(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        t = r.u8()
+        if t not in (0, AUTH_WHITE, AUTH_BLACK):
+            raise PrecompileError("deploy type must be 0/1/2")
+        self._require_governor(ctx)
+        self._bootstrap_governor(ctx)
+        self.touch(ctx, b"auth/deploy")
+        ctx.state.set(T_AUTH, _K_DEPLOY_TYPE, bytes([t]))
+        w.u32(0)
+
+    def _deploy_policy(self, ctx) -> int:
+        v = ctx.state.get(T_AUTH, _K_DEPLOY_TYPE)
+        return v[0] if v else 0
+
+    def _open_deploy(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        """GRANT deploy rights: whitelist -> list; blacklist -> unlist."""
+        account = r.blob()
+        self._require_governor(ctx)
+        self.touch(ctx, b"auth/deploy")
+        if self._deploy_policy(ctx) == AUTH_BLACK:
+            ctx.state.remove(T_AUTH, _deploy_acl_key(account))
+        else:
+            ctx.state.set(T_AUTH, _deploy_acl_key(account), b"\x01")
+        w.u32(0)
+
+    def _close_deploy(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        """REVOKE deploy rights: whitelist -> unlist; blacklist -> list."""
+        account = r.blob()
+        self._require_governor(ctx)
+        self.touch(ctx, b"auth/deploy")
+        if self._deploy_policy(ctx) == AUTH_BLACK:
+            ctx.state.set(T_AUTH, _deploy_acl_key(account), b"\x01")
+        else:
+            ctx.state.remove(T_AUTH, _deploy_acl_key(account))
+        w.u32(0)
+
+    def _has_deploy(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        w.u8(1 if check_deploy_auth(ctx.state, r.blob()) else 0)
+
+
+# ---------------------------------------------------------------------------
+# Account manager (extension/AccountManagerPrecompiled.cpp +
+# AccountPrecompiled.cpp: freeze/unfreeze/abolish externally-owned accounts)
+# ---------------------------------------------------------------------------
+
+T_ACCOUNT = "c_account"
+ACCOUNT_NORMAL, ACCOUNT_FROZEN, ACCOUNT_ABOLISHED = 0, 1, 2
+
+
+def account_status(state, account: bytes) -> int:
+    v = state.get(T_ACCOUNT, account)
+    return v[0] if v else ACCOUNT_NORMAL
+
+
+class AccountManagerPrecompile(Precompile):
+    name = "account_manager"
+
+    def methods(self):
+        return {
+            "setAccountStatus": self._set,
+            "getAccountStatus": self._get,
+        }
+
+    def _set(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        account, status = r.blob(), r.u8()
+        if status not in (ACCOUNT_NORMAL, ACCOUNT_FROZEN, ACCOUNT_ABOLISHED):
+            raise PrecompileError("bad account status")
+        # governor-gated via the auth plane when governors exist
+        gov_prefix = AuthManagerPrecompile._K_GOV
+        has_gov = next(iter(ctx.state.keys(T_AUTH, gov_prefix)),
+                       None) is not None
+        if has_gov and ctx.state.get(T_AUTH,
+                                     gov_prefix + ctx.sender) is None:
+            raise PrecompileError("sender is not a governor",
+                                  TransactionStatus.PERMISSION_DENIED)
+        if account_status(ctx.state, account) == ACCOUNT_ABOLISHED:
+            raise PrecompileError("account abolished")
+        self.touch(ctx, b"acct/" + account)
+        ctx.state.set(T_ACCOUNT, account, bytes([status]))
+        w.u32(0)
+
+    def _get(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        w.u8(account_status(ctx.state, r.blob()))
+
+
+# ---------------------------------------------------------------------------
+# Cast helpers (CastPrecompiled.cpp: string <-> number/address conversions
+# for Solidity contracts without string parsing)
+# ---------------------------------------------------------------------------
+
+class CastPrecompile(Precompile):
+    name = "cast"
+
+    def methods(self):
+        return {
+            "stringToS256": self._s2i256,
+            "stringToS64": self._s2i,
+            "stringToU256": self._s2u,
+            "stringToAddr": self._s2a,
+            "s256ToString": self._i256s,
+            "s64ToString": self._i2s,
+            "u256ToString": self._u2s,
+            "addrToString": self._a2s,
+        }
+
+    @staticmethod
+    def _parse_int(s: str) -> int:
+        try:
+            return int(s, 16) if s.lower().startswith("0x") else int(s)
+        except ValueError:
+            raise PrecompileError(f"not a number: {s!r}")
+
+    def _s2i(self, ctx, r: Reader, w: Writer) -> None:
+        v = self._parse_int(r.text())
+        if not -(1 << 63) <= v < 1 << 63:
+            raise PrecompileError("out of s64 range")
+        w.i64(v)
+
+    def _s2i256(self, ctx, r: Reader, w: Writer) -> None:
+        v = self._parse_int(r.text())
+        if not -(1 << 255) <= v < 1 << 255:
+            raise PrecompileError("out of s256 range")
+        w.blob(v.to_bytes(32, "big", signed=True))
+
+    def _i256s(self, ctx, r: Reader, w: Writer) -> None:
+        w.text(str(int.from_bytes(r.blob(), "big", signed=True)))
+
+    def _s2u(self, ctx, r: Reader, w: Writer) -> None:
+        v = self._parse_int(r.text())
+        if v < 0:
+            raise PrecompileError("negative for unsigned cast")
+        w.blob(v.to_bytes(32, "big"))
+
+    def _s2a(self, ctx, r: Reader, w: Writer) -> None:
+        s = r.text().removeprefix("0x")
+        try:
+            raw = bytes.fromhex(s)
+        except ValueError:
+            raise PrecompileError("bad address hex")
+        if len(raw) != 20:
+            raise PrecompileError("address must be 20 bytes")
+        w.blob(raw)
+
+    def _i2s(self, ctx, r: Reader, w: Writer) -> None:
+        w.text(str(r.i64()))
+
+    def _u2s(self, ctx, r: Reader, w: Writer) -> None:
+        w.text(str(int.from_bytes(r.blob(), "big")))
+
+    def _a2s(self, ctx, r: Reader, w: Writer) -> None:
+        w.text("0x" + r.blob().hex())
+
+
+# ---------------------------------------------------------------------------
+# Discrete-log ZKP verifiers (zkp/discretezkp via ZkpPrecompiled) and
+# linkable ring signatures (extension/RingSigPrecompiled.cpp). Group
+# signatures (extension/GroupSigPrecompiled.cpp) stay gated like the
+# reference's optional GroupSig lib.
+# ---------------------------------------------------------------------------
+
+class ZkpPrecompile(Precompile):
+    name = "discrete_zkp"
+
+    def methods(self):
+        return {
+            "verifyKnowledgeProof": self._know,
+            "verifyEqualityProof": self._eq,
+        }
+
+    def _know(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        from ..crypto import zkp
+
+        try:
+            point = zkp._dec(r.blob())
+            proof = zkp.KnowledgeProof.decode(r.blob())
+            ok = zkp.verify_knowledge(point, proof, r.blob())
+        except (ValueError, IndexError):
+            ok = False
+        w.u8(1 if ok else 0)
+
+    def _eq(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        from ..crypto import zkp
+
+        try:
+            P, Q, H = (zkp._dec(r.blob()) for _ in range(3))
+            proof = zkp.EqualityProof.decode(r.blob())
+            ok = zkp.verify_equality(P, Q, H, proof, r.blob())
+        except (ValueError, IndexError):
+            ok = False
+        w.u8(1 if ok else 0)
+
+
+class RingSigPrecompile(Precompile):
+    name = "ring_sig"
+
+    def methods(self):
+        return {"ringSigVerify": self._verify, "linked": self._linked}
+
+    def _verify(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        from ..crypto import zkp
+
+        try:
+            message = r.blob()
+            ring = [zkp._dec(b) for b in r.seq(lambda rr: rr.blob())]
+            sig = zkp.RingSignature.decode(r.blob())
+            ok = zkp.ring_verify(message, ring, sig)
+        except (ValueError, IndexError):
+            ok = False
+        w.u8(1 if ok else 0)
+
+    def _linked(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        from ..crypto import zkp
+
+        try:
+            a = zkp.RingSignature.decode(r.blob())
+            b = zkp.RingSignature.decode(r.blob())
+            w.u8(1 if zkp.linked(a, b) else 0)
+        except (ValueError, IndexError):
+            w.u8(0)
+
+
+class GroupSigPrecompile(Precompile):
+    """Gated: the reference links an optional BBS04 GroupSig library; no
+    equivalent is bundled, so verification reports unavailable (the same
+    failure surface as a reference build without the lib)."""
+
+    name = "group_sig"
+
+    def methods(self):
+        return {"groupSigVerify": self._verify}
+
+    def _verify(self, ctx: CallContext, r: Reader, w: Writer) -> None:
+        raise PrecompileError(
+            "group signature verification requires the optional GroupSig "
+            "backend (reference: cmake/ProjectGroupSig.cmake)")
+
+
+PRECOMPILED_REGISTRY: dict[bytes, Precompile] = {
+    BALANCE_ADDRESS: BalancePrecompile(),
+    XSHARD_ADDRESS: XShardPrecompile(),
+    DAG_TRANSFER_ADDRESS: BalancePrecompile(),  # same semantics, bench alias
+    KV_TABLE_ADDRESS: KVTablePrecompile(),
+    TABLE_ADDRESS: TablePrecompile(),
+    TABLE_MANAGER_ADDRESS: TableManagerPrecompile(),
+    SYS_CONFIG_ADDRESS: SystemConfigPrecompile(),
+    CONSENSUS_ADDRESS: ConsensusPrecompile(),
+    CRYPTO_ADDRESS: CryptoPrecompile(),
+    BFS_ADDRESS: BFSPrecompile(),
+    CAST_ADDRESS: CastPrecompile(),
+    AUTH_MANAGER_ADDRESS: AuthManagerPrecompile(),
+    CONTRACT_AUTH_ADDRESS: ContractAuthPrecompile(),
+    ACCOUNT_MANAGER_ADDRESS: AccountManagerPrecompile(),
+    DISCRETE_ZKP_ADDRESS: ZkpPrecompile(),
+    RING_SIG_ADDRESS: RingSigPrecompile(),
+    GROUP_SIG_ADDRESS: GroupSigPrecompile(),
+}

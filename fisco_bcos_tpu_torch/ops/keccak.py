@@ -162,24 +162,77 @@ def pad_message_np(msg: bytes) -> np.ndarray:
     return buf.reshape(nblocks, RATE_BYTES)
 
 
+def nblocks_np(lens: np.ndarray) -> np.ndarray:
+    """The padded block count of a message of each length."""
+    return lens // RATE_BYTES + 1
+
+
 def pad_batch_np(msgs: Sequence[bytes]):
     """Pad a batch to its longest message -> (blocks [B, maxb, 136] uint8,
     nvalid [B] int32), the layout keccak256_varlen takes."""
     lens = np.fromiter((len(m) for m in msgs), np.int64, len(msgs))
-    nvalid = (lens // RATE_BYTES + 1).astype(np.int32)
+    nvalid = nblocks_np(lens).astype(np.int32)
     maxb = int(nvalid.max()) if len(msgs) else 1
     blocks = np.zeros((len(msgs), maxb * RATE_BYTES), dtype=np.uint8)
     for i, m in enumerate(msgs):
         blocks[i, :len(m)] = np.frombuffer(m, np.uint8)
-    rows = np.arange(len(msgs))
-    blocks[rows, lens] ^= 0x01
-    blocks[rows, nvalid.astype(np.int64) * RATE_BYTES - 1] ^= 0x80
+    _keccak_pad_rows(blocks, lens, nvalid)
     return blocks.reshape(len(msgs), maxb, RATE_BYTES), nvalid
 
 
+def length_classes(nvalid: np.ndarray) -> list[np.ndarray]:
+    """The rows of each length class present, in class order: class 0
+    holds one-block messages, class c >= 1 those of 2^(c-1) + 1 to 2^c
+    blocks. Padded to its own longest message, every row of a class takes
+    fewer than twice the blocks it needs."""
+    nvalid = np.asarray(nvalid, np.int64)
+    _, exp = np.frexp(np.maximum(nvalid - 1, 0).astype(np.float64))
+    cls = np.where(nvalid > 1, exp, 0)  # the bit length of nvalid - 1
+    return [np.flatnonzero(cls == c) for c in np.unique(cls)]
+
+
+def pack_classes_np(msgs: Sequence[bytes], block_bytes: int, nblocks_of, pad_rows):
+    """Split msgs by length class -> [(rows, blocks [k, maxb, block_bytes]
+    uint8, nvalid [k] int32)], each class padded only to its own longest
+    message. The JAX package pads a whole batch to its longest message
+    (fisco_bcos_tpu/ops/keccak.py pad_batch_np): a 65,536-tx block's state
+    changeset of 196,615 leaves holds a 2,359,325 B row, which would make
+    that ~464 GB. nblocks_of(lens) gives the block counts; pad_rows(flat
+    [k, W], lens, nvalid) writes the padding bytes in place."""
+    lens = np.fromiter((len(m) for m in msgs), np.int64, len(msgs))
+    nvalid = nblocks_of(lens).astype(np.int32)
+    out = []
+    for rows in length_classes(nvalid):
+        maxb = int(nvalid[rows].max())
+        width = maxb * block_bytes
+        buf = bytearray(len(rows) * width)
+        for k, i in enumerate(rows.tolist()):
+            m = msgs[i]
+            buf[k * width:k * width + len(m)] = m
+        flat = np.frombuffer(buf, np.uint8).reshape(len(rows), width)
+        pad_rows(flat, lens[rows], nvalid[rows])
+        out.append((rows, flat.reshape(len(rows), maxb, block_bytes), nvalid[rows]))
+    return out
+
+
+def _keccak_pad_rows(flat: np.ndarray, lens: np.ndarray, nvalid: np.ndarray) -> None:
+    rows = np.arange(flat.shape[0])
+    flat[rows, lens] ^= 0x01
+    flat[rows, nvalid.astype(np.int64) * RATE_BYTES - 1] ^= 0x80
+
+
+def pack_batch_np(msgs: Sequence[bytes]):
+    """Keccak-pad a batch by length class (pack_classes_np) -> [(rows,
+    blocks [k, maxb, 136] uint8, nvalid [k] int32)]."""
+    return pack_classes_np(msgs, RATE_BYTES, nblocks_np, _keccak_pad_rows)
+
+
 def keccak256_batch_np(msgs: Sequence[bytes], device="cuda") -> np.ndarray:
-    """Host API: pad on the host, hash on `device`, return [B, 32] uint8."""
-    blocks, nvalid = pad_batch_np(msgs)
-    out = keccak256_varlen(torch.as_tensor(blocks, device=device),
-                           torch.as_tensor(nvalid, device=device))
-    return out.cpu().numpy()
+    """Host API: pad on the host by length class, hash each class on
+    `device` (one keccak256_varlen call a class), return [B, 32] uint8 in
+    input order."""
+    out = np.zeros((len(msgs), 32), np.uint8)
+    for rows, blocks, nvalid in pack_batch_np(msgs):
+        out[rows] = keccak256_varlen(torch.as_tensor(blocks, device=device),
+                                     torch.as_tensor(nvalid, device=device)).cpu().numpy()
+    return out

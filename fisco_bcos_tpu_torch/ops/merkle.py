@@ -18,7 +18,7 @@ import torch
 
 from . import keccak as _keccak
 from . import sm3 as _sm3
-from ..crypto import refimpl
+from ..crypto import nativehash
 
 WIDTH = 16
 DIGEST = 32
@@ -100,19 +100,23 @@ def merkle_root(leaves: torch.Tensor, alg: str = "keccak256") -> torch.Tensor:
 
 def _hash_host(data: bytes, alg: str) -> bytes:
     _check_alg(alg)
-    return refimpl.keccak256(data) if alg == "keccak256" else refimpl.sm3(data)
+    return nativehash.host_hash(alg)(data)
 
 
 def merkle_levels_host(leaves: list[bytes], alg: str = "keccak256") -> list[list[bytes]]:
-    """All tree levels, canonical semantics (host loop, pure Python)."""
+    """All tree levels, canonical semantics (host loop, one native hash
+    call per level; crypto.nativehash falls back to refimpl without the
+    library)."""
     assert leaves
+    _check_alg(alg)
+    hash_batch = nativehash.host_hash_batch(alg)
     levels = [list(leaves)]
     while len(levels[-1]) > 1:
         cur = list(levels[-1])
         while len(cur) % WIDTH:
             cur.append(b"\x00" * DIGEST)
-        levels.append([_hash_host(b"".join(cur[i: i + WIDTH]), alg)
-                       for i in range(0, len(cur), WIDTH)])
+        levels.append(hash_batch([b"".join(cur[i: i + WIDTH])
+                                  for i in range(0, len(cur), WIDTH)]))
     return levels
 
 

@@ -15,6 +15,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .keccak import pack_classes_np
+
 BLOCK_BYTES = 64
 M32 = 0xFFFFFFFF
 
@@ -141,27 +143,45 @@ def pad_message_np(msg: bytes) -> np.ndarray:
     return buf.reshape(-1, BLOCK_BYTES)
 
 
+def nblocks_np(lens: np.ndarray) -> np.ndarray:
+    """The padded block count of a message of each length."""
+    return (lens + 8) // BLOCK_BYTES + 1
+
+
 def pad_batch_np(msgs: Sequence[bytes]):
     """Pad a batch to its longest message -> (blocks [B, maxb, 64] uint8,
     nvalid [B] int32), the layout sm3_varlen takes."""
     lens = np.fromiter((len(m) for m in msgs), np.int64, len(msgs))
-    nvalid = ((lens + 8) // BLOCK_BYTES + 1).astype(np.int32)
+    nvalid = nblocks_np(lens).astype(np.int32)
     maxb = int(nvalid.max()) if len(msgs) else 1
     blocks = np.zeros((len(msgs), maxb * BLOCK_BYTES), dtype=np.uint8)
     for i, m in enumerate(msgs):
         blocks[i, :len(m)] = np.frombuffer(m, np.uint8)
-    rows = np.arange(len(msgs))
-    blocks[rows, lens] = 0x80
-    end = nvalid.astype(np.int64) * BLOCK_BYTES
-    bits = lens * 8
-    for k in range(8):
-        blocks[rows, end - 1 - k] = (bits >> (8 * k)) & 0xFF
+    _sm3_pad_rows(blocks, lens, nvalid)
     return blocks.reshape(len(msgs), maxb, BLOCK_BYTES), nvalid
 
 
+def _sm3_pad_rows(flat: np.ndarray, lens: np.ndarray, nvalid: np.ndarray) -> None:
+    rows = np.arange(flat.shape[0])
+    flat[rows, lens] = 0x80
+    end = nvalid.astype(np.int64) * BLOCK_BYTES
+    bits = lens * 8
+    for k in range(8):
+        flat[rows, end - 1 - k] = (bits >> (8 * k)) & 0xFF
+
+
+def pack_batch_np(msgs: Sequence[bytes]):
+    """SM3-pad a batch by length class (ops.keccak.pack_classes_np) ->
+    [(rows, blocks [k, maxb, 64] uint8, nvalid [k] int32)]."""
+    return pack_classes_np(msgs, BLOCK_BYTES, nblocks_np, _sm3_pad_rows)
+
+
 def sm3_batch_np(msgs: Sequence[bytes], device="cuda") -> np.ndarray:
-    """Host API: pad on the host, hash on `device`, return [B, 32] uint8."""
-    blocks, nvalid = pad_batch_np(msgs)
-    out = sm3_varlen(torch.as_tensor(blocks, device=device),
-                     torch.as_tensor(nvalid, device=device))
-    return out.cpu().numpy()
+    """Host API: pad on the host by length class, hash each class on
+    `device` (one sm3_varlen call a class), return [B, 32] uint8 in input
+    order."""
+    out = np.zeros((len(msgs), 32), np.uint8)
+    for rows, blocks, nvalid in pack_batch_np(msgs):
+        out[rows] = sm3_varlen(torch.as_tensor(blocks, device=device),
+                               torch.as_tensor(nvalid, device=device)).cpu().numpy()
+    return out

@@ -1,0 +1,743 @@
+"""Scheduler — drives blocks through execute -> roots -> 2PC commit as a
+multi-stage pipeline across heights.
+
+Reference counterpart: FISCO-BCOS bcos-scheduler/src/SchedulerImpl.cpp
+(:125 executeBlock, :370 commitBlock) and BlockExecutive.cpp (:52 prepare,
+:380 asyncExecute, :1124 txsRoot/receiptsRoot, :1265 batchBlockCommit 2PC).
+
+The execute phase fills the proposal's txs from the txpool
+(BlockExecutive.cpp:324 asyncFillBlock), runs the executor (DAG waves), then
+computes the three roots — txs/receipts via the device Merkle kernel, state root
+over the changeset — and returns the finalised header for consensus
+checkpointing. `commit` stages ledger writes + execution state into one
+changeset and drives prepare/commit on the transactional storage.
+
+Pipelining (the hardware-assisted-BFT shape: keep the accelerator fed by
+overlapping stages instead of serialising them on one thread):
+
+  * **Commit stage on its own thread.** `commit_async` hands a decided
+    block to a dedicated commit worker; the consensus worker returns to
+    draining packets immediately instead of blocking on the 2PC + WAL
+    fsync. Commits stay strictly height-ordered (the worker refuses
+    anything but committed+1).
+  * **Speculative execution.** Block N+1 executes while N's commit is in
+    flight: its StateStorage overlay reads through a StackedStorageView
+    over N's (and any earlier uncommitted) changeset. Each block's
+    `state_root` stays the Merkle root of ITS OWN changeset (it is NOT
+    cumulative), so speculation changes nothing about header identity.
+    The speculative chain (`_spec`) links by parent hash; a commit whose
+    parent check fails, a 2PC rollback, or `abort_speculation` (view
+    change) discards the speculative tail and execution re-runs against
+    the durable head.
+
+Blocks still execute strictly in order (N+1 chains on N's finalised
+header); `pipeline=False` restores the serial execute-then-commit shape
+for comparison benches and odd embeddings.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from collections import OrderedDict
+from typing import Callable, Optional, Sequence
+
+from ..analysis import lockcheck as lc
+from ..analysis.profiler import stage as _prof_stage
+from ..executor.executor import TransactionExecutor
+from ..ledger.ledger import Ledger
+from ..protocol import Block, BlockHeader, ParentInfo, Receipt, Transaction
+from ..storage.interface import ChangeSet, Entry, TransactionalStorage
+from ..storage.state import StackedStorageView, StateStorage
+from ..utils import failpoints as fp
+from ..utils.log import LOG, badge, metric
+
+# deterministic fault sites on the commit pipeline (utils/failpoints.py):
+# `commit.entry` fires OUTSIDE commit_block's 2PC try (the uncaught
+# commit-thread-exception path the health plane must catch), the `2pc.*`
+# sites fire inside it (the clean rollback path)
+fp.register("scheduler.commit.handoff", "scheduler.commit.entry",
+            "scheduler.2pc.prepare", "scheduler.2pc.commit",
+            "scheduler.2pc.rollback")
+
+
+@dataclasses.dataclass
+class ExecutionResult:
+    header: BlockHeader
+    receipts: list[Receipt]
+    state: StateStorage  # holds the block's execution changeset
+    # the proposal's LIVE tx objects: their _sender fields were populated
+    # by the admission/verify batch recover, so commit-time consumers
+    # (the RPC cache's prime_block) can render senders without re-running
+    # a recover batch over freshly-decoded copies
+    txs: list = dataclasses.field(default_factory=list)
+    # the block's changeset snapshot: N+1's speculative reads stack over
+    # it, and commit stages exactly it (plus the header rows) into the 2PC
+    changes: ChangeSet = dataclasses.field(default_factory=dict)
+    parent_hash: bytes = b""  # chain link checked again at commit time
+    hh: bytes = b""           # header hash (commit identity key)
+    committing: bool = False  # handed to the commit stage; abort keeps it
+    t_executed: float = 0.0   # monotonic stamp for consensus-wait timing
+
+
+class Scheduler:
+    def __init__(self, storage: TransactionalStorage, ledger: Ledger,
+                 executor: TransactionExecutor, suite, txpool=None,
+                 pipeline: bool = True, trace_label: str = "",
+                 health=None, state_index: bool = True):
+        self.storage = storage
+        self.ledger = ledger
+        self.executor = executor
+        self.suite = suite
+        self.txpool = txpool
+        self.pipeline = pipeline
+        # ZK proof plane: persist each block's state-leaf digest index
+        # (ledger.write_state_index) so getProof can serve changeset-
+        # inclusion proofs anchored at state_root. The digests are a free
+        # by-product of the root computation; the row is derived data the
+        # root never covers, so mixed-setting fleets stay root-compatible.
+        self.state_index = state_index
+        # health plane (utils/health.py): commit failures degrade the node
+        # (with a self-healing retry probe) instead of being swallowed
+        self.health = health
+        self._commit_faulted = False
+        # out-of-process execution pool (scheduler/workers.py) — None =
+        # in-process execute (the default); wired via attach_exec_pool
+        self.exec_pool = None
+        # per-node label for the block-trace registry + span attribution
+        self.trace_label = trace_label
+        self._lock = lc.make_rlock("scheduler.state")    # bookkeeping dicts
+        self._exec_lock = lc.make_rlock("scheduler.exec")  # serialises execution
+        self._commit_2pc = lc.make_lock("scheduler.2pc")   # serialises the 2PC
+        # executed results awaiting commit: hash -> result, plus a height
+        # index so eviction never rebuilds the whole dict under the lock
+        self._executed: dict[bytes, ExecutionResult] = {}
+        self._exec_heights: dict[int, set[bytes]] = {}
+        # the speculative chain: contiguous heights committed+1..head, in
+        # order; each entry's changeset backs the next height's reads
+        self._spec: "OrderedDict[int, ExecutionResult]" = OrderedDict()
+        # commit observers: callback(block_number) after a durable commit
+        # (the reference's block-number notification fan-out,
+        # Initializer.cpp:393-416). Observers run on a notifier thread so a
+        # slow subscriber cannot stall the consensus commit path.
+        self.on_commit: list = []
+        # invalidation observers: callback(block_number) run SYNCHRONOUSLY
+        # when previously-served state may no longer be trustworthy — a
+        # commit 2PC rollback, or a snap-sync install that jumped the head
+        # over wiped tables. The RPC query cache (rpc/cache.py) rides this:
+        # it must be empty BEFORE any reader can observe the new state.
+        self.on_invalidate: list = []
+        # number -> the committed block's live txs, for commit observers
+        # that want the sender-populated tx objects (RPC cache priming).
+        # Commits are strictly height-ordered, so an OrderedDict evicts
+        # its oldest entry in O(1) instead of re-scanning for min().
+        self.last_committed_txs: "OrderedDict[int, list]" = OrderedDict()
+        # per-stage occupancy accounting (chain_bench --pipeline-profile)
+        self._stage_s: dict[str, float] = {}
+        self._stage_n: dict[str, int] = {}
+        self._overlap_commits = 0      # 2PCs that ran while a block executed
+        self._speculative_execs = 0    # executions stacked over uncommitted state
+        self._exec_busy = False
+        self._commit_busy = False
+        self._notify_q: "queue.Queue[Optional[int]]" = queue.Queue()
+        self._notifier = threading.Thread(target=self._notify_loop,
+                                          daemon=True, name="sched-notify")
+        # the commit stage: only materialised in pipeline mode — callers
+        # probe `commit_async` (None = synchronous commit path)
+        self.commit_async: Optional[Callable] = None
+        self._commit_q: "queue.Queue" = queue.Queue()
+        self._commit_thread: Optional[threading.Thread] = None
+        if pipeline:
+            self.commit_async = self._commit_async
+            self._commit_thread = threading.Thread(
+                target=self._commit_loop, daemon=True, name="sched-commit")
+        # workers launch LAST, after every field above is assigned, so
+        # neither loop can observe a partially-built scheduler. An explicit
+        # owner-side start() is impractical here — the ctor has many
+        # external construction sites (node init, tests, benches) and a
+        # forgotten start() silently stalls commit notification.
+        self._notifier.start()  # bcoslint: disable=thread-start-in-ctor
+        if self._commit_thread is not None:
+            self._commit_thread.start()  # bcoslint: disable=thread-start-in-ctor
+
+    # -- stage accounting --------------------------------------------------
+    def _stage(self, name: str, dt: float) -> None:
+        with self._lock:
+            self._stage_s[name] = self._stage_s.get(name, 0.0) + dt
+            self._stage_n[name] = self._stage_n.get(name, 0) + 1
+
+    def pipeline_stats(self) -> dict:
+        with self._lock:
+            return {
+                "depth": len(self._spec),
+                "commit_queue": self._commit_q.qsize(),
+                "overlap_commits": self._overlap_commits,
+                "speculative_execs": self._speculative_execs,
+                "stages": {k: {"seconds": round(v, 4),
+                               "count": self._stage_n.get(k, 0)}
+                           for k, v in sorted(self._stage_s.items())},
+            }
+
+    def reset_pipeline_stats(self) -> None:
+        with self._lock:
+            self._stage_s.clear()
+            self._stage_n.clear()
+            self._overlap_commits = 0
+            self._speculative_execs = 0
+
+    def commit_backlog(self) -> int:
+        """Decided-but-uncommitted depth: the commit worker's queue plus
+        any in-flight 2PC — the overload controller's commit-stage signal
+        (utils/overload.py). Lock-free snapshot reads."""
+        return self._commit_q.qsize() + (1 if self._commit_busy else 0)
+
+    def pipeline_busy(self) -> bool:
+        """True while a block is executing or awaiting/undergoing commit —
+        the sealer's keep-filling signal (a proposal sealed now would only
+        queue behind the pipeline, so it may as well grow)."""
+        with self._lock:
+            if self._spec:
+                return True
+        return self._exec_busy
+
+    def next_executable(self) -> int:
+        """The height the next execute_block call must carry: speculative
+        head + 1, or committed + 1 when nothing is in flight (always
+        committed + 1 with the pipeline disabled — no speculation)."""
+        with self._lock:
+            committed = self.ledger.current_number()
+            if not self.pipeline:
+                return committed + 1
+            while self._spec and next(iter(self._spec)) <= committed:
+                self._forget_locked(self._spec.popitem(last=False)[1])
+            if self._spec:
+                return max(next(reversed(self._spec)), committed) + 1
+            return committed + 1
+
+    # -- execute (SchedulerImpl::executeBlock) -----------------------------
+    def execute_block(self, block: Block, sealer_list: Sequence[bytes] | None = None
+                      ) -> Optional[ExecutionResult]:
+        """Execute a proposal; returns the finalised header (with roots) or
+        None if the block cannot be executed (bad parent / missing txs).
+
+        With pipelining, the proposal may chain on a not-yet-committed
+        parent: reads stack over the speculative chain's changesets."""
+        t0 = time.monotonic()
+        with self._exec_lock:
+            self._exec_busy = True
+            try:
+                # profiler stage mark (analysis/profiler.py): samples of
+                # whatever thread drives execution (sealer, PBFT worker,
+                # sync) carry stage=execute — two dict writes per block
+                with _prof_stage("execute"):
+                    return self._execute_locked(block, sealer_list, t0)
+            finally:
+                self._exec_busy = False
+
+    def _execute_locked(self, block: Block,
+                        sealer_list: Sequence[bytes] | None,
+                        t0: float) -> Optional[ExecutionResult]:
+        header = block.header
+        with self._lock:
+            committed = self.ledger.current_number()
+            while self._spec and next(iter(self._spec)) <= committed:
+                self._forget_locked(self._spec.popitem(last=False)[1])
+            # re-executing an in-flight height replaces the speculative
+            # tail from there up (solo retry after a commit failure, or a
+            # superseding proposal) — unless a replaced entry is already on
+            # the commit stage, in which case its outcome decides first
+            if committed < header.number and self._spec \
+                    and header.number <= next(reversed(self._spec)):
+                if any(r.committing for n, r in self._spec.items()
+                       if n >= header.number):
+                    LOG.warning(badge("SCHED", "execute-vs-commit-race",
+                                      number=header.number))
+                    return None
+                self._drop_spec_from_locked(header.number)
+            spec = list(self._spec.values())
+        if not self.pipeline:
+            # serial mode: never stack over uncommitted state — execution
+            # strictly follows the durable head (the documented opt-out
+            # and the --no-pipeline bench anchor)
+            spec = []
+        base_number = spec[-1].header.number if spec else committed
+        if header.number != base_number + 1:
+            LOG.warning(badge("SCHED", "execute-out-of-order",
+                              number=header.number, current=committed,
+                              spec_head=base_number))
+            return None
+        if spec:
+            parent_hash = spec[-1].header.hash(self.suite)
+            backend = StackedStorageView(self.storage,
+                                         [r.changes for r in spec])
+        else:
+            parent = self.ledger.header_by_number(committed)
+            parent_hash = parent.hash(self.suite) if parent else b"\x00" * 32
+            backend = self.storage
+
+        from ..utils.trace import block_trace
+        trace = block_trace(header.number, owner=self.trace_label)
+        txs = block.transactions
+        if not txs and block.tx_hashes:
+            if self.txpool is None:
+                return None
+            txs = self.txpool.fill_block(block.tx_hashes)
+            if txs is None:
+                LOG.warning(badge("SCHED", "missing-txs", number=header.number))
+                return None
+            block.transactions = txs
+        trace.stage("fill")
+        t_fill = time.monotonic()
+        self._stage("fill", t_fill - t0)
+
+        state = StateStorage(backend)
+        receipts = self._execute_stage(txs, state, backend, header)
+        trace.stage("execute")
+        t_exec = time.monotonic()
+        self._stage("execute", t_exec - t_fill)
+
+        # finalise header: parent info + roots
+        header.parent_info = [ParentInfo(header.number - 1, parent_hash)]
+        header.txs_root = block.calculate_txs_root(self.suite)
+        block.receipts = receipts
+        header.receipts_root = block.calculate_receipts_root(self.suite)
+        self.ledger.prewrite_block(block, state)
+        changes = state.changeset()
+        # per-CHANGESET root, deliberately NOT cumulative: identical whether
+        # the parent's changeset is durable or still speculative
+        if self.state_index:
+            root, leaf_index = self.executor.state_root_with_leaves(changes)
+            header.state_root = root
+            # staged AFTER the root so the row never feeds its own tree;
+            # re-export picks it up for the same 2PC commit
+            self.ledger.write_state_index(state, header.number, leaf_index)
+            changes = state.changeset()
+        else:
+            header.state_root = self.executor.state_root(changes)
+        trace.stage("roots")
+        header.gas_used = sum(r.gas_used for r in receipts)
+        header.invalidate()
+        if sealer_list is not None:
+            header.sealer_list = list(sealer_list)
+        hh = header.hash(self.suite)
+        result = ExecutionResult(header, receipts, state,
+                                 list(block.transactions), changes,
+                                 parent_hash, hh,
+                                 t_executed=time.monotonic())
+        self._stage("roots", result.t_executed - t_exec)
+        with self._lock:
+            # re-validate the chain didn't move while we executed (a commit
+            # popping the front is fine; an abort/external jump is not)
+            committed2 = self.ledger.current_number()
+            tail = (self._spec[next(reversed(self._spec))]
+                    if self._spec else None)
+            if tail is not None:
+                valid = (tail.header.number == header.number - 1
+                         and tail.hh == parent_hash)
+            else:
+                parent = self.ledger.header_by_number(header.number - 1)
+                valid = (committed2 == header.number - 1
+                         and parent is not None
+                         and parent.hash(self.suite) == parent_hash)
+            if not valid:
+                metric("scheduler.execute_discarded", number=header.number)
+                return None
+            if spec:
+                self._speculative_execs += 1
+            if self._commit_busy:
+                self._overlap_commits += 1
+            self._executed[hh] = result
+            self._exec_heights.setdefault(header.number, set()).add(hh)
+            self._spec[header.number] = result
+        metric("scheduler.execute", number=header.number, n_tx=len(txs),
+               speculative=bool(spec),
+               ms=int((time.monotonic() - t0) * 1000))
+        return result
+
+    def _execute_stage(self, txs, state: StateStorage, backend,
+                       header: BlockHeader) -> list[Receipt]:
+        """The execute cut point. With an attached ExecPool
+        (scheduler/workers.py) the block runs OUT OF PROCESS — encoded
+        txs ship to a worker interpreter with its own GIL, receipts and
+        the changeset come back, and the changeset is replayed into this
+        block's StateStorage overlay so everything downstream (prewrite,
+        roots, 2PC staging) is byte-identical to the in-process path.
+        The pool is a pure offload: any worker trouble returns None and
+        the block executes in-process — chain liveness never depends on
+        a worker process."""
+        if self.exec_pool is not None:
+            out = self.exec_pool.execute(txs, backend, header.number,
+                                         header.timestamp, self.suite,
+                                         self.executor)
+            if out is not None:
+                receipts, changes = out
+                for (table, key), e in changes.items():
+                    if e.deleted:
+                        state.remove(table, key)
+                    else:
+                        state.set(table, key, e.value)
+                return receipts
+            metric("scheduler.exec_pool_fallback", number=header.number)
+        return self.executor.execute_block_dag(
+            txs, state, header.number, header.timestamp)
+
+    def attach_exec_pool(self, pool) -> None:
+        """Adopt an out-of-process execution pool (node init; also used
+        by benches). Call before the first execute_block."""
+        self.exec_pool = pool
+
+    # -- bookkeeping helpers (all under self._lock) ------------------------
+    def _forget_locked(self, result: ExecutionResult) -> None:
+        self._executed.pop(result.hh, None)
+        hs = self._exec_heights.get(result.header.number)
+        if hs is not None:
+            hs.discard(result.hh)
+            if not hs:
+                self._exec_heights.pop(result.header.number, None)
+
+    def _drop_spec_from_locked(self, number: int) -> None:
+        """Drop speculative results at `number` and above — their reads
+        went through a changeset that is no longer part of the chain."""
+        for n in [n for n in self._spec if n >= number]:
+            self._forget_locked(self._spec.pop(n))
+
+    def _evict_upto_locked(self, number: int) -> None:
+        """Retire executed results at or below a committed height. The
+        height index makes this O(heights retired), not O(results)."""
+        for n in [n for n in self._exec_heights if n <= number]:
+            for h in self._exec_heights.pop(n):
+                self._executed.pop(h, None)
+            self._spec.pop(n, None)
+
+    def abort_speculation(self) -> int:
+        """Discard the speculative chain (view change replaced the rounds,
+        or sync needs the execution slot). Results already handed to the
+        commit stage are KEPT — they hold a checkpoint quorum and will
+        land; everything above them re-executes against the new chain.
+        Returns the number of results dropped."""
+        dropped = 0
+        with self._lock:
+            while self._spec:
+                n = next(reversed(self._spec))
+                r = self._spec[n]
+                if r.committing:
+                    break
+                self._forget_locked(self._spec.pop(n))
+                dropped += 1
+        if dropped:
+            metric("scheduler.speculation_aborted", dropped=dropped)
+        return dropped
+
+    # -- commit stage (SchedulerImpl::commitBlock; 2PC) --------------------
+    def _commit_async(self, header: BlockHeader,
+                      done: Optional[Callable[[bool], None]] = None) -> None:
+        """Queue a decided block for the commit worker; `done(ok)` fires on
+        completion. Strict height ordering comes from FIFO submission plus
+        commit_block's committed+1 check."""
+        fp.fire("scheduler.commit.handoff")
+        with self._lock:
+            r = self._executed.get(header.hash(self.suite))
+            if r is not None:
+                r.committing = True
+        self._commit_q.put((header, done))
+
+    def _commit_loop(self) -> None:
+        try:
+            self._commit_loop_inner()
+        except BaseException as exc:
+            # the dedicated commit thread DYING is fatal for the pipeline:
+            # nothing will ever drain the queue again while the sealer
+            # keeps granting — say so at the top of the health plane
+            # instead of wedging silently
+            LOG.critical(badge("SCHED", "commit-thread-died",
+                               error=repr(exc)))
+            if self.health is not None:
+                self.health.failed("scheduler.commit_thread", repr(exc))
+            raise
+
+    def _commit_loop_inner(self) -> None:
+        while True:
+            item = self._commit_q.get()
+            if item is None:
+                return
+            header, done = item
+            try:
+                # dynamic lookup so per-instance instrumentation wrappers
+                # (benches, soak tests) see pipelined commits too
+                ok = self.commit_block(header)
+            except Exception as exc:
+                # an exception ESCAPING commit_block used to leave the
+                # pipeline silently wedged (the sealer still granting, the
+                # height never landing): log loudly and trip the health
+                # plane with the self-healing retry probe
+                LOG.critical(badge("SCHED", "commit-thread-exception",
+                                   number=header.number, error=repr(exc)))
+                LOG.exception(badge("SCHED", "commit-worker-crashed",
+                                    number=header.number))
+                self._commit_fault(exc)
+                ok = False
+            if done is not None:
+                try:
+                    done(ok)
+                except Exception:
+                    LOG.exception(badge("SCHED", "commit-done-cb-failed",
+                                        number=header.number))
+
+    # -- health plumbing ---------------------------------------------------
+    def report_commit_fault(self, exc: BaseException) -> None:
+        """Public entry for embedders driving commit_block on their own
+        thread (solo mode's proposal path): same degraded-with-retry-probe
+        handling as the pipeline's commit worker."""
+        self._commit_fault(exc)
+
+    def _commit_fault(self, exc: BaseException) -> None:
+        if self.health is None:
+            return
+        self._commit_faulted = True
+        self.health.degraded("scheduler.commit", repr(exc),
+                             probe=self.retry_pending_commit)
+
+    def _commit_healthy(self) -> None:
+        if self._commit_faulted:  # plain-flag guard on the happy path
+            self._commit_faulted = False
+            if self.health is not None:
+                self.health.clear("scheduler.commit")
+
+    def retry_pending_commit(self) -> bool:
+        """Self-healing probe: re-drive the stalled height if a DECIDED
+        execution result (it carries commit seals) is waiting at
+        committed+1. True = healed (retry landed, or nothing is stuck)."""
+        with self._lock:
+            committed = self.ledger.current_number()
+            result = None
+            for h in self._exec_heights.get(committed + 1, ()):
+                r = self._executed.get(h)
+                if r is not None and not r.committing \
+                        and r.header.signature_list:
+                    result = r
+                    break
+        if result is None:
+            return True  # nothing stuck: consensus/sync owns recovery now
+        return self.commit_block(result.header)
+
+    def commit_block(self, header: BlockHeader) -> bool:
+        """Commit a previously-executed block (by header hash identity).
+        Runs on the commit worker in pipeline mode; callable directly for
+        sync replay, solo mode and service proxies."""
+        hh = header.hash(self.suite)
+        with self._lock:
+            guard = self._executed.get(hh)
+        try:
+            with _prof_stage("commit"):
+                return self._commit_block_inner(header, hh)
+        except BaseException:
+            # an exception ESCAPING the commit (injected fault, observer
+            # bug) must not strand the result half-committed: without this
+            # restore, `committing` stayed True forever, the retry probe
+            # saw "nothing stuck", and the node wedged at the height until
+            # sync rescued it (found by the failpoint matrix under load).
+            # Mirror the 2PC-failure restore, and keep the DECIDED
+            # header's commit seals so the retry can land it.
+            if guard is not None:
+                with self._lock:
+                    guard.committing = False
+                    if header.signature_list \
+                            and not guard.header.signature_list:
+                        guard.header.signature_list = header.signature_list
+                    if self._executed.get(hh) is not guard \
+                            and self.ledger.current_number() \
+                            < guard.header.number:
+                        self._executed[hh] = guard
+                        self._exec_heights.setdefault(
+                            guard.header.number, set()).add(hh)
+            raise
+
+    def _commit_block_inner(self, header: BlockHeader, hh: bytes) -> bool:
+        t0 = time.monotonic()
+        fp.fire("scheduler.commit.entry")
+        with self._lock:
+            result = self._executed.get(hh)
+            if result is None:
+                LOG.error(badge("SCHED", "commit-unknown-block",
+                                number=header.number))
+                return False
+            committed = self.ledger.current_number()
+        if result.header.number != committed + 1:
+            # out of order (an earlier commit failed transiently, or sync
+            # already passed this height): refuse WITHOUT dropping — a
+            # retried predecessor re-enables this exact result
+            LOG.error(badge("SCHED", "commit-out-of-order",
+                            number=result.header.number, current=committed))
+            return False
+        parent = self.ledger.header_by_number(result.header.number - 1)
+        parent_hash = parent.hash(self.suite) if parent else b"\x00" * 32
+        if result.parent_hash and result.parent_hash != parent_hash:
+            # built on a chain that lost: this result can never commit —
+            # drop it and every speculative child stacked over it
+            LOG.error(badge("SCHED", "commit-parent-mismatch",
+                            number=result.header.number))
+            with self._lock:
+                self._drop_spec_from_locked(result.header.number)
+                self._forget_locked(result)
+            return False
+        with self._lock:
+            result.committing = True
+            self._forget_locked(result)  # restored below on 2PC failure
+        # persist the final header (with any commit seals collected)
+        result.header.signature_list = header.signature_list
+        number = result.header.number
+        from ..ledger.ledger import T_HASH2NUM, T_HEADER, _be8
+        changes = dict(result.changes)
+        changes[(T_HEADER, _be8(number))] = Entry(result.header.encode())
+        changes[(T_HASH2NUM, hh)] = Entry(_be8(number))
+        from ..utils.trace import block_trace, drop_block_trace
+        trace = block_trace(number, owner=self.trace_label)
+        trace.stage("consensus_wait")
+        if result.t_executed:
+            self._stage("consensus_wait", t0 - result.t_executed)
+        with self._commit_2pc:
+            # re-check under the 2PC lock: a concurrent committer (sync
+            # replay racing the commit worker) must not land a second
+            # block at this height
+            if self.ledger.current_number() != number - 1:
+                LOG.error(badge("SCHED", "commit-raced", number=number))
+                with self._lock:
+                    result.committing = False
+                    self._executed[hh] = result
+                    self._exec_heights.setdefault(number, set()).add(hh)
+                return False
+            self._commit_busy = True
+            try:
+                fp.fire("scheduler.2pc.prepare")
+                self.storage.prepare(number, changes)
+                fp.fire("scheduler.2pc.commit")
+                self.storage.commit(number)
+            except Exception as exc:
+                LOG.exception(badge("SCHED", "commit-2pc-failed",
+                                    number=number))
+                fp.fire("scheduler.2pc.rollback")
+                self.storage.rollback(number)
+                self._commit_fault(exc)
+                # put the executed result back: a transient storage failure
+                # must not strand the height (PBFT retries the checkpoint;
+                # without this the node could only recover via block sync).
+                # The speculative chain above it stays valid — it reads the
+                # byte-identical preserved changeset.
+                with self._lock:
+                    result.committing = False
+                    self._executed[hh] = result
+                    self._exec_heights.setdefault(number, set()).add(hh)
+                self._fire_invalidate(number)
+                return False
+            finally:
+                self._commit_busy = False
+        self._commit_healthy()
+        if self._exec_busy:
+            with self._lock:
+                self._overlap_commits += 1
+        trace.stage("commit")
+        self._stage("commit", time.monotonic() - t0)
+        with self._lock:
+            # drop any other stale executed results for this height
+            self._evict_upto_locked(number)
+            # hand the committed block's LIVE txs (senders already
+            # recovered at admission/verify) to the commit observers —
+            # prime_block renders the senders row from these instead of
+            # re-recovering freshly-decoded copies
+            self.last_committed_txs[number] = result.txs
+            while len(self.last_committed_txs) > 8:
+                self.last_committed_txs.popitem(last=False)
+        if self.txpool is not None:
+            tx_hashes = self.ledger.tx_hashes_by_number(number)
+            nonces = self.ledger.nonces_by_number(number)
+            self.txpool.on_block_committed(number, tx_hashes, nonces)
+        self._notify_q.put(number)
+        # receipt waiters are settled by on_block_committed above: stamp
+        # the notify stage before retiring the block's trace
+        trace.stage("notify")
+        tr = drop_block_trace(number, owner=self.trace_label)
+        if tr is not None:
+            tr.finish()
+        metric("scheduler.commit", number=number,
+               ms=int((time.monotonic() - t0) * 1000))
+        return True
+
+    def external_commit(self, number: int) -> None:
+        """The chain advanced OUTSIDE the execute/commit pipeline (snapshot
+        install jumped the ledger to a checkpoint height): drop every
+        execution result (the speculative chain hangs off the pre-install
+        head), reconcile the txpool (per-block commit notifications never
+        ran for the jumped range) and fan out the commit notification so
+        eventsub/consensus observers see the new height."""
+        with self._lock:
+            self._spec.clear()
+            self._executed.clear()
+            self._exec_heights.clear()
+            # the stash refers to the pre-install chain — a same-number
+            # block on the installed chain must not reuse its senders
+            self.last_committed_txs.clear()
+        # BEFORE the commit notification fans out: a reader woken by the
+        # new height must never be served a pre-install cache entry
+        self._fire_invalidate(number)
+        if self.txpool is not None:
+            self.txpool.on_snapshot_installed(number)
+        self._notify_q.put(number)
+        metric("scheduler.external_commit", number=number)
+
+    def invalidate_caches(self, number: int) -> None:
+        """Public entry for subsystems that are ABOUT to mutate served
+        state outside the commit pipeline (snap-sync install): wipes the
+        on_invalidate observers' caches before the mutation publishes."""
+        self._fire_invalidate(number)
+
+    def _fire_invalidate(self, number: int) -> None:
+        for cb in list(self.on_invalidate):
+            try:
+                cb(number)
+            except Exception:
+                LOG.exception(badge("SCHED", "invalidate-observer-failed",
+                                    number=number))
+
+    def shutdown(self) -> None:
+        """Stop the notifier + commit threads (node shutdown). Queued
+        commits drain first — a decided block holds a checkpoint quorum
+        and is cheap to land now versus a replay at next boot."""
+        if self._commit_thread is not None:
+            self._commit_q.put(None)
+            self._commit_thread.join(timeout=10.0)
+            self._commit_thread = None
+        self._notify_q.put(None)
+
+    def _notify_loop(self) -> None:
+        while True:
+            number = self._notify_q.get()
+            if number is None:
+                return
+            for cb in list(self.on_commit):
+                try:
+                    cb(number)
+                except Exception:
+                    LOG.exception(badge("SCHED", "commit-observer-failed",
+                                        number=number))
+
+    def drop_executed(self, header: BlockHeader) -> None:
+        """Discard a cached execution result (failed sync replay, round
+        superseded mid-execution). Speculative children stacked over it are
+        discarded too — their reads went through its changeset."""
+        with self._lock:
+            r = self._executed.get(header.hash(self.suite))
+            if r is None:
+                return
+            self._forget_locked(r)
+            if self._spec.get(r.header.number) is r:
+                self._spec.pop(r.header.number)
+                self._drop_spec_from_locked(r.header.number + 1)
+
+    # -- read-only call (SchedulerImpl::call) ------------------------------
+    def call(self, tx: Transaction) -> Receipt:
+        state = StateStorage(self.storage)
+        n = self.ledger.current_number()
+        return self.executor.execute_transaction(
+            tx, state, n, int(time.time() * 1000))

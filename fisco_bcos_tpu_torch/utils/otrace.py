@@ -8,9 +8,12 @@ then record their already-timed stages under it (`TRACER.record`) into a
 bounded ring of finished spans, queryable by trace id (`get_trace`).
 
 With no context attached the instrumented hot paths pay one branch.
-The W3C `traceparent` parsing, the p2p envelope's packed context, live
-spans and slow-span capture ride the RPC edge and the network and come
-with them.
+The block pipeline's stage clock (utils/trace.BlockTrace) offers the
+stages of unbound blocks to slow capture (`observe_slow`): a stage longer
+than `slow_ms` is kept in a separate slow ring and logged; slow_ms = 0,
+the default, keeps nothing. The W3C `traceparent` parsing, the p2p
+envelope's packed context and live spans ride the RPC edge and the
+network and come with them.
 """
 
 from __future__ import annotations
@@ -77,14 +80,23 @@ class Tracer:
     """Process-wide span sink (`TRACER`, like metrics.REGISTRY): a bounded
     ring of the finished spans of sampled traces."""
 
-    def __init__(self, ring_size: int = 4096):
+    def __init__(self, ring_size: int = 4096, slow_ms: float = 0.0,
+                 slow_ring: int = 512):
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=max(16, int(ring_size)))
+        self._slow: deque = deque(maxlen=max(16, int(slow_ring)))
+        self.slow_s = max(0.0, float(slow_ms)) / 1000.0
+
+    def configure(self, slow_ms: Optional[float] = None) -> None:
+        """Apply the [trace] slow threshold (0 keeps no slow spans)."""
+        if slow_ms is not None:
+            self.slow_s = max(0.0, float(slow_ms)) / 1000.0
 
     def reset(self) -> None:
         """Drop every recorded span."""
         with self._lock:
             self._ring.clear()
+            self._slow.clear()
 
     def record(self, name: str, parent: Optional[SpanContext],
                t0: float, t1: Optional[float] = None,
@@ -110,11 +122,39 @@ class Tracer:
         with self._lock:
             self._ring.append(span)
 
+    def observe_slow(self, name: str, duration_s: float,
+                     attrs: Optional[dict] = None) -> None:
+        """Slow-capture seam for paths with no context bound: retains a
+        synthetic span in the slow ring iff it exceeds slow_ms (never in
+        the main ring)."""
+        if self.slow_s <= 0.0 or duration_s < self.slow_s:
+            return
+        start_wall = time.time() - duration_s
+        span = {
+            "traceId": _rand_id(16).hex(),
+            "spanId": _rand_id(8).hex(),
+            "parentSpanId": "",
+            "name": name,
+            "start_ms": round(start_wall * 1000.0, 3),
+            "duration_ms": round(duration_s * 1000.0, 3),
+            "attrs": dict(attrs) if attrs else {},
+            "slow": True,
+        }
+        with self._lock:
+            self._slow.append(span)
+        from . import metrics as _m  # lazy: slow path only
+        from .log import LOG, badge
+        _m.REGISTRY.inc("bcos_trace_slow_spans_total")
+        LOG.warning(badge("TRACE", "slow-span", name=name,
+                          ms=span["duration_ms"], trace=span["traceId"][:16]))
+
     def get_trace(self, trace_id: str) -> list[dict]:
-        """Every retained span of `trace_id` (hex), start-ordered."""
+        """Every retained span of `trace_id` (hex), start-ordered, from
+        both rings (a slow span is findable by the id logged with it)."""
         tid = trace_id.lower().removeprefix("0x")
         with self._lock:
             spans = [s for s in self._ring if s["traceId"] == tid]
+            spans += [s for s in self._slow if s["traceId"] == tid]
         return sorted(spans, key=lambda s: s["start_ms"])
 
 

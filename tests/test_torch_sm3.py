@@ -14,6 +14,8 @@ from fisco_bcos_tpu.ops import sm3 as jsm3
 from fisco_bcos_tpu_torch.crypto import refimpl
 from fisco_bcos_tpu_torch.ops import consts, cuda_sm3, sm3
 
+import test_torch_keccak as tk  # tests/ is on sys.path under pytest
+
 EDGES = [0, 1, 55, 56, 63, 64, 119, 120, 200]
 
 
@@ -82,3 +84,32 @@ def test_cpu_tensors_take_the_plain_version():
     assert cuda_sm3.sm3_varlen.launches == before
     with pytest.raises(ValueError):
         cuda_sm3.sm3_varlen(torch.as_tensor(blocks), torch.as_tensor(nvalid))
+
+
+# -- the batch packed by length class ----------------------------------------
+def sm3_unpad(blocks: np.ndarray, nvalid: int) -> bytes:
+    """The message of a row of SM3-padded blocks: its bit length is the
+    last 8 bytes."""
+    flat = blocks[:nvalid].reshape(-1)
+    n = int.from_bytes(flat[-8:].tobytes(), "big") // 8
+    assert flat[n] == 0x80
+    return flat[:n].tobytes()
+
+
+def test_pack_by_length_class_bounds_the_padding():
+    assert tk.check_packing(sm3, tk.big_batch(7), sm3.BLOCK_BYTES) == 10
+
+
+def test_batch_np_hashes_a_class_a_launch_in_input_order(monkeypatch):
+    """sm3_batch_np over 0 B to 3 MB: one sm3_varlen call a length class,
+    digests in input order equal to refimpl's (the native hash's past
+    100 KB)."""
+    from fisco_bcos_tpu_torch.crypto import nativehash
+
+    msgs = tk.big_batch(8)
+    host = nativehash.host_hash("sm3")
+    calls = tk.hash_by_class(monkeypatch, sm3, "sm3_varlen", host, sm3_unpad)
+    out = sm3.sm3_batch_np(msgs, device="cpu")
+    assert len(calls) == len(sm3.pack_batch_np(msgs))
+    want = [refimpl.sm3(m) if len(m) <= 100_000 else host(m) for m in msgs]
+    assert [bytes(x) for x in out] == want
