@@ -3,8 +3,9 @@
 default chain (secp256k1 + Keccak-256), the SM chain (SM2 + SM3) and the
 ZK plane's batched Poseidon (BN254), both chains again on the composed
 EC route, then each chain's node path from wire frames to the ledger and
-the seal judge, and each chain's block execution through the executor
-and the scheduler.
+the seal judge, each chain's block execution through the executor and
+the scheduler, and each chain on a 4-node PBFT network of the port's
+Nodes.
 
     python3 chip_smoke.py
 
@@ -67,7 +68,7 @@ version or to the CPU):
    inclusion proofs in one verify_batch call, plus 8 tampered ones; held
    to the plain path on the card on every lane and root, and to the
    pure-Python oracle on 1,024 lanes with the edge pairs and on a
-   4,096-leaf root. Each step's fp launches must be 171 / 90 / 1 per chunk
+   256-leaf root. Each step's fp launches must be 171 / 90 / 1 per chunk
    call and no other kernel's counter may move; the profiler (warmed up
    on a small step) records the 65,536-pair step, whose kernel calls must
    equal the counters.
@@ -130,8 +131,10 @@ version or to the CPU):
    workload); block 2 has one probe call in every 100 txs (KECCAK256 over
    its calldata, a STATICCALL of ecrecover on the signature it carries,
    an SSTORE and a LOG1) and transfers of 1 over seeded pairs, 1% of them
-   of 10^6, which revert. Default-chain txs: 1,024 signed a block, the
-   rest tiled; SM: every tx signed, natively. Steps, each timed with its
+   of 10^6, which revert. Default-chain txs: 1,024 signed a block
+   natively, the rest tiled; SM: 1,024 a block natively, the rest over
+   their own payloads with sm2_sign_fixed_nonce (as phase 5), every lane
+   valid. Steps, each timed with its
    launches counted: admission of both blocks' wire frames, seal and
    fill_block, execute_block of block 1, of block 2 (speculative over
    block 1's uncommitted changeset), commit_block of both, and
@@ -145,6 +148,30 @@ version or to the CPU):
    of the execute steps the native host hash; the balances a Python
    replay (and their sum conserved). The state root's hash batch is
    timed by the profiler, and its longest length class alone.
+13. A 4-node PBFT chain of the port's own Nodes (init/node.py), on each
+   chain: NodeConfig(consensus="pbft", crypto_backend="device") over one
+   FakeGateway, the 4 sealers of the genesis, leader_period 1 (heights
+   1-3 have three leaders), blocks of one suite CHUNK (16,384 txs; 4,096
+   on the SM chain), the pool limit 131,072, the ingest lane at 16,384
+   frames a dispatch, a view timeout far above a healthy height. Three
+   blocks of phase 12's balance workload (registers, then transfers with
+   1% reverting), every tx signed natively, go in as wire frames through
+   node 0's ingest lane; txsync gossips them (one batch recovery a
+   packet on each peer), and every pool holds them all before the nodes
+   start (height 1's leader last). The PBFT engines verify each drained
+   inbox's packets and each flush's checkpoint seals in one verify_batch,
+   the leaders compute txs_root, every node executes and commits on the
+   card. Each node's suite calls are recorded by site (admission, gossip
+   import, PBFT packets, checkpoint seals, proposal, leader's txs root,
+   execution, sync, view change); the counters, zeroed before the frames
+   go in and read after the nodes stop, must equal the launches the
+   calls imply and the profiler's calls, with the verify kernel launched
+   by PBFT packets and seals. Walls: admission and gossip, each height
+   from its pre-prepare to its commit on every node, the chain. Checked:
+   all four nodes at height 3 with equal header hashes and a seal quorum
+   on each; the committed blocks executed in order by a solo Scheduler on
+   the host suite give the same headers, roots and c_balance rows, and a
+   Python replay the same balances.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -158,6 +185,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -181,6 +209,7 @@ FP_B = 65536  # one Poseidon CHUNK of lanes
 NPAIRS = 65536
 NLEAVES = 65536
 NPROOFS = 256
+POSEIDON_ORACLE_LEAVES = 256  # the pure-Python oracle's root (the plain path holds all 65,536)
 
 
 def log(*a):
@@ -258,7 +287,7 @@ def device_events(prof, tag: str):
 
 
 def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
-                     per_call: int = 1) -> float:
+                     per_call: int = 1, event_fallback: bool = False) -> float:
     """Mean device time in ms of the kernel `name` a call of fn (which
     launches it per_call times) over reps calls, by the profiler's device
     events (CUPTI), each call after a 256 MB write that evicts the 50 MB
@@ -271,7 +300,13 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
     events (6 to 20 of 20 calls of the short fp and pow kernels), more
     often at a session's start: each session pauses 0.2 s first. More
     calls than launched cannot be a lost event and fails at once; the
-    log names the sessions each measurement took."""
+    log names the sessions each measurement took. Where every session lost
+    events (one card machine's sessions alternated between none and all
+    but one of 5 calls of a 15 ms kernel), an fn that is one launch on
+    tensors already on the card (`event_fallback`) and long enough (>= 1
+    ms) that its launch is noise beside it is timed by CUDA events around
+    each call instead, after the same flush, as the log then says; any
+    other fails."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -296,6 +331,22 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
             log(f"[profiler] {name}: {session} session(s)")
             return us / reps / 1e3
         log(f"[profiler] recorded {calls} of {reps * per_call} calls of {name}; again")
+    if event_fallback:
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = float(np.mean(times))
+        if ms >= 1.0:
+            log(f"[profiler] {name}: all {tries} sessions lost events; timed by CUDA "
+                f"events instead: {ms:.4f} ms a call")
+            return ms
     fail(f"the profiler recorded {calls} calls of {name}, expected {reps * per_call}")
 
 
@@ -1832,9 +1883,9 @@ def phase_poseidon(dev, suite, rng):
         leaves, hasher=lambda a, b: pt.hash2_batch(a, b, device=dev, plain=True))
     if plain_levels[-1][0] != root:
         fail(f"{tag} the {NLEAVES}-leaf root differs from the plain path's")
-    small = leaves[:4096]
+    small = leaves[:POSEIDON_ORACLE_LEAVES]
     if zm.root(small, hasher=suite.poseidon_batch) != zm.root(small):
-        fail(f"{tag} the 4,096-leaf root differs from the oracle's")
+        fail(f"{tag} the {len(small)}-leaf root differs from the oracle's")
     if not ok.all() or len(ok) != NPROOFS:
         fail(f"{tag} {int((~ok).sum())} of {NPROOFS} proofs failed")
     if bad_ok.any():
@@ -2667,17 +2718,21 @@ def probe_calldata(suite, kp, j: int) -> bytes:
     return d + (27 + v).to_bytes(32, "big") + sig[:32] + sig[32:64]
 
 
-def exec_traffic(suite, ntx: int, seed: int = SEED + 12, nsigned: int | None = None):
+def exec_traffic(suite, ntx: int, seed: int = SEED + 12, nsigned: int | None = None,
+                 fixed_nonce: bool = False):
     """Two blocks of ntx txs on `suite` (port objects; the tests decode
     their frames into the JAX package's). Block 1: a deploy of the probe
     contract, then ntx - 1 `register(acct<i>, 1000)` to BALANCE_ADDRESS.
     Block 2: one probe call in every 100 txs (ceil(ntx / 100)), the rest
     `transfer(acct<a>, acct<b>, 1)` over seeded pairs, 1% of them of 10^6,
     which must revert. The first nsigned txs of each block are signed over
-    their own payload by 16 keys and the rest tile those signatures (each
-    still recovers some key); nsigned None signs every tx (the SM chain's
-    signatures carry their key). -> dict(blocks, accounts, probe address,
+    their own payload by 16 keys (natively) and the rest tile those
+    signatures (each still recovers some key), or with fixed_nonce are
+    signed over their own payload too by `sm2_sign_fixed_nonce` (the SM
+    chain, whose signatures carry their key: every lane valid); nsigned
+    None signs every tx natively. -> dict(blocks, accounts, probe address,
     transfers [(src, dst, amount)], calls, signing seconds)."""
+    from fisco_bcos_tpu_torch.crypto import refimpl
     from fisco_bcos_tpu_torch.executor import precompiled as pc
     from fisco_bcos_tpu_torch.protocol import types as T
 
@@ -2708,13 +2763,21 @@ def exec_traffic(suite, ntx: int, seed: int = SEED + 12, nsigned: int | None = N
             input=pc.encode_call("transfer", lambda w, a=a, b=b, m=amount: w.blob(a).blob(b).u64(m))))
     t0 = time.perf_counter()
     nsig = 0
+    nonces = ([refimpl.keygen(suite.params, seed=b"exec-nonce" + bytes([k])) for k in range(16)]
+              if fixed_nonce else None)
     for block in (b1, b2):
         own = len(block) if nsigned is None else min(nsigned, len(block))
         for i in range(own):
             block[i].sign(suite, kps[i % 16])
         nsig += own
         for i in range(own, len(block)):
-            block[i].signature = block[i % own].signature
+            if nonces is None:
+                block[i].signature = block[i % own].signature
+                continue
+            k, (kx, _) = nonces[i % 16]
+            d = block[i].hash(suite)
+            sig = sm2_sign_fixed_nonce(kps[i % 16], k, kx, d)
+            block[i].signature = sig if sig is not None else suite.sign(kps[i % 16], d)
         for t in block:
             object.__setattr__(t, "_hash", None)
             object.__setattr__(t, "_sender", None)
@@ -2906,13 +2969,13 @@ def phase_exec(dev, suite, kind: str, rng):
     if suite.backend != "auto":
         fail(f"{tag} the suite's backend is {suite.backend!r}, not the node's 'auto'")
     t0 = time.perf_counter()
-    tr = exec_traffic(suite, ntx, nsigned=NSIGNED if kind == "ecdsa" else None)
+    tr = exec_traffic(suite, ntx, nsigned=NSIGNED, fixed_nonce=kind == "sm")
     frames = [t.encode() for b in tr["blocks"] for t in b]
     sealers = [k.pub_bytes for k in seal_keys(suite)]
     log(f"{tag} set-up: 2 blocks of {ntx} txs ({len(tr['calls'])} probe calls, "
-        f"{len(tr['transfers'])} transfers), {tr['nsig']} native signatures in "
-        f"{tr['sign_s']:.2f} s ({tr['sign_s'] / tr['nsig'] * 1e3:.3f} ms each), "
-        f"{time.perf_counter() - t0:.1f} s in all")
+        f"{len(tr['transfers'])} transfers), {tr['nsig']} native signatures"
+        + (f" and {2 * ntx - tr['nsig']} fixed-nonce SM2 ones" if kind == "sm" else "")
+        + f" in {tr['sign_s']:.2f} s, {time.perf_counter() - t0:.1f} s in all")
     counters = slice_counters(kind)
     ec_names = [k for k in counters if k in ("ecdsa_recover", "ecdsa_verify", "sm2_verify")]
 
@@ -3175,7 +3238,8 @@ def phase_exec(dev, suite, kind: str, rng):
     wrapper = counters[vname]
     batch_ms = kernel_device_ms(lambda: suite.hash_batch(msgs), vname + "_kernel", reps=5,
                                 per_call=len(packed))
-    top_ms = kernel_device_ms(lambda: wrapper(t_blocks, t_nv), vname + "_kernel", reps=5)
+    top_ms = kernel_device_ms(lambda: wrapper(t_blocks, t_nv), vname + "_kernel", reps=5,
+                              event_fallback=True)
     nblocks = int(top_nv.max())
     blocks_all = sum(int(nv.sum()) for _, _, nv in packed)
     padded = sum(b.shape[0] * b.shape[1] for _, b, _ in packed)
@@ -3207,6 +3271,416 @@ def phase_exec(dev, suite, kind: str, rng):
     log(f"{tag} state-root tree: {len(leaves)} leaves, {tree_ms:.4f} ms device "
         f"(bound {tbound:.5f} ms by {tby})")
     return launches, walls, timings
+
+
+# ---------------------------------------------------------------------------
+# phase 13: a 4-node PBFT chain of the port's own Nodes on the card
+# ---------------------------------------------------------------------------
+PBFT_TXS = {"ecdsa": 16384, "sm": 4096}   # a block: one suite CHUNK on the default chain
+PBFT_HEIGHTS = 3
+PBFT_POOL_LIMIT = 131072
+PBFT_VIEW_TIMEOUT = 300.0   # s: far above a healthy height, so no view change fires
+PBFT_MIN_SEAL = 2.0         # s: a partial block waits this long to fill
+PBFT_DEADLINE = 240.0       # s for the gossip, and for the chain to reach its last height
+PBFT_RUNS = 5   # a run whose profiler session lost a kernel event runs again
+# s of quiet on each side of the measured range: without it the chain's
+# last launches (PBFT packets verified as the nodes stop) came within
+# milliseconds of the range's end, where the runtime API's timestamps,
+# which drift against the host's clock as device events do, can fall
+# outside it; with it fewer runs lose an event (PERF.md, Findings)
+PBFT_GUARD = 0.5
+# the suite call's site: the innermost of these functions on its stack
+PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
+              "_handle_newview": "view_change", "_batch_checked": "pbft_packets",
+              "_flush_checkpoint_commits": "pbft_seals", "verify_proposal": "proposal",
+              "fetch_missing": "proposal", "_broadcast_preprepare": "leader_txs_root",
+              "execute_block": "execute", "commit_block": "commit",
+              "_pack_txs": "gossip_send", "submit_columns": "ingest"}
+
+
+def pbft_site(node: int) -> str:
+    """The site of the suite call being made: the innermost function of
+    PBFT_SITES on the caller's stack; the ingest lane's admission on node
+    0 (where the frames come in) and its gossip import on the others."""
+    f = sys._getframe(2)
+    while f is not None:
+        site = PBFT_SITES.get(f.f_code.co_name)
+        if site is not None:
+            if site == "ingest":
+                return "admission" if node == 0 else "gossip_import"
+            return site
+        f = f.f_back
+    return "other"
+
+
+def record_suite(suite, node: int, calls: list) -> None:
+    """Record every batch call on a node's own suite (patched on the
+    instance, so the node's planes, which hold the suite, call through):
+    (method, messages or size, digests, node, site). A call
+    the suite makes to itself (the SM chain's recovery verifies against
+    the keys its signatures carry through verify_batch) is part of the
+    outer call's launches and is not recorded again."""
+    depth = threading.local()
+    for name in ("hash_batch", "merkle_root", "recover_addresses", "recover_batch",
+                 "verify_batch"):
+        def wrapped(*a, _fn=getattr(suite, name), _name=name):
+            outer = not getattr(depth, "n", 0)
+            site = pbft_site(node) if outer else None
+            depth.n = getattr(depth, "n", 0) + 1
+            try:
+                out = _fn(*a)
+            finally:
+                depth.n -= 1
+            if outer:
+                arg = list(a[0]) if _name == "hash_batch" else len(a[0])
+                calls.append((_name, arg, out if _name == "hash_batch" else None, node,
+                              site))
+            return out
+        setattr(suite, name, wrapped)
+
+
+def pbft_traffic(suite, ntx: int, heights: int, seed: int = SEED + 13):
+    """`heights` blocks of ntx txs of phase 12's balance workload: block 1
+    registers ntx accounts with 1,000 each, the later blocks transfer 1
+    over seeded pairs, 1% of them 10^6, which revert. Every tx is signed
+    natively by one of 16 keys over its own payload. -> dict(frames, ops
+    {frame: op}, accounts, sign seconds)."""
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    rng = np.random.default_rng(seed)
+    kps = [suite.generate_keypair(b"pbft" + bytes([k])) for k in range(16)]
+    accounts = [b"pacct%d" % i for i in range(ntx)]
+    txs, ops = [], []
+    for i, a in enumerate(accounts):
+        txs.append(T.Transaction(to=pc.BALANCE_ADDRESS, nonce=f"p1-{i}", block_limit=500,
+                                 input=pc.encode_call("register",
+                                                      lambda w, a=a: w.blob(a).u64(EXEC_BALANCE))))
+        ops.append(("register", a, EXEC_BALANCE))
+    for h in range(2, heights + 1):
+        src = rng.integers(0, ntx, ntx)
+        hop = rng.integers(1, ntx, ntx)
+        big = rng.random(ntx) < 0.01
+        for i in range(ntx):
+            a, b = accounts[src[i]], accounts[(src[i] + hop[i]) % ntx]
+            m = EXEC_BIG if big[i] else 1
+            txs.append(T.Transaction(
+                to=pc.BALANCE_ADDRESS, nonce=f"p{h}-{i}", block_limit=500,
+                input=pc.encode_call("transfer",
+                                     lambda w, a=a, b=b, m=m: w.blob(a).blob(b).u64(m))))
+            ops.append(("transfer", a, b, m))
+    t0 = time.perf_counter()
+    for i, t in enumerate(txs):
+        t.sign(suite, kps[i % 16])
+    sign_s = time.perf_counter() - t0
+    frames = [t.encode() for t in txs]
+    return dict(frames=frames, ops=dict(zip(frames, ops)), accounts=accounts,
+                sign_s=sign_s, kps=kps)
+
+
+def pbft_replay(ops, committed) -> dict:
+    """Balances after the committed txs, in their committed order, by a
+    Python replay: a register sets its account, a transfer of more than
+    its source holds (or from an account not registered) changes nothing."""
+    bal: dict = {}
+    for frame in committed:
+        op = ops[frame]
+        if op[0] == "register":
+            bal[op[1]] = op[2]
+        else:
+            _, a, b, m = op
+            if a in bal and b in bal and bal[a] >= m:
+                bal[a] -= m
+                bal[b] += m
+    return bal
+
+
+def pbft_oracle(host, blocks, sealers, ntx: int, compat: str):
+    """The committed blocks executed in order by one solo Scheduler on the
+    port's host suite (native; launches nothing), each header rebuilt from
+    the committed one as block sync replays it. -> (results, c_balance rows)."""
+    from fisco_bcos_tpu_torch.executor import TransactionExecutor
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode, Ledger
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.scheduler import Scheduler
+    from fisco_bcos_tpu_torch.storage import MemoryStorage
+    from fisco_bcos_tpu_torch.txpool import TxPool
+
+    storage = MemoryStorage()
+    ledger = Ledger(storage, host)
+    ledger.build_genesis([ConsensusNode(p) for p in sealers], tx_count_limit=ntx,
+                         compatibility_version=compat)
+    pool = TxPool(host, ledger, pool_limit=PBFT_POOL_LIMIT)
+    executor = TransactionExecutor(host)
+    sched = Scheduler(storage, ledger, executor, host, pool, pipeline=True,
+                      state_index=True)
+    results = []
+    try:
+        for b in blocks:
+            h = b.header
+            replay = T.Block(transactions=[T.Transaction.decode(t.encode())
+                                           for t in b.transactions])
+            for f in ("version", "number", "timestamp", "sealer", "extra_data"):
+                setattr(replay.header, f, getattr(h, f))
+            replay.header.consensus_weights = list(h.consensus_weights)
+            replay.header.sealer_list = list(h.sealer_list)
+            r = sched.execute_block(replay)
+            if r is None:
+                fail(f"the oracle's scheduler did not execute block {h.number}")
+            r.header.signature_list = h.signature_list
+            if not sched.commit_block(r.header):
+                fail(f"the oracle's scheduler did not commit block {h.number}")
+            results.append(r)
+    finally:
+        stop_chain(sched, executor)
+    return results, {k: storage.get(pc.T_BALANCE, k) for k in storage.keys(pc.T_BALANCE)}
+
+
+def phase_pbft(dev, kind: str):
+    """(13) A 4-node PBFT chain of the port's own Nodes (init/node.py) on
+    the card: one FakeGateway, the 4 sealers of the genesis, leader_period
+    1 (heights 1-3 have three leaders), crypto_backend "device" (every
+    batch of every node on the card). The txs come in as wire frames
+    through node 0's ingest lane and txsync gossips them; every pool holds
+    them all before the nodes start and the first grant. Each node's suite
+    calls are recorded by site; the launch counters, zeroed just before
+    the frames go in and read after the nodes have stopped, must equal the
+    launches those calls imply and the profiler's calls. Checked: every
+    node at the last height with equal header hashes and a seal quorum on
+    each, roots and c_balance rows equal to the committed blocks run on a
+    solo Scheduler over the host suite (whose headers must hash the same)
+    and to a Python replay. -> (launches by kernel, launches by site,
+    walls in ms, timings)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fisco_bcos_tpu_torch.consensus import qc
+    from fisco_bcos_tpu_torch.consensus.pbft.engine import PBFTEngine
+    from fisco_bcos_tpu_torch.crypto.suite import make_suite
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.init.node import Node, NodeConfig
+    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode
+    from fisco_bcos_tpu_torch.net.gateway import FakeGateway
+
+    tag = f"[pbft {kind}]"
+    ntx, heights = PBFT_TXS[kind], PBFT_HEIGHTS
+    suite = make_suite(kind == "sm", device=dev)
+    t0 = time.perf_counter()
+    tr = pbft_traffic(suite, ntx, heights)
+    frames = tr["frames"]
+    keys = seal_keys(suite)
+    sealers = [ConsensusNode(k.pub_bytes) for k in keys]
+    log(f"{tag} set-up: {heights} blocks of {ntx} txs, {len(frames)} native signatures in "
+        f"{tr['sign_s']:.2f} s ({tr['sign_s'] / len(frames) * 1e3:.3f} ms each), "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    cfg = NodeConfig(consensus="pbft", sm_crypto=kind == "sm", crypto_backend="device",
+                     device=str(dev), tx_count_limit=ntx, txpool_limit=PBFT_POOL_LIMIT,
+                     min_seal_time=PBFT_MIN_SEAL, view_timeout=PBFT_VIEW_TIMEOUT,
+                     ingest_max_batch=INGEST_MAX_BATCH, ingest_queue_cap=4 * len(frames))
+    counters = slice_counters(kind)
+    verk = "ecdsa_verify" if kind == "ecdsa" else "sm2_verify"
+    eck = "ecdsa_recover" if kind == "ecdsa" else "sm2_verify"
+    first = sorted(k.pub_bytes for k in keys)[1 % len(keys)]   # leads height 1, view 0
+    sub = [bytes(32 * [k]) for k in range(8)]
+    sub_sigs = [suite.sign(keys[k % 4], sub[k]) for k in range(8)]
+    sub_pubs = [keys[k % 4].pub_bytes for k in range(8)]
+
+    def run():
+        """One profiled run on fresh nodes: gossip, then the chain."""
+        gw = FakeGateway()
+        nodes = [Node(cfg, keypair=kp, gateway=gw) for kp in keys]
+        for n in nodes:
+            n.build_genesis(sealers)
+            if n.suite.backend != "device" or n.suite.device.type != dev.type:
+                fail(f"{tag} a node's suite is {n.suite!r}, not on 'device' on {dev}")
+        calls: list = []
+        for i, n in enumerate(nodes):
+            record_suite(n.suite, i, calls)
+        commits = [{} for _ in nodes]
+        for i, n in enumerate(nodes):
+            n.scheduler.on_commit.append(
+                lambda num, i=i: commits[i].setdefault(num, time.perf_counter()))
+        preprepares: dict = {}
+        orig_pp = PBFTEngine._broadcast_preprepare
+
+        def stamped(engine, block, carried=False):
+            preprepares.setdefault(block.header.number, (engine.index, time.perf_counter()))
+            return orig_pp(engine, block, carried)
+
+        walls, stopped = {}, []
+
+        def stop():
+            if not stopped:
+                stopped.append(True)
+                for n in nodes:
+                    n.stop()
+                gw.stop()
+
+        try:
+            PBFTEngine._broadcast_preprepare = stamped
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.5)
+                warm = make_suite(kind == "sm", device=dev)   # "device": the same kernels
+                for _ in range(3):
+                    warm.recover_addresses(sub, sub_sigs)
+                    warm.verify_batch(sub, sub_sigs, sub_pubs)
+                    warm.hash_batch(frames[:8])
+                    warm.merkle_root(sub * 3)
+                torch.cuda.synchronize()
+                time.sleep(PBFT_GUARD)
+                with record_function(MARK):
+                    for c in counters.values():
+                        c.launches = 0
+                    t_in = time.perf_counter()
+                    for n in nodes:
+                        n.ingest.start()
+                    if nodes[0].ingest.submit_many_wire_nowait(frames) != len(frames):
+                        fail(f"{tag} node 0's ingest queue refused frames")
+                    deadline = time.monotonic() + PBFT_DEADLINE
+                    while any(n.txpool.pending_count() < len(frames) for n in nodes):
+                        if time.monotonic() > deadline:
+                            fail(f"{tag} pools hold {[n.txpool.pending_count() for n in nodes]}"
+                                 f" of {len(frames)} txs after {PBFT_DEADLINE:.0f} s")
+                        time.sleep(0.005)
+                    t_start = time.perf_counter()
+                    walls["admission_gossip"] = (t_start - t_in) * 1e3
+                    # height 1's leader starts last: a node's engine registers
+                    # its PBFT handler in start(), so a pre-prepare sent before
+                    # a peer started would be dropped there and only a view
+                    # change would recover the round
+                    for n in sorted(nodes, key=lambda n: n.keypair.pub_bytes == first):
+                        n.start()
+                    deadline = time.monotonic() + PBFT_DEADLINE
+                    while any(n.ledger.current_number() < heights for n in nodes):
+                        if time.monotonic() > deadline:
+                            fail(f"{tag} heights {[n.ledger.current_number() for n in nodes]}"
+                                 f" after {PBFT_DEADLINE:.0f} s (want {heights})")
+                        time.sleep(0.005)
+                    t_done = time.perf_counter()
+                    walls["chain"] = (t_done - t_start) * 1e3
+                    stop()   # no suite call after this: the counters are final
+                    torch.cuda.synchronize()
+                    launches = {k: c.launches for k, c in counters.items()}
+                    time.sleep(PBFT_GUARD)
+        finally:
+            PBFTEngine._broadcast_preprepare = orig_pp
+            stop()
+        walls["total"] = (t_done - t_in) * 1e3
+        heights_ms = {}
+        for h in range(1, heights + 1):
+            if h not in preprepares:
+                fail(f"{tag} no pre-prepare of height {h} was recorded")
+            leader, t_pp = preprepares[h]
+            heights_ms[h] = (leader, (t_pp - t_start) * 1e3,
+                             [(c[h] - t_pp) * 1e3 if h in c else None for c in commits])
+        return dict(prof=prof, nodes=nodes, calls=calls, launches=launches, walls=walls,
+                    heights=heights_ms)
+
+    for attempt in range(1, PBFT_RUNS + 1):
+        r = run()
+        launches, calls = r["launches"], r["calls"]
+        device_us, pcalls = device_events(r["prof"], tag)
+        dev_ms = sum(device_us.values()) / 1e3
+        w = r["walls"]
+        log(f"{tag} run {attempt}: admission and gossip {w['admission_gossip']:.1f} ms wall, "
+            f"chain (start to height {heights} on every node) {w['chain']:.1f} ms, "
+            f"total {w['total']:.1f} ms; device time {dev_ms:.1f} ms")
+        for h, (leader, t_pp, lat) in r["heights"].items():
+            log(f"{tag} height {h}: leader index {leader}, pre-prepare at {t_pp:.1f} ms "
+                f"after start; committed on nodes 0-3 at "
+                + ", ".join("-" if x is None else f"{x:.1f}" for x in lat)
+                + " ms after the pre-prepare")
+        by_site: dict = {}
+        for name, arg, out, _, site in calls:
+            by_site.setdefault(site, []).append((name, arg, out))
+        site_launches = {s: expected_launches(kind, suite, cs) for s, cs in by_site.items()}
+        want: dict = {}
+        for got in site_launches.values():
+            for k, n in got.items():
+                want[k] = want.get(k, 0) + n
+        got = {k: n for k, n in launches.items() if n}
+        log(f"{tag} launches {got}; by site: {site_launches}")
+        log(f"{tag} suite calls by site: "
+            + ", ".join(f"{s} {len(cs)}" for s, cs in sorted(by_site.items())))
+        if got != want:
+            fail(f"{tag} the counters {got}, the recorded suite calls give {want}")
+        for site in ("pbft_packets", "pbft_seals"):
+            if not site_launches.get(site, {}).get(verk):
+                fail(f"{tag} {verk} was not launched by {site}: {site_launches.get(site)}")
+        for site in ("admission", "gossip_import"):
+            if not site_launches.get(site, {}).get(eck):
+                fail(f"{tag} {eck} was not launched by {site}: {site_launches.get(site)}")
+        missing = [k for k in counters if not launches[k]]
+        if missing:
+            fail(f"{tag} the chain did not launch {missing}")
+        seen = {k: sum(pcalls.get(n, 0) for n in kernel_names(k)) for k in counters}
+        surplus = {k: (seen[k], launches[k]) for k in counters if seen[k] > launches[k]}
+        if surplus:
+            fail(f"{tag} the profiler recorded more kernel calls than the counters "
+                 f"(calls, counted): {surplus}")
+        if seen == launches:
+            log(f"[profiler] {tag} calls equal the counters in run {attempt}")
+            break
+        log(f"[profiler] {tag} recorded kernel calls {seen}, the counters {launches}; "
+            f"the chain runs again on fresh nodes")
+    else:
+        fail(f"{tag} the profiler recorded kernel calls {seen}, the counters {launches}, "
+             f"in {PBFT_RUNS} runs")
+    log(f"{tag} device us by counter: " + ", ".join(
+        f"{k} {sum(device_us.get(n, 0.0) for n in kernel_names(k)):.1f}" for k in counters))
+
+    # -- checks ---------------------------------------------------------------
+    nodes = r["nodes"]
+    views = [n.consensus.status()["view"] for n in nodes]
+    if any(views):
+        log(f"{tag} a view change fired: views {views}")
+    if [n.ledger.current_number() for n in nodes] != [heights] * 4:
+        fail(f"{tag} heights {[n.ledger.current_number() for n in nodes]}, want {heights}")
+    host = make_suite(kind == "sm", backend="host")
+    blocks = [nodes[0].ledger.block_by_number(h, with_txs=True) for h in range(1, heights + 1)]
+    if [len(b.transactions) for b in blocks] != [ntx] * heights:
+        fail(f"{tag} blocks of {[len(b.transactions) for b in blocks]} txs, want {ntx} each")
+    committed = [t.encode() for b in blocks for t in b.transactions]
+    if sorted(committed) != sorted(frames):
+        fail(f"{tag} the committed txs are not the frames sent")
+    sealer_set = sorted(k.pub_bytes for k in keys)
+    quorum = len(keys) - (len(keys) - 1) // 3
+    for i, n in enumerate(nodes):
+        hs = [n.ledger.header_by_number(h) for h in range(1, heights + 1)]
+        if [x.hash(host) for x in hs] != [b.header.hash(host) for b in blocks]:
+            fail(f"{tag} node {i}'s header hashes differ from node 0's")
+        if not all(qc.verify_spans(hs, sealer_set, host)):
+            fail(f"{tag} node {i}: a committed header lacks a seal quorum")
+        if any(len(x.signature_list) < quorum for x in hs):
+            fail(f"{tag} node {i}: a header carries fewer than {quorum} seals")
+    t0 = time.perf_counter()
+    ores, obal = pbft_oracle(host, blocks, [k.pub_bytes for k in keys], ntx,
+                             cfg.compatibility_version)
+    oracle_s = time.perf_counter() - t0
+    want_heads = [(x.header.number, x.header.state_root, x.header.txs_root,
+                   x.header.receipts_root) for x in ores]
+    if [x.header.hash(host) for x in ores] != [b.header.hash(host) for b in blocks]:
+        fail(f"{tag} the oracle's headers hash differently from the committed ones")
+    want_bal = pbft_replay(tr["ops"], committed)
+    for i, n in enumerate(nodes):
+        heads = [(h.number, h.state_root, h.txs_root, h.receipts_root)
+                 for h in (n.ledger.header_by_number(k) for k in range(1, heights + 1))]
+        if heads != want_heads:
+            fail(f"{tag} node {i}: (number, state, txs, receipts roots) differ from the oracle's")
+        rows = {k: n.storage.get(pc.T_BALANCE, k) for k in n.storage.keys(pc.T_BALANCE)}
+        if rows != obal:
+            fail(f"{tag} node {i}: c_balance rows differ from the oracle's")
+        if {k: int.from_bytes(v, "big") for k, v in rows.items()} != want_bal:
+            fail(f"{tag} node {i}: c_balance rows differ from the Python replay")
+    reverted = sum(x.status != 0 for res in ores for x in res.receipts)
+    log(f"{tag} 4 nodes at height {heights}, header hashes equal, {quorum}+ seals each; "
+        f"roots and {len(obal)} c_balance rows equal the host-suite oracle's "
+        f"({oracle_s:.1f} s) and the Python replay; {reverted} transfers reverted")
+    for b in blocks:
+        log(f"{tag} block {b.header.number}: state root {b.header.state_root.hex()}")
+    timings = dict(walls=r["walls"], heights=r["heights"], device_ms=dev_ms,
+                   sign_s=tr["sign_s"], oracle_s=oracle_s, views=views)
+    return launches, site_launches, timings
 
 
 def main() -> int:
@@ -3263,6 +3737,10 @@ def main() -> int:
         for k in slice_counters(kind):
             if k != "ecdsa_verify":   # the seal judge's kernel: not on this path
                 by_path[k][f"exec_{kind}"] = sum(st[k] for st in steps.values())
+    for kind in ("ecdsa", "sm"):
+        got, _, _ = phase_pbft(dev, kind)
+        for k in slice_counters(kind):
+            by_path[k][f"pbft_{kind}"] = got[k]
     for k, paths in by_path.items():
         rows[k]["launches"] = sum(paths.values())
         rows[k]["launches_by_path"] = paths

@@ -1,2 +1,6 @@
-"""Consensus: the quorum-certificate seal judge (qc.verify_spans). The
-PBFT engine is not ported yet (ROADMAP.md)."""
+"""Consensus: the PBFT engine (`pbft`) and the quorum-certificate seal
+judge (`qc.verify_spans`)."""
+
+from .pbft.engine import PBFTEngine
+
+__all__ = ["PBFTEngine"]

@@ -1,0 +1,1238 @@
+"""PBFT consensus engine: 3-phase agreement + checkpoint seals + view change.
+
+Reference counterpart: FISCO-BCOS bcos-pbft/bcos-pbft/pbft/engine/
+PBFTEngine.cpp — message ingress at :471 onReceivePBFTMessage feeding a
+single-threaded worker (:40, :555 executeWorker), phase handlers
+(:784 handlePrePrepareMsg, :962 handlePrepareMsg, :980 handleCommitMsg),
+per-message signature checking (:732 checkSignature), proposal verification
+through the txpool (TxPool.cpp:160 asyncVerifyBlock), quorum/commit logic in
+pbft/cache/PBFTCacheProcessor.h:95-140, and timeout-driven view changes
+(PBFTTimer.h, view-change cache PBFTCacheProcessor.h:97-118).
+
+Same single-worker thread model (determinism, no locks in the hot state),
+two batch-first differences:
+  * the worker drains its whole inbox each wake and verifies ALL pending
+    packet signatures in ONE `suite.verify_batch` call — under a prepare/
+    commit flood from N-1 peers that is the device replacing the reference's
+    per-message scalar verify;
+  * checkpoint seals (commit seals over the *executed* header hash) are
+    batch-verified at quorum time, the same call shape BlockValidator.cpp:141
+    checkSignatureList uses for synced blocks.
+
+Phases (FISCO-BCOS 3.x style — execution happens after consensus on the
+proposal, then a checkpoint round collects commit seals over the executed
+header):
+  PRE_PREPARE(block) -> PREPARE(h) -> COMMIT(h) -> execute ->
+  CHECKPOINT(executed_h, seal) -> 2f+1 seals -> commit to ledger.
+
+View change: on timer expiry broadcast VIEW_CHANGE carrying the prepared
+proposal (if any); the new leader assembles 2f+1 into NEW_VIEW, re-proposes
+the carried prepared proposal or grants its sealer. f+1 higher views trigger
+fast view-change join (PBFTCacheProcessor's getViewChangeWeight shortcut).
+"""
+
+from __future__ import annotations
+
+import queue
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+
+from ...crypto import agg
+from ...net.front import FrontService
+from ...net.moduleid import ModuleID
+from ...protocol import Block
+from ...utils import otrace
+from ...utils.log import LOG, badge, metric
+from ...utils.metrics import REGISTRY
+from ...utils.trace import block_trace
+from ...utils.worker import Worker
+from .. import qc
+from .messages import (
+    PacketType,
+    PBFTMessage,
+    make_packet,
+    pack_messages,
+    unpack_messages,
+)
+from .storage import (
+    PBFTLog,
+    TAG_BLOCK,
+    TAG_COMMIT,
+    TAG_PREPARE,
+    TAG_PREPREPARE,
+)
+
+
+class _ProposalCache:
+    """Per-height consensus state (PBFTCacheProcessor's PBFTCache)."""
+
+    __slots__ = ("proposal", "proposal_hash", "prepares", "commits",
+                 "checkpoints", "checkpoint_msgs", "prepared",
+                 "committed_phase", "executed", "executed_hash",
+                 "executed_header", "preprepare_msg", "trace_ctx",
+                 "t_accept")
+
+    def __init__(self):
+        self.proposal: Optional[Block] = None
+        self.proposal_hash: bytes = b""
+        self.preprepare_msg: Optional[PBFTMessage] = None
+        self.prepares: dict[int, PBFTMessage] = {}
+        self.commits: dict[int, PBFTMessage] = {}
+        self.checkpoints: dict[int, bytes] = {}  # idx -> seal over executed_h
+        self.checkpoint_msgs: dict[int, PBFTMessage] = {}  # for recover resp
+        self.prepared = False
+        self.committed_phase = False
+        self.executed = False
+        self.executed_hash: bytes = b""
+        self.executed_header = None  # the FINALISED header (roots filled)
+        # otrace span context of the round's block (leader: adopted from
+        # the sealed block; replicas: from the pre-prepare's p2p envelope)
+        # + the monotonic accept stamp closing the pbft.consensus span
+        self.trace_ctx = None
+        self.t_accept: float = 0.0
+
+
+class PBFTEngine(Worker):
+    def __init__(self, suite, keypair, front: FrontService, txpool, sealer,
+                 scheduler, ledger, leader_period: int = 1,
+                 view_timeout: float = 3.0, txsync=None,
+                 full_proposals: bool = False, persist: bool = True,
+                 clock_ms=None, waterline: int = 8,
+                 seal_mode: str = "multi", agg_registry=None,
+                 agg_secret: Optional[int] = None):
+        super().__init__("pbft", idle_wait=0.02)
+        self.suite = suite
+        # commit-seal carriage (consensus/qc.py): multi = legacy loose
+        # 2f+1 seals; cert = one bitmap+ECDSA certificate; aggregate = one
+        # bitmap+BLS point. The knob only controls what THIS node mints —
+        # verification accepts every form everywhere, so a mixed-mode
+        # cluster converges on whichever form each block's committer chose
+        if seal_mode not in ("multi", "cert", "aggregate"):
+            raise ValueError(f"unknown seal_mode: {seal_mode}")
+        if seal_mode == "aggregate" and agg_registry is None:
+            # aggregate needs the PoP'd key registry (the roster's trust
+            # root); without one this node could mint certs nobody can
+            # check — downgrade to the cert form, which needs no new keys
+            LOG.warning(badge("PBFT", "no-agg-registry-cert-fallback"))
+            seal_mode = "cert"
+        self.seal_mode = seal_mode
+        self.agg_registry = agg_registry
+        self.agg_secret = agg_secret
+        if seal_mode == "aggregate" and agg_secret is None:
+            # deterministic BLS secret from the node's existing ECDSA key
+            # (crypto/agg.py derive_secret) — no second key file to manage
+            self.agg_secret = agg.derive_secret(
+                keypair.secret.to_bytes(32, "big"))
+        # aligned clock source (tool/timesync.py median); raw UTC fallback
+        self.clock_ms = clock_ms or (lambda: int(time.time() * 1000))
+        self.keypair = keypair
+        # node label for the block-trace registry + span attribution (the
+        # same derivation Node uses, so all of a node's layers agree)
+        self.trace_label = keypair.pub_bytes[:4].hex()
+        self.front = front
+        self.txpool = txpool
+        self.sealer = sealer
+        self.scheduler = scheduler
+        self.ledger = ledger
+        self.txsync = txsync
+        # False (default, reference-faithful): pre-prepares carry tx-hash
+        # metadata only (MemoryStorage.cpp:570 metadata sealing); replicas
+        # fill from the pool and fetch stragglers from the leader
+        # (TxPool.cpp:160 fetch-missing). True: ship full txs in-band.
+        self.full_proposals = full_proposals
+        self.leader_period = max(1, leader_period)
+        self.base_timeout = view_timeout
+        # proposal pipeline depth: consensus runs for heights in
+        # (committed, committed + waterline] concurrently, execution stays
+        # strictly in order — the reference's water-size window
+        # (PBFTConfig.cpp:189-215 canHandleNewProposal over
+        # m_waterSize above the committed proposal)
+        self.waterline = max(1, waterline)
+
+        cfg = ledger.ledger_config()
+        self.nodes: list[bytes] = sorted(n.node_id for n in cfg.consensus_nodes)
+        self.index = self.nodes.index(keypair.pub_bytes)
+        self.n = len(self.nodes)
+        self.f = (self.n - 1) // 3
+        # n - f, the reference's minRequiredQuorum: equals 2f+1 when
+        # n = 3f+1 but stays safe for other sizes (e.g. n=3 -> 3, not 1)
+        self.quorum = self.n - self.f
+
+        # durable consensus log (LedgerStorage.cpp analogue); replayed in
+        # start() so an in-flight round survives a crash/restart
+        self.log: Optional[PBFTLog] = (
+            PBFTLog(ledger.storage) if persist else None)
+
+        self.view = 0
+        self.to_view = 0  # > view while a view change is in flight
+        # single-lane execution thread (double-buffered staging):
+        # the worker hands an agreed proposal to this thread and keeps
+        # draining consensus packets, so proposal VERIFICATION of height
+        # N+1 (a device batch recover on the card) runs while
+        # height N EXECUTES on the host — the verify latency hides behind
+        # execution instead of serialising after it. One lane keeps
+        # execution strictly ordered.
+        self._exec_pool: Optional[ThreadPoolExecutor] = None
+        self._executing: Optional[int] = None
+        self._last_seen_number = ledger.current_number()
+        self._caches: dict[int, _ProposalCache] = {}
+        self._viewchanges: dict[int, dict[int, PBFTMessage]] = {}
+        self._inbox: "queue.Queue[tuple[str, object]]" = queue.Queue()
+        self._deadline = 0.0
+        self._timeout = view_timeout
+        self._committed_waiters: list = []
+        # heights whose checkpoint quorum landed this drain — their seals
+        # are judged TOGETHER at the end of the worker pass (one lane call
+        # across every in-flight height, the sync-range coalescing shape)
+        self._pending_commits: set[int] = set()
+        self._seal_batches = 0       # lane calls spent on checkpoint seals
+        self._seals_verified = 0     # seals judged in those calls
+        self._seal_bytes_last = 0    # wire bytes of the last minted carriage
+        self._seal_signers_last = 0  # signers in the last minted carriage
+
+        front.register_module(ModuleID.PBFT, self._on_network)
+
+    # -- identity ----------------------------------------------------------
+    def leader_for(self, number: int, view: int) -> int:
+        return (number // self.leader_period + view) % self.n
+
+    def is_leader(self, number: Optional[int] = None) -> bool:
+        if number is None:
+            number = self.ledger.current_number() + 1
+        return self.leader_for(number, self.view) == self.index
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> None:
+        self._replay_log()
+        self._reset_timer()
+        super().start()
+        self._grant_sealer()
+
+    def stop(self) -> None:
+        super().stop()
+        if self._exec_pool is not None:
+            self._exec_pool.shutdown(wait=False)
+            self._exec_pool = None
+
+    # -- crash recovery (PBFTEngine::initState analogue) -------------------
+    def _replay_log(self) -> None:
+        """Restore in-flight round state persisted by a previous run and
+        nudge the cluster so the round can finish without a view change."""
+        if self.log is None:
+            return
+        v = self.log.load_view()
+        if v > self.view:
+            self.view = self.to_view = v
+        number = self.ledger.current_number() + 1
+        self.log.prune(number - 1)  # drop anything already committed
+        rec = self.log.load_height(number)
+        if TAG_PREPREPARE not in rec or TAG_BLOCK not in rec:
+            return
+        try:
+            pp = PBFTMessage.decode(rec[TAG_PREPREPARE])
+            block = Block.decode(rec[TAG_BLOCK])
+        except Exception:
+            LOG.warning(badge("PBFT", "replay-decode-failed", number=number))
+            return
+        if pp.view != self.view:
+            # stale record from before a view change (the log is cleared on
+            # view entry, but a crash can land between the two writes) — a
+            # carried proposal re-enters the new view with a new hash, so
+            # resurrecting this one could block the legitimate proposal
+            self.log.clear_heights()
+            return
+        # re-import the proposal's txs into the (empty, post-restart) pool so
+        # fills, proposal re-verification and commit pruning keep working; a
+        # proposal that cannot be materialised is unexecutable — drop it
+        if not self.txpool.verify_proposal(block):
+            LOG.warning(badge("PBFT", "replay-unverifiable", number=number))
+            self.log.clear_heights()
+            return
+        cache = self._cache(number)
+        cache.proposal = block
+        cache.proposal_hash = pp.proposal_hash
+        cache.preprepare_msg = pp
+        replayed = []
+        for tag, store in ((TAG_PREPARE, cache.prepares),
+                           (TAG_COMMIT, cache.commits)):
+            if tag not in rec:
+                continue
+            try:
+                vote = PBFTMessage.decode(rec[tag])
+            except Exception:
+                continue
+            if (vote.view != pp.view
+                    or vote.proposal_hash != pp.proposal_hash):
+                continue  # vote for a different round of this height
+            store[self.index] = vote
+            replayed.append(vote)
+            if tag == TAG_COMMIT:
+                cache.prepared = True
+        # rebroadcast our packets (receivers deduplicate) + ask peers for
+        # their cached round state
+        if pp.from_idx == self.index:
+            self.front.broadcast(ModuleID.PBFT, pp.encode())
+        for vote in replayed:
+            self.front.broadcast(ModuleID.PBFT, vote.encode())
+        if self.index not in cache.prepares:
+            # crashed between persisting the proposal and the prepare vote —
+            # the node provably never voted, so cast it now
+            self._vote_prepare(number, pp.proposal_hash)
+        req = self._signed(make_packet(PacketType.RECOVER_REQ, self.view,
+                                       number, self.index))
+        self.front.broadcast(ModuleID.PBFT, req.encode())
+        metric("pbft.replayed", number=number, view=self.view,
+               votes=len(replayed))
+
+    def _grant_sealer(self) -> None:
+        cfg = self.ledger.ledger_config()
+        self._reload_membership(cfg)
+        self._maybe_grant(self.ledger.current_number() + 1, cfg)
+
+    def _maybe_grant(self, number: int, cfg=None) -> None:
+        """Arm the sealer for `number` if this node leads it, it sits inside
+        the waterline window, and no proposal for it exists yet. Grants chain
+        off pre-prepares (leader of N+1 starts sealing the moment N's
+        proposal is accepted — N's txs are then marked sealed locally, so
+        consecutive proposals can never overlap), which is what lets
+        consensus of N+1 overlap execution of N (SealingManager.cpp:232-248
+        + PBFTConfig.cpp:189-215 semantics)."""
+        if self.index < 0:
+            return
+        current = self.ledger.current_number()
+        if not (current < number <= current + self.waterline):
+            return
+        if self.leader_for(number, self.view) != self.index:
+            return
+        cache = self._caches.get(number)
+        if cache is not None and cache.proposal is not None:
+            return  # this round already has its proposal
+        if cfg is None:
+            cfg = self.ledger.ledger_config()
+        self.sealer.grant(number, self.view,
+                          max_txs=cfg.block_tx_count_limit)
+
+    def _reload_membership(self, cfg) -> None:
+        """Apply on-chain consensus-set changes LIVE (the reference reloads
+        LedgerConfig per block: addSealer/remove governance takes effect at
+        its enable block, no restart). A node voted out keeps following via
+        sync but stops proposing/voting (index = -1); remaining members
+        recompute n/f/quorum."""
+        nodes = sorted(n.node_id for n in cfg.consensus_nodes)
+        if nodes == self.nodes or not nodes:
+            return  # unchanged, or refuse an empty sealer set
+        old_n = self.n
+        self.nodes = nodes
+        self.n = len(nodes)
+        self.f = (self.n - 1) // 3
+        self.quorum = self.n - self.f
+        self.index = (nodes.index(self.keypair.pub_bytes)
+                      if self.keypair.pub_bytes in nodes else -1)
+        # all cached round state is keyed by OLD-epoch indices: counting it
+        # against the new set would misattribute votes (or walk off the
+        # node list); discard it like a view entry does — in-flight txs go
+        # back to the pool and the round restarts under the new epoch
+        for _number, cache in list(self._caches.items()):
+            if cache.proposal is not None and not cache.committed_phase:
+                self.txpool.unseal(cache.proposal.tx_hashes)
+        self._caches.clear()
+        self._viewchanges.clear()
+        # in-flight speculative executions belong to the discarded epoch
+        abort = getattr(self.scheduler, "abort_speculation", None)
+        if abort is not None:
+            abort()
+        metric("pbft.membership", n=self.n, was=old_n, index=self.index)
+
+    # -- ingress -----------------------------------------------------------
+    def submit_proposal(self, block: Block) -> bool:
+        """Sealer hands a proposal over (Sealer.cpp:116 submitProposal)."""
+        if not self.is_leader(block.header.number):
+            return False
+        self._inbox.put(("proposal", block))
+        self.wakeup()
+        return True
+
+    def _on_network(self, src: bytes, payload: bytes, respond) -> None:
+        try:
+            msg = PBFTMessage.decode(payload)
+        except Exception:
+            LOG.warning(badge("PBFT", "bad-packet", src=src[:8].hex()))
+            return
+        # the frame's span context (front.py scopes the delivery thread)
+        # crosses to the worker pinned on the message object
+        ctx = otrace.current()
+        if ctx is not None:
+            msg._otrace = ctx
+        self._inbox.put(("msg", msg))
+        self.wakeup()
+
+    # -- worker loop (PBFTEngine.cpp:555 executeWorker) --------------------
+    def execute_worker(self) -> None:
+        # a block committed by SYNC (not by this engine) must still apply
+        # membership changes, retire overtaken round state and re-grant
+        number = self.ledger.current_number()
+        if number != self._last_seen_number:
+            self._last_seen_number = number
+            for h in [h for h in self._caches if h <= number]:
+                cache = self._caches.pop(h)
+                if cache.proposal is not None and not cache.committed_phase:
+                    # txs of a dead competing round go back to the pool
+                    # (committed ones were already pruned by the sync commit)
+                    self.txpool.unseal(cache.proposal.tx_hashes)
+            self.sealer.revoke(number)
+            self._grant_sealer()
+            self._try_advance(self._next_exec())
+        local: list[Block] = []
+        msgs: list[PBFTMessage] = []
+        while True:
+            try:
+                kind, item = self._inbox.get_nowait()
+            except queue.Empty:
+                break
+            if kind == "proposal":
+                local.append(item)  # type: ignore[arg-type]
+            elif kind == "executed":
+                self._on_executed(*item)  # type: ignore[misc]
+            elif kind == "committed":
+                self._on_commit_done(*item)  # type: ignore[misc]
+            else:
+                msgs.append(item)  # type: ignore[arg-type]
+        for msg in self._batch_checked(msgs):
+            # handle each packet under its carried span context: votes and
+            # fetches it triggers inherit (and re-propagate) the trace
+            with otrace.ctx_scope(getattr(msg, "_otrace", None)):
+                self._dispatch(msg)
+        for block in local:
+            with otrace.ctx_scope(getattr(block, "_otrace", None)):
+                self._broadcast_preprepare(block)
+        if self._pending_commits:
+            self._flush_checkpoint_commits()
+        if time.monotonic() > self._deadline:
+            self._on_timeout()
+
+    def _batch_checked(self, msgs: list[PBFTMessage]) -> list[PBFTMessage]:
+        """ONE verify_batch call over every drained packet signature
+        (replaces the reference's per-message checkSignature at :732)."""
+        valid_idx = [m for m in msgs
+                     if 0 <= m.from_idx < self.n and m.from_idx != self.index]
+        if not valid_idx:
+            return []
+        from ...protocol.types import prefill_hashes
+        prefill_hashes(valid_idx, lambda m: m.encode_core(), self.suite)
+        digests = [m.hash(self.suite) for m in valid_idx]
+        sigs = [m.signature for m in valid_idx]
+        pubs = [self.nodes[m.from_idx] for m in valid_idx]
+        ok = self.suite.verify_batch(digests, sigs, pubs)
+        out = []
+        for m, good in zip(valid_idx, np.asarray(ok)):
+            if good:
+                out.append(m)
+            else:
+                LOG.warning(badge("PBFT", "bad-signature", frm=m.from_idx,
+                                  type=m.packet_type))
+        return out
+
+    # accept window for not-yet-actionable packets; anything beyond is
+    # dropped so a Byzantine peer cannot grow the caches without bound
+    NUMBER_WINDOW = 64
+    VIEW_WINDOW = 256
+
+    def _dispatch(self, msg: PBFTMessage) -> None:
+        expected = self.ledger.current_number() + 1
+        if not (expected <= msg.number <= expected + self.NUMBER_WINDOW):
+            return
+        if msg.view > self.view + self.VIEW_WINDOW:
+            return
+        t = msg.packet_type
+        if t == PacketType.PRE_PREPARE:
+            self._handle_preprepare(msg)
+        elif t == PacketType.PREPARE:
+            self._handle_prepare(msg)
+        elif t == PacketType.COMMIT:
+            self._handle_commit(msg)
+        elif t == PacketType.CHECKPOINT:
+            self._handle_checkpoint(msg)
+        elif t == PacketType.VIEW_CHANGE:
+            self._handle_viewchange(msg)
+        elif t == PacketType.NEW_VIEW:
+            self._handle_newview(msg)
+        elif t == PacketType.RECOVER_REQ:
+            self._handle_recover_req(msg)
+        elif t == PacketType.RECOVER_RESP:
+            self._handle_recover_resp(msg)
+
+    # -- round-state recovery ----------------------------------------------
+    def _handle_recover_req(self, msg: PBFTMessage) -> None:
+        """A restarted peer asks for our cached packets at a height."""
+        cache = self._caches.get(msg.number)
+        if cache is None:
+            return
+        out: list[PBFTMessage] = []
+        if cache.preprepare_msg is not None:
+            out.append(cache.preprepare_msg)
+        out.extend(cache.prepares.values())
+        out.extend(cache.commits.values())
+        out.extend(cache.checkpoint_msgs.values())
+        if not out:
+            return
+        resp = self._signed(make_packet(PacketType.RECOVER_RESP, self.view,
+                                        msg.number, self.index, b"",
+                                        pack_messages(out)))
+        self.front.send(ModuleID.PBFT, self.nodes[msg.from_idx],
+                        resp.encode())
+
+    def _handle_recover_resp(self, msg: PBFTMessage) -> None:
+        try:  # cap bounds the DECODE (count prefix is sender-controlled)
+            inner = unpack_messages(msg.payload, max_count=4 * self.n + 1)
+        except Exception:
+            return
+        # re-enqueue so each inner packet passes normal signature checking
+        for m in inner:
+            self._inbox.put(("msg", m))
+
+    # -- send helpers ------------------------------------------------------
+    def _signed(self, packet: PBFTMessage) -> PBFTMessage:
+        return packet.sign(self.suite, self.keypair)
+
+    def _broadcast(self, packet: PBFTMessage) -> None:
+        self.front.broadcast(ModuleID.PBFT, self._signed(packet).encode())
+
+    def _cache(self, number: int) -> _ProposalCache:
+        return self._caches.setdefault(number, _ProposalCache())
+
+    # -- leader: pre-prepare ----------------------------------------------
+    def _broadcast_preprepare(self, block: Block,
+                              carried: bool = False) -> None:
+        number = block.header.number
+        current = self.ledger.current_number()
+        if not (current < number <= current + self.waterline):
+            self.txpool.unseal(block.tx_hashes)
+            self._grant_sealer()
+            return
+        if self.leader_for(number, self.view) != self.index:
+            # stale grant: the sealer produced this under an older view and
+            # the view changed before the proposal reached the worker —
+            # broadcasting now would be rejected by every replica (wasted
+            # round); return the txs and let the real leader pick them up
+            self.txpool.unseal(block.tx_hashes)
+            self._grant_sealer()
+            return
+        prior = self._caches.get(number)
+        if prior is not None and prior.proposal is not None:
+            # a proposal for this round already exists (e.g. a carried
+            # re-proposal raced the sealer): a second one would split the
+            # prepare votes — refuse, returning the txs unless they ARE the
+            # active proposal's
+            if block.tx_hashes != prior.proposal.tx_hashes:
+                self.txpool.unseal(block.tx_hashes)
+            return
+        header = block.header
+        header.sealer = self.index
+        header.sealer_list = list(self.nodes)
+        if not carried:
+            # floor at the ALIGNED clock: raw local time here would undo
+            # the sealer's median alignment exactly when our clock is fast
+            header.timestamp = max(header.timestamp, self.clock_ms())
+        # bind the tx set into the proposal identity before any roots exist
+        header.txs_root = self.suite.merkle_root(
+            block.tx_hashes or [t.hash(self.suite) for t in block.transactions])
+        header.invalidate()
+        phash = header.hash(self.suite)
+
+        cache = self._cache(number)
+        cache.proposal = block
+        cache.proposal_hash = phash
+        cache.trace_ctx = getattr(block, "_otrace", None) or \
+            otrace.current()
+        cache.t_accept = time.monotonic()
+        if cache.trace_ctx is not None:
+            block_trace(number, owner=self.trace_label).bind(
+                cache.trace_ctx)
+        wire_block = block
+        if not self.full_proposals and block.transactions:
+            # metadata-only broadcast; the full block stays in our cache
+            wire_block = Block(header=header,
+                               tx_hashes=list(
+                                   block.tx_hashes
+                                   or [t.hash(self.suite)
+                                       for t in block.transactions]))
+        msg = make_packet(PacketType.PRE_PREPARE, self.view, number,
+                          self.index, phash, wire_block.encode())
+        cache.preprepare_msg = self._signed(msg)
+        # carried/re-proposed blocks arrive with their txs back in the pool
+        # (view entry unseals) — re-mark them so the next height's sealer
+        # cannot pick them up again
+        self.txpool.mark_sealed(block.tx_hashes)
+        self._persist_proposal(number, cache)
+        self.front.broadcast(ModuleID.PBFT, cache.preprepare_msg.encode())
+        # leader's own prepare vote
+        self._vote_prepare(number, phash)
+        # pipeline: the next height's leader can start sealing now
+        self._maybe_grant(number + 1)
+        metric("pbft.preprepare", number=number, view=self.view,
+               n_tx=len(block.tx_hashes or block.transactions))
+
+    # -- replica: phase handlers ------------------------------------------
+    def _handle_preprepare(self, msg: PBFTMessage) -> None:
+        current = self.ledger.current_number()
+        if (msg.view != self.view
+                or not (current < msg.number <= current + self.waterline)
+                or self.to_view > self.view):
+            return
+        if msg.from_idx != self.leader_for(msg.number, msg.view):
+            LOG.warning(badge("PBFT", "preprepare-not-leader",
+                              frm=msg.from_idx, number=msg.number))
+            return
+        try:
+            block = Block.decode(msg.payload)
+        except Exception:
+            return
+        header = block.header
+        if header.number != msg.number or \
+                header.hash(self.suite) != msg.proposal_hash:
+            return
+        cache = self._cache(msg.number)
+        if cache.proposal is not None:
+            if cache.proposal_hash != msg.proposal_hash:
+                return  # conflicting proposal from same leader: keep first
+            self._try_advance(msg.number)  # duplicate (e.g. recover replay)
+            return
+        # metadata-only proposal: fetch any txs the gossip hasn't delivered
+        # yet from the leader (TxPool.cpp:160 asyncVerifyBlock fetch path)
+        if not block.transactions and block.tx_hashes and self.txsync:
+            missing = self.txpool.missing_hashes(block.tx_hashes)
+            if missing:
+                self.txsync.fetch_missing(self.nodes[msg.from_idx], missing,
+                                          timeout=2.0)
+        # proposal tx verification — ONE device batch recover for unknown txs
+        if not self.txpool.verify_proposal(block):
+            LOG.warning(badge("PBFT", "proposal-verify-failed",
+                              number=msg.number))
+            return
+        cache.proposal = block
+        cache.proposal_hash = msg.proposal_hash
+        cache.preprepare_msg = msg
+        # replica-side trace stitch: the leader's span context rode the
+        # pre-prepare's p2p envelope — adopt it for this round so THIS
+        # node's consensus/execute/commit spans land in the same trace
+        cache.trace_ctx = otrace.current()
+        cache.t_accept = time.monotonic()
+        if cache.trace_ctx is not None:
+            block_trace(msg.number, owner=self.trace_label).bind(
+                cache.trace_ctx)
+        # mark the proposal's txs sealed so this node's sealer (if it leads
+        # a later in-flight height) never packs them into a second proposal
+        # (the reference's asyncMarkTxs on proposal receipt)
+        self.txpool.mark_sealed(block.tx_hashes
+                                or [t.hash(self.suite)
+                                    for t in block.transactions])
+        self._persist_proposal(msg.number, cache)
+        self._vote_prepare(msg.number, msg.proposal_hash)
+        # pipeline: if this node leads the next height, start sealing it now
+        self._maybe_grant(msg.number + 1)
+        self._try_advance(msg.number)
+
+    def _persist_proposal(self, number: int, cache: _ProposalCache) -> None:
+        """Write the accepted pre-prepare + a FULL block (txs materialised
+        from the pool — after a restart the pool is empty, so the persisted
+        block must be executable standalone)."""
+        if self.log is None or cache.preprepare_msg is None:
+            return
+        block = cache.proposal
+        if block is None:
+            return
+        if not block.transactions and block.tx_hashes:
+            txs = self.txpool.fill_block(block.tx_hashes)
+            if txs is None:
+                # cannot materialise the txs (e.g. a carried metadata-only
+                # proposal with gossip still in flight): persisting a
+                # non-executable block would wedge replay — skip instead
+                LOG.warning(badge("PBFT", "persist-unfillable",
+                                  number=number))
+                return
+            block = Block(header=block.header, transactions=txs,
+                          tx_hashes=list(block.tx_hashes))
+        self.log.save_proposal(number, cache.preprepare_msg.encode(),
+                               block.encode())
+
+    def _vote_prepare(self, number: int, phash: bytes) -> None:
+        if self.index < 0:
+            return  # voted out: follow via sync, don't participate
+        cache = self._cache(number)
+        if self.index in cache.prepares:
+            return
+        vote = self._signed(make_packet(PacketType.PREPARE, self.view,
+                                        number, self.index, phash))
+        cache.prepares[self.index] = vote
+        if self.log is not None:
+            self.log.save_packet(number, TAG_PREPARE, vote.encode())
+        self.front.broadcast(ModuleID.PBFT, vote.encode())
+        self._try_advance(number)
+
+    def _handle_prepare(self, msg: PBFTMessage) -> None:
+        if msg.view != self.view:
+            return
+        cache = self._cache(msg.number)
+        cache.prepares.setdefault(msg.from_idx, msg)
+        self._try_advance(msg.number)
+
+    def _handle_commit(self, msg: PBFTMessage) -> None:
+        if msg.view != self.view:
+            return
+        cache = self._cache(msg.number)
+        cache.commits.setdefault(msg.from_idx, msg)
+        self._try_advance(msg.number)
+
+    def _handle_checkpoint(self, msg: PBFTMessage) -> None:
+        cache = self._cache(msg.number)
+        cache.checkpoints.setdefault(msg.from_idx, msg.payload)
+        cache.checkpoint_msgs.setdefault(msg.from_idx, msg)
+        self._try_advance(msg.number)
+
+    # -- quorum state machine (PBFTCacheProcessor::checkAndCommit) ---------
+    def _next_exec(self) -> int:
+        """The next height the execution lane may run: the scheduler's
+        speculative head + 1 under pipelining (execute N+1 while N's commit
+        is in flight), committed + 1 for proxy schedulers."""
+        ne = getattr(self.scheduler, "next_executable", None)
+        return ne() if ne is not None else self.ledger.current_number() + 1
+
+    def _try_advance(self, number: int) -> None:
+        """Advance height `number` as far as its quorums allow. Prepare and
+        commit phases run for ANY in-flight height (the pipeline);
+        execution stays strictly ordered but runs SPECULATIVELY ahead of
+        the ledger (height N+1 executes over N's uncommitted changeset
+        while N's 2PC runs on the scheduler's commit thread)."""
+        cache = self._caches.get(number)
+        current = self.ledger.current_number()
+        if cache is None or not (current < number <= current + self.waterline):
+            return
+        if cache.proposal is None:
+            return
+        with otrace.ctx_scope(cache.trace_ctx):
+            self._advance_quorums(number, cache)
+
+    def _advance_quorums(self, number: int, cache: _ProposalCache) -> None:
+        phash = cache.proposal_hash
+        prepares = sum(1 for m in cache.prepares.values()
+                       if m.proposal_hash == phash)
+        if not cache.prepared and prepares >= self.quorum \
+                and self.index >= 0:
+            cache.prepared = True
+            vote = self._signed(make_packet(PacketType.COMMIT, self.view,
+                                            number, self.index, phash))
+            cache.commits[self.index] = vote
+            if self.log is not None:
+                self.log.save_packet(number, TAG_COMMIT, vote.encode())
+            self.front.broadcast(ModuleID.PBFT, vote.encode())
+        commits = sum(1 for m in cache.commits.values()
+                      if m.proposal_hash == phash)
+        if cache.prepared and not cache.executed and commits >= self.quorum \
+                and number == self._next_exec():
+            self._execute_and_checkpoint(number, cache)
+        if cache.executed:
+            self._try_commit_ledger(number, cache)
+
+    def _execute_and_checkpoint(self, number: int,
+                                cache: _ProposalCache) -> None:
+        """Hand the agreed proposal to the execution lane; the worker keeps
+        draining consensus packets (verify of N+1 overlaps execute of N)."""
+        if self._executing is not None:
+            return  # lane busy; _on_executed's _try_advance retries
+        if self._exec_pool is None:
+            self._exec_pool = ThreadPoolExecutor(
+                1, thread_name_prefix="pbft-exec")
+        self._executing = number
+        proposal, phash = cache.proposal, cache.proposal_hash
+        # latency attribution: time from proposal accept to execution
+        # start (pre-prepare/prepare/commit quorum collection + any
+        # execution-lane queueing) — stamps the shared per-block trace
+        block_trace(number, owner=self.trace_label).stage("consensus_pre")
+
+        def run() -> None:
+            try:
+                result = self.scheduler.execute_block(proposal)
+            except Exception:
+                LOG.exception(badge("PBFT", "execute-crashed",
+                                    number=number))
+                result = None
+            self._inbox.put(("executed", (number, phash, result)))
+            self.wakeup()
+
+        self._exec_pool.submit(run)
+
+    def _on_executed(self, number: int, phash: bytes, result) -> None:
+        """Execution lane completion (runs on the worker thread)."""
+        self._executing = None
+        cache = self._caches.get(number)
+        if cache is None or cache.proposal_hash != phash:
+            # round superseded while executing (view change / sync commit):
+            # release the scheduler's cached result, then re-arm the
+            # pipeline — the successor round may already hold commit quorum
+            # and no further packet will re-trigger it
+            if result is not None:
+                self.scheduler.drop_executed(result.header)
+            self._try_advance(self._next_exec())
+            return
+        if result is None:
+            # genuine execution failure with a live round: do NOT self-
+            # retrigger (a deterministic failure would spin the lane);
+            # the next packet or commit for this height retries, exactly
+            # like the old synchronous path
+            LOG.error(badge("PBFT", "execute-failed", number=number))
+            return
+        cache.executed = True
+        cache.executed_hash = result.header.hash(self.suite)
+        cache.executed_header = result.header
+        if self.index >= 0:
+            # the checkpoint seal IS the commit seal for signature_list
+            # (aggregate mode signs the BLS lane so the quorum's seals sum
+            # into one G1 point; peers in other modes simply judge it as a
+            # bad ECDSA seal and count the remaining quorum)
+            if self.seal_mode == "aggregate":
+                seal = agg.sign(self.agg_secret, cache.executed_hash)
+            else:
+                seal = self.suite.sign(self.keypair, cache.executed_hash)
+            cache.checkpoints[self.index] = seal
+            ck = self._signed(make_packet(PacketType.CHECKPOINT, self.view,
+                                          number, self.index,
+                                          cache.executed_hash, seal))
+            cache.checkpoint_msgs[self.index] = ck
+            with otrace.ctx_scope(cache.trace_ctx):
+                self.front.broadcast(ModuleID.PBFT, ck.encode())
+        metric("pbft.executed", number=number,
+               ehash=cache.executed_hash[:8].hex())
+        self._try_advance(number)
+        # pipeline: the next height may already hold its commit quorum
+        # (consensus ran ahead) — it can execute speculatively NOW, over
+        # this result's changeset, while this block's seals/commit land
+        self._try_advance(number + 1)
+
+    def _try_commit_ledger(self, number: int, cache: _ProposalCache) -> None:
+        """Checkpoint quorum reached: queue the height for this drain's
+        seal-judging flush. Verification is deferred to the END of the
+        worker pass so every height that quorums in one drain shares ONE
+        `verify_batch` call (execute_worker -> _flush_checkpoint_commits)
+        — live consensus coalesces across heights exactly like the sync
+        range path."""
+        if len(cache.checkpoints) < self.quorum or cache.committed_phase \
+                or not cache.executed:
+            return
+        self._pending_commits.add(number)
+
+    def _flush_checkpoint_commits(self) -> None:
+        """Judge every pending height's checkpoint seals in one lane call
+        (BlockValidator.cpp:141 checkSignatureList shape, widened across
+        heights), mint the commit-seal carriage per `seal_mode`, and hand
+        decided blocks to the commit stage in height order."""
+        jobs: list[tuple[int, _ProposalCache]] = []
+        for number in sorted(self._pending_commits):
+            cache = self._caches.get(number)
+            if cache is not None and cache.executed \
+                    and not cache.committed_phase \
+                    and len(cache.checkpoints) >= self.quorum:
+                jobs.append((number, cache))
+        self._pending_commits.clear()
+        if not jobs:
+            return
+        if self.seal_mode == "aggregate":
+            # BLS seals: one pairing-product check per height (there is no
+            # sound cross-height merge of pairing checks without blinding)
+            for number, cache in jobs:
+                self._judge_aggregate(number, cache)
+            return
+        spans: list[tuple[int, _ProposalCache, list[int], int]] = []
+        digests: list[bytes] = []
+        seals: list[bytes] = []
+        pubs: list[bytes] = []
+        for number, cache in jobs:
+            idxs = sorted(cache.checkpoints)
+            spans.append((number, cache, idxs, len(digests)))
+            digests.extend([cache.executed_hash] * len(idxs))
+            seals.extend(cache.checkpoints[i] for i in idxs)
+            pubs.extend(self.nodes[i] for i in idxs)
+        ok = np.asarray(self.suite.verify_batch(digests, seals, pubs))
+        self._seal_batches += 1
+        self._seals_verified += len(digests)
+        for number, cache, idxs, start in spans:
+            verdict = ok[start:start + len(idxs)]
+            good = [(i, cache.checkpoints[i])
+                    for i, g in zip(idxs, verdict) if g]
+            if len(good) < self.quorum:
+                for i, g in zip(idxs, verdict):
+                    if not g:
+                        cache.checkpoints.pop(i, None)
+                continue
+            if self.seal_mode == "cert":
+                carriage = [(qc.QC_SENTINEL,
+                             qc.mint_cert(good, self.n).encode())]
+            else:
+                carriage = good
+            self._commit_decided(number, cache, carriage)
+
+    def _judge_aggregate(self, number: int, cache: _ProposalCache) -> None:
+        """Aggregate-mode checkpoint quorum: optimistic ONE pairing check
+        over the summed seals; on failure fall back to per-seal checks to
+        evict the Byzantine contribution(s) and retry on the next packet."""
+        idxs = sorted(cache.checkpoints)
+        keep: list[int] = []
+        for i in idxs:
+            pub = self.agg_registry.pub_for(self.nodes[i])
+            try:
+                admissible = pub is not None and \
+                    agg.g1_from_bytes(cache.checkpoints[i]) is not None
+            except ValueError:
+                admissible = False
+            if admissible:
+                keep.append(i)
+            else:  # unregistered key or not even a curve point
+                cache.checkpoints.pop(i, None)
+        if len(keep) < self.quorum:
+            return
+        sigs = [cache.checkpoints[i] for i in keep]
+        apubs = [self.agg_registry.pub_for(self.nodes[i]) for i in keep]
+        self._seal_batches += 1
+        self._seals_verified += len(keep)
+        if not agg.verify_aggregate(apubs, cache.executed_hash,
+                                    agg.aggregate_sigs(sigs)):
+            good = [i for i, s, p in zip(keep, sigs, apubs)
+                    if agg.verify(p, cache.executed_hash, s)]
+            for i in keep:
+                if i not in good:
+                    cache.checkpoints.pop(i, None)
+            if len(good) < self.quorum:
+                return
+            keep = good
+            sigs = [cache.checkpoints[i] for i in keep]
+        cert = qc.mint_aggregate(keep, agg.aggregate_sigs(sigs), self.n)
+        self._commit_decided(number, cache,
+                             [(qc.QC_SENTINEL, cert.encode())])
+
+    def _commit_decided(self, number: int, cache: _ProposalCache,
+                        carriage: list) -> None:
+        cache.committed_phase = True
+        if cache.trace_ctx is not None and cache.t_accept:
+            # one consensus span per node per block: proposal accept ->
+            # checkpoint quorum decided (the durable 2PC is the trace's
+            # stage.commit span) — attributed to this node, so a stitched
+            # trace shows the round on every replica
+            otrace.TRACER.record(
+                "pbft.consensus", cache.trace_ctx, cache.t_accept,
+                attrs={"number": number, "node_idx": self.index,
+                       "node": self.trace_label, "view": self.view})
+        # commit the EXECUTED result's header, not the proposal's: the two
+        # are the same object for the in-process scheduler (finalised in
+        # place) but differ behind a scheduler-service proxy, where the
+        # proposal header never learns its roots
+        header = cache.executed_header
+        header.signature_list = carriage
+        self._seal_bytes_last = qc.seal_wire_bytes(header)
+        cert = qc.extract(header)
+        self._seal_signers_last = (cert.signer_count() if cert is not None
+                                   else len(carriage))
+        REGISTRY.set_gauge("bcos_consensus_seal_bytes_per_block",
+                           self._seal_bytes_last,
+                           labels={"mode": self.seal_mode})
+        commit_async = getattr(self.scheduler, "commit_async", None)
+        if commit_async is not None:
+            # pipelined commit: hand the decided block to the scheduler's
+            # commit thread and keep draining packets — the next height
+            # can reach quorum and execute while this 2PC + fsync runs
+            self._reset_timer()  # a decided block IS progress
+
+            def _done(ok: bool, _n=number) -> None:
+                self._inbox.put(("committed", (_n, ok)))
+                self.wakeup()
+
+            commit_async(header, _done)
+            return
+        if not self.scheduler.commit_block(header):
+            LOG.error(badge("PBFT", "ledger-commit-failed", number=number))
+            cache.committed_phase = False
+            return
+        self._finish_commit(number)
+
+    def _on_commit_done(self, number: int, ok: bool) -> None:
+        """Commit-stage completion (delivered through the inbox, so all
+        bookkeeping stays on the worker thread)."""
+        if not ok:
+            LOG.error(badge("PBFT", "ledger-commit-failed", number=number))
+            cache = self._caches.get(number)
+            if cache is not None:
+                # re-arm the checkpoint path: the next packet or timeout
+                # retries the commit, exactly like the synchronous path
+                cache.committed_phase = False
+            return
+        self._finish_commit(number)
+
+    def _finish_commit(self, number: int) -> None:
+        """Post-commit bookkeeping (shared by the sync and pipelined
+        paths). Idempotent: a sync-committed height observed by the worker
+        loop may already have retired the caches."""
+        for h in [h for h in self._caches if h <= number]:
+            self._caches.pop(h, None)
+        if self.log is not None:
+            self.log.prune(number)
+        self._viewchanges = {v: d for v, d in self._viewchanges.items()
+                             if v > self.view}
+        self._timeout = self.base_timeout
+        self._reset_timer()
+        self.sealer.revoke(number)
+        self._grant_sealer()
+        metric("pbft.committed", number=number, view=self.view)
+        # pipeline cascade: the next height may already hold commit quorum
+        # (its consensus ran while this block executed) — act on it now
+        self._try_advance(number + 1)
+
+    # -- view change -------------------------------------------------------
+    def _reset_timer(self) -> None:
+        self._deadline = time.monotonic() + self._timeout
+
+    def _on_timeout(self) -> None:
+        if self.index < 0:  # voted out: no view-change participation
+            self._reset_timer()
+            return
+        # nothing to agree on -> idle quietly unless a round is in flight
+        in_flight = any(c.proposal is not None and not c.committed_phase
+                        for c in self._caches.values())
+        pending_vc = self.to_view > self.view
+        if not in_flight and not pending_vc and self.txpool.pending_count() == 0:
+            self._reset_timer()
+            return
+        self.to_view = max(self.to_view + 1, self.view + 1)
+        self._timeout = min(self._timeout * 2, 60.0)
+        self._reset_timer()
+        self._send_viewchange()
+
+    def _send_viewchange(self) -> None:
+        number = self.ledger.current_number() + 1
+        committed = self.ledger.header_by_number(number - 1)
+        chash = committed.hash(self.suite) if committed else b"\x00" * 32
+        # carry EVERY prepared in-flight proposal (the pipeline can hold
+        # several) so the new view's leaders re-propose rather than lose a
+        # potentially-committed round — the reference's ViewChangeMsg
+        # preparedProposal list (PBFTViewChangeMsg). Each pre-prepare
+        # travels WITH the prepare votes that made it prepared: the new
+        # leader re-proposes only quorum-certified carried proposals, so
+        # no single member can fabricate one (classic PBFT's P-set proof)
+        carried: list[PBFTMessage] = []
+        for _n, c in sorted(self._caches.items()):
+            if c.prepared and c.preprepare_msg is not None:
+                carried.append(c.preprepare_msg)
+                carried.extend(m for m in c.prepares.values()
+                               if m.proposal_hash == c.proposal_hash)
+        payload = pack_messages(carried) if carried else b""
+        vc = make_packet(PacketType.VIEW_CHANGE, self.to_view, number,
+                         self.index, chash, payload)
+        signed = self._signed(vc)
+        self._viewchanges.setdefault(self.to_view, {})[self.index] = signed
+        self.front.broadcast(ModuleID.PBFT, signed.encode())
+        metric("pbft.viewchange", to_view=self.to_view, number=number)
+        self._check_newview(self.to_view)
+
+    def _handle_viewchange(self, msg: PBFTMessage) -> None:
+        if msg.view <= self.view:
+            return
+        self._viewchanges.setdefault(msg.view, {})[msg.from_idx] = msg
+        # fast view change: f+1 nodes already in a higher view -> join them
+        higher = {v for v, d in self._viewchanges.items() if v > self.view
+                  and len(d) >= self.f + 1}
+        if higher and self.to_view <= self.view:
+            self.to_view = min(higher)
+            self._send_viewchange()
+        self._check_newview(msg.view)
+
+    def _check_newview(self, v: int) -> None:
+        """If this node leads view v and holds 2f+1 VIEW_CHANGEs, switch."""
+        vcs = self._viewchanges.get(v, {})
+        number = self.ledger.current_number() + 1
+        if len(vcs) < self.quorum or self.leader_for(number, v) != self.index:
+            return
+        proof = pack_messages(list(vcs.values()))
+        self._broadcast(make_packet(PacketType.NEW_VIEW, v, number,
+                                    self.index, b"", proof))
+        self._enter_view(v)
+        # safety: re-propose carried prepared proposals for the heights this
+        # node leads in the new view; grant the sealer otherwise
+        self._repropose_carried(vcs.values(), v)
+        self._grant_sealer()
+
+    def _carried_by_height(self, vcs, new_view: int) -> dict[int, Block]:
+        """Highest-view carried prepared proposal per in-flight height from a
+        set of VIEW_CHANGE messages.
+
+        Carried pre-prepares ride INSIDE view-change payloads, so the
+        inbox-level batch check never saw them: each one must be verified
+        here or a single Byzantine member could forge a "higher-view"
+        carried proposal that displaces a genuinely prepared one (safety
+        violation — the prepared block may already be committed elsewhere).
+        A candidate is admitted only if it (a) claims a view OLDER than the
+        view being entered, (b) claims the index that actually led its
+        (number, view) round, (c) carries that leader's valid signature
+        over the packet core, and (d) is backed by a PREPARE quorum
+        certificate — `quorum` distinct members' valid prepare signatures
+        over the same (number, view, proposal hash), aggregated across all
+        the view-changes. (a)-(c) alone would still admit a forgery by a
+        node that legitimately LED some intermediate view (it can sign a
+        fresh "carried" pre-prepare for its old round at view-change
+        time); the certificate requires honest co-signers, which a
+        fabricated round can never collect."""
+        current = self.ledger.current_number()
+        # a Byzantine VC could pack unbounded messages; the cap is applied
+        # INSIDE the decode (over-count payloads are rejected wholesale
+        # before any message is materialised)
+        per_vc_cap = (1 + self.n) * self.waterline
+        seen: set[tuple] = set()
+        candidates: list[PBFTMessage] = []
+        prepares: list[PBFTMessage] = []
+        for vc in vcs:
+            if not vc.payload:
+                continue
+            try:
+                msgs = unpack_messages(vc.payload, max_count=per_vc_cap)
+            except Exception:
+                continue
+            for m in msgs:
+                if not (current < m.number <= current + self.waterline):
+                    continue
+                if not (0 <= m.from_idx < self.n) or m.view >= new_view:
+                    continue
+                key = (m.packet_type, m.number, m.view, m.from_idx,
+                       m.proposal_hash)
+                if key in seen:
+                    continue  # same carried round from several view-changes
+                if m.packet_type == PacketType.PREPARE:
+                    seen.add(key)
+                    prepares.append(m)
+                    continue
+                if m.packet_type != PacketType.PRE_PREPARE:
+                    continue
+                if m.from_idx != self.leader_for(m.number, m.view):
+                    LOG.warning(badge("PBFT", "carried-pp-not-leader",
+                                      frm=m.from_idx, number=m.number,
+                                      view=m.view))
+                    continue
+                seen.add(key)
+                candidates.append(m)
+        if candidates:
+            from ...protocol.types import prefill_hashes
+            allmsgs = candidates + prepares
+            prefill_hashes(allmsgs, lambda m: m.encode_core(), self.suite)
+            ok = np.asarray(self.suite.verify_batch(
+                [m.hash(self.suite) for m in allmsgs],
+                [m.signature for m in allmsgs],
+                [self.nodes[m.from_idx] for m in allmsgs]))
+            kept, certified = [], {}
+            for m, good in zip(allmsgs, ok):
+                if not good:
+                    LOG.warning(badge("PBFT", "carried-bad-signature",
+                                      frm=m.from_idx, number=m.number,
+                                      view=m.view, type=m.packet_type))
+                elif m.packet_type == PacketType.PREPARE:
+                    certified.setdefault(
+                        (m.number, m.view, m.proposal_hash),
+                        set()).add(m.from_idx)
+                else:
+                    kept.append(m)
+            candidates = []
+            for pp in kept:
+                signers = certified.get(
+                    (pp.number, pp.view, pp.proposal_hash), set())
+                if len(signers) >= self.quorum:
+                    candidates.append(pp)
+                else:
+                    LOG.warning(badge("PBFT", "carried-pp-no-quorum",
+                                      frm=pp.from_idx, number=pp.number,
+                                      view=pp.view, signers=len(signers)))
+        best: dict[int, PBFTMessage] = {}
+        for pp in candidates:
+            cur = best.get(pp.number)
+            if cur is None or pp.view > cur.view:
+                best[pp.number] = pp
+        out: dict[int, Block] = {}
+        for number, pp in best.items():
+            try:
+                out[number] = Block.decode(pp.payload)
+            except Exception:
+                continue
+        return out
+
+    def _repropose_carried(self, vcs, v: int) -> None:
+        for number, block in sorted(self._carried_by_height(vcs, v).items()):
+            if self.leader_for(number, v) == self.index:
+                self._broadcast_preprepare(block, carried=True)
+
+    def _handle_newview(self, msg: PBFTMessage) -> None:
+        if msg.view <= self.view:
+            return
+        if msg.from_idx != self.leader_for(msg.number, msg.view):
+            return
+        try:  # one VC per member tops; bound the decode itself
+            vcs = unpack_messages(msg.payload, max_count=self.n)
+        except Exception:
+            return
+        vcs = [m for m in vcs if m.packet_type == PacketType.VIEW_CHANGE
+               and m.view == msg.view and 0 <= m.from_idx < self.n]
+        uniq = {m.from_idx: m for m in vcs}
+        if len(uniq) < self.quorum:
+            return
+        ok = np.asarray(self.suite.verify_batch(
+            [m.hash(self.suite) for m in uniq.values()],
+            [m.signature for m in uniq.values()],
+            [self.nodes[m.from_idx] for m in uniq.values()]))
+        if int(ok.sum()) < self.quorum:
+            return
+        self._enter_view(msg.view)
+        # re-propose carried prepared rounds for heights this node now
+        # leads BEFORE granting the sealer, so a fresh proposal can never
+        # displace a carried (potentially committed-elsewhere) one
+        self._repropose_carried(uniq.values(), msg.view)
+        self._grant_sealer()
+
+    def _enter_view(self, v: int) -> None:
+        # drop round state from the old view; txs go back to the pool
+        for number, cache in list(self._caches.items()):
+            if cache.proposal is not None and not cache.committed_phase:
+                self.txpool.unseal(cache.proposal.tx_hashes)
+            self._caches.pop(number, None)
+        # speculative executions hang off rounds this view just discarded;
+        # the new view's (re-)proposals must re-execute against the durable
+        # head (results already on the commit stage are kept — they hold a
+        # checkpoint quorum and will land)
+        abort = getattr(self.scheduler, "abort_speculation", None)
+        if abort is not None:
+            abort()
+        self.view = v
+        self.to_view = v
+        if self.log is not None:
+            # every cached round was just discarded; a carried proposal
+            # re-enters this view as a NEW pre-prepare (new hash), so stale
+            # height records must not survive into a future replay
+            self.log.save_view(v)
+            self.log.clear_heights()
+        self._timeout = self.base_timeout
+        self._reset_timer()
+        # NOTE: no sealer grant here — callers re-propose carried prepared
+        # rounds first (safety), then call _grant_sealer themselves
+        metric("pbft.newview", view=v)
+
+    # -- introspection (getConsensusStatus RPC) ----------------------------
+    def status(self) -> dict:
+        return {
+            "index": self.index,
+            "view": self.view,
+            "toView": self.to_view,
+            "leaderIndex": self.leader_for(
+                self.ledger.current_number() + 1, self.view),
+            "consensusNodeNum": self.n,
+            "maxFaultyQuorum": self.f,
+            "committedNumber": self.ledger.current_number(),
+            "sealMode": self.seal_mode,
+            "sealBytesPerBlock": self._seal_bytes_last,
+            "sealSignersPerBlock": self._seal_signers_last,
+            "sealBatches": self._seal_batches,
+            "sealsVerified": self._seals_verified,
+        }

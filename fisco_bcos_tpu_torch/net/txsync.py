@@ -1,0 +1,206 @@
+"""TransactionSync — tx gossip + missing-tx fetch + pool anti-entropy.
+
+Reference counterpart: FISCO-BCOS bcos-txpool/bcos-txpool/sync/
+TransactionSync.cpp — broadcast of newly submitted txs to peers, batch
+import of received packets (the **tbb::parallel_for over tx->verify** at
+:516-537 that the device batch-recover call replaces here: received batches go
+through `TxPool.submit_batch`, i.e. ONE device recover kernel per packet),
+on-demand fetch of a proposal's missing txs (TxPool.cpp:160
+asyncVerifyBlock's fetch-missing path), and a periodic maintenance sweep
+(TransactionSync.cpp's executeWorker maintainTransactions loop).
+
+The sweep is pool ANTI-ENTROPY: gossip sends are fire-and-forget over
+bounded p2p queues, so a dropped frame would otherwise strand a tx on the
+one node that accepted it. That is a chain-liveness hazard, not just a
+latency blip — observed failure: the stranded tx's holder is the only node
+that sees pending work, so when the next height's leader is down it is
+also the only node arming view changes, quorum is never reached, and the
+chain wedges. Re-advertising unsealed pending txs every couple of seconds
+converges the pools (receivers dedupe by hash before decoding).
+
+Wire payloads (module TxsSync):
+  push:    seq<blob tx-encoding>                    (gossip batch)
+  request: seq<blob tx-hash>                        (fetch by hash)
+  response:seq<blob tx-encoding>                    (may be partial)
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Sequence
+
+from ..codec.wire import Reader, Writer
+from ..protocol import Transaction, batch_hash
+from ..utils import otrace
+from ..utils.log import metric
+from ..utils.worker import Worker
+from .front import FrontService
+from .moduleid import ModuleID
+
+
+def _pack_txs(txs: Sequence[Transaction], suite) -> bytes:
+    """(hash, encoding) pairs: the hash lets a receiver skip DECODING txs
+    it already holds — flood gossip delivers each tx to each peer several
+    times in a mesh, and the duplicate decodes were measurable at ingest
+    rates. The claimed hash is only ever used to SKIP work for hashes the
+    receiver already has; admission recomputes the real hash, so a lying
+    peer can only skip its own delivery."""
+    batch_hash(txs, suite)  # fill any cold caches in ONE call, not per tx
+    return Writer().seq(
+        list(txs),
+        lambda w, t: w.blob(t.hash(suite)).blob(t.encode())).bytes()
+
+
+def _unpack_txs(data: bytes) -> list[tuple[bytes, bytes]]:
+    """-> [(claimed_hash, tx_encoding)] — decode deferred to the caller."""
+    return Reader(data).seq(lambda r: (r.blob(), r.blob()))
+
+
+class TransactionSync(Worker):
+    # per-sweep rebroadcast cap: bounds anti-entropy bandwidth while still
+    # draining any realistic stranded-tx backlog within a few sweeps
+    ANTI_ENTROPY_MAX = 256
+
+    def __init__(self, front: FrontService, txpool, suite,
+                 anti_entropy_interval: float = 2.0, ingest=None,
+                 import_gate=None, registry=None):
+        super().__init__("tx-sync", idle_wait=0.25)
+        self.front = front
+        self.txpool = txpool
+        self.suite = suite
+        # continuous-batching lane (txpool.ingest.IngestLane): gossip
+        # packets from many peers coalesce with RPC traffic into one
+        # device-sized recover instead of one recover per packet
+        self.ingest = ingest
+        # overload brownout gate (utils/overload.py, wired by the node):
+        # while it returns False this node stops IMPORTING remote pending
+        # txs — a saturated follower must not amplify load it could not
+        # seal anyway. Fetch-missing (proposal verification) is NOT gated:
+        # consensus keeps full service. The anti-entropy sweep re-delivers
+        # whatever was skipped once the node recovers.
+        self.import_gate = import_gate
+        from ..utils.metrics import REGISTRY
+        self._reg = registry if registry is not None else REGISTRY
+        self.anti_entropy_interval = anti_entropy_interval
+        self._last_sweep = 0.0
+        self._lock = threading.Lock()
+        self._known_by_peer: dict[bytes, set[bytes]] = {}
+        front.register_module(ModuleID.TxsSync, self._on_message)
+        txpool.register_broadcast_hook(self.broadcast_new)
+
+    # -- periodic anti-entropy sweep ---------------------------------------
+    def execute_worker(self) -> None:
+        now = time.monotonic()
+        if now - self._last_sweep < self.anti_entropy_interval:
+            return
+        self._last_sweep = now
+        pending = self.txpool.pending_txs(self.ANTI_ENTROPY_MAX)
+        if not pending:
+            return
+        # deliberately ignores _known_by_peer: that cache is optimistic
+        # (marks a tx known on ENQUEUE, not delivery) — the whole point of
+        # the sweep is to repair exactly those lost deliveries
+        data = _pack_txs(pending, self.suite)
+        for peer in self.front.peers():
+            self.front.send(ModuleID.TxsSync, peer, data)
+
+    # -- outgoing gossip ---------------------------------------------------
+    def broadcast_new(self, txs: Sequence[Transaction]) -> None:
+        """Forward locally-submitted txs to all peers (skip per-peer knowns)."""
+        if not txs:
+            return
+        # trace stitch for gossip: send the batch under the FIRST traced
+        # tx's span context (rides the p2p envelope), so a submission's
+        # trace follows its tx to the node that will seal it. Batches mix
+        # traces; the lead tx's is representative and the block-side
+        # adoption (sealer) re-anchors precisely.
+        ctx = next((c for c in (getattr(t, "_otrace", None) for t in txs)
+                    if c is not None and c.sampled), None)
+        payload_cache: dict[frozenset, bytes] = {}
+        for peer in self.front.peers():
+            with self._lock:
+                known = self._known_by_peer.setdefault(peer, set())
+                fresh = [t for t in txs if t.hash(self.suite) not in known]
+            if not fresh:
+                continue
+            key = frozenset(t.hash(self.suite) for t in fresh)
+            data = payload_cache.get(key)
+            if data is None:
+                data = payload_cache[key] = _pack_txs(fresh, self.suite)
+            with otrace.ctx_scope(ctx):  # envelope carries the trace
+                sent = self.front.send(ModuleID.TxsSync, peer, data)
+            if sent:
+                # mark known only once the frame was actually enqueued on a
+                # live session; the anti-entropy sweep covers drops beyond
+                with self._lock:
+                    known.update(t.hash(self.suite) for t in fresh)
+
+    # -- missing-tx fetch (proposal verification) --------------------------
+    def fetch_missing(self, peer: bytes, hashes: Sequence[bytes],
+                      timeout: float = 5.0) -> bool:
+        """Request txs by hash from `peer` and import them. True if all
+        arrived and verified (one batch recover for the whole response)."""
+        req = Writer().seq(list(hashes), lambda w, h: w.blob(h)).bytes()
+        resp = self.front.request(ModuleID.TxsSync, peer, req, timeout)
+        if resp is None:
+            return False
+        pairs = _unpack_txs(resp)
+        if len(pairs) != len(hashes):
+            return False
+        # pre-validate the response against the request using the claimed
+        # hashes (cheap set compare before any decode); admission below
+        # still recomputes the real hashes
+        if {h for h, _raw in pairs} != set(hashes):
+            return False
+        txs = [Transaction.decode(raw) for _h, raw in pairs]
+        # consensus import: proposal verification must succeed even on a
+        # saturated pool — watermark admission does not apply here (the
+        # p2p layer protects these frames for the same reason)
+        results = self.txpool.submit_batch(txs, broadcast=False,
+                                           consensus=True)
+        metric("txsync.fetch_missing", n=len(txs), peer=peer[:8].hex())
+        from ..protocol import TransactionStatus
+        okset = (TransactionStatus.OK, TransactionStatus.ALREADY_IN_TXPOOL,
+                 TransactionStatus.ALREADY_KNOWN)
+        return all(r.status in okset for r in results)
+
+    # -- incoming ----------------------------------------------------------
+    def _on_message(self, src: bytes, payload: bytes, respond) -> None:
+        if respond is not None:  # fetch request: serve from the pool
+            hashes = Reader(payload).seq(lambda r: r.blob())
+            txs = self.txpool.fill_block(hashes) or []
+            respond(_pack_txs(txs, self.suite))
+            return
+        if self.import_gate is not None and not self.import_gate():
+            # busy/degraded: drop the gossip push before ANY decode work
+            self._reg.inc("bcos_txsync_import_gated_total")
+            return
+        pairs = _unpack_txs(payload)
+        if not pairs:
+            return
+        with self._lock:
+            known = self._known_by_peer.setdefault(src, set())
+            known.update(h for h, _raw in pairs)
+        # filter by claimed hash only — txs this pool does not already
+        # hold stay RAW WIRE BYTES all the way to columnar admission
+        # (protocol.columnar): the p2p reader never pays a per-tx
+        # Transaction decode for flood-gossip re-deliveries OR for fresh
+        # frames (the columnar substrate parses the whole packet into one
+        # arena + offset columns at dispatch)
+        unknown = self.txpool.unknown_hashes([h for h, _raw in pairs])
+        wires = [raw for h, raw in pairs if h in unknown]
+        if not wires:
+            return
+        if self.ingest is not None:
+            # continuous-batching lane: this packet coalesces with other
+            # peers' packets and concurrent RPC submissions into one
+            # recover. Fire-and-forget — under overload the lane drops
+            # (bounded queue) and the anti-entropy sweep re-delivers;
+            # blocking the p2p reader here would wedge the network plane
+            # behind the verify engine.
+            self.ingest.submit_many_wire_nowait(wires)
+            return
+        # one device batch-recover for the whole gossip packet
+        from ..protocol.columnar import decode_columns
+        self.txpool.submit_columns(decode_columns(wires), broadcast=True)

@@ -1,0 +1,234 @@
+"""Sealer — packages txs into proposals for the heights this node leads.
+
+Reference counterpart: FISCO-BCOS bcos-sealer/bcos-sealer/Sealer.cpp
+(:94 executeWorker -> :116 submitProposal) + SealingManager.cpp (:232-248
+fetchTransactions / the unsealed-txs waterline bookkeeping that lets PBFT
+pipeline proposals). The sealer only runs for heights consensus has granted
+(`grant`), and seals AT MOST ONCE per (height, view): the grant is consumed
+by the seal, so a re-delivered grant for the same round can never produce a
+second, conflicting proposal — competing proposals from one leader split
+the prepare vote set and wedge the round until a view change (the 41-TPS
+pathology of an early chain bench).
+
+Proposals carry tx-hash metadata (not full txs) like the reference's
+metadata-only sealing (MemoryStorage.cpp:570 batchFetchTxs).
+
+min_seal_time: like the reference's min_seal_time config, the sealer waits
+up to that long to fill a block before proposing a partial one; an empty
+pool proposes nothing (consensus generates empty blocks on timeout if
+configured, not the sealer).
+
+Pipeline-aware filling: when the block pipeline is BUSY (a block is
+executing or its commit is in flight — `pipeline_busy`), a partial
+proposal sealed now would only queue behind it, so the sealer keeps
+filling up to `max_seal_time` instead. Bigger blocks feed the DAG
+executor wider conflict-free waves and amortise the per-block consensus/
+commit overhead — the early-sealing half of the cross-height pipeline
+(the other half is consensus granting N+1's sealer the moment N's
+pre-prepare is accepted, engine._maybe_grant). An idle pipeline seals at
+min_seal_time exactly as before.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+from ..analysis import lockcheck as lc
+from ..protocol import Block, BlockHeader
+from ..txpool.txpool import TxPool
+from ..utils.log import metric
+from ..utils.worker import Worker
+
+# view key used by solo mode's set_should_seal compatibility wrapper
+_SOLO_VIEW = -1
+
+
+class Sealer(Worker):
+    def __init__(self, txpool: TxPool, suite,
+                 submit_proposal: Callable[[Block], bool],
+                 max_txs_per_block: int = 1000,
+                 min_seal_time: float = 0.5,
+                 clock_ms: Callable[[], int] | None = None,
+                 max_seal_time: float = 0.5,
+                 pipeline_busy: Callable[[], bool] | None = None,
+                 trace_label: str = "",
+                 gate: Callable[[], bool] | None = None,
+                 current_height: Callable[[], int] | None = None):
+        # EVENT-DRIVEN wait (idle_wait=None): the sealer used to poll at
+        # 50 ms and that `threading.py:wait` row was 15.4% of the node's
+        # attributed GIL budget (`chain_bench --profile-attrib`).
+        # Every state change it reacts to already signals `wakeup()` —
+        # grants (grant/set_should_seal), tx admission/unseal/removal
+        # (TxPool._notify_ready via register_unseal_notifier) — so between
+        # events the thread now sleeps without touching the GIL, and
+        # execute_worker returns precise deadlines (fill-window expiry)
+        # when it does need a timed re-run.
+        super().__init__("sealer", idle_wait=None)
+        # health-plane gate (utils/health.py sealing_allowed): a degraded
+        # node stops producing proposals (they would queue behind a sick
+        # pipeline or split votes) while grants stay armed, so sealing
+        # resumes the moment the node heals
+        self.gate = gate
+        # committed-height source (ledger.current_number): grants at or
+        # below it are dead by definition and are dropped before sealing —
+        # without this, a refused proposal re-armed for a height another
+        # path (health retry probe, sync) meanwhile committed would be
+        # re-proposed forever
+        self.current_height = current_height
+        self.txpool = txpool
+        self.suite = suite
+        # node label for the per-block trace registry (utils/trace.py):
+        # in-process clusters stamp per node instead of colliding
+        self.trace_label = trace_label
+        # proposal timestamp source: peer-median-aligned when wired to
+        # NodeTimeMaintenance (tool/timesync.py), local UTC otherwise
+        self.clock_ms = clock_ms or (lambda: int(time.time() * 1000))
+        self.submit_proposal = submit_proposal
+        self.max_txs_per_block = max_txs_per_block
+        self.min_seal_time = min_seal_time
+        # fill ceiling while the pipeline is busy; never below the floor
+        self.max_seal_time = max(max_seal_time, min_seal_time)
+        # callable -> True while a block is executing/committing (wired to
+        # Scheduler.pipeline_busy); None disables busy-aware filling
+        self.pipeline_busy = pipeline_busy
+        # ranked lockcheck lock (sealer.state): grant/round bookkeeping
+        # only — sealing itself (txpool.seal, consensus submit) runs
+        # outside it, and the runtime lock checker now sees this lock
+        self._lock = lc.make_lock("sealer.state")
+        # height -> (view, max_txs): heights consensus wants proposals for
+        self._grants: dict[int, tuple[int, int]] = {}
+        # (height, view) pairs already sealed — never seal a round twice
+        self._done: set[tuple[int, int]] = set()
+        self._first_pending_at: Optional[float] = None
+        txpool.register_unseal_notifier(self.wakeup)
+
+    # -- consensus drives these --------------------------------------------
+    def grant(self, number: int, view: int,
+              max_txs: Optional[int] = None) -> None:
+        """Arm sealing for `number` under `view`. Idempotent; a round this
+        sealer already produced a proposal for is NOT re-armed."""
+        with self._lock:
+            if (number, view) in self._done:
+                return
+            self._grants[number] = (view, max_txs or self.max_txs_per_block)
+        self.wakeup()
+
+    def revoke(self, upto_number: int) -> None:
+        """Drop grants for heights <= upto_number (committed or synced past);
+        forget consumed rounds at those heights too (bounded memory)."""
+        with self._lock:
+            for h in [h for h in self._grants if h <= upto_number]:
+                self._grants.pop(h, None)
+            self._done = {(h, v) for (h, v) in self._done
+                          if h > upto_number}
+
+    # solo-mode compatibility (init/node.py drives one height at a time)
+    def set_should_seal(self, should: bool, next_number: int,
+                        max_txs: Optional[int] = None) -> None:
+        if should:
+            self.grant(next_number, _SOLO_VIEW, max_txs)
+        else:
+            with self._lock:
+                self._grants.clear()
+            self.wakeup()
+
+    # -- worker loop --------------------------------------------------------
+    def execute_worker(self) -> Optional[float]:
+        """Returns the next wait: None = sleep until a wakeup event, a
+        float = timed re-run (fill-window expiry, health re-probe)."""
+        if self.gate is not None and not self.gate():
+            # degraded: the health plane has no "healed" event hook, so
+            # this one state is still polled — but only WHILE degraded
+            return 0.05
+        if self.current_height is not None:
+            self.revoke(self.current_height())
+        with self._lock:
+            if not self._grants:
+                self._first_pending_at = None
+                return None  # grant() wakes us
+            number = min(self._grants)
+            view, limit = self._grants[number]
+        pending = self.txpool.pending_count()
+        if pending == 0:
+            self._first_pending_at = None
+            return None  # _notify_ready (admission/unseal) wakes us
+        now = time.monotonic()
+        if self._first_pending_at is None:
+            self._first_pending_at = now
+        waited = now - self._first_pending_at
+        if pending < limit:
+            if waited < self.min_seal_time:
+                # wait to fill the block: wake exactly when the window
+                # expires (earlier admissions re-run this and recompute)
+                return self.min_seal_time - waited
+            if (pending < limit // 2
+                    and self.pipeline_busy is not None
+                    and waited < self.max_seal_time
+                    and self.pipeline_busy()):
+                # a block is executing/committing and this one is still
+                # SMALL: proposing now wouldn't commit any sooner — keep
+                # filling. A half-full block already amortizes the
+                # per-block overhead, so it ships at min_seal_time (a
+                # burst's tail block must not idle out the window).
+                # pipeline_busy has no completion event, so poll the
+                # remaining fill window at 50 ms.
+                return min(self.max_seal_time - waited, 0.05)
+        # seal against the height this proposal will OCCUPY: with
+        # pipelining, `number` can run ahead of the committed height, and
+        # a tx expiring between them would burn its seal slot for nothing
+        from ..analysis.profiler import stage as _prof_stage
+        with _prof_stage("seal"):
+            txs, hashes = self.txpool.seal(limit, for_number=number)
+        if not txs:
+            # pending txs exist but none sealable right now (inflight in
+            # another proposal / expired at this height) — unseal, commit
+            # removal and fresh admission all fire _notify_ready
+            return None
+        t_seal = time.monotonic()
+        queue_wait = (t_seal - self._first_pending_at
+                      if self._first_pending_at is not None else 0.0)
+        self._first_pending_at = None
+        with self._lock:
+            # consume the grant BEFORE submitting: whatever happens next,
+            # this (height, view) round has had its one proposal
+            self._grants.pop(number, None)
+            self._done.add((number, view))
+        header = BlockHeader(number=number, timestamp=self.clock_ms())
+        block = Block(header=header, transactions=list(txs),
+                      tx_hashes=list(hashes))
+        # latency attribution: time the block's txs sat unsealed in the
+        # pool, and — when a sealed tx carries a sampled trace context —
+        # adopt that context as the BLOCK's: every downstream stage
+        # (consensus, execute, commit, notify, on every node via the p2p
+        # envelope) records into that one trace
+        from ..utils import otrace
+        from ..utils.trace import block_trace, observe_stage
+        observe_stage("queueing", queue_wait)
+        ctx = next((c for c in (getattr(t, "_otrace", None) for t in txs)
+                    if c is not None and c.sampled), None)
+        tr = block_trace(number, owner=self.trace_label)
+        if ctx is not None:
+            tr.bind(ctx)
+            block._otrace = ctx
+            otrace.TRACER.record(
+                "seal", ctx, t_seal - queue_wait, t_seal,
+                attrs={"number": number, "n_tx": len(txs),
+                       "node": self.trace_label})
+        if not self.submit_proposal(block):
+            # refused — nothing was broadcast, so the round is re-openable
+            # without any vote-split risk. Txs go back to the pool. Solo
+            # mode retries the height itself (a transient commit failure
+            # must not halt block production — there is no consensus layer
+            # to re-grant); under PBFT the engine re-grants via its own
+            # commit/view flow
+            self.txpool.unseal(hashes)
+            with self._lock:
+                self._done.discard((number, view))
+                if view == _SOLO_VIEW:
+                    self._grants[number] = (view, limit)
+        else:
+            metric("sealer.proposal", number=number, n_tx=len(txs))
+        # re-run immediately: another grant may already be armed (PBFT
+        # pipelines proposals) or the refused round was just re-opened
+        return 0.0

@@ -11,9 +11,10 @@ With no context attached the instrumented hot paths pay one branch.
 The block pipeline's stage clock (utils/trace.BlockTrace) offers the
 stages of unbound blocks to slow capture (`observe_slow`): a stage longer
 than `slow_ms` is kept in a separate slow ring and logged; slow_ms = 0,
-the default, keeps nothing. The W3C `traceparent` parsing, the p2p
-envelope's packed context and live spans ride the RPC edge and the
-network and come with them.
+the default, keeps nothing. The node front's frames carry a sampled
+context packed (`wire_bytes`, read back by `unpack_ctx`), so a block's
+trace follows it to every replica. The W3C `traceparent` parsing and
+live spans ride the RPC edge and come with it.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ def _rand_id(nbytes: int) -> bytes:
     return max(random.getrandbits(nbytes * 8), 1).to_bytes(nbytes, "big")
 
 
+_WIRE_LEN = 16 + 8 + 1  # trace_id + span_id + flags
+
+
 class SpanContext:
     """Immutable (trace_id, span_id, sampled) triple: the propagated part
     of a span, W3C Trace Context shaped."""
@@ -41,6 +45,21 @@ class SpanContext:
         self.trace_id = trace_id
         self.span_id = span_id
         self.sampled = bool(sampled)
+
+    def pack(self) -> bytes:
+        """25-byte wire form for the p2p frame envelope."""
+        return self.trace_id + self.span_id + (b"\x01" if self.sampled
+                                               else b"\x00")
+
+
+def unpack_ctx(data: bytes) -> Optional[SpanContext]:
+    """Inverse of SpanContext.pack (p2p envelope)."""
+    if len(data) != _WIRE_LEN:
+        return None
+    trace_id, span_id = data[:16], data[16:24]
+    if trace_id == bytes(16) or span_id == bytes(8):
+        return None
+    return SpanContext(trace_id, span_id, data[24] & 0x01 != 0)
 
 
 # -- per-thread context stack ---------------------------------------------
@@ -74,6 +93,15 @@ class ctx_scope:
         if self.ctx is not None:
             _tls.stack.pop()
         return False
+
+
+def wire_bytes() -> bytes:
+    """Current context packed for the p2p frame envelope: b"" when there
+    is nothing worth propagating (no context, or unsampled)."""
+    ctx = current()
+    if ctx is None or not ctx.sampled:
+        return b""
+    return ctx.pack()
 
 
 class Tracer:
