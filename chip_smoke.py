@@ -185,7 +185,6 @@ import re
 import shutil
 import subprocess
 import sys
-import threading
 import time
 from pathlib import Path
 
@@ -287,7 +286,7 @@ def device_events(prof, tag: str):
 
 
 def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
-                     per_call: int = 1, event_fallback: bool = False) -> float:
+                     per_call: int = 1) -> float:
     """Mean device time in ms of the kernel `name` a call of fn (which
     launches it per_call times) over reps calls, by the profiler's device
     events (CUPTI), each call after a 256 MB write that evicts the 50 MB
@@ -300,13 +299,7 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
     events (6 to 20 of 20 calls of the short fp and pow kernels), more
     often at a session's start: each session pauses 0.2 s first. More
     calls than launched cannot be a lost event and fails at once; the
-    log names the sessions each measurement took. Where every session lost
-    events (one card machine's sessions alternated between none and all
-    but one of 5 calls of a 15 ms kernel), an fn that is one launch on
-    tensors already on the card (`event_fallback`) and long enough (>= 1
-    ms) that its launch is noise beside it is timed by CUDA events around
-    each call instead, after the same flush, as the log then says; any
-    other fails."""
+    log names the sessions each measurement took."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -331,23 +324,27 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
             log(f"[profiler] {name}: {session} session(s)")
             return us / reps / 1e3
         log(f"[profiler] recorded {calls} of {reps * per_call} calls of {name}; again")
-    if event_fallback:
-        times = []
-        for _ in range(reps):
-            flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        ms = float(np.mean(times))
-        if ms >= 1.0:
-            log(f"[profiler] {name}: all {tries} sessions lost events; timed by CUDA "
-                f"events instead: {ms:.4f} ms a call")
-            return ms
     fail(f"the profiler recorded {calls} calls of {name}, expected {reps * per_call}")
+
+
+def flushed_event_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time in ms of fn() over reps calls, each after the
+    same 256 MB write as kernel_device_ms, so its inputs come from device
+    memory. For one launch on tensors already on the card and long
+    enough (milliseconds) that its launch is noise beside it."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.mean(times))
 
 
 def wall_ms(fn):
@@ -2807,36 +2804,46 @@ def hash_classes(kind: str, msgs) -> int:
 
 
 class _Recorder:
-    """The suite with its batch calls recorded (method, sizes, and for
-    hash_batch the messages and digests), so each step's launches can be
-    computed from the shapes the suite was given."""
+    """The suite with its batch calls recorded as (method, sizes or for
+    hash_batch the messages, hash_batch's digests, node, site), so each
+    step's launches can be computed from the shapes the suite was given.
+    A wrapper, so the calls the suite makes to itself (the SM chain's
+    recovery verifies through its own verify_batch) are the outer call's
+    launches and never recorded again. With a node index (phase 13, where
+    several nodes append to one shared list) each call is sited by
+    pbft_site; the calls list may be shared."""
 
-    def __init__(self, suite):
+    def __init__(self, suite, node=None, calls=None):
         self._suite = suite
-        self.calls = []
+        self._node = node
+        self.calls = [] if calls is None else calls
 
     def __getattr__(self, name):
         return getattr(self._suite, name)
 
+    def _record(self, name, arg, out=None):
+        site = None if self._node is None else pbft_site(self._node)
+        self.calls.append((name, arg, out, self._node, site))
+
     def hash_batch(self, msgs):
         out = self._suite.hash_batch(msgs)
-        self.calls.append(("hash_batch", list(msgs), out))
+        self._record("hash_batch", list(msgs), out)
         return out
 
     def merkle_root(self, leaves):
-        self.calls.append(("merkle_root", len(leaves), None))
+        self._record("merkle_root", len(leaves))
         return self._suite.merkle_root(leaves)
 
     def recover_addresses(self, digests, sigs):
-        self.calls.append(("recover_addresses", len(digests), None))
+        self._record("recover_addresses", len(digests))
         return self._suite.recover_addresses(digests, sigs)
 
     def recover_batch(self, digests, sigs):
-        self.calls.append(("recover_batch", len(digests), None))
+        self._record("recover_batch", len(digests))
         return self._suite.recover_batch(digests, sigs)
 
     def verify_batch(self, digests, sigs, pubs):
-        self.calls.append(("verify_batch", len(digests), None))
+        self._record("verify_batch", len(digests))
         return self._suite.verify_batch(digests, sigs, pubs)
 
 
@@ -2857,7 +2864,7 @@ def expected_launches(kind: str, suite, calls) -> dict:
         if n:
             want[k] = want.get(k, 0) + n
 
-    for name, arg, _ in calls:
+    for name, arg, *_ in calls:
         n = len(arg) if name == "hash_batch" else arg
         if not suite._use_device(n):
             continue
@@ -3184,13 +3191,13 @@ def phase_exec(dev, suite, kind: str, rng):
         fail(f"{tag} c_balance rows differ from the host suite's")
     native_batch = nativehash.host_hash_batch(suite.hash_name)
     for name in ("execute_1", "execute_2"):
-        for cname, msgs, digests in r["shapes"][name]:
+        for cname, msgs, digests, *_ in r["shapes"][name]:
             if cname == "hash_batch" and native_batch(msgs) != digests:
                 fail(f"{tag} {name}: a hash_batch digest differs from the native host hash")
     # the state roots' batches: the execute steps' hash batches past ntx leaves
     state_batches = [c for c in r["shapes"]["execute_1"] + r["shapes"]["execute_2"]
                      if c[0] == "hash_batch" and len(c[1]) > ntx]
-    longest = max(len(m) for _, msgs, _ in state_batches for m in msgs)
+    longest = max(len(m) for _, msgs, *_ in state_batches for m in msgs)
     want_bal = replay_balances(tr)
     if sum(want_bal.values()) != EXEC_BALANCE * len(tr["accounts"]):
         fail(f"{tag} the replay does not conserve the balances")
@@ -3238,8 +3245,9 @@ def phase_exec(dev, suite, kind: str, rng):
     wrapper = counters[vname]
     batch_ms = kernel_device_ms(lambda: suite.hash_batch(msgs), vname + "_kernel", reps=5,
                                 per_call=len(packed))
-    top_ms = kernel_device_ms(lambda: wrapper(t_blocks, t_nv), vname + "_kernel", reps=5,
-                              event_fallback=True)
+    # one launch of tens of ms: CUDA events, not the profiler (whose
+    # sessions on some card machines lost every event of it)
+    top_ms = flushed_event_ms(lambda: wrapper(t_blocks, t_nv), reps=5)
     nblocks = int(top_nv.max())
     blocks_all = sum(int(nv.sum()) for _, _, nv in packed)
     padded = sum(b.shape[0] * b.shape[1] for _, b, _ in packed)
@@ -3267,7 +3275,7 @@ def phase_exec(dev, suite, kind: str, rng):
         f"{blocks_all} blocks needed, {padded} padded ({padded / blocks_all:.3f}x), "
         f"{batch_ms:.4f} ms device a batch (bound {bound:.4f} ms by {by}); its longest "
         f"class ({len(top_rows)} message(s) of up to {nblocks} blocks, {longest} B) "
-        f"{top_ms:.4f} ms device alone")
+        f"{top_ms:.4f} ms alone (CUDA events, L2 flushed)")
     log(f"{tag} state-root tree: {len(leaves)} leaves, {tree_ms:.4f} ms device "
         f"(bound {tbound:.5f} ms by {tby})")
     return launches, walls, timings
@@ -3301,8 +3309,9 @@ PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
 def pbft_site(node: int) -> str:
     """The site of the suite call being made: the innermost function of
     PBFT_SITES on the caller's stack; the ingest lane's admission on node
-    0 (where the frames come in) and its gossip import on the others."""
-    f = sys._getframe(2)
+    0 (where the frames come in) and its gossip import on the others.
+    Called from _Recorder._record: the suite's caller is three frames up."""
+    f = sys._getframe(3)
     while f is not None:
         site = PBFT_SITES.get(f.f_code.co_name)
         if site is not None:
@@ -3311,32 +3320,6 @@ def pbft_site(node: int) -> str:
             return site
         f = f.f_back
     return "other"
-
-
-def record_suite(suite, node: int, calls: list) -> None:
-    """Record every batch call on a node's own suite (patched on the
-    instance, so the node's planes, which hold the suite, call through):
-    (method, messages or size, digests, node, site). A call
-    the suite makes to itself (the SM chain's recovery verifies against
-    the keys its signatures carry through verify_batch) is part of the
-    outer call's launches and is not recorded again."""
-    depth = threading.local()
-    for name in ("hash_batch", "merkle_root", "recover_addresses", "recover_batch",
-                 "verify_batch"):
-        def wrapped(*a, _fn=getattr(suite, name), _name=name):
-            outer = not getattr(depth, "n", 0)
-            site = pbft_site(node) if outer else None
-            depth.n = getattr(depth, "n", 0) + 1
-            try:
-                out = _fn(*a)
-            finally:
-                depth.n -= 1
-            if outer:
-                arg = list(a[0]) if _name == "hash_batch" else len(a[0])
-                calls.append((_name, arg, out if _name == "hash_batch" else None, node,
-                              site))
-            return out
-        setattr(suite, name, wrapped)
 
 
 def pbft_traffic(suite, ntx: int, heights: int, seed: int = SEED + 13):
@@ -3488,14 +3471,19 @@ def phase_pbft(dev, kind: str):
     def run():
         """One profiled run on fresh nodes: gossip, then the chain."""
         gw = FakeGateway()
-        nodes = [Node(cfg, keypair=kp, gateway=gw) for kp in keys]
+        calls: list = []
+        # each node's suite as Node builds it from cfg (init/node.py),
+        # recorded; every plane of the node holds the recorder
+        nodes = [Node(cfg, keypair=kp, gateway=gw, suite=_Recorder(make_suite(
+                     cfg.sm_crypto, backend=cfg.crypto_backend, device=cfg.device,
+                     device_min_batch=cfg.device_min_batch,
+                     mesh_devices=cfg.crypto_mesh_devices), i, calls))
+                 for i, kp in enumerate(keys)]
         for n in nodes:
             n.build_genesis(sealers)
             if n.suite.backend != "device" or n.suite.device.type != dev.type:
-                fail(f"{tag} a node's suite is {n.suite!r}, not on 'device' on {dev}")
-        calls: list = []
-        for i, n in enumerate(nodes):
-            record_suite(n.suite, i, calls)
+                fail(f"{tag} a node's suite is on {n.suite.backend!r} on "
+                     f"{n.suite.device}, not on 'device' on {dev}")
         commits = [{} for _ in nodes]
         for i, n in enumerate(nodes):
             n.scheduler.on_commit.append(

@@ -54,25 +54,17 @@ class NodeConfig:
     chain_id: str = "chain0"
     group_id: str = "group0"
     sm_crypto: bool = False
-    storage_path: Optional[str] = None  # None = in-memory
-    # persistent backend selection (storage/__init__.py make_storage):
-    # auto = wal when a path is configured, memory otherwise (historical
-    # behavior); disk = the log-structured engine (storage/engine.py —
-    # memtable + sorted segments + manifest, restart flat in chain length,
-    # datasets beyond RAM). memory/wal force those backends.
-    storage_backend: str = "auto"  # auto | memory | wal | disk
-    storage_memtable_mb: int = 64  # disk engine: flush watermark
-    storage_compact_segments: int = 8  # disk engine: L0 merge trigger
-    # leveled compaction geometry (storage/engine.py): L1 byte target and
-    # the per-level growth factor; merges stay O(level slice) regardless
-    # of dataset size, so these bound single-merge latency at GB scale
-    storage_level_base_mb: int = 16
-    storage_level_fanout: int = 8
-    # KeyPageStorage wrap (page-packed rows, the reference's
-    # storage.key_page_size — NodeConfig.cpp:620): > 0 explicit page
-    # bytes, 0 off, -1 = auto (ON at the default page size for the disk
-    # backend, where wide tables dominate; off for wal/memory)
-    storage_key_page_size: int = -1
+    # the port differs here: the JAX package's NodeConfig also carries the
+    # settings of planes the port does not have yet (the disk engine's
+    # geometry, snapshot retention and chunks, the crypto lane, the
+    # tracing and profiler rings, the RPC edge, subscriptions, the
+    # serving edge's client rates, p2p). No code here would read them, so
+    # they are left out: passing one is a TypeError, not a silent no-op.
+    # Each slice that ports a plane brings its fields back. The fields
+    # that select such a plane stay, and _check_ported refuses them.
+    storage_path: Optional[str] = None  # None = in-memory; not ported
+    # auto | memory run on MemoryStorage; wal | disk are not ported
+    storage_backend: str = "auto"
     tx_count_limit: int = 1000
     txpool_limit: int = 15000
     block_limit_range: int = 600
@@ -86,24 +78,14 @@ class NodeConfig:
     # order. Cooperative QoS for identified consortium clients; disable
     # on edges serving unidentified traffic (the band is unauthenticated)
     txpool_priority_bands: bool = True
-    # overload-control plane ([overload] ini — utils/overload.py +
-    # rpc/admission.py): the busy/brownout controller and the serving
-    # edge's per-client token buckets. Rates are per client, tokens/sec;
-    # 0 = that class unlimited (fair-share concurrency still applies).
+    # overload-control plane ([overload] ini — utils/overload.py): the
+    # busy/brownout controller
     overload_enabled: bool = True
     overload_enter: float = 0.85   # smoothed score entering busy
     overload_exit: float = 0.5     # smoothed score leaving busy
     overload_hold_s: float = 0.5   # hysteresis hold on both edges
     overload_commit_backlog: int = 6  # commit depth scoring 1.0
     overload_busy_write_factor: float = 0.25  # write-rate shrink while busy
-    # compaction-debt backpressure: debt bytes (engine levels over target)
-    # scoring 1.0 on the overload plane — a compaction-starved node goes
-    # busy and sheds writes instead of silently drowning in L0 segments
-    overload_compact_debt_mb: int = 256
-    client_write_rate: float = 0.0
-    client_write_burst: float = 0.0  # 0 -> 2x rate
-    client_read_rate: float = 0.0
-    client_read_burst: float = 0.0
     # continuous-batching ingest lane (txpool/ingest.py): coalesces
     # concurrent RPC/gossip submissions into device-sized submit_batch
     # calls. ingest_lane=False restores direct per-call submission (the
@@ -159,87 +141,32 @@ class NodeConfig:
     # to mint OR accept aggregate certificates; distributed like the
     # sealer list itself (not an ini knob: tests/tooling inject it)
     agg_registry: object = None
-    # snapshot/checkpoint subsystem (snapshot/, not ported): every
-    # `snapshot_interval` committed blocks export a chunked Merkle-committed
-    # state snapshot; keep `snapshot_retention` of them; when
-    # `snapshot_prune` is on, drop block bodies below the checkpoint (keep
-    # headers) and compact the WAL. A joining node more than
-    # `snap_sync_threshold` blocks behind fetches a snapshot instead of
-    # replaying the chain (0 disables the preference; pruned-below answers
-    # still force it).
+    # snapshots (snapshot/, not ported): a non-zero interval or pruning
+    # is refused. A joining node more than `snap_sync_threshold` blocks
+    # behind fetches a snapshot instead of replaying the chain (0 = always
+    # replay). The port differs here: 0, not 256, since snap sync is part
+    # of the snapshot plane (ROADMAP.md A3.6); a non-zero value raises
     snapshot_interval: int = 0  # blocks between checkpoints; 0 = disabled
-    snapshot_retention: int = 2
     snapshot_prune: bool = False
-    # replayable blocks kept above the prune floor, so a peer lagging by a
-    # few blocks catches up via tail replay instead of a full snap-sync
-    snapshot_keep_tail: int = 64
-    snap_sync_threshold: int = 256
-    snapshot_chunk_bytes: int = 1 << 20
-    # multi-group hosting (init/group.py + the daemon's [groups] wiring):
-    # group ids this PROCESS runs — G independent ledger/txpool/consensus/
-    # scheduler stacks behind one RPC edge, one gateway, one shared
-    # crypto lane, storage namespaced per group over one WAL. Empty =
-    # single-group node (this config's group_id only).
+    snap_sync_threshold: int = 0
+    # multi-group hosting (init/group.py, not ported): group ids this
+    # process runs; empty = a single-group node
     groups: list = dataclasses.field(default_factory=list)
-    # shared crypto-plane lane (crypto/lane.py): merge all groups'
-    # verify/recover/hash batches into single device calls. Only engaged
-    # by multi-group composition; wait_ms > 0 adds a coalescing
-    # micro-window for device deployments (0 = merge in-flight only).
-    crypto_lane: bool = True
-    crypto_lane_wait_ms: float = 0.0
-    # tracing plane ([trace] ini, utils/otrace.py): sample_rate samples
-    # NEW root traces (an incoming sampled traceparent is always honored);
-    # ring_size bounds the in-process span ring served by getTrace and
-    # /trace; spans slower than slow_ms are ALWAYS retained (never
-    # sampled out) in a separate slow ring + logged. sample_rate=0 with
-    # slow_ms=0 turns the whole plane into one branch on the hot path.
-    trace_sample_rate: float = 0.02
-    trace_ring_size: int = 4096
+    # spans slower than this are kept in the tracer's slow ring and logged
     trace_slow_ms: float = 1000.0
-    # continuous profiling plane ([profile] ini, analysis/profiler.py):
-    # hz samples every thread's stack + per-thread CPU at a LOW rate
-    # always-on (folded stacks served via GET /profile, GIL-holder CPU
-    # attribution in getSystemStatus); ring bounds the retained distinct
-    # stacks; a [TRACE][slow-span] firing captures a burst_s burst at
-    # burst_hz linked to the trace id (getTrace returns it). hz=0 disarms
-    # the whole plane — no sampler thread, one dict write per block stage.
     # the port differs here: 0, not 5. The sampling profiler is not
     # ported yet (ROADMAP.md A3.9), so the plane stays disarmed and a
     # non-zero hz raises
     profile_hz: float = 0.0
-    profile_ring: int = 2048
-    profile_burst_hz: float = 97.0
-    profile_burst_s: float = 1.0
-    rpc_port: Optional[int] = None  # None = no RPC server; 0 = ephemeral
-    rpc_host: str = "127.0.0.1"
-    # serving read plane (rpc/edge.py + rpc/cache.py): one bounded worker
-    # pool shared by the HTTP event-loop edge and the WS server; a
-    # commit-coherent LRU serving rendered block/tx/receipt JSON
-    rpc_workers: int = 8        # blocking-call offload threads
-    rpc_max_batch: int = 256    # JSON-RPC 2.0 batch entry cap
-    rpc_cache_entries: int = 4096  # 0 disables the query cache
-    rpc_cache_mb: int = 64      # approximate rendered-bytes bound
-    rpc_keepalive_s: float = 60.0  # idle keep-alive connection reap
-    # push-based subscription plane (rpc/eventsub.SubHub): distinct WS
-    # sessions allowed to hold subscriptions, and the per-session push
-    # outbox byte bound (beyond it, droppable frames evict oldest-first
-    # and a lossless overflow kills the session)
-    sub_max_sessions: int = 16384
-    sub_outbox_kb: int = 1024
-    ws_port: Optional[int] = None  # None = no WS server; 0 = ephemeral
-    metrics_port: Optional[int] = None  # None = no Prometheus endpoint
-    # p2p transport (the reference's [p2p] listen_ip/listen_port +
-    # nodes.json connected_nodes): consumed by the process-level daemon
-    # (init/daemon.py), which builds a P2PGateway from these; in-process
-    # embeddings keep injecting a gateway directly
-    p2p_host: str = "127.0.0.1"
-    p2p_port: Optional[int] = None  # None = no p2p listener configured
-    p2p_peers: list = dataclasses.field(default_factory=list)  # (host, port)
-    # ZK proof plane (zk/): persist per-block state-leaf
-    # digest indexes (changeset-inclusion proofs via getProof) and render
-    # every committed tx's proof bundle into the query cache at commit.
-    # Poseidon hashing itself is always available via suite.poseidon_batch
-    # regardless of this knob.
+    # the RPC edge, the WS server and the Prometheus endpoint (not
+    # ported): None = none
+    rpc_port: Optional[int] = None
+    ws_port: Optional[int] = None
+    metrics_port: Optional[int] = None
+    # ZK proof plane: the scheduler persists per-block state-leaf digest
+    # indexes (its state_index). The proof plane above them (zk/, proof
+    # bundles served by RPC) is not ported. Poseidon hashing itself is
+    # always available via suite.poseidon_batch regardless of this knob.
     zk_proofs: bool = True
     # deterministic fault injection ([failpoints] spec, utils/failpoints.py):
     # `site=action;site2=action` armed at node construction — test/chaos
@@ -259,8 +186,9 @@ def _check_ported(cfg: NodeConfig) -> None:
     if cfg.scheduler_workers > 0:
         unported.append("out-of-process execution workers and DMC "
                         "(scheduler_workers): the DMC slice")
-    if cfg.snapshot_interval > 0 or cfg.snapshot_prune:
-        unported.append("snapshots (snapshot_interval, snapshot_prune): A3.6")
+    if cfg.snapshot_interval > 0 or cfg.snapshot_prune or cfg.snap_sync_threshold:
+        unported.append("snapshots (snapshot_interval, snapshot_prune, "
+                        "snap_sync_threshold): A3.6")
     for name in ("rpc_port", "ws_port", "metrics_port"):
         if getattr(cfg, name) is not None:
             unported.append(f"the RPC edge ({name}): A3.8")

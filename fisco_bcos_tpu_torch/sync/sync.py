@@ -18,11 +18,12 @@ previously both ran on one loop and a 10 s request starved
 Sync modes:
   * replay — fetch block ranges, verify seals, re-execute, commit (the
     default catch-up path);
-  * snap   — (not in the port yet: `snapshot/` is ROADMAP.md A3.6, and
-    reaching it raises NotImplementedError) when a peer is more than
-    `snap_sync_threshold` blocks ahead
-    (or answers "pruned-below" for a requested range), fetch its snapshot
-    manifest + chunks over ModuleID.SnapshotSync, batch-verify chunk hashes
+  * snap   — (not in the port yet: `snapshot/` is ROADMAP.md A3.6; the
+    port's Node keeps snap_sync_threshold at 0, so a lagging node replays
+    whatever its distance, and reaching snap sync raises) when a peer is
+    more than `snap_sync_threshold` blocks ahead (or answers
+    "pruned-below" for a requested range), fetch its snapshot manifest +
+    chunks over ModuleID.SnapshotSync, batch-verify chunk hashes
     against the manifest root and the checkpoint header's commit seals
     (the same `_verify_seals`), install the state, then replay only the
     tail. O(state size) batched hashing instead of O(chain length) replay.
@@ -212,9 +213,11 @@ class BlockSync(Worker):
 
     def _try_snap_sync(self, peer: bytes) -> bool:
         # the port differs here: snap sync installs a peer's snapshot
-        # through `snapshot/`, which is not ported yet (ROADMAP.md A3.6);
-        # a node configured or forced onto that path must fail loudly,
-        # never skip to a replay that cannot reach the peer's head
+        # through `snapshot/`, which is not ported yet (ROADMAP.md A3.6).
+        # The port's Node refuses a non-zero snap_sync_threshold, so only
+        # a peer that answers "pruned-below" reaches this, and no port
+        # node prunes; reaching it fails loudly, never skipping to a
+        # replay that cannot reach the peer's head
         raise NotImplementedError(
             "snap sync needs the snapshot plane (snapshot/), which the "
             "port does not have yet: ROADMAP.md A3.6")

@@ -144,7 +144,8 @@ def test_chain_carried_from_jax_continues_on_the_port():
 
 UNPORTED = [("storage_path", "chain-dir"), ("storage_backend", "wal"),
             ("storage_backend", "disk"), ("scheduler_workers", 1),
-            ("snapshot_interval", 5), ("snapshot_prune", True), ("rpc_port", 0),
+            ("snapshot_interval", 5), ("snapshot_prune", True),
+            ("snap_sync_threshold", 256), ("rpc_port", 0),
             ("ws_port", 0), ("metrics_port", 0), ("groups", ["g1", "g2"]),
             ("profile_hz", 5.0)]
 
@@ -156,16 +157,31 @@ def test_unported_planes_raise(field, value):
         pnode.Node(cfg)
 
 
-def test_snap_sync_raises_until_the_snapshot_plane_is_ported():
-    """A peer more than snap_sync_threshold blocks ahead sends block sync
-    to snap sync, which needs snapshot/ (ROADMAP.md A3.6): it raises
-    instead of falling back to a replay."""
+def _sync_node():
     gw = pb.mod("fisco_bcos_tpu_torch", "net.gateway").FakeGateway()
     node = pnode.Node(pnode.NodeConfig(consensus="pbft", device="cpu"), gateway=gw)
+    node.build_genesis()
+    return gw, node
+
+
+def test_snap_sync_raises_until_the_snapshot_plane_is_ported():
+    """Snap sync needs snapshot/ (ROADMAP.md A3.6): the Node refuses a
+    non-zero snap_sync_threshold (test_unported_planes_raise), and where
+    block sync still reaches snap sync (a threshold set on BlockSync
+    itself, or a peer answering "pruned-below") it raises instead of
+    falling back to a replay that cannot reach the peer's head."""
+    sync_mod = pb.mod("fisco_bcos_tpu_torch", "sync.sync")
+    W = pb.mod("fisco_bcos_tpu_torch", "codec.wire").Writer
+    gw, node = _sync_node()
     try:
-        node.build_genesis()
         sync = node.blocksync
-        sync._peers[b"\x01" * 64] = (node.config.snap_sync_threshold + 1, time.monotonic())
+        sync._peers[b"\x01" * 64] = (257, time.monotonic())
+        sync.snap_sync_threshold = 256
+        with pytest.raises(NotImplementedError, match="A3.6"):
+            sync._maybe_download()
+        sync.snap_sync_threshold = 0
+        sync.front.request = lambda module, dst, payload, timeout: (
+            W().u8(sync_mod.RESP_PRUNED).i64(100).bytes())
         with pytest.raises(NotImplementedError, match="A3.6"):
             sync._maybe_download()
     finally:
@@ -173,14 +189,58 @@ def test_snap_sync_raises_until_the_snapshot_plane_is_ported():
         gw.stop()
 
 
+def test_a_node_far_behind_catches_up_by_replay():
+    """With the port's default snap_sync_threshold (0) a lagging node
+    replays whatever its distance, never reaching snap sync: a peer 257
+    blocks ahead (past the JAX default of 256) gets a range request, and a
+    node partitioned while the chain committed two heights replays them
+    to the same headers and state."""
+    sync_mod = pb.mod("fisco_bcos_tpu_torch", "sync.sync")
+    W = pb.mod("fisco_bcos_tpu_torch", "codec.wire").Writer
+    gw, node = _sync_node()
+    try:
+        sync = node.blocksync
+        assert node.config.snap_sync_threshold == 0 == sync.snap_sync_threshold
+        sync._peers[b"\x01" * 64] = (257, time.monotonic())
+        asked = []
+        sync.front.request = lambda module, dst, payload, timeout: asked.append(payload)
+        sync._maybe_download()
+        assert asked == [W().i64(1).i64(sync_mod.MAX_BLOCKS_PER_REQUEST).bytes()]
+        assert sync.sync_mode == "replay"
+    finally:
+        node.stop()
+        gw.stop()
+
+    c = pb.Cluster("fisco_bcos_tpu_torch", "ecdsa").start()
+    try:
+        lagging = c.by_index(0)   # leads neither height 1 nor 2 in view 0
+        live = [n for n in c.nodes if n is not lagging]
+        c.gateway.partition(lagging.keypair.pub_bytes)
+        for k, wires in enumerate(seam.batches("ecdsa")):
+            c.submit(wires, nodes=live)
+            c.wait(k + 1, nodes=live)
+        assert lagging.ledger.current_number() == 0
+        c.gateway.partition(lagging.keypair.pub_bytes, isolated=False)
+        c.wait(2)
+        assert lagging.blocksync.sync_mode == "replay"
+        assert c.header_hashes(lagging) == c.header_hashes(live[0])
+        assert c.state(lagging) == c.state(live[0])
+    finally:
+        c.stop()
+
+
 def test_the_node_runs_on_the_card_unless_asked_for_the_cpu():
     """NodeConfig.device defaults to "cuda": without a card the node's
     suite refuses to build rather than running on the CPU; the sampling
-    profiler's hz defaults to 0 (the plane is not ported)."""
+    profiler's hz defaults to 0 (the plane is not ported), and the
+    settings of planes the port does not have are not fields at all."""
     cfg = pnode.NodeConfig()
-    assert cfg.device == "cuda" and cfg.profile_hz == 0
-    assert {f for f in jnode.NodeConfig.__dataclass_fields__} | {"device"} == \
-        set(pnode.NodeConfig.__dataclass_fields__)
+    assert cfg.device == "cuda" and cfg.profile_hz == 0 and cfg.snap_sync_threshold == 0
+    # the port keeps the JAX fields its planes read or refuse, plus device
+    port_fields = set(pnode.NodeConfig.__dataclass_fields__)
+    assert port_fields - set(jnode.NodeConfig.__dataclass_fields__) == {"device"}
+    assert {"snap_sync_threshold", "rpc_port", "groups"} <= port_fields
+    assert not port_fields & {"p2p_port", "rpc_workers", "snapshot_retention"}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pnode.Node(cfg)
