@@ -179,6 +179,7 @@ every kernel; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import re
@@ -235,57 +236,75 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-MARK = "chip_smoke.measured"
+BOUND = "spin_kernel"  # torch.cuda._sleep's kernel: it bounds the measured range
+# s of quiet after a measured range, before its session ends: sessions that
+# ended at once lost their last events (the end bound and the calls before it)
+SESSION_QUIET = 0.5
 LAST_EVENTS: dict = {}
+
+
+@contextlib.contextmanager
+def measured():
+    """The measured range of a profiler session: one launch of torch's own
+    spin kernel (torch.cuda._sleep, BOUND) on entry and one on exit, after
+    the device has finished, then SESSION_QUIET of quiet. device_events
+    counts the device work whose CUPTI correlation id lies between the two
+    bounds'. Correlation ids number the runtime calls in the order they
+    are made, on every thread, so the range needs no clock: on the card
+    the device events' and the runtime calls' timestamps drift against the
+    host's clock (by milliseconds, and in a late session of the process by
+    more), and a range taken on the host's clock had all 5 measured calls
+    of a session seem to fall outside it."""
+    torch.cuda._sleep(1)
+    yield
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    time.sleep(SESSION_QUIET)
 
 
 def device_events(prof, tag: str):
     """Device time (us) and calls per kernel name of the device work
-    launched inside the host range MARK, the record_function around the
-    measured work. A device event belongs to the range when the runtime
-    call that launched it (a CPU event of the same CUPTI correlation id,
-    on the host's clock) started inside it. The device events' own times
-    cannot say so: on the card they drift by milliseconds against the
-    host's clock (a kernel seemed to start before its own launch), so the
-    warm-up's last kernel (run before MARK) could seem to start inside it
-    and a measured one before it. Each session is
-    one cycle that first runs a warm-up through the same kernels, since a
-    session's first events can go missing. LAST_EVENTS keeps (correlation
-    id, us of its launch after MARK, us) of each counted event by name,
-    for a failure's message."""
+    (kernels, copies) launched inside measured(): the device events whose
+    correlation id lies between the two bounds'. Each session first runs a
+    warm-up through the same kernels, whose ids lie below the first bound,
+    since a session's first events can go missing. A session whose
+    profiler lost a bound's event counts nothing, and its caller measures
+    again as on any lost event. LAST_EVENTS keeps (correlation id, us) of
+    each counted event by name, for a failure's message."""
     from torch.autograd import DeviceType
 
-    events = prof.events()
-    marks = [e for e in events if e.name == MARK and e.device_type == DeviceType.CPU]
-    if len(marks) != 1:
-        fail(f"{tag} the profiler recorded {len(marks)} ranges {MARK}, expected 1")
-    t0, t1 = marks[0].time_range.start, marks[0].time_range.end
-    device = [ev for ev in events
+    device = [ev for ev in prof.events()
               if ev.device_type != DeviceType.CPU and not ev.is_user_annotation
-              and ev.name != MARK and not ev.name.startswith("ProfilerStep")]
-    ids = {ev.id for ev in device if ev.id}
-    launched = {ev.id: ev.time_range.start - t0 for ev in events
-                if ev.device_type == DeviceType.CPU and ev.id in ids
-                and ev.name.startswith("cu") and t0 <= ev.time_range.start <= t1}
-    device_us, calls, outside, seen = {}, {}, {}, set()
+              and not ev.name.startswith("ProfilerStep")]
+    bounds = sorted(ev.id for ev in device if BOUND in ev.name)
     LAST_EVENTS.clear()
+    if len(bounds) != 2:
+        where = (f" ({sum(ev.id < bounds[0] for ev in device)} device events below it, "
+                 f"{sum(ev.id > bounds[0] for ev in device)} above)") if bounds else ""
+        log(f"{tag} the profiler recorded {len(bounds)} of the measured range's 2 bounds"
+            f"{where}: nothing counted")
+        return {}, {}
+    lo, hi = bounds
+    device_us, calls, seen, outside = {}, {}, set(), 0
     for ev in device:
-        k = ev.name.split("(")[0]  # entries that differ past the name add up
-        if ev.id not in launched or ev.id in seen:
-            outside[k] = outside.get(k, 0) + 1
+        if BOUND in ev.name:
+            continue
+        if not lo < ev.id < hi or ev.id in seen:
+            outside += 1
             continue
         seen.add(ev.id)
+        k = ev.name.split("(")[0]  # entries that differ past the name add up
         device_us[k] = device_us.get(k, 0) + ev.self_device_time_total
         calls[k] = calls.get(k, 0) + 1
-        LAST_EVENTS.setdefault(k, []).append(
-            (ev.id, round(launched[ev.id], 1), ev.self_device_time_total))
+        LAST_EVENTS.setdefault(k, []).append((ev.id, ev.self_device_time_total))
     if outside:
-        log(f"{tag} left out device events not launched inside the measured range "
-            f"(the warm-up's): {sum(outside.values())}")
+        log(f"{tag} left out device events outside the measured range (the warm-up's): "
+            f"{outside}")
     return device_us, calls
 
 
-def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
+def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 10,
                      per_call: int = 1) -> float:
     """Mean device time in ms of the kernel `name` a call of fn (which
     launches it per_call times) over reps calls, by the profiler's device
@@ -296,11 +315,13 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
     left out (device_events; LAST_EVENTS then holds the counted ones); a
     profiler session that lost events is run again, up to `tries` times.
     On some card machines sessions have lost some, most or all of their
-    events (6 to 20 of 20 calls of the short fp and pow kernels), more
-    often at a session's start: each session pauses 0.2 s first. More
-    calls than launched cannot be a lost event and fails at once; the
-    log names the sessions each measurement took."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    events, most often the last ones of a late session of the process (the
+    state root's tree lost its end bound and the calls before it in 3
+    sessions of one run): each session pauses 0.2 s first and keeps
+    SESSION_QUIET after its range (measured()). More calls than launched
+    cannot be a lost event and fails at once; the log names the sessions
+    each measurement took."""
+    from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     for session in range(1, tries + 1):
@@ -310,11 +331,10 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
                 flush.zero_()
                 fn()
             torch.cuda.synchronize()
-            with record_function(MARK):
+            with measured():
                 for _ in range(reps):
                     flush.zero_()
                     fn()
-                torch.cuda.synchronize()
         device_us, calls = device_events(prof, f"[{name}]")
         us, calls = device_us.get(name, 0.0), calls.get(name, 0)
         if calls > reps * per_call:
@@ -324,7 +344,8 @@ def kernel_device_ms(fn, name: str, reps: int = 20, tries: int = 6,
             log(f"[profiler] {name}: {session} session(s)")
             return us / reps / 1e3
         log(f"[profiler] recorded {calls} of {reps * per_call} calls of {name}; again")
-    fail(f"the profiler recorded {calls} calls of {name}, expected {reps * per_call}")
+    fail(f"the profiler recorded {calls} calls of {name}, expected {reps * per_call}, "
+         f"in {tries} sessions")
 
 
 def flushed_event_ms(fn, reps: int) -> float:
@@ -1478,14 +1499,14 @@ def phase_slice(dev, suite, data, rng, expect=None):
     counters = slice_counters(kind, suite.ec_route)
     expect = expect or {}
     phases = {}
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         suite.recover_addresses(dg[:8], sg[:8])
         suite.verify_batch(dg[:8], sg[:8], pb[:8])
         suite.merkle_root(data["signed_hash"][:17])
         torch.cuda.synchronize()
-        with record_function(MARK):
+        with measured():
             for fn in counters.values():
                 fn.launches = 0
             (senders, ok), phases["recover_senders"] = wall_ms(
@@ -1781,7 +1802,7 @@ def tampered_proofs(zm, levels, leaves, rng):
 def phase_poseidon(dev, suite, rng):
     """The ZK plane's slice: counters zeroed before each step and read
     after, then every result held to the plain path and the oracle."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from fisco_bcos_tpu_torch.zk import merkle as zm
     from fisco_bcos_tpu_torch.zk import poseidon, poseidon_torch as pt
@@ -1818,7 +1839,7 @@ def phase_poseidon(dev, suite, rng):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         suite.poseidon_batch(lefts[:128], rights[:128])
         torch.cuda.synchronize()
-        with record_function(MARK):
+        with measured():
             digests = step("poseidon_batch", lambda: suite.poseidon_batch(lefts, rights),
                            chunks(NPAIRS))
     pairs_per_level, m = [], NLEAVES
@@ -2330,7 +2351,7 @@ def phase_node(dev, suite, data, rng, slice_senders):
     from the shapes. -> (launches by step, walls in ms, device ms)."""
     import threading
 
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from fisco_bcos_tpu_torch.consensus import qc
     from fisco_bcos_tpu_torch.crypto.lane import CryptoLane, LaneSuite
@@ -2480,7 +2501,7 @@ def phase_node(dev, suite, data, rng, slice_senders):
                     suite.verify_batch(data["seal_d"][:8], data["seal_s"][:8],
                                        data["seal_p"][:8])
                 torch.cuda.synchronize()
-                with record_function(MARK):
+                with measured():
                     step("admission", admit)
                     step("seal_fill", seal_fill)
                     step("roots", roots)
@@ -2956,7 +2977,7 @@ def phase_exec(dev, suite, kind: str, rng):
     three roots, c_balance rows), the native host hash (every hash of
     the execute steps, the state leaves among them) and a Python replay
     of the balances. -> (launches by step, walls in ms, timings)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from fisco_bcos_tpu_torch.crypto import nativeec, nativehash
     from fisco_bcos_tpu_torch.crypto.suite import make_suite
@@ -3089,7 +3110,7 @@ def phase_exec(dev, suite, kind: str, rng):
                     warm.hash_batch(frames[:8])
                     warm.merkle_root(sub * 3)
                 torch.cuda.synchronize()
-                with record_function(MARK):
+                with measured():
                     step("admission", admit)
                     step("seal_fill", seal_fill)
                     cur[0] = "execute_1"
@@ -3291,11 +3312,10 @@ PBFT_VIEW_TIMEOUT = 300.0   # s: far above a healthy height, so no view change f
 PBFT_MIN_SEAL = 2.0         # s: a partial block waits this long to fill
 PBFT_DEADLINE = 240.0       # s for the gossip, and for the chain to reach its last height
 PBFT_RUNS = 5   # a run whose profiler session lost a kernel event runs again
-# s of quiet on each side of the measured range: without it the chain's
-# last launches (PBFT packets verified as the nodes stop) came within
-# milliseconds of the range's end, where the runtime API's timestamps,
-# which drift against the host's clock as device events do, can fall
-# outside it; with it fewer runs lose an event (PERF.md, Findings)
+# s of quiet on each side of the measured range: it keeps the measured
+# launches away from the session's edges, where events have gone missing
+# (while the range was still taken on the host's clock, 7 of 12 runs lost
+# an event without it, 1 of 7 with it; PERF.md, Findings)
 PBFT_GUARD = 0.5
 # the suite call's site: the innermost of these functions on its stack
 PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
@@ -3435,7 +3455,7 @@ def phase_pbft(dev, kind: str):
     solo Scheduler over the host suite (whose headers must hash the same)
     and to a Python replay. -> (launches by kernel, launches by site,
     walls in ms, timings)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from fisco_bcos_tpu_torch.consensus import qc
     from fisco_bcos_tpu_torch.consensus.pbft.engine import PBFTEngine
@@ -3516,7 +3536,7 @@ def phase_pbft(dev, kind: str):
                     warm.merkle_root(sub * 3)
                 torch.cuda.synchronize()
                 time.sleep(PBFT_GUARD)
-                with record_function(MARK):
+                with measured():
                     for c in counters.values():
                         c.launches = 0
                     t_in = time.perf_counter()
