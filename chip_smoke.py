@@ -172,6 +172,29 @@ version or to the CPU):
    on each; the committed blocks executed in order by a solo Scheduler on
    the host suite give the same headers, roots and c_balance rows, and a
    Python replay the same balances.
+14. Durability, on each chain, on the port's Nodes (crypto_backend
+   "device") over the disk engine with key pages (storage_backend
+   "disk", the page size auto) in a temporary directory each. (a) A
+   single-sealer PBFT source (snapshot_interval 2, pruning on, no kept
+   tail, 1 MiB chunks) commits phase 13's three blocks through its
+   ingest lane (two, then the third once its checkpoint at height 2 has
+   pruned the bodies below it). (b) A joiner (not a sealer,
+   snap_sync_threshold 1) on the same gateway snap-syncs the checkpoint
+   (one seal check, one chunk hash batch, one tree) and replays block 3
+   only; its head, state root and c_balance rows equal the source's,
+   and it adopts the snapshot and serves it. (c) Both stop, close their storages and
+   come back as new Nodes on the same directories: same height, head
+   hash and rows, the source's store still holds the checkpoint, and a
+   re-export at the head gives the manifest root of one made before the
+   stop. The counters, zeroed before (a) and read after (c), must equal
+   the launches the recorded suite calls imply (one hash launch a
+   length class of the chunks, one tree a manifest). The manifest's
+   chunk hashes and root equal the host suite's. (d) phase 12's
+   committed state (two full-width blocks) exported in 1 MiB chunks on
+   the card, its chunk hashes and root held to the host suite's, and the
+   chunk batch's device time (CUDA events, L2 flushed) beside its chain
+   floor. Walls: export, verify, install, the join, the tail replay,
+   the restart.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -2901,6 +2924,21 @@ def expected_launches(kind: str, suite, calls) -> dict:
     return want
 
 
+def launches_by_site(kind: str, suite, calls):
+    """Recorded suite calls (_Recorder with a node index) grouped by site.
+    -> (calls by site, the launches each site's calls imply, their sum by
+    kernel)."""
+    by_site: dict = {}
+    for name, arg, out, _, site in calls:
+        by_site.setdefault(site, []).append((name, arg, out))
+    sites = {st: expected_launches(kind, suite, cs) for st, cs in by_site.items()}
+    want: dict = {}
+    for got in sites.values():
+        for k, n in got.items():
+            want[k] = want.get(k, 0) + n
+    return by_site, sites, want
+
+
 def exec_chain(suite, storage, sealers, ntx: int):
     """A solo node's execution planes (the JAX package's init/node.py:
     341-347): a Ledger with genesis over the sealers on `storage`, the
@@ -3291,7 +3329,8 @@ def phase_exec(dev, suite, kind: str, rng):
                    top_rows=len(top_rows), blocks=blocks_all, padded_blocks=padded,
                    bound_ms=bound, bound_by=by, tree_ms=tree_ms, tree_bound_ms=tbound,
                    tree_bound_by=tby, host_s=host_s, sign_s=tr["sign_s"],
-                   nsig=tr["nsig"], parts=r["parts"])
+                   nsig=tr["nsig"], parts=r["parts"], storage=r["storage"],
+                   ledger=r["ledger"])
     log(f"{tag} state-root hash batch: {len(msgs)} leaves in {len(packed)} length classes, "
         f"{blocks_all} blocks needed, {padded} padded ({padded / blocks_all:.3f}x), "
         f"{batch_ms:.4f} ms device a batch (bound {bound:.4f} ms by {by}); its longest "
@@ -3323,7 +3362,10 @@ PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
               "_flush_checkpoint_commits": "pbft_seals", "verify_proposal": "proposal",
               "fetch_missing": "proposal", "_broadcast_preprepare": "leader_txs_root",
               "execute_block": "execute", "commit_block": "commit",
-              "_pack_txs": "gossip_send", "submit_columns": "ingest"}
+              "_pack_txs": "gossip_send", "submit_columns": "ingest",
+              # phase 14's snapshot calls
+              "export_snapshot": "snap_export", "verify_snapshot": "snap_verify",
+              "snap_sync": "snap_seals"}
 
 
 def pbft_site(node: int) -> str:
@@ -3598,14 +3640,7 @@ def phase_pbft(dev, kind: str):
                 f"after start; committed on nodes 0-3 at "
                 + ", ".join("-" if x is None else f"{x:.1f}" for x in lat)
                 + " ms after the pre-prepare")
-        by_site: dict = {}
-        for name, arg, out, _, site in calls:
-            by_site.setdefault(site, []).append((name, arg, out))
-        site_launches = {s: expected_launches(kind, suite, cs) for s, cs in by_site.items()}
-        want: dict = {}
-        for got in site_launches.values():
-            for k, n in got.items():
-                want[k] = want.get(k, 0) + n
+        by_site, site_launches, want = launches_by_site(kind, suite, calls)
         got = {k: n for k, n in launches.items() if n}
         log(f"{tag} launches {got}; by site: {site_launches}")
         log(f"{tag} suite calls by site: "
@@ -3687,7 +3722,340 @@ def phase_pbft(dev, kind: str):
     for b in blocks:
         log(f"{tag} block {b.header.number}: state root {b.header.state_root.hex()}")
     timings = dict(walls=r["walls"], heights=r["heights"], device_ms=dev_ms,
-                   sign_s=tr["sign_s"], oracle_s=oracle_s, views=views)
+                   sign_s=tr["sign_s"], oracle_s=oracle_s, views=views, traffic=tr)
+    return launches, site_launches, timings
+
+
+# ---------------------------------------------------------------------------
+# phase 14: durability (disk storage, snapshots, snap sync, a restart)
+# ---------------------------------------------------------------------------
+SNAP_INTERVAL = 2        # the source checkpoints at height 2 and prunes below it
+SNAP_DEADLINE = 240.0    # s for each wait of the phase
+SNAP_REPS = 5            # CUDA-event timings of the full-width chunk batch
+KECCAK_ROUND_SASS = 195  # a Keccak round's SASS (tools/ec_kernel_probe.py --kernels merkle)
+SM3_COMPRESS_SASS = 1269  # an SM3 compression's SASS (the same probe)
+SASS_HZ = 1.98e9         # the SM clock under load
+
+
+def snap_wait(tag: str, what: str, pred) -> None:
+    deadline = time.monotonic() + SNAP_DEADLINE
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"{tag} {what} not reached in {SNAP_DEADLINE:.0f} s")
+        time.sleep(0.005)
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, walls: list):
+    """owner.name (a module's function or a class's method) wrapped so
+    that each call appends its wall in ms to `walls`; restored on exit."""
+    orig = getattr(owner, name)
+
+    def inner(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(owner, name, inner)
+    try:
+        yield walls
+    finally:
+        setattr(owner, name, orig)
+
+
+def chain_floor_ms(kind: str, steps: int) -> float:
+    """The time of `steps` hash steps in series (Keccak permutations or SM3
+    compressions: one lane absorbing one message, padding included) at the
+    probe's SASS a step and the SM clock: the floor of a launch whose
+    lanes absorb in parallel, set by its longest message."""
+    per = 24 * KECCAK_ROUND_SASS if kind == "ecdsa" else SM3_COMPRESS_SASS
+    return steps * per / SASS_HZ * 1e3
+
+
+def snap_rows(node) -> dict:
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+
+    return {k: node.storage.get(pc.T_BALANCE, k) for k in node.storage.keys(pc.T_BALANCE)}
+
+
+def snap_head(node, host):
+    h = node.ledger.current_number()
+    header = node.ledger.header_by_number(h)
+    return h, header.hash(host), header.state_root
+
+
+def phase_snap(dev, kind: str, tr, chain):
+    """(14) Durability on the card: a pruning single-sealer source, a
+    snap-sync joiner, a restart of both, on the disk engine with key
+    pages, every suite call of the four Nodes recorded by site; then
+    (d) the full-width export of phase 12's committed `chain` (storage,
+    ledger). `tr` is phase 13's traffic (its frames are reused).
+    -> (launches by kernel, launches by site, timings)."""
+    import tempfile
+
+    from fisco_bcos_tpu_torch.crypto.suite import make_suite
+    from fisco_bcos_tpu_torch.init.node import Node, NodeConfig
+    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode
+    from fisco_bcos_tpu_torch.net.gateway import FakeGateway
+    from fisco_bcos_tpu_torch.net.moduleid import ModuleID
+    from fisco_bcos_tpu_torch.ops import keccak, sm3
+    from fisco_bcos_tpu_torch.snapshot import importer, service
+    from fisco_bcos_tpu_torch.snapshot.manifest import unpack_chunk
+    from fisco_bcos_tpu_torch.storage import KeyPageStorage
+    from fisco_bcos_tpu_torch.storage.engine import DiskStorage
+    from fisco_bcos_tpu_torch.sync.sync import BlockSync
+
+    tag = f"[snap {kind}]"
+    t_phase = time.perf_counter()
+    ntx = PBFT_TXS[kind]
+    frames = tr["frames"]
+    if len(frames) != 3 * ntx:
+        fail(f"{tag} phase 13's traffic holds {len(frames)} frames, not {3 * ntx}")
+    suite = make_suite(kind == "sm", device=dev)
+    host = make_suite(kind == "sm", backend="host")
+    sealer = seal_keys(suite)[0]
+    sealers = [ConsensusNode(sealer.pub_bytes)]
+    base = dict(consensus="pbft", sm_crypto=kind == "sm", crypto_backend="device",
+                device=str(dev), tx_count_limit=ntx, txpool_limit=PBFT_POOL_LIMIT,
+                min_seal_time=PBFT_MIN_SEAL, view_timeout=PBFT_VIEW_TIMEOUT,
+                ingest_max_batch=INGEST_MAX_BATCH, ingest_queue_cap=4 * len(frames),
+                storage_backend="disk")
+    root = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    src_cfg = NodeConfig(**base, storage_path=f"{root}/source",
+                         snapshot_interval=SNAP_INTERVAL, snapshot_prune=True,
+                         snapshot_keep_tail=0)
+    join_cfg = NodeConfig(**base, storage_path=f"{root}/joiner", snap_sync_threshold=1)
+    joiner_kp = suite.generate_keypair(b"snap-joiner")
+    counters = slice_counters(kind)
+    calls: list = []
+
+    def node(cfg, kp, gw, i):
+        # the suite as Node builds it from cfg (init/node.py), recorded
+        n = Node(cfg, keypair=kp, gateway=gw, suite=_Recorder(make_suite(
+            cfg.sm_crypto, backend=cfg.crypto_backend, device=cfg.device,
+            device_min_batch=cfg.device_min_batch,
+            mesh_devices=cfg.crypto_mesh_devices), i, calls))
+        n.build_genesis(sealers)
+        st = n.storage
+        if not (isinstance(st, KeyPageStorage) and isinstance(st.backend, DiskStorage)):
+            fail(f"{tag} node {i}'s storage is {type(st).__name__}, not key pages "
+                 f"over the disk engine")
+        return n
+
+    walls: dict = {k: [] for k in ("export", "verify", "install", "join", "tail_replay")}
+    live: list = []
+
+    def shut(nodes, gw):
+        for n in nodes:
+            n.stop()
+        gw.stop()
+        for n in nodes:
+            n.storage.close()
+            live.remove(n)
+
+    try:
+        with contextlib.ExitStack() as patches:
+            patches.enter_context(timed_calls(service, "export_snapshot", walls["export"]))
+            patches.enter_context(timed_calls(importer, "verify_snapshot", walls["verify"]))
+            patches.enter_context(timed_calls(importer, "install_snapshot", walls["install"]))
+            patches.enter_context(timed_calls(importer, "snap_sync", walls["join"]))
+            patches.enter_context(timed_calls(BlockSync, "_apply_blocks", walls["tail_replay"]))
+            for c in counters.values():
+                c.launches = 0
+            # (a) the pruning source
+            gw = FakeGateway()
+            src = node(src_cfg, sealer, gw, 0)
+            live.append(src)
+            t0 = time.perf_counter()
+            src.ingest.start()
+            if src.ingest.submit_many_wire_nowait(frames[:2 * ntx]) != 2 * ntx:
+                fail(f"{tag} the source's ingest queue refused frames")
+            snap_wait(tag, "2 blocks' txs in the pool",
+                      lambda: src.txpool.pending_count() >= 2 * ntx)
+            t_adm = time.perf_counter()
+            src.start()
+            snap_wait(tag, "height 2", lambda: src.ledger.current_number() >= 2)
+            t_two = time.perf_counter()
+            snap_wait(tag, "the checkpoint at height 2",
+                      lambda: src.snapshot.store.latest_height() is not None)
+            with src.snapshot._lock:   # its prune and compaction are done
+                pass
+            t_ckpt = time.perf_counter()
+            if src.snapshot.store.heights() != [SNAP_INTERVAL] or \
+                    src.ledger.pruned_below() != SNAP_INTERVAL:
+                fail(f"{tag} the source holds checkpoints {src.snapshot.store.heights()} "
+                     f"and pruned below {src.ledger.pruned_below()}, want "
+                     f"[{SNAP_INTERVAL}] and {SNAP_INTERVAL}")
+            if src.ledger.block_by_number(1, with_txs=True).transactions:
+                fail(f"{tag} block 1's body survived the prune")
+            if src.ingest.submit_many_wire_nowait(frames[2 * ntx:]) != ntx:
+                fail(f"{tag} the source's ingest queue refused frames")
+            snap_wait(tag, "height 3", lambda: src.ledger.current_number() >= 3)
+            t_three = time.perf_counter()
+            blocks = [src.ledger.block_by_number(h, with_txs=True) for h in (2, 3)]
+            if src.ledger.current_number() != 3 or \
+                    [len(b.transactions) for b in blocks] != [ntx, ntx]:
+                fail(f"{tag} the source is at {src.ledger.current_number()} with blocks "
+                     f"2-3 of {[len(b.transactions) for b in blocks]} txs, want {ntx} each")
+            # (b) the joiner
+            joiner = node(join_cfg, joiner_kp, gw, 1)
+            live.append(joiner)
+            executed: list = []
+            run_block = joiner.scheduler.execute_block
+            joiner.scheduler.execute_block = lambda block, *a, **k: (
+                executed.append(block.header.number), run_block(block, *a, **k))[1]
+            t_j = time.perf_counter()
+            joiner.start()
+            snap_wait(tag, "the joiner at height 3", lambda: joiner.ledger.current_number() >= 3)
+            t_joined = time.perf_counter()
+            if joiner.blocksync.sync_mode != "snap" or executed != [3]:
+                fail(f"{tag} the joiner's sync mode is {joiner.blocksync.sync_mode!r} and it "
+                     f"executed blocks {executed}: want 'snap' and block 3 only")
+            manifest = src.snapshot.store.manifest(SNAP_INTERVAL)
+            chunks = [src.snapshot.store.chunk(SNAP_INTERVAL, i)
+                      for i in range(manifest.chunk_count)]
+            adopted = joiner.snapshot.store
+            served = src.front.request(ModuleID.SnapshotSync, joiner_kp.pub_bytes,
+                                       importer.request_payload(importer.OP_MANIFEST),
+                                       timeout=5.0)
+            if adopted.heights() != [SNAP_INTERVAL] or served != manifest.encode() or \
+                    [adopted.chunk(SNAP_INTERVAL, i) for i in range(len(chunks))] != chunks:
+                fail(f"{tag} the joiner did not adopt the source's snapshot, or does not "
+                     f"serve it")
+            heads = [snap_head(n, host) for n in (src, joiner)]
+            rows = [snap_rows(n) for n in (src, joiner)]
+            if heads[0] != heads[1] or rows[0] != rows[1] or len(rows[0]) != ntx:
+                fail(f"{tag} the joiner's head (height, hash, state root) or c_balance rows "
+                     f"differ from the source's, or the source holds {len(rows[0])} of "
+                     f"{ntx} accounts")
+            if host.hash_batch(chunks) != manifest.chunk_hashes or \
+                    host.merkle_root(manifest.chunk_hashes) != manifest.root:
+                fail(f"{tag} the manifest's chunk hashes or root differ from the host suite's")
+            # (c) the restart
+            before, _ = service.export_snapshot(src.storage, src.ledger, src.suite)
+            shut([src, joiner], gw)
+            gw = FakeGateway()
+            t_r = time.perf_counter()
+            src2 = node(src_cfg, sealer, gw, 2)
+            live.append(src2)
+            joiner2 = node(join_cfg, joiner_kp, gw, 3)
+            live.append(joiner2)
+            t_reopen = time.perf_counter()
+            for n in (src2, joiner2):
+                n.start()
+            again = [snap_head(n, host) for n in (src2, joiner2)]
+            if again != heads or [snap_rows(n) for n in (src2, joiner2)] != rows:
+                fail(f"{tag} after the restart the heads or c_balance rows differ")
+            for n in (src2, joiner2):
+                store = n.snapshot.store
+                if store.heights() != [SNAP_INTERVAL] or \
+                        store.manifest(SNAP_INTERVAL).encode() != manifest.encode():
+                    fail(f"{tag} a restarted node's store lost the checkpoint")
+            after, _ = service.export_snapshot(src2.storage, src2.ledger, src2.suite)
+            if after.height != 3 or after.root != before.root:
+                fail(f"{tag} the re-export at height {after.height} after the restart has "
+                     f"another root than the one before it")
+            shut([src2, joiner2], gw)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        for n in live:
+            n.stop()
+        for n in live:
+            n.storage.close()
+        shutil.rmtree(root, ignore_errors=True)
+    by_site, site_launches, want = launches_by_site(kind, suite, calls)
+    got = {k: n for k, n in launches.items() if n}
+    log(f"{tag} launches {got}; by site: {site_launches}")
+    if got != want:
+        fail(f"{tag} the counters {got}, the recorded suite calls give {want}")
+    names = {st: sorted(c[0] for c in cs) for st, cs in by_site.items()}
+    if names.get("snap_seals", []).count("verify_batch") != 1 or \
+            names.get("snap_verify") != ["hash_batch", "merkle_root"] or \
+            names.get("snap_export") != ["hash_batch"] * 3 + ["merkle_root"] * 3:
+        fail(f"{tag} the snapshot sites made the calls {names}: want one seal check "
+             f"(its headers' hash batch and one verify_batch) and one hash batch and tree "
+             f"on the join, one of each an export (3 exports)")
+    missing = [k for k in counters if not launches[k]]
+    if missing:
+        fail(f"{tag} the phase did not launch {missing}")
+    w = {k: sum(v) for k, v in walls.items()}
+    if len(walls["verify"]) != 1 or len(walls["install"]) != 1 or len(walls["join"]) != 1:
+        fail(f"{tag} verify, install and the join ran {len(walls['verify'])}, "
+             f"{len(walls['install'])} and {len(walls['join'])} times, want once each")
+    walls_ms = dict(
+        admission=(t_adm - t0) * 1e3, two_blocks=(t_two - t_adm) * 1e3,
+        checkpoint=(t_ckpt - t_two) * 1e3, block_3=(t_three - t_ckpt) * 1e3,
+        export=walls["export"], verify=w["verify"], install=w["install"], join=w["join"],
+        joiner_to_height_3=(t_joined - t_j) * 1e3, tail_replay=w["tail_replay"],
+        reopen=(t_reopen - t_r) * 1e3)
+    log(f"{tag} walls (ms): admission of 2 blocks {walls_ms['admission']:.1f}, blocks 1-2 "
+        f"{walls_ms['two_blocks']:.1f}, checkpoint with prune and compaction "
+        f"{walls_ms['checkpoint']:.1f}, block 3 {walls_ms['block_3']:.1f}; exports "
+        + ", ".join(f"{x:.1f}" for x in walls["export"])
+        + f" (checkpoint, before and after the restart); verify {w['verify']:.1f}, install "
+        f"{w['install']:.1f} (verify included), the join (fetch, verify, install) "
+        f"{w['join']:.1f}, the joiner from start to height 3 {walls_ms['joiner_to_height_3']:.1f}"
+        f", tail replay {w['tail_replay']:.1f}; the restart (two Nodes reopened) "
+        f"{walls_ms['reopen']:.1f}")
+    log(f"{tag} checkpoint {SNAP_INTERVAL}: {manifest.chunk_count} chunks, "
+        f"{manifest.total_bytes} B, root {manifest.root.hex()}; the joiner snap-synced it and "
+        f"replayed block 3 only, head, state root and {len(rows[0])} c_balance rows equal the "
+        f"source's, before and after the restart; chunk hashes and root equal the host suite's")
+
+    # (d) the full-width export of phase 12's committed state
+    storage, ledger = chain
+    rec = _Recorder(suite)
+    for c in counters.values():
+        c.launches = 0
+    (full, fchunks), exp_ms = wall_ms(lambda: service.export_snapshot(storage, ledger, rec))
+    flaunch = {k: c.launches for k, c in counters.items() if c.launches}
+    fwant = expected_launches(kind, suite, rec.calls)
+    if flaunch != fwant:
+        fail(f"{tag} the full-width export launched {flaunch}, its calls give {fwant}")
+    if host.hash_batch(fchunks) != full.chunk_hashes or \
+            host.merkle_root(full.chunk_hashes) != full.root:
+        fail(f"{tag} the full-width manifest's chunk hashes or root differ from the host "
+             f"suite's")
+    hcls = keccak if kind == "ecdsa" else sm3
+    vname = "keccak256_varlen" if kind == "ecdsa" else "sm3_varlen"
+    packed = hcls.pack_batch_np(fchunks)
+    tens = [(torch.as_tensor(b, device=dev), torch.as_tensor(nv, device=dev))
+            for _, b, nv in packed]
+    wrapper = counters[vname]
+    # the classes launch one after another, so the batch's floor is the
+    # sum of each class's longest message's chain
+    class_steps = [int(nv.max()) for _, _, nv in packed]
+    top = int(np.argmax(class_steps))
+    batch_ms = flushed_event_ms(lambda: [wrapper(b, nv) for b, nv in tens], reps=SNAP_REPS)
+    top_ms = flushed_event_ms(lambda: wrapper(*tens[top]), reps=SNAP_REPS)
+    steps = class_steps[top]
+    floor = chain_floor_ms(kind, steps)
+    serial = sum(chain_floor_ms(kind, n) for n in class_steps)
+    longest = max(fchunks, key=len)
+    in_longest = unpack_chunk(longest)
+    blocks_all = sum(int(nv.sum()) for _, _, nv in packed)
+    bsize = keccak.RATE_BYTES if kind == "ecdsa" else sm3.BLOCK_BYTES
+    bound, by = (keccak_bound if kind == "ecdsa" else sm3_bound)(
+        blocks_all, bsize * blocks_all + 32 * len(fchunks))
+    log(f"{tag} full-width export of phase 12's state at height {full.height}: "
+        f"{full.chunk_count} chunks, {full.total_bytes} B, {len(packed)} length classes "
+        f"(chunks, steps of the longest: {[(len(r), n) for (r, _, _), n in zip(packed, class_steps)]}), "
+        f"{exp_ms:.1f} ms wall, launches {flaunch}; chunk hashes and root equal the host "
+        f"suite's; the longest chunk ({len(longest)} B) holds {len(in_longest)} row(s), the "
+        f"first of {in_longest[0][0]}")
+    log(f"{tag} chunk batch: {batch_ms:.4f} ms device a batch (CUDA events, L2 flushed, "
+        f"{SNAP_REPS} reps): {batch_ms / serial:.2f}x the classes' chain floors in series "
+        f"({serial:.4f} ms); the longest chunk's class alone {top_ms:.4f} ms, {steps} steps in "
+        f"series, chain floor {floor:.4f} ms ({top_ms / floor:.2f}x); bound {bound:.4f} ms "
+        f"by {by}")
+    log(f"{tag} phase 14: {time.perf_counter() - t_phase:.1f} s")
+    timings = dict(walls=walls_ms, chunks=manifest.chunk_count, bytes=manifest.total_bytes,
+                   full_chunks=full.chunk_count, full_bytes=full.total_bytes,
+                   classes=len(packed), batch_ms=batch_ms, top_ms=top_ms, floor_ms=floor,
+                   serial_floor_ms=serial, steps=steps)
     return launches, site_launches, timings
 
 
@@ -3739,16 +4107,24 @@ def main() -> int:
         steps, _, _ = phase_node(dev, s, d, random.Random(SEED + 4), fres["senders"])
         for k in slice_counters(kind):
             by_path[k][f"node_{kind}"] = sum(st[k] for st in steps.values())
+    chains = {}
     for kind in ("ecdsa", "sm"):
         auto = make_suite(kind == "sm", backend="auto", device=dev)
-        steps, _, _ = phase_exec(dev, auto, kind, random.Random(SEED + 12))
+        steps, _, t12 = phase_exec(dev, auto, kind, random.Random(SEED + 12))
+        chains[kind] = (t12["storage"], t12["ledger"])
         for k in slice_counters(kind):
             if k != "ecdsa_verify":   # the seal judge's kernel: not on this path
                 by_path[k][f"exec_{kind}"] = sum(st[k] for st in steps.values())
+    traffic = {}
     for kind in ("ecdsa", "sm"):
-        got, _, _ = phase_pbft(dev, kind)
+        got, _, t13 = phase_pbft(dev, kind)
+        traffic[kind] = t13["traffic"]
         for k in slice_counters(kind):
             by_path[k][f"pbft_{kind}"] = got[k]
+    for kind in ("ecdsa", "sm"):
+        got, _, _ = phase_snap(dev, kind, traffic.pop(kind), chains.pop(kind))
+        for k in slice_counters(kind):
+            by_path[k][f"snap_{kind}"] = got[k]
     for k, paths in by_path.items():
         rows[k]["launches"] = sum(paths.values())
         rows[k]["launches_by_path"] = paths

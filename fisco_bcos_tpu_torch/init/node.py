@@ -11,13 +11,14 @@ Shapes:
   * pbft mode: the same Node, a PBFTEngine bound between sealer and
     scheduler, peers over an injected gateway (FakeGateway in-process).
 
-The port's Node wires the planes the port has: the ledger on
-MemoryStorage, the txpool and its ingest lane, the executor, the
-in-process Scheduler, the sealer, front, tx gossip, block sync, PBFT,
-health, overload and the peer clock. Its suite runs on `device` ("cuda"
-unless a caller asks for "cpu"). A config that selects a plane the port
-does not have yet (persistent storage, out-of-process workers,
-snapshots, the RPC/WS/metrics edges, multi-group hosting, the sampling
+The port's Node wires the planes the port has: the ledger on the storage
+`make_storage` selects (memory, WAL, the disk engine, key pages), the
+txpool and its ingest lane, the executor, the in-process Scheduler, the
+sealer, front, tx gossip, block sync with snap sync, snapshots
+(checkpoint, prune, serve), PBFT, health, overload and the peer clock.
+Its suite runs on `device` ("cuda" unless a caller asks for "cpu"). A
+config that selects a plane the port does not have yet (out-of-process
+workers, the RPC/WS/metrics edges, multi-group hosting, the sampling
 profiler) raises NotImplementedError naming its ROADMAP.md item, rather
 than running without it.
 """
@@ -43,7 +44,6 @@ from ..crypto import agg
 from ..net.front import FrontService
 from ..net.gateway import Gateway
 from ..net.txsync import TransactionSync
-from ..storage import MemoryStorage
 from ..sync.sync import BlockSync
 
 
@@ -55,16 +55,31 @@ class NodeConfig:
     group_id: str = "group0"
     sm_crypto: bool = False
     # the port differs here: the JAX package's NodeConfig also carries the
-    # settings of planes the port does not have yet (the disk engine's
-    # geometry, snapshot retention and chunks, the crypto lane, the
+    # settings of planes the port does not have yet (the crypto lane, the
     # tracing and profiler rings, the RPC edge, subscriptions, the
     # serving edge's client rates, p2p). No code here would read them, so
     # they are left out: passing one is a TypeError, not a silent no-op.
     # Each slice that ports a plane brings its fields back. The fields
     # that select such a plane stay, and _check_ported refuses them.
-    storage_path: Optional[str] = None  # None = in-memory; not ported
-    # auto | memory run on MemoryStorage; wal | disk are not ported
-    storage_backend: str = "auto"
+    storage_path: Optional[str] = None  # None = in-memory
+    # persistent backend selection (storage/__init__.py make_storage):
+    # auto = wal when a path is configured, memory otherwise (historical
+    # behavior); disk = the log-structured engine (storage/engine.py —
+    # memtable + sorted segments + manifest, restart flat in chain length,
+    # datasets beyond RAM). memory/wal force those backends.
+    storage_backend: str = "auto"  # auto | memory | wal | disk
+    storage_memtable_mb: int = 64  # disk engine: flush watermark
+    storage_compact_segments: int = 8  # disk engine: L0 merge trigger
+    # leveled compaction geometry (storage/engine.py): L1 byte target and
+    # the per-level growth factor; merges stay O(level slice) regardless
+    # of dataset size, so these bound single-merge latency at GB scale
+    storage_level_base_mb: int = 16
+    storage_level_fanout: int = 8
+    # KeyPageStorage wrap (page-packed rows, the reference's
+    # storage.key_page_size — NodeConfig.cpp:620): > 0 explicit page
+    # bytes, 0 off, -1 = auto (ON at the default page size for the disk
+    # backend, where wide tables dominate; off for wal/memory)
+    storage_key_page_size: int = -1
     tx_count_limit: int = 1000
     txpool_limit: int = 15000
     block_limit_range: int = 600
@@ -86,6 +101,10 @@ class NodeConfig:
     overload_hold_s: float = 0.5   # hysteresis hold on both edges
     overload_commit_backlog: int = 6  # commit depth scoring 1.0
     overload_busy_write_factor: float = 0.25  # write-rate shrink while busy
+    # compaction-debt backpressure: debt bytes (engine levels over target)
+    # scoring 1.0 on the overload plane — a compaction-starved node goes
+    # busy and sheds writes instead of silently drowning in L0 segments
+    overload_compact_debt_mb: int = 256
     # continuous-batching ingest lane (txpool/ingest.py): coalesces
     # concurrent RPC/gossip submissions into device-sized submit_batch
     # calls. ingest_lane=False restores direct per-call submission (the
@@ -141,14 +160,22 @@ class NodeConfig:
     # to mint OR accept aggregate certificates; distributed like the
     # sealer list itself (not an ini knob: tests/tooling inject it)
     agg_registry: object = None
-    # snapshots (snapshot/, not ported): a non-zero interval or pruning
-    # is refused. A joining node more than `snap_sync_threshold` blocks
-    # behind fetches a snapshot instead of replaying the chain (0 = always
-    # replay). The port differs here: 0, not 256, since snap sync is part
-    # of the snapshot plane (ROADMAP.md A3.6); a non-zero value raises
+    # snapshot/checkpoint subsystem (snapshot/): every
+    # `snapshot_interval` committed blocks export a chunked Merkle-committed
+    # state snapshot; keep `snapshot_retention` of them; when
+    # `snapshot_prune` is on, drop block bodies below the checkpoint (keep
+    # headers) and compact the WAL. A joining node more than
+    # `snap_sync_threshold` blocks behind fetches a snapshot instead of
+    # replaying the chain (0 disables the preference; pruned-below answers
+    # still force it).
     snapshot_interval: int = 0  # blocks between checkpoints; 0 = disabled
+    snapshot_retention: int = 2
     snapshot_prune: bool = False
-    snap_sync_threshold: int = 0
+    # replayable blocks kept above the prune floor, so a peer lagging by a
+    # few blocks catches up via tail replay instead of a full snap-sync
+    snapshot_keep_tail: int = 64
+    snap_sync_threshold: int = 256
+    snapshot_chunk_bytes: int = 1 << 20
     # multi-group hosting (init/group.py, not ported): group ids this
     # process runs; empty = a single-group node
     groups: list = dataclasses.field(default_factory=list)
@@ -179,16 +206,9 @@ def _check_ported(cfg: NodeConfig) -> None:
     not have yet, naming its ROADMAP.md item (the JAX package's Node
     builds these; the port must not silently run without them)."""
     unported = []
-    if cfg.storage_path is not None or cfg.storage_backend not in (
-            "auto", "memory"):
-        unported.append("persistent storage (storage_path, storage_backend)"
-                        ": A3.7")
     if cfg.scheduler_workers > 0:
         unported.append("out-of-process execution workers and DMC "
                         "(scheduler_workers): the DMC slice")
-    if cfg.snapshot_interval > 0 or cfg.snapshot_prune or cfg.snap_sync_threshold:
-        unported.append("snapshots (snapshot_interval, snapshot_prune, "
-                        "snap_sync_threshold): A3.6")
     for name in ("rpc_port", "ws_port", "metrics_port"):
         if getattr(cfg, name) is not None:
             unported.append(f"the RPC edge ({name}): A3.8")
@@ -233,10 +253,24 @@ class Node:
         from ..utils import otrace
         otrace.TRACER.configure(slow_ms=cfg.trace_slow_ms)
         self.trace_label = self.keypair.pub_bytes[:4].hex()
-        # storage injection seam (the reference's StorageInitializer); the
-        # port has the in-memory backend only (a carried JAX chain comes
-        # in through storage/carry.storage_from_jax)
-        self.storage = storage if storage is not None else MemoryStorage()
+        # storage injection seam — the reference's StorageInitializer picks
+        # RocksDB vs TiKV (libinitializer/Initializer.cpp:145-261); callers
+        # pass e.g. a carried JAX chain (storage/carry.storage_from_jax)
+        from ..storage import make_storage
+        self.storage = storage if storage is not None else make_storage(
+            cfg.storage_backend, cfg.storage_path,
+            memtable_mb=cfg.storage_memtable_mb,
+            compact_segments=cfg.storage_compact_segments,
+            key_page_size=cfg.storage_key_page_size,
+            level_base_mb=cfg.storage_level_base_mb,
+            level_fanout=cfg.storage_level_fanout,
+            registry=self.metrics_view, health=self.health)
+        # injected storage (test fixtures): adopt its ENOSPC/flush health
+        # seam if the backend has one and nobody claimed it
+        from ..storage.wal import _SpaceHealth
+        if isinstance(self.storage, _SpaceHealth) \
+                and self.storage.health is None:
+            self.storage.health = self.health
         self.ledger = Ledger(self.storage, self.suite)
         self.txpool = TxPool(self.suite, self.ledger, cfg.chain_id,
                              cfg.group_id, cfg.txpool_limit,
@@ -268,6 +302,16 @@ class Node:
             if self.ingest is not None:
                 self.overload.add_signal("ingest",
                                          self.ingest.queue_fraction)
+            # compaction-debt backpressure: saturation 1.0 when
+            # the disk engine's un-merged debt reaches the configured cap.
+            # Feature-detected so wal/memory (and injected test) backends
+            # simply contribute nothing.
+            debt_fn = getattr(self.storage, "compaction_debt_bytes", None)
+            if debt_fn is not None:
+                debt_norm = max(1, cfg.overload_compact_debt_mb) << 20
+                self.overload.add_signal(
+                    "compaction_debt",
+                    lambda: debt_fn() / debt_norm)
         self.executor = TransactionExecutor(self.suite)
         self.scheduler = Scheduler(self.storage, self.ledger, self.executor,
                                    self.suite, self.txpool,
@@ -304,11 +348,24 @@ class Node:
                                           self.suite, ingest=self.ingest,
                                           import_gate=self.accepting_remote_txs,
                                           registry=self.metrics_view)
-            # no snapshot service (A3.6): a peer far enough ahead to want
-            # snap sync makes BlockSync raise instead of replaying
+        # snapshot/checkpoint service: always constructed (status() +
+        # operator checkpoint() work on any node); its periodic worker only
+        # runs when snapshot_interval > 0, and it serves SnapshotSync
+        # whenever there is a front
+        import os as _os
+        from ..snapshot.service import SnapshotService
+        self.snapshot = SnapshotService(
+            self.storage, self.ledger, self.suite, front=self.front,
+            interval=cfg.snapshot_interval, retention=cfg.snapshot_retention,
+            chunk_bytes=cfg.snapshot_chunk_bytes, prune=cfg.snapshot_prune,
+            keep_tail=cfg.snapshot_keep_tail,
+            keep_nonces=cfg.block_limit_range,
+            store_dir=_os.path.join(cfg.storage_path, "snapshots")
+            if cfg.storage_path else None, registry=self.metrics_view)
+        if self.front is not None:
             self.blocksync = BlockSync(
                 self.front, self.ledger, self.scheduler, self.suite,
-                timesync=self.timesync, snapshot=None,
+                timesync=self.timesync, snapshot=self.snapshot,
                 snap_sync_threshold=cfg.snap_sync_threshold,
                 registry=self.metrics_view, agg_registry=cfg.agg_registry)
         self._started = False
@@ -374,6 +431,8 @@ class Node:
             # observers (not in the sealer set) follow via block sync
             if self.blocksync is not None:
                 self.blocksync.start()
+        if self.config.snapshot_interval > 0:
+            self.snapshot.start()  # periodic checkpoint + prune worker
         if self.ingest is not None:
             self.ingest.start()  # continuous-batching front door
         if self.overload is not None:
@@ -430,6 +489,7 @@ class Node:
             self.ingest.stop()  # no new submitters, drain queue
         if self.overload is not None:
             self.overload.stop()
+        self.snapshot.stop()
         self.sealer.stop()
         if self.consensus is not None:
             self.consensus.stop()

@@ -1,0 +1,1084 @@
+"""DiskStorage — log-structured persistent engine behind the 2PC seam.
+
+The production storage slot (ROADMAP item 4; the reference's RocksDBStorage
+layering, PAPER.md §1 layer 5) with the same `TransactionalStorage`
+prepare/commit/rollback contract the scheduler's batchBlockCommit drives,
+so it is a drop-in alternative to MemoryStorage/WalStorage selected by the
+`[storage] backend = disk` ini knob.
+
+Shape (a small LSM tree):
+
+  * writes land in an in-RAM **memtable** after an fsynced record on a
+    rotated WAL segment (storage/wal.py SegmentedWal) — commit durability
+    is exactly WalStorage's;
+  * when the memtable exceeds its byte cap (or at checkpoint compaction)
+    it is frozen and flushed to an immutable sorted **segment** on disk
+    (storage/sstable.py: block-aligned, prefix-compressed keys, per-segment
+    bloom filter + sparse index);
+  * segments are organised in **levels** (the leveled-LSM shape production
+    stores use at GB scale): L0 holds raw flush output — segments whose
+    key ranges freely overlap, newest wins — while L1+ each hold
+    NON-overlapping sorted runs with a per-level byte target that grows by
+    `level_fanout` per level. A merge picks ONE source slice (all of L0,
+    or one over-target Ln segment) plus only the next level's
+    RANGE-OVERLAPPING segments, so per-merge cost is O(level slice), not
+    O(dataset) — the full-merge compactor this replaces rewrote the whole
+    store every merge, a guaranteed wedge at multi-GB state;
+  * a **manifest** names the live segments (with their levels) and the WAL
+    flush floor; every edge is written to a fresh `MANIFEST-<n>` file and
+    published by an atomic rename of `CURRENT` (the snapshot store's fsync
+    discipline), so kill -9 at ANY point recovers to either the pre- or
+    post-edge state — including mid-way through a multi-output merge;
+  * once a flush is durable in the manifest, the WAL segments it covers
+    are retired — the log stays O(memtable), not O(history);
+  * background **compaction** (storage/compact.py) drains **compaction
+    debt** — bytes sitting above a level's target (or in an over-full L0).
+    Debt is published as `bcos_storage_compaction_debt_bytes` and feeds
+    the overload controller (utils/overload.py): a compaction-starved node
+    goes *busy* and sheds writes instead of silently falling behind.
+    Reads consult memtable -> L0 newest..oldest -> L1 -> L2 ...
+
+Restart cost is flat in chain length: boot reads the manifest, opens the
+segment metadata, and replays only the WAL tail above the flush floor —
+no full-log replay, no O(state) RAM requirement beyond the memtable.
+
+Datasets larger than RAM are served from segments; `keys()`/`get()` read
+through bloom filters and the sparse index. All G groups can share one
+engine through storage/namespace.py unchanged.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import time
+import zlib
+from typing import Iterator, Optional
+
+from ..analysis import lockcheck as lc
+from ..utils import failpoints as fp
+from ..utils.log import LOG, badge
+from .interface import ChangeSet, Entry, EntryStatus, TransactionalStorage
+from .sstable import SSTableReader, composite_key, split_key, write_sstable
+from .wal import SegmentedWal, _SpaceHealth, unpack_payload
+
+_MANIFEST_MAGIC_V1 = b"FBTPUMAN"   # pre-leveled: bare segment ids
+_MANIFEST_MAGIC = b"FBTPUMN2"      # v2: (segment id, level) pairs
+_TOMBSTONE = None  # memtable value sentinel
+
+# every durability edge the kill -9 suite exercises is a registered global
+# failpoint (utils/failpoints.py); the legacy per-instance `_failpoints`
+# set keeps working for tests that scope a fault to ONE engine
+fp.register("storage.engine.flush_before_sstable",
+            "storage.engine.flush_before_manifest",
+            "storage.engine.manifest_before_current",
+            "storage.engine.compact_before_sstable",
+            "storage.engine.compact_mid_outputs",
+            "storage.engine.compact_before_manifest",
+            "storage.memtable.flush")
+
+
+class ManifestError(RuntimeError):
+    pass
+
+
+def _pack_manifest(next_seg: int, wal_floor: int,
+                   seg_levels: list[tuple[int, int]]) -> bytes:
+    body = struct.pack("<QQI", next_seg, wal_floor, len(seg_levels))
+    body += b"".join(struct.pack("<QI", s, lvl) for s, lvl in seg_levels)
+    return _MANIFEST_MAGIC + struct.pack("<I", zlib.crc32(body)) + body
+
+
+def _unpack_manifest(data: bytes) -> tuple[int, int, list[tuple[int, int]]]:
+    magic = data[:8]
+    if magic not in (_MANIFEST_MAGIC, _MANIFEST_MAGIC_V1):
+        raise ManifestError("bad manifest magic")
+    (crc,) = struct.unpack_from("<I", data, 8)
+    body = data[12:]
+    if zlib.crc32(body) != crc:
+        raise ManifestError("manifest crc mismatch")
+    next_seg, wal_floor, n = struct.unpack_from("<QQI", body, 0)
+    if magic == _MANIFEST_MAGIC_V1:
+        # pre-leveled manifests carried bare ids; place everything in L0,
+        # where overlap is legal — the first merges re-shape it into levels
+        return next_seg, wal_floor, [
+            (struct.unpack_from("<Q", body, 20 + 8 * i)[0], 0)
+            for i in range(n)]
+    return next_seg, wal_floor, [
+        struct.unpack_from("<QI", body, 20 + 12 * i) for i in range(n)]
+
+
+class DiskStorage(TransactionalStorage, _SpaceHealth):
+    CURRENT = "CURRENT"
+
+    def __init__(self, path: str, memtable_bytes: int = 64 << 20,
+                 max_segments: int = 8, registry=None,
+                 auto_compact: bool = True, block_bytes: int = 4096,
+                 health=None, level_base_bytes: int = 16 << 20,
+                 level_fanout: int = 8,
+                 seg_target_bytes: Optional[int] = None):
+        from ..utils.metrics import REGISTRY
+        self.path = path
+        self.health = health
+        os.makedirs(path, exist_ok=True)
+        self.memtable_bytes = memtable_bytes
+        # leveled-compaction geometry: `max_segments` is the L0 segment
+        # count that triggers an L0->L1 merge; L(n>=1) targets
+        # level_base_bytes * fanout^(n-1) bytes; merge outputs are split
+        # at seg_target_bytes so one over-full segment never grows into a
+        # monolith that re-couples merge cost to dataset size
+        self.max_segments = max(2, max_segments)
+        self.level_base_bytes = max(1 << 12, level_base_bytes)
+        self.level_fanout = max(2, level_fanout)
+        self.seg_target_bytes = seg_target_bytes or \
+            max(1 << 12, self.level_base_bytes // 4)
+        self.block_bytes = block_bytes
+        self._reg = registry if registry is not None else REGISTRY
+        self._lock = lc.make_rlock("engine.state")
+        self._flush_lock = lc.make_lock("engine.flush")    # flush/install
+        self._compact_lock = lc.make_lock("engine.compact")  # one merge
+        self._prepared: dict[int, ChangeSet] = {}
+        self._mem: dict[bytes, Optional[bytes]] = {}
+        self._mem_bytes = 0
+        self._frozen: list[dict] = []  # being flushed; newest last
+        # _levels[0] = L0 flush output in arrival order (oldest -> newest,
+        # ranges may overlap); _levels[n>=1] = non-overlapping sorted runs
+        # ordered by first_key. Readers carry `.level` for observability.
+        self._levels: list[list[SSTableReader]] = [[]]
+        # per-level round-robin cursor (last merged key) so repeated
+        # over-target picks sweep the whole key space instead of re-merging
+        # one hot range
+        self._level_cursor: dict[int, bytes] = {}
+        self._last_merge: dict = {}   # secs/input_bytes/outputs of last merge
+        self._max_merge_secs = 0.0
+        self._graveyard: list[SSTableReader] = []  # retired, fds kept briefly
+        self._manifest_seq = 0
+        self._next_seg = 1
+        self._wal_floor = 0
+        self._closed = False
+        # bloom accounting published per commit (counters are lock-guarded;
+        # keep the read hot path to plain int adds)
+        self._bloom_probes = 0
+        self._bloom_skips = 0
+        self._bloom_pub = (0, 0)
+        # test fail-points: names added here raise _FailPoint when crossed
+        self._failpoints: set[str] = set()
+        self._recover()
+        self._compactor = None
+        if auto_compact:
+            from .compact import Compactor
+            self._compactor = Compactor(self)
+            self._compactor.start()
+
+    # -- fail-point plumbing (crash-injection tests) -----------------------
+    class _FailPoint(RuntimeError):
+        pass
+
+    def _maybe_fail(self, name: str) -> None:
+        # process-wide plane first (crash/sleep/enospc actions live there),
+        # then the legacy per-instance raise set
+        fp.fire("storage.engine." + name.replace("-", "_"))
+        if name in self._failpoints:
+            raise DiskStorage._FailPoint(name)
+
+    def _wal_append(self, block_number: int, cs: ChangeSet) -> None:
+        """WAL append with the ENOSPC -> health edge: a full disk reports
+        `storage.space` degraded (probed until space returns) and the
+        commit fails CLEANLY upstream instead of wedging mid-2PC."""
+        try:
+            self._wal.append(block_number, cs)
+        except OSError as exc:
+            self._space_err(exc)
+            raise
+        self._space_ok()
+
+    def probe_space(self) -> bool:
+        with self._lock:
+            self._wal.append(0, {})
+        return True
+
+    # -- level bookkeeping -------------------------------------------------
+    def _flat_locked(self) -> list[SSTableReader]:
+        """Live readers flattened in PRIORITY order, lowest first — deepest
+        level (oldest data) up through L1, then L0 oldest -> newest. This is
+        exactly the order `_merge_sources` expects (higher index = newer),
+        so reads walk it REVERSED: L0 newest first, deepest level last."""
+        flat: list[SSTableReader] = []
+        for level in range(len(self._levels) - 1, 0, -1):
+            flat.extend(self._levels[level])
+        flat.extend(self._levels[0])
+        return flat
+
+    def _level_target(self, level: int) -> int:
+        """Byte budget for L(level>=1): base * fanout^(level-1)."""
+        return self.level_base_bytes * (self.level_fanout ** (level - 1))
+
+    def _ensure_level(self, level: int) -> list[SSTableReader]:
+        while len(self._levels) <= level:
+            self._levels.append([])
+        return self._levels[level]
+
+    def _set_levels_locked(self, level: int, reader: SSTableReader) -> None:
+        """Insert `reader` into a sorted L(level>=1) run by first_key."""
+        reader.level = level
+        run = self._ensure_level(level)
+        lo = reader.first_key
+        idx = 0
+        while idx < len(run) and run[idx].first_key < lo:
+            idx += 1
+        run.insert(idx, reader)
+
+    # -- manifest ----------------------------------------------------------
+    def _manifest_path(self, seq: int) -> str:
+        return os.path.join(self.path, f"MANIFEST-{seq:08d}")
+
+    def _write_manifest_locked(self) -> None:
+        """Publish the current segment list + WAL floor: fresh MANIFEST-<n>
+        fsynced, then CURRENT atomically renamed onto it. The rename is the
+        single commit point for every flush/compaction/install edge."""
+        self._manifest_seq += 1
+        mpath = self._manifest_path(self._manifest_seq)
+        data = _pack_manifest(self._next_seg, self._wal_floor,
+                              [(s.seg_id, lvl)
+                               for lvl, run in enumerate(self._levels)
+                               for s in run])
+        with open(mpath, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        self._maybe_fail("manifest-before-current")
+        cur_tmp = os.path.join(self.path, self.CURRENT + ".tmp")
+        with open(cur_tmp, "w") as f:
+            f.write(os.path.basename(mpath))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(cur_tmp, os.path.join(self.path, self.CURRENT))
+        dirfd = os.open(self.path, os.O_RDONLY)
+        try:
+            os.fsync(dirfd)
+        finally:
+            os.close(dirfd)
+        # superseded manifest files are garbage once CURRENT moved on
+        try:
+            os.remove(self._manifest_path(self._manifest_seq - 1))
+        except OSError:
+            pass
+
+    def _seg_path(self, seg_id: int) -> str:
+        return os.path.join(self.path, f"seg-{seg_id:08d}.sst")
+
+    # -- recovery ----------------------------------------------------------
+    def _recover(self) -> None:
+        t0 = time.monotonic()
+        seg_levels: list[tuple[int, int]] = []
+        cur = os.path.join(self.path, self.CURRENT)
+        if os.path.exists(cur):
+            with open(cur) as f:
+                name = f.read().strip()
+            try:
+                with open(os.path.join(self.path, name), "rb") as f:
+                    self._next_seg, self._wal_floor, seg_levels = \
+                        _unpack_manifest(f.read())
+                self._manifest_seq = int(name.rsplit("-", 1)[1])
+            except (OSError, ManifestError, ValueError, IndexError) as exc:
+                raise ManifestError(
+                    f"{self.path}: CURRENT points at unreadable manifest "
+                    f"{name!r} ({exc}) — refusing to boot on corrupt "
+                    "storage") from exc
+        for sid, lvl in seg_levels:
+            reader = SSTableReader(self._seg_path(sid))
+            reader.seg_id = sid
+            if lvl == 0:
+                reader.level = 0
+                self._levels[0].append(reader)  # manifest keeps flush order
+            else:
+                self._set_levels_locked(lvl, reader)
+        # orphans: segments written but never referenced (crash between
+        # sstable fsync and the manifest edge), superseded manifests
+        live = {os.path.basename(self._seg_path(s)) for s, _ in seg_levels}
+        live.add(self.CURRENT)
+        if self._manifest_seq:
+            live.add(os.path.basename(self._manifest_path(self._manifest_seq)))
+        for name in os.listdir(self.path):
+            if (name.startswith("seg-") and name.endswith(".sst")
+                    and name not in live) or \
+               (name.startswith("MANIFEST-") and name not in live) or \
+               name.endswith(".tmp"):
+                try:
+                    os.remove(os.path.join(self.path, name))
+                except OSError:
+                    pass
+        # WAL tail replay: only records above the flush floor
+        wal_records = 0
+        max_seq = 0
+        for seq, payload in SegmentedWal.replay(self.path, self._wal_floor):
+            max_seq = max(max_seq, seq)
+            _, items = unpack_payload(payload)
+            for deleted, table, key, value in items:
+                self._apply_one(composite_key(table, key),
+                                _TOMBSTONE if deleted else value)
+            wal_records += 1
+        # stale retired segments below the floor may survive a crash
+        # between manifest write and retire — sweep them now
+        for seq, p in SegmentedWal.list_segments(self.path):
+            if seq < self._wal_floor:
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass
+        # always append to a FRESH segment (never behind a truncated tail)
+        self._wal = SegmentedWal(self.path, max(max_seq,
+                                                self._wal_floor) + 1)
+        flat = self._flat_locked()
+        LOG.info(badge("ENGINE", "recovered", path=self.path,
+                       segments=len(flat),
+                       levels=sum(1 for run in self._levels if run),
+                       records=sum(s.nrecords for s in flat),
+                       wal_records=wal_records,
+                       ms=int((time.monotonic() - t0) * 1000)))
+        self._publish_gauges()
+
+    # -- memtable ----------------------------------------------------------
+    def _apply_one(self, ck: bytes, value: Optional[bytes]) -> None:
+        # approximate byte accounting (overwrites double-count until the
+        # next flush resets it — the cap is a watermark, not a ledger)
+        self._mem[ck] = value
+        self._mem_bytes += len(ck) + (len(value) if value else 0) + 16
+
+    def _apply_changeset_locked(self, cs: ChangeSet) -> None:
+        for (table, key), e in cs.items():
+            self._apply_one(composite_key(table, key),
+                            _TOMBSTONE if e.deleted else e.value)
+
+    # -- reads -------------------------------------------------------------
+    def get(self, table: str, key: bytes) -> Optional[bytes]:
+        ck = composite_key(table, key)
+        for _ in range(3):  # retry if a compaction closed a reader mid-read
+            with self._lock:
+                if ck in self._mem:
+                    v = self._mem[ck]
+                    return v
+                for frozen in reversed(self._frozen):
+                    if ck in frozen:
+                        return frozen[ck]
+                segs = self._flat_locked()
+            probes = skips = 0
+            try:
+                for r in reversed(segs):
+                    probes += 1
+                    if not r.may_contain(ck):
+                        skips += 1
+                        continue
+                    hit = r.get(ck)
+                    if hit is not None:
+                        flag, value = hit
+                        return None if flag else value
+                return None
+            except OSError:
+                continue  # reader swapped out under us; re-resolve
+            finally:
+                self._bloom_probes += probes
+                self._bloom_skips += skips
+        raise RuntimeError("storage readers kept churning during get")
+
+    def keys(self, table: str, prefix: bytes = b"") -> Iterator[bytes]:
+        pfx = composite_key(table, prefix)
+        out = [split_key(ck)[1]
+               for ck, v in self._iter_merged(pfx) if v is not None]
+        return iter(out)
+
+    def _iter_merged(self, prefix_ck: bytes,
+                     sources: Optional[tuple] = None
+                     ) -> Iterator[tuple[bytes, Optional[bytes]]]:
+        """Merged (composite_key, value|None) scan under a composite
+        prefix, newest source wins; tombstones yielded as None. `sources`
+        (mem_items, seg_list) pins a frozen view (snapshot export)."""
+        own_pins = False
+        if sources is None:
+            mem_items, segs = self._pinned_view()
+            own_pins = True
+        else:
+            mem_items, segs = sources
+        mem_items = [(ck, v) for ck, v in mem_items
+                     if ck.startswith(prefix_ck)]
+        try:
+            yield from self._merge_sources(prefix_ck, mem_items, segs)
+        finally:
+            if own_pins:
+                self._unpin(segs)
+
+    def _pinned_view(self) -> tuple[list, list]:
+        """Freeze a consistent (mem_items, segments) view: one merged mem
+        snapshot (oldest frozen -> live, newer wins) plus the segment list
+        with every reader PINNED against the graveyard sweep — a
+        concurrent compaction/install retiring a reader must not close it
+        while a scan holds it. Callers MUST `_unpin(segs)` when done.
+        This is the ONE owner of the pin lifecycle (scans, snapshot
+        capture, install, compaction all go through it), and pins are
+        only ever mutated under `_lock` — the sweep's `pins == 0` check
+        is also under `_lock`, so no lost update can zero a live pin."""
+        with self._lock:
+            md: dict[bytes, Optional[bytes]] = {}
+            for m in list(self._frozen) + [self._mem]:
+                md.update(m)
+            mem_items = sorted(md.items())
+            segs = self._flat_locked()
+            for r in segs:
+                r.pins += 1
+        return mem_items, segs
+
+    def _unpin(self, segs) -> None:
+        with self._lock:
+            for r in segs:
+                r.pins -= 1
+
+    @staticmethod
+    def _merge_sources(prefix_ck, mem_items, segs
+                       ) -> Iterator[tuple[bytes, Optional[bytes]]]:
+        import heapq
+
+        iters: list[Iterator[tuple[bytes, int, Optional[bytes]]]] = []
+        # priority: higher = newer. memtable is newest.
+        nsrc = len(segs)
+
+        def mem_iter():
+            for ck, v in mem_items:
+                yield ck, nsrc, v
+        iters.append(mem_iter())
+
+        def seg_iter(reader, prio):
+            for ck, flag, value in reader.iter_from(prefix_ck):
+                if not ck.startswith(prefix_ck):
+                    return
+                yield ck, prio, (_TOMBSTONE if flag else value)
+        for i, r in enumerate(segs):
+            iters.append(seg_iter(r, i))
+
+        heap = []
+        for idx, it in enumerate(iters):
+            ent = next(it, None)
+            if ent is not None:
+                ck, prio, v = ent
+                heap.append((ck, -prio, idx, v))
+        heapq.heapify(heap)
+        last_ck = None
+        while heap:
+            ck, negprio, idx, v = heapq.heappop(heap)
+            ent = next(iters[idx], None)
+            if ent is not None:
+                nck, nprio, nv = ent
+                heapq.heappush(heap, (nck, -nprio, idx, nv))
+            if ck == last_ck:
+                continue  # an older source's shadowed version
+            last_ck = ck
+            yield ck, v
+
+    def tables(self) -> list[str]:
+        with self._lock:
+            names: set[str] = set()
+            for m in [self._mem] + list(self._frozen):
+                for ck in m:
+                    names.add(split_key(ck)[0])
+            for r in self._flat_locked():
+                names.update(r.tables())
+        return sorted(names)
+
+    # -- writes (direct, non-transactional path) ---------------------------
+    def set(self, table: str, key: bytes, value: bytes) -> None:
+        self._write_direct({(table, key): Entry(value)})
+
+    def remove(self, table: str, key: bytes) -> None:
+        self._write_direct({(table, key): Entry(b"", EntryStatus.DELETED)})
+
+    def set_batch(self, table: str, items) -> None:
+        items = list(items)
+        if items:
+            self._write_direct({(table, k): Entry(v) for k, v in items})
+
+    def remove_batch(self, table: str, ks) -> None:
+        ks = list(ks)
+        if ks:
+            self._write_direct({(table, k): Entry(b"", EntryStatus.DELETED)
+                                for k in ks})
+
+    def _write_direct(self, cs: ChangeSet) -> None:
+        with self._lock:
+            self._wal_append(0, cs)
+            self._apply_changeset_locked(cs)
+            need_flush = self._mem_bytes >= self.memtable_bytes
+        if need_flush:
+            self._flush_after_write()
+
+    # -- 2PC ---------------------------------------------------------------
+    def prepare(self, block_number: int, changes: ChangeSet) -> None:
+        with self._lock:
+            self._prepared[block_number] = dict(changes)
+
+    def commit(self, block_number: int) -> None:
+        with self._lock:
+            cs = self._prepared.pop(block_number)
+            self._wal_append(block_number, cs)
+            self._apply_changeset_locked(cs)
+            need_flush = self._mem_bytes >= self.memtable_bytes
+            self._publish_commit_gauges_locked()
+        if need_flush:
+            self._flush_after_write()
+
+    def _flush_after_write(self) -> None:
+        """Watermark-crossing flush AFTER a durable WAL append. A flush
+        failure here must NOT surface as a commit/write failure — the data
+        is already durable in the un-retired WAL; report `storage.flush`
+        degraded and keep retrying via the health probe until it lands."""
+        try:
+            self.flush()
+        except Exception as exc:  # noqa: BLE001 — deliberate containment
+            LOG.exception(badge("ENGINE", "flush-failed-after-commit"))
+            if self.health is not None:
+                self.health.degraded("storage.flush", repr(exc),
+                                     probe=self._flush_probe)
+
+    def _flush_probe(self) -> bool:
+        self.flush()  # raises while the fault persists -> stays degraded
+        return True
+
+    def rollback(self, block_number: int) -> None:
+        with self._lock:
+            self._prepared.pop(block_number, None)
+
+    # -- flush -------------------------------------------------------------
+    def flush(self) -> bool:
+        """Freeze the memtable and persist it as one sorted segment; on
+        success retire the WAL segments it covers. Crash-safe: until the
+        manifest edge lands, recovery replays the same records from the
+        un-retired WAL tail."""
+        fp.fire("storage.memtable.flush")
+        with self._flush_lock:
+            with self._lock:
+                if not self._mem:
+                    return False
+                frozen = self._mem
+                self._mem = {}
+                self._mem_bytes = 0
+                self._frozen.append(frozen)
+                floor = self._wal.rotate()  # frozen lives below this seq
+                seg_id = self._next_seg
+                self._next_seg += 1
+            try:
+                self._maybe_fail("flush-before-sstable")
+                items = ((ck, 1 if v is None else 0, v or b"")
+                         for ck, v in sorted(frozen.items()))
+                stats = write_sstable(self._seg_path(seg_id), items,
+                                      block_bytes=self.block_bytes)
+                self._maybe_fail("flush-before-manifest")
+                reader = SSTableReader(self._seg_path(seg_id))
+                reader.seg_id = seg_id
+                reader.level = 0
+                with self._lock:
+                    self._levels[0].append(reader)
+                    self._frozen.remove(frozen)
+                    self._wal_floor = floor
+                    self._write_manifest_locked()
+                    self._wal.retire_below(floor)
+            except BaseException:
+                # keep the frozen view readable and the WAL un-retired so
+                # a retry (or the next boot) still owns every record
+                with self._lock:
+                    if frozen in self._frozen:
+                        self._frozen.remove(frozen)
+                        # fold back into the live memtable (older data, so
+                        # live entries win on collision)
+                        merged = dict(frozen)
+                        merged.update(self._mem)
+                        self._mem = merged
+                        self._mem_bytes += sum(
+                            len(ck) + (len(v) if v else 0) + 16
+                            for ck, v in frozen.items())
+                raise
+            LOG.info(badge("ENGINE", "flushed", segment=seg_id,
+                           records=stats["records"], bytes=stats["bytes"]))
+            self._publish_gauges()
+            return True
+
+    # -- compaction --------------------------------------------------------
+    def needs_compaction(self) -> bool:
+        with self._lock:
+            return self._pick_compaction_locked() is not None
+
+    def _level_bytes_locked(self, level: int) -> int:
+        if level >= len(self._levels):
+            return 0
+        return sum(s.file_bytes for s in self._levels[level])
+
+    def compaction_debt_bytes(self) -> int:
+        """Bytes the compactor still owes: the whole of an over-full L0
+        plus every L(n>=1) byte above its target. This is the saturation
+        signal the overload controller watches — a node whose debt keeps
+        growing is falling behind its own write rate and must go *busy*
+        (shed writes) before reads drown in overlapping L0 segments."""
+        with self._lock:
+            return self._debt_locked()
+
+    def _debt_locked(self) -> int:
+        debt = 0
+        if len(self._levels[0]) > self.max_segments:
+            debt += self._level_bytes_locked(0)
+        for lvl in range(1, len(self._levels)):
+            over = self._level_bytes_locked(lvl) - self._level_target(lvl)
+            if over > 0:
+                debt += over
+        return debt
+
+    def _pick_compaction_locked(self, force: bool = False
+                                ) -> Optional[tuple[int, list, list]]:
+        """Choose one bounded merge: (src_level, src_segs, dst_segs) with
+        dst level = src_level + 1, or None when no level is over budget.
+
+        * L0 over its segment-count trigger -> merge ALL of L0 (its ranges
+          overlap, so a partial pick could resurrect old versions) plus
+          only the L1 segments whose ranges intersect it.
+        * L(n>=1) over its byte target -> ONE source segment (round-robin
+          by key range across calls, so hot ranges don't starve cold ones)
+          plus only the overlapping L(n+1) slice.
+
+        `force` (operator catch-up / post-prune compact()) also drains an
+        UNDER-target shallowest run downward so tombstones reach the
+        deepest level and drop."""
+        if len(self._levels[0]) > self.max_segments or \
+                (force and self._levels[0]):
+            src = list(self._levels[0])
+            lo = min(s.first_key for s in src)
+            hi = max(s.last_key for s in src)
+            dst = [s for s in self._ensure_level(1) if s.overlaps(lo, hi)]
+            return 0, src, dst
+        for lvl in range(1, len(self._levels)):
+            run = self._levels[lvl]
+            if not run:
+                continue
+            over = self._level_bytes_locked(lvl) > self._level_target(lvl)
+            deeper = any(self._levels[i]
+                         for i in range(lvl + 1, len(self._levels)))
+            # force drains only runs with data BENEATH them — a lone
+            # deepest run (even multi-segment) is already fully compacted,
+            # and pushing it further down would never terminate
+            if not over and not (force and deeper):
+                continue
+            cursor = self._level_cursor.get(lvl, b"")
+            src_seg = next((s for s in run if s.first_key > cursor), run[0])
+            dst = [s for s in self._ensure_level(lvl + 1)
+                   if s.overlaps(src_seg.first_key, src_seg.last_key)]
+            return lvl, [src_seg], dst
+        return None
+
+    def compact_once(self, force: bool = True) -> bool:
+        """Run ONE bounded leveled merge; True if a merge ran.
+
+        `force=True` (the default — direct operator/test calls keep the
+        old "merge something if anything is mergeable" contract) also
+        drains under-target runs downward; the background Compactor passes
+        force=False so it only works off genuine over-budget debt.
+
+        Inputs are one source slice + the next level's overlapping
+        segments, so the work is O(level slice) regardless of total
+        dataset size — the property the GB-scale acceptance curve pins.
+        The merged stream is split into multiple output segments at
+        `seg_target_bytes`; every output is written and fsynced BEFORE the
+        single manifest edge swaps inputs for outputs, so kill -9 anywhere
+        (including between outputs — the `compact_mid_outputs` site)
+        recovers to either the pre-merge or post-merge state, never a mix.
+        Tombstones drop only when no level deeper than the destination
+        holds data (nothing underneath can resurrect the key).
+
+        Runs WITHOUT the flush lock: a commit crossing the memtable
+        watermark must never stall behind a merge, so flushes land freely
+        during it (their L0 segments are newer than the captured inputs
+        and keep precedence). Only a whole-state swap (install_rows) can
+        invalidate the merge — detected at the manifest edge, where the
+        merged outputs are abandoned instead of resurrecting old state."""
+        with self._compact_lock:
+            with self._lock:
+                pick = self._pick_compaction_locked(force=force)
+                if pick is None:
+                    return False
+                src_level, src, dst = pick
+                dst_level = src_level + 1
+                # tombstones can drop iff nothing lives below the outputs
+                drop_tombstones = not any(
+                    self._levels[i]
+                    for i in range(dst_level + 1, len(self._levels)))
+                # priority order for the merge, lowest first: dst run is
+                # older than every src segment; within L0 src keeps its
+                # flush order (oldest -> newest)
+                inputs = list(dst) + list(src)
+                for r in inputs:
+                    r.pins += 1
+            t0 = time.monotonic()
+            in_bytes = sum(s.file_bytes for s in inputs)
+            outputs: list[SSTableReader] = []
+            try:
+                self._maybe_fail("compact-before-sstable")
+                merged = self._iter_merged(b"", sources=([], inputs))
+                done = False
+                while not done:
+                    with self._lock:
+                        seg_id = self._next_seg
+                        self._next_seg += 1
+                    batch: list[tuple[bytes, int, bytes]] = []
+                    batch_bytes = 0
+                    for ck, v in merged:
+                        if v is None:
+                            if drop_tombstones:
+                                continue
+                            batch.append((ck, 1, b""))
+                            batch_bytes += len(ck) + 16
+                        else:
+                            batch.append((ck, 0, v))
+                            batch_bytes += len(ck) + len(v) + 16
+                        if batch_bytes >= self.seg_target_bytes:
+                            break
+                    else:
+                        done = True
+                    if not batch:
+                        break
+                    if outputs:
+                        self._maybe_fail("compact-mid-outputs")
+                    write_sstable(self._seg_path(seg_id), iter(batch),
+                                  block_bytes=self.block_bytes)
+                    reader = SSTableReader(self._seg_path(seg_id))
+                    reader.seg_id = seg_id
+                    outputs.append(reader)
+                self._maybe_fail("compact-before-manifest")
+                with self._lock:
+                    flat = self._flat_locked()
+                    if any(s not in flat for s in inputs):
+                        # install_rows swapped the state mid-merge: the
+                        # merged outputs describe dead state — drop them
+                        for r in outputs:
+                            r.close()
+                            try:
+                                os.remove(r.path)
+                            except OSError:
+                                pass
+                        return False
+                    if src_level == 0:
+                        # newer flushes may have appended during the merge;
+                        # drop only the captured prefix
+                        self._levels[0] = [s for s in self._levels[0]
+                                           if s not in src]
+                    else:
+                        self._levels[src_level] = [
+                            s for s in self._levels[src_level]
+                            if s not in src]
+                    self._levels[dst_level] = [
+                        s for s in self._ensure_level(dst_level)
+                        if s not in dst]
+                    for r in outputs:
+                        self._set_levels_locked(dst_level, r)
+                    if src_level >= 1 and src:
+                        self._level_cursor[src_level] = src[-1].last_key
+                    try:
+                        self._write_manifest_locked()
+                    except BaseException:
+                        # manifest edge failed (transient fs error, armed
+                        # failpoint): the on-disk truth is still the old
+                        # manifest — restore the in-memory levels to match
+                        # so a retrying Compactor sees pre-merge state and
+                        # the outer handler can delete the orphan outputs
+                        self._levels[dst_level] = [
+                            s for s in self._levels[dst_level]
+                            if s not in outputs]
+                        for s in dst:
+                            self._set_levels_locked(dst_level, s)
+                        if src_level == 0:
+                            self._levels[0] = list(src) + self._levels[0]
+                        else:
+                            for s in src:
+                                self._set_levels_locked(src_level, s)
+                        raise
+                    self._graveyard.extend(inputs)
+                    self._sweep_graveyard_locked()
+            except BaseException:
+                for r in outputs:
+                    try:
+                        r.close()
+                        os.remove(r.path)
+                    except OSError:
+                        pass
+                raise
+            finally:
+                self._unpin(inputs)
+            for r in inputs:
+                try:
+                    os.remove(r.path)
+                except OSError:
+                    pass
+            secs = time.monotonic() - t0
+            with self._lock:
+                self._last_merge = {
+                    "secs": round(secs, 4), "input_bytes": in_bytes,
+                    "inputs": len(inputs), "outputs": len(outputs),
+                    "src_level": src_level}
+                self._max_merge_secs = max(self._max_merge_secs, secs)
+            self._reg.inc("bcos_storage_compactions_total")
+            self._reg.observe("bcos_storage_compaction_seconds", secs)
+            LOG.info(badge("ENGINE", "compacted", level=src_level,
+                           merged=len(inputs), outputs=len(outputs),
+                           input_bytes=in_bytes, ms=int(secs * 1000)))
+            self._publish_gauges()
+            return True
+
+    def _sweep_graveyard_locked(self) -> None:
+        # retired readers keep their fds briefly so in-flight reads finish
+        # (POSIX keeps unlinked data alive while the fd is open); close the
+        # oldest unpinned ones beyond a small cap
+        while len(self._graveyard) > 8:
+            for i, r in enumerate(self._graveyard):
+                if r.pins == 0:
+                    self._graveyard.pop(i).close()
+                    break
+            else:
+                return
+
+    def compact(self) -> None:
+        """Full flush+drain (SnapshotService calls this after pruning so
+        tombstoned history leaves the disk, like WalStorage.compact; the
+        storage_tool --compact operator path uses it for catch-up after an
+        outage). Forces merges until every run sits in one deepest level,
+        so the final merges see no data beneath them and drop tombstones."""
+        self.flush()
+        for _ in range(10_000):  # backstop; each merge strictly shrinks
+            if not self.compact_once(force=True):
+                break
+
+    # -- snapshot integration ---------------------------------------------
+    def capture_rows(self):
+        """-> generator over a CONSISTENT (table, key, value) view frozen
+        at call time; call under `_lock` (snapshot export does), iterate
+        OUTSIDE it — rows stream straight from the immutable segments."""
+        mem_items, segs = self._pinned_view()
+
+        def rows():
+            try:
+                for ck, v in self._iter_merged(b"", sources=(mem_items,
+                                                             segs)):
+                    if v is not None:
+                        table, key = split_key(ck)
+                        yield table, key, v
+            finally:
+                self._unpin(segs)
+        return rows()
+
+    def install_rows(self, by_table: dict) -> None:
+        """Snapshot install fast path: write the rows straight to fresh
+        segments and swap the state in one manifest edge — no WAL
+        round-trip of the full snapshot through RAM, atomic under kill -9
+        (before the edge: old state; after: exactly the snapshot). Tables
+        the snapshot does NOT carry (node-private state like the PBFT
+        consensus log) keep their local rows, matching the 2PC install
+        path's table-by-table reconciliation."""
+        with self._flush_lock:
+            items = [(composite_key(t, k), 0, v)
+                     for t, rows in by_table.items()
+                     for k, v in rows.items()]
+            keep = set(by_table)
+            mem_items, segs = self._pinned_view()
+            try:
+                for ck, v in self._iter_merged(b"", sources=(mem_items,
+                                                             segs)):
+                    if v is not None and split_key(ck)[0] not in keep:
+                        items.append((ck, 0, v))
+            finally:
+                self._unpin(segs)
+            items.sort()
+            # split the sorted snapshot into non-overlapping L1 runs at the
+            # segment target, so post-install merges stay bounded instead
+            # of inheriting one monolithic segment
+            readers: list[SSTableReader] = []
+            total_records = total_bytes = 0
+            chunk: list[tuple[bytes, int, bytes]] = []
+            chunk_bytes = 0
+
+            def cut_segment() -> None:
+                nonlocal chunk, chunk_bytes, total_records, total_bytes
+                with self._lock:
+                    seg_id = self._next_seg
+                    self._next_seg += 1
+                st = write_sstable(self._seg_path(seg_id), iter(chunk),
+                                   block_bytes=self.block_bytes)
+                reader = SSTableReader(self._seg_path(seg_id))
+                reader.seg_id = seg_id
+                readers.append(reader)
+                total_records += st["records"]
+                total_bytes += st["bytes"]
+                chunk, chunk_bytes = [], 0
+
+            for ck, flag, v in items:
+                chunk.append((ck, flag, v))
+                chunk_bytes += len(ck) + len(v) + 16
+                if chunk_bytes >= self.seg_target_bytes:
+                    cut_segment()
+            if chunk or not readers:
+                cut_segment()
+            with self._lock:
+                old = self._flat_locked()
+                self._mem = {}
+                self._mem_bytes = 0
+                self._frozen = []
+                self._prepared.clear()
+                self._wal_floor = self._wal.rotate()
+                self._levels = [[]]
+                self._level_cursor = {}
+                for r in readers:
+                    self._set_levels_locked(1, r)
+                self._write_manifest_locked()
+                self._wal.retire_below(self._wal_floor)
+                self._graveyard.extend(old)
+                self._sweep_graveyard_locked()
+            for r in old:
+                try:
+                    os.remove(r.path)
+                except OSError:
+                    pass
+            LOG.info(badge("ENGINE", "snapshot-installed",
+                           segments=len(readers), records=total_records,
+                           bytes=total_bytes))
+            self._publish_gauges()
+
+    # -- observability -----------------------------------------------------
+    def audit(self) -> list[str]:
+        """WAL/manifest coherence problems, [] if clean (the invariant
+        auditor's storage check, ops/audit.py): CURRENT must name a
+        readable manifest whose (segment, level) list matches the live
+        set, every referenced segment file must exist, the WAL floor must
+        not have passed the active segment, and every L(n>=1) run must be
+        sorted and strictly NON-overlapping — an overlap there silently
+        serves stale versions, the worst storage bug there is."""
+        problems: list[str] = []
+        with self._lock:
+            seg_levels = sorted((s.seg_id, lvl)
+                                for lvl, run in enumerate(self._levels)
+                                for s in run)
+            level_ranges = [[(s.seg_id, s.first_key, s.last_key)
+                             for s in run]
+                            for run in self._levels]
+            wal_floor = self._wal_floor
+            active_seq = self._wal.active_seq
+        cur = os.path.join(self.path, self.CURRENT)
+        if not os.path.exists(cur):
+            if seg_levels:
+                problems.append("CURRENT missing with live segments")
+        else:
+            try:
+                with open(cur) as f:
+                    name = f.read().strip()
+                with open(os.path.join(self.path, name), "rb") as f:
+                    _, man_floor, man_sl = _unpack_manifest(f.read())
+                if sorted(man_sl) != seg_levels:
+                    problems.append(
+                        f"manifest segments {sorted(man_sl)} != live "
+                        f"{seg_levels}")
+                if man_floor > active_seq:
+                    problems.append(
+                        f"WAL floor {man_floor} beyond active segment "
+                        f"{active_seq}")
+            except (OSError, ManifestError, ValueError) as exc:
+                problems.append(f"CURRENT/manifest unreadable: {exc}")
+        for sid, _ in seg_levels:
+            if not os.path.exists(self._seg_path(sid)):
+                problems.append(f"segment file seg-{sid:08d}.sst missing")
+        for lvl, run in enumerate(level_ranges):
+            if lvl == 0:
+                continue  # L0 overlap is legal by construction
+            for (a_id, _, a_hi), (b_id, b_lo, _) in zip(run, run[1:]):
+                if a_hi >= b_lo:
+                    problems.append(
+                        f"L{lvl} overlap: seg-{a_id:08d} range reaches "
+                        f"into seg-{b_id:08d}")
+        if wal_floor > active_seq:
+            problems.append(f"live WAL floor {wal_floor} beyond active "
+                            f"segment {active_seq}")
+        return problems
+
+    def disk_bytes(self) -> int:
+        with self._lock:
+            seg_bytes = sum(s.file_bytes for s in self._flat_locked())
+        return seg_bytes + self._wal.tail_bytes()
+
+    def stats(self) -> dict:
+        with self._lock:
+            segs = [{"id": s.seg_id, "level": lvl, "records": s.nrecords,
+                     "bytes": s.file_bytes}
+                    for lvl, run in enumerate(self._levels) for s in run]
+            levels = []
+            for lvl, run in enumerate(self._levels):
+                lvl_bytes = sum(s.file_bytes for s in run)
+                target = (self.max_segments if lvl == 0
+                          else self._level_target(lvl))
+                if lvl == 0:
+                    debt = lvl_bytes if len(run) > self.max_segments else 0
+                else:
+                    debt = max(0, lvl_bytes - target)
+                levels.append({"level": lvl, "segments": len(run),
+                               "bytes": lvl_bytes,
+                               "target": target, "debt_bytes": debt})
+            debt_total = self._debt_locked()
+            mem_bytes = self._mem_bytes
+            last_merge = dict(self._last_merge)
+            max_merge_secs = round(self._max_merge_secs, 4)
+        probes, skips = self._bloom_probes, self._bloom_skips
+        return {
+            "backend": "disk",
+            "segments": segs,
+            "segment_count": len(segs),
+            "levels": levels,
+            "compaction_debt_bytes": debt_total,
+            "last_merge": last_merge,
+            "max_merge_secs": max_merge_secs,
+            "memtable_bytes": mem_bytes,
+            "wal_bytes": self._wal.tail_bytes(),
+            "disk_bytes": self.disk_bytes(),
+            "bloom_probes": probes,
+            "bloom_skips": skips,
+            "bloom_skip_rate": round(skips / probes, 4) if probes else None,
+        }
+
+    def _publish_commit_gauges_locked(self) -> None:
+        self._reg.set_gauge("bcos_storage_memtable_bytes", self._mem_bytes)
+        probes, skips = self._bloom_probes, self._bloom_skips
+        p0, s0 = self._bloom_pub
+        if probes > p0:
+            self._reg.inc("bcos_storage_bloom_probes_total", probes - p0)
+        if skips > s0:
+            self._reg.inc("bcos_storage_bloom_skips_total", skips - s0)
+        self._bloom_pub = (probes, skips)
+
+    def _publish_gauges(self) -> None:
+        with self._lock:
+            flat = self._flat_locked()
+            nsegs = len(flat)
+            seg_bytes = sum(s.file_bytes for s in flat)
+            mem_bytes = self._mem_bytes
+            debt = self._debt_locked()
+            nlevels = sum(1 for run in self._levels if run)
+        self._reg.set_gauge("bcos_storage_segments", nsegs)
+        self._reg.set_gauge("bcos_storage_levels", nlevels)
+        self._reg.set_gauge("bcos_storage_disk_bytes",
+                            seg_bytes + self._wal.tail_bytes())
+        self._reg.set_gauge("bcos_storage_memtable_bytes", mem_bytes)
+        self._reg.set_gauge("bcos_storage_compaction_debt_bytes", debt)
+
+    # -- lifecycle ---------------------------------------------------------
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        if self._compactor is not None:
+            self._compactor.stop()
+        try:
+            self.flush()  # restart then needs no WAL replay at all
+        except Exception:
+            LOG.exception(badge("ENGINE", "close-flush-failed"))
+        with self._lock:
+            self._wal.close()
+            for r in self._flat_locked() + self._graveyard:
+                r.close()

@@ -18,12 +18,9 @@ previously both ran on one loop and a 10 s request starved
 Sync modes:
   * replay — fetch block ranges, verify seals, re-execute, commit (the
     default catch-up path);
-  * snap   — (not in the port yet: `snapshot/` is ROADMAP.md A3.6; the
-    port's Node keeps snap_sync_threshold at 0, so a lagging node replays
-    whatever its distance, and reaching snap sync raises) when a peer is
-    more than `snap_sync_threshold` blocks ahead (or answers
-    "pruned-below" for a requested range), fetch its snapshot manifest +
-    chunks over ModuleID.SnapshotSync, batch-verify chunk hashes
+  * snap   — when a peer is more than `snap_sync_threshold` blocks ahead
+    (or answers "pruned-below" for a requested range), fetch its snapshot
+    manifest + chunks over ModuleID.SnapshotSync, batch-verify chunk hashes
     against the manifest root and the checkpoint header's commit seals
     (the same `_verify_seals`), install the state, then replay only the
     tail. O(state size) batched hashing instead of O(chain length) replay.
@@ -67,6 +64,8 @@ REQUEST_TIMEOUT = 5.0
 
 RESP_BLOCKS = 0
 RESP_PRUNED = 1
+
+SNAP_RETRY_SECONDS = 5.0  # failed snap attempt: back off, replay continues
 
 
 class _DownloadWorker(Worker):
@@ -114,6 +113,7 @@ class BlockSync(Worker):
         self._lock = threading.Lock()
         self._last_status = 0.0
         self._inflight = False
+        self._next_snap_attempt = 0.0
         self._downloader = _DownloadWorker(self)
         self._reg.set_gauge("bcos_sync_mode", 0)  # 0 replay | 1 snap
         front.register_module(ModuleID.BlockSync, self._on_message)
@@ -212,15 +212,43 @@ class BlockSync(Worker):
             self.wakeup()
 
     def _try_snap_sync(self, peer: bytes) -> bool:
-        # the port differs here: snap sync installs a peer's snapshot
-        # through `snapshot/`, which is not ported yet (ROADMAP.md A3.6).
-        # The port's Node refuses a non-zero snap_sync_threshold, so only
-        # a peer that answers "pruned-below" reaches this, and no port
-        # node prunes; reaching it fails loudly, never skipping to a
-        # replay that cannot reach the peer's head
-        raise NotImplementedError(
-            "snap sync needs the snapshot plane (snapshot/), which the "
-            "port does not have yet: ROADMAP.md A3.6")
+        now = time.monotonic()
+        if now < self._next_snap_attempt:
+            return False
+        from ..snapshot.importer import snap_sync
+        t0 = time.monotonic()
+        # flip the mode BEFORE snap_sync: the install's storage commit
+        # publishes the new height, and an observer gating on
+        # current_number (chain_bench run_sync_bench) must never read the
+        # stale "replay" mode after seeing the post-install height
+        prev_mode = self.sync_mode
+        self.sync_mode = "snap"
+        self._reg.set_gauge("bcos_sync_mode", 1)
+        res = snap_sync(self.front, peer, self.ledger.storage, self.suite,
+                        self._verify_seals, self.ledger.current_number(),
+                        request_timeout=REQUEST_TIMEOUT,
+                        should_abort=self._downloader.stopping,
+                        pre_install=None if self.scheduler is None else
+                        lambda: self.scheduler.invalidate_caches(
+                            self.ledger.current_number()),
+                        registry=self._reg)
+        if res is None:
+            self.sync_mode = prev_mode
+            self._reg.set_gauge("bcos_sync_mode",
+                               1 if prev_mode == "snap" else 0)
+            self._next_snap_attempt = now + SNAP_RETRY_SECONDS
+            return False
+        manifest, chunks = res
+        if self.snapshot is not None:
+            # become a server for the next joiner (pruned peers included)
+            self.snapshot.adopt(manifest, chunks)
+        if self.scheduler is not None:
+            self.scheduler.external_commit(manifest.height)
+        LOG.info(badge("SYNC", "snap-sync-installed", number=manifest.height,
+                       chunks=manifest.chunk_count,
+                       secs=round(time.monotonic() - t0, 2)))
+        metric("sync.snap_installed", number=manifest.height)
+        return True
 
     # -- verification + replay --------------------------------------------
     def _verify_seals(self, header: BlockHeader) -> bool:

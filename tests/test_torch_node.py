@@ -8,8 +8,9 @@ on which the port's Nodes restart and commit the next height equal to a
 JAX continuation. Compared: every block's state, tx and receipt roots
 and the c_balance rows (header hashes carry the seal time), and within a
 chain the header hashes across nodes. NodeConfig fields that select a
-plane the port does not have yet must raise, and the default suite is on
-the card.
+plane the port does not have yet must raise, the storage and snapshot
+fields build their planes as the JAX Node does, snap sync installs a
+peer's snapshot, and the default suite is on the card.
 """
 
 import time
@@ -142,12 +143,13 @@ def test_chain_carried_from_jax_continues_on_the_port():
     assert balances == {b"alice": (998).to_bytes(16, "big"), b"bob": (12).to_bytes(16, "big")}
 
 
-UNPORTED = [("storage_path", "chain-dir"), ("storage_backend", "wal"),
-            ("storage_backend", "disk"), ("scheduler_workers", 1),
-            ("snapshot_interval", 5), ("snapshot_prune", True),
-            ("snap_sync_threshold", 256), ("rpc_port", 0),
+UNPORTED = [("scheduler_workers", 1), ("rpc_port", 0),
             ("ws_port", 0), ("metrics_port", 0), ("groups", ["g1", "g2"]),
             ("profile_hz", 5.0)]
+# the fields that select the storage and snapshot planes
+DURABLE = [("storage_path", "chain-dir"), ("storage_backend", "wal"),
+           ("storage_backend", "disk"), ("snapshot_interval", 5),
+           ("snapshot_prune", True), ("snap_sync_threshold", 256)]
 
 
 @pytest.mark.parametrize("field,value", UNPORTED)
@@ -157,47 +159,99 @@ def test_unported_planes_raise(field, value):
         pnode.Node(cfg)
 
 
-def _sync_node():
+@pytest.mark.parametrize("field,value", DURABLE)
+def test_the_node_builds_the_storage_and_snapshot_planes(tmp_path, field, value):
+    """Each storage and snapshot field builds its plane as the JAX Node
+    builds it: the same storage stack (a path alone selects the WAL,
+    "disk" key pages over the disk engine), and the snapshot service and
+    block sync carrying the field."""
+    built = []
+    for root in pb.ROOTS:
+        cfg = {field: value}
+        if field == "storage_path":
+            cfg[field] = str(tmp_path / root / value)
+        elif field == "storage_backend":
+            cfg["storage_path"] = str(tmp_path / root / value)
+        N = pb.mod(root, "init.node")
+        extra = dict(profile_hz=0, scheduler_workers=0) if root == "fisco_bcos_tpu" else \
+            dict(device="cpu")
+        gw = pb.mod(root, "net.gateway").FakeGateway()
+        node = N.Node(N.NodeConfig(consensus="pbft", crypto_backend="host", **extra, **cfg),
+                      gateway=gw)
+        try:
+            st = node.storage
+            inner = getattr(st, "backend", None)
+            snap = node.snapshot
+            built.append(dict(storage=(type(st).__name__, type(inner).__name__ if inner
+                                       else None),
+                              snapshot_interval=snap.interval, snapshot_prune=snap.prune,
+                              store_on_disk=snap.store.directory is not None,
+                              snap_sync_threshold=node.blocksync.snap_sync_threshold))
+        finally:
+            node.stop()
+            gw.stop()
+            if hasattr(node.storage, "close"):
+                node.storage.close()
+    assert built[1] == built[0]
+    stacks = {"storage_path": ("WalStorage", None), "storage_backend": {
+        "wal": ("WalStorage", None), "disk": ("KeyPageStorage", "DiskStorage")}.get(value)}
+    assert built[1]["storage"] == stacks.get(field, ("MemoryStorage", None))
+    assert built[1]["store_on_disk"] == field.startswith("storage")
+    if field in built[1]:
+        assert built[1][field] == value
+
+
+def _sync_node(**cfg):
     gw = pb.mod("fisco_bcos_tpu_torch", "net.gateway").FakeGateway()
-    node = pnode.Node(pnode.NodeConfig(consensus="pbft", device="cpu"), gateway=gw)
+    node = pnode.Node(pnode.NodeConfig(consensus="pbft", device="cpu", **cfg), gateway=gw)
     node.build_genesis()
     return gw, node
 
 
 def test_snap_sync_raises_until_the_snapshot_plane_is_ported():
-    """Snap sync needs snapshot/ (ROADMAP.md A3.6): the Node refuses a
-    non-zero snap_sync_threshold (test_unported_planes_raise), and where
-    block sync still reaches snap sync (a threshold set on BlockSync
-    itself, or a peer answering "pruned-below") it raises instead of
-    falling back to a replay that cannot reach the peer's head."""
-    sync_mod = pb.mod("fisco_bcos_tpu_torch", "sync.sync")
-    W = pb.mod("fisco_bcos_tpu_torch", "codec.wire").Writer
-    gw, node = _sync_node()
+    """The snapshot plane is ported, so snap sync no longer raises:
+    BlockSync._try_snap_sync installs a peer's snapshot. A joiner whose
+    peer is past its threshold snap-syncs the peer's checkpoint; one on a
+    threshold of 0 asks for the range, the pruned peer answers
+    "pruned-below", and it snap-syncs too. Each then holds the peer's
+    state at the checkpoint (head header hash, c_balance rows), is in
+    "snap" mode and serves the adopted snapshot from its own store."""
+    import test_torch_snapshot as snap
+
+    root = "fisco_bcos_tpu_torch"
+    c = snap.SingleSealer(root, "ecdsa", snapshot_interval=2, snapshot_prune=True,
+                          snapshot_keep_tail=0, snapshot_chunk_bytes=snap.CHUNK)
     try:
-        sync = node.blocksync
-        sync._peers[b"\x01" * 64] = (257, time.monotonic())
-        sync.snap_sync_threshold = 256
-        with pytest.raises(NotImplementedError, match="A3.6"):
+        c.commit(1)
+        c.commit(2)
+        c.checkpointed(2)
+        src = c.src
+        peer = src.keypair.pub_bytes
+        want = (src.ledger.header_by_number(2).hash(src.suite), snap.chain_state(root, src))
+        for seed, threshold in ((b"far", 1), (b"pruned", 0)):
+            node = c.joiner(seed, snap_sync_threshold=threshold)
+            sync = node.blocksync
+            sync._peers[peer] = (2, time.monotonic())
             sync._maybe_download()
-        sync.snap_sync_threshold = 0
-        sync.front.request = lambda module, dst, payload, timeout: (
-            W().u8(sync_mod.RESP_PRUNED).i64(100).bytes())
-        with pytest.raises(NotImplementedError, match="A3.6"):
-            sync._maybe_download()
+            assert node.ledger.current_number() == 2 and sync.sync_mode == "snap"
+            assert (node.ledger.header_by_number(2).hash(node.suite),
+                    snap.chain_state(root, node)) == want
+            assert node.snapshot.store.heights() == [2]
+            assert node.snapshot.store.manifest(2).encode() == \
+                src.snapshot.store.manifest(2).encode()
     finally:
-        node.stop()
-        gw.stop()
+        c.stop()
 
 
 def test_a_node_far_behind_catches_up_by_replay():
-    """With the port's default snap_sync_threshold (0) a lagging node
-    replays whatever its distance, never reaching snap sync: a peer 257
-    blocks ahead (past the JAX default of 256) gets a range request, and a
-    node partitioned while the chain committed two heights replays them
-    to the same headers and state."""
+    """On a snap_sync_threshold of 0 a lagging node replays whatever its
+    distance, never reaching snap sync: a peer 257 blocks ahead (past the
+    default of 256) gets a range request, and a node partitioned while the
+    chain committed two heights replays them to the same headers and
+    state."""
     sync_mod = pb.mod("fisco_bcos_tpu_torch", "sync.sync")
     W = pb.mod("fisco_bcos_tpu_torch", "codec.wire").Writer
-    gw, node = _sync_node()
+    gw, node = _sync_node(snap_sync_threshold=0)
     try:
         sync = node.blocksync
         assert node.config.snap_sync_threshold == 0 == sync.snap_sync_threshold
@@ -232,15 +286,21 @@ def test_a_node_far_behind_catches_up_by_replay():
 def test_the_node_runs_on_the_card_unless_asked_for_the_cpu():
     """NodeConfig.device defaults to "cuda": without a card the node's
     suite refuses to build rather than running on the CPU; the sampling
-    profiler's hz defaults to 0 (the plane is not ported), and the
-    settings of planes the port does not have are not fields at all."""
+    profiler's hz defaults to 0 (the plane is not ported); the storage
+    and snapshot fields have the JAX package's defaults; and the settings
+    of planes the port does not have are not fields at all."""
     cfg = pnode.NodeConfig()
-    assert cfg.device == "cuda" and cfg.profile_hz == 0 and cfg.snap_sync_threshold == 0
+    assert cfg.device == "cuda" and cfg.profile_hz == 0 and cfg.snap_sync_threshold == 256
     # the port keeps the JAX fields its planes read or refuse, plus device
     port_fields = set(pnode.NodeConfig.__dataclass_fields__)
     assert port_fields - set(jnode.NodeConfig.__dataclass_fields__) == {"device"}
     assert {"snap_sync_threshold", "rpc_port", "groups"} <= port_fields
-    assert not port_fields & {"p2p_port", "rpc_workers", "snapshot_retention"}
+    assert not port_fields & {"p2p_port", "rpc_workers", "crypto_lane"}
+    durable = [f for f in port_fields if f.startswith(("storage_", "snapshot_", "snap_"))]
+    assert len(durable) == 13 and "overload_compact_debt_mb" in port_fields
+    jcfg = jnode.NodeConfig()
+    for f in durable + ["overload_compact_debt_mb"]:
+        assert getattr(cfg, f) == getattr(jcfg, f), f
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pnode.Node(cfg)
