@@ -4,8 +4,9 @@ default chain (secp256k1 + Keccak-256), the SM chain (SM2 + SM3) and the
 ZK plane's batched Poseidon (BN254), both chains again on the composed
 EC route, then each chain's node path from wire frames to the ledger and
 the seal judge, each chain's block execution through the executor and
-the scheduler, and each chain on a 4-node PBFT network of the port's
-Nodes.
+the scheduler, each chain on a 4-node PBFT network of the port's
+Nodes, each chain's durability, and each chain's serving edge driven
+by the port's own SDK clients over JSON-RPC and WS.
 
     python3 chip_smoke.py
 
@@ -195,6 +196,33 @@ version or to the CPU):
    chunk batch's device time (CUDA events, L2 flushed) beside its chain
    floor. Walls: export, verify, install, the join, the tail replay,
    the restart.
+15. The serving edge, on each chain: one single-sealer PBFT Node
+   (crypto_backend "device", memory storage, blocks of one suite CHUNK)
+   with rpc_port, ws_port and metrics_port 0 and the JAX defaults
+   otherwise (8 RPC workers, batches of 256, a query cache of 4,096
+   entries and 64 MB, trace sampling 0.02, the profiler at 5 Hz).
+   Phase 13's heights 1-2 go in over JSON-RPC in two waves (the second
+   once every receipt of the first is there): 8 SdkClient threads on
+   keep-alive connections post batch bodies of 256 sendTransaction
+   entries (wait=false), one tx alone under a sampled traceparent. A
+   WsSdkClient session holds newBlockHeaders and 64 receipt
+   subscriptions. After each commit: getBlockByNumber cold (an uncached
+   JsonRpcImpl: one recover batch) and over HTTP, 256 getProof (248 of
+   the primed tail, 8 whose documents the LRU evicted), 256 receipts,
+   verifyProofs over the 512 proofs with 1% tampered, 64 balanceOf
+   calls, getSystemStatus and getAuditReport; then getTrace of the
+   traced request, GET /metrics (the edge and the metrics port),
+   /status and /profile. Checked: roots and c_balance rows equal a solo
+   host-suite Scheduler's replay and a Python replay, every receipt
+   served and pushed equals the oracle's, verifyProofs' verdicts equal
+   the host suite's (tampered ones false), every committed tx's proof
+   rendered, no best-effort catch fired, send_transaction's direct-path
+   fallback taken 0 times, and the counters (zeroed before the first
+   POST, read after the node stops) equal the launches the recorded
+   suite calls imply, by site (admission, execution, seals, prime, cold
+   senders, evicted proofs, verifyProofs, calls). Walls: admission over
+   RPC and its tx/s, each wave's last admission to its commit, the
+   prime, the reads; the lane's dispatch sizes and recover launches.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -204,6 +232,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import random
 import re
 import shutil
@@ -2879,8 +2908,9 @@ class _Recorder:
         return self._suite.merkle_root(leaves)
 
     def recover_addresses(self, digests, sigs):
-        self._record("recover_addresses", len(digests))
-        return self._suite.recover_addresses(digests, sigs)
+        out = self._suite.recover_addresses(digests, sigs)
+        self._record("recover_addresses", len(digests), out)
+        return out
 
     def recover_batch(self, digests, sigs):
         self._record("recover_batch", len(digests))
@@ -2895,7 +2925,9 @@ def expected_launches(kind: str, suite, calls) -> dict:
     """The launches a step's recorded suite calls give by their shapes: a
     device hash_batch one a length class, a device merkle_root one tree, a
     device recover_addresses one EC launch a suite CHUNK plus one address
-    hash, a device verify_batch one a CHUNK; a host-sized call none."""
+    hash (on the SM chain only where a key verified: an unsigned call's
+    sender hashes nothing), a device verify_batch one a CHUNK; a
+    host-sized call none."""
     from fisco_bcos_tpu_torch.crypto.suite import CHUNK
 
     hashk, tree = (("keccak256_varlen", "merkle_keccak_tree") if kind == "ecdsa"
@@ -2908,7 +2940,7 @@ def expected_launches(kind: str, suite, calls) -> dict:
         if n:
             want[k] = want.get(k, 0) + n
 
-    for name, arg, *_ in calls:
+    for name, arg, out, *_ in calls:
         n = len(arg) if name == "hash_batch" else arg
         if not suite._use_device(n):
             continue
@@ -2918,7 +2950,7 @@ def expected_launches(kind: str, suite, calls) -> dict:
             add(tree, 1)
         elif name == "recover_addresses":
             add(eck, -(-n // CHUNK))
-            add(hashk, 1)
+            add(hashk, 1 if kind == "ecdsa" or out is None or out[1].any() else 0)
         elif name in ("recover_batch", "verify_batch"):
             add(eck if name == "recover_batch" else verk, -(-n // CHUNK))
     return want
@@ -3356,7 +3388,8 @@ PBFT_RUNS = 5   # a run whose profiler session lost a kernel event runs again
 # (while the range was still taken on the host's clock, 7 of 12 runs lost
 # an event without it, 1 of 7 with it; PERF.md, Findings)
 PBFT_GUARD = 0.5
-# the suite call's site: the innermost of these functions on its stack
+# the suite call's site: the innermost of these functions on its stack (a
+# "file:function" key names one module's function of a common name)
 PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
               "_handle_newview": "view_change", "_batch_checked": "pbft_packets",
               "_flush_checkpoint_commits": "pbft_seals", "verify_proposal": "proposal",
@@ -3365,7 +3398,14 @@ PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
               "_pack_txs": "gossip_send", "submit_columns": "ingest",
               # phase 14's snapshot calls
               "export_snapshot": "snap_export", "verify_snapshot": "snap_verify",
-              "snap_sync": "snap_seals"}
+              "snap_sync": "snap_seals",
+              # phase 15's serving calls
+              "prime_block": "prime", "_senders_for_block": "cold_senders",
+              "verify_proofs": "verify_proofs",
+              # the ingest lane's object door (sendTransaction under a span
+              # context), and a call's sender (an unsigned tx: one lane)
+              "ingest.py:_dispatch": "ingest", "scheduler.py:call": "rpc_call",
+              "ledger.py:receipt_proof": "proof_miss"}
 
 
 def pbft_site(node: int) -> str:
@@ -3375,7 +3415,9 @@ def pbft_site(node: int) -> str:
     Called from _Recorder._record: the suite's caller is three frames up."""
     f = sys._getframe(3)
     while f is not None:
-        site = PBFT_SITES.get(f.f_code.co_name)
+        code = f.f_code
+        site = PBFT_SITES.get(code.co_name) or PBFT_SITES.get(
+            f"{code.co_filename.rsplit('/', 1)[-1]}:{code.co_name}")
         if site is not None:
             if site == "ingest":
                 return "admission" if node == 0 else "gossip_import"
@@ -3521,7 +3563,8 @@ def phase_pbft(dev, kind: str):
     cfg = NodeConfig(consensus="pbft", sm_crypto=kind == "sm", crypto_backend="device",
                      device=str(dev), tx_count_limit=ntx, txpool_limit=PBFT_POOL_LIMIT,
                      min_seal_time=PBFT_MIN_SEAL, view_timeout=PBFT_VIEW_TIMEOUT,
-                     ingest_max_batch=INGEST_MAX_BATCH, ingest_queue_cap=4 * len(frames))
+                     ingest_max_batch=INGEST_MAX_BATCH, ingest_queue_cap=4 * len(frames),
+                     profile_hz=0)   # the sampler thread is phase 15's, not this one's
     counters = slice_counters(kind)
     verk = "ecdsa_verify" if kind == "ecdsa" else "sm2_verify"
     eck = "ecdsa_recover" if kind == "ecdsa" else "sm2_verify"
@@ -3821,7 +3864,7 @@ def phase_snap(dev, kind: str, tr, chain):
                 device=str(dev), tx_count_limit=ntx, txpool_limit=PBFT_POOL_LIMIT,
                 min_seal_time=PBFT_MIN_SEAL, view_timeout=PBFT_VIEW_TIMEOUT,
                 ingest_max_batch=INGEST_MAX_BATCH, ingest_queue_cap=4 * len(frames),
-                storage_backend="disk")
+                storage_backend="disk", profile_hz=0)
     root = tempfile.mkdtemp(prefix="chip_smoke_snap_")
     src_cfg = NodeConfig(**base, storage_path=f"{root}/source",
                          snapshot_interval=SNAP_INTERVAL, snapshot_prune=True,
@@ -4059,6 +4102,521 @@ def phase_snap(dev, kind: str, tr, chain):
     return launches, site_launches, timings
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serving edge (JSON-RPC over HTTP and WS, the query cache,
+# subscriptions, the proof plane, tracing, metrics and the profiler)
+# ---------------------------------------------------------------------------
+SERVE_CLIENTS = 8        # SdkClient threads, as benchmark/chain_bench.py --read-clients 8
+SERVE_BATCH = 256        # sendTransaction entries a JSON-RPC batch body (rpc_max_batch)
+SERVE_WAVES = 2          # phase 13's heights 1-2: the registers, then the transfers
+SERVE_MIN_SEAL = 60.0    # s: a block seals when it holds a suite CHUNK, never on time
+SERVE_DEADLINE = 240.0   # s for each wait of the phase
+SERVE_READS = 256        # receipts and proofs read after each commit
+# of the proofs, this many from the block's head, whose proof documents
+# the LRU (4,096 entries) evicted while priming the rest: each such miss
+# rebuilds both trees of the block, its receipts' hash batch on the card
+# included (ledger.receipt_proof); the others from the primed tail
+SERVE_PROOF_MISSES = 8
+SERVE_PUSHED = 64        # tx hashes with a receipt subscription
+SERVE_CALLS = 64         # balanceOf calls after each commit
+SERVE_TAMPERED = 0.01    # share of verifyProofs' items tampered
+SERVE_TRACE = "5e" * 16  # the trace id of the one request under a sampled traceparent
+SERVE_SERIES = ("bcos_rpc_cache_hits_total", "bcos_rpc_cache_misses_total",
+                "bcos_rpc_cache_entries", "bcos_zk_proofs_rendered_total",
+                "bcos_zk_proof_cache_hits_total", "bcos_zk_verify_calls_total")
+SERVE_FAILED = ("cache-prime-failed", "proof-prime-failed", "ingest-dispatch-failed")
+
+
+class _Failures(logging.Handler):
+    """Collects the log records of the reference's best-effort catches
+    (a failed prime or render, a failed lane dispatch): a kernel failure
+    on the card would end there, so any record fails the phase."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.seen: list = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if any(s in msg for s in SERVE_FAILED):
+            self.seen.append(msg[:200])
+
+
+def serve_post(port: int, payload, headers=None):
+    """One JSON-RPC POST on a fresh connection. -> (reply, its headers)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_DEADLINE)
+    try:
+        conn.request("POST", "/", body=json.dumps(payload).encode(),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        return json.loads(r.read()), dict(r.getheaders())
+    finally:
+        conn.close()
+
+
+def serve_get(port: int, path: str) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_DEADLINE)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def serve_wave(url: str, frames, tag: str):
+    """The frames as JSON-RPC batch bodies of SERVE_BATCH sendTransaction
+    entries (wait=false), posted by SERVE_CLIENTS SdkClient threads on
+    keep-alive connections, each thread its share of the bodies in turn.
+    -> (tx hash by frame, first POST time, last response time)."""
+    import threading
+
+    from fisco_bcos_tpu_torch.sdk.client import SdkClient
+
+    bodies = [frames[i:i + SERVE_BATCH] for i in range(0, len(frames), SERVE_BATCH)]
+    hashes: dict = {}
+    errors: list = []
+    stamps: list = []
+
+    def client(k):
+        sdk = SdkClient(url, timeout=SERVE_DEADLINE)
+        try:
+            for body in bodies[k::SERVE_CLIENTS]:
+                resps = sdk.request_batch([
+                    ("sendTransaction", ["group0", "", "0x" + f.hex(), False, False])
+                    for f in body])
+                stamps.append(time.perf_counter())
+                for f, r in zip(body, resps):
+                    res = r.get("result")
+                    if not isinstance(res, dict) or res.get("status") is not None:
+                        errors.append(r)
+                    else:
+                        hashes[f] = bytes.fromhex(res["transactionHash"][2:])
+        except Exception as exc:  # noqa: BLE001 — reported below, fails the phase
+            errors.append(repr(exc))
+        finally:
+            sdk.close()
+
+    threads = [threading.Thread(target=client, args=(k,), name=f"sdk-client-{k}")
+               for k in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors or len(hashes) != len(frames):
+        fail(f"{tag} {len(errors)} sendTransaction entries failed ({errors[:3]}), "
+             f"{len(hashes)} of {len(frames)} admitted")
+    return hashes, t0, max(stamps)
+
+
+def tamper_items(items, rng):
+    """SERVE_TAMPERED of verifyProofs' items changed: a first-level
+    sibling beside the claimed slot, or the root. -> (items, indexes)."""
+    bad = sorted(rng.sample(range(len(items)), max(1, round(len(items) * SERVE_TAMPERED))))
+    out = [dict(it) for it in items]
+    for j, i in enumerate(bad):
+        it = out[i]
+        if j % 2 == 0 and it["proof"]:
+            lvl = [dict(x) for x in it["proof"]]
+            sibs = list(lvl[0]["siblings"])
+            k = (lvl[0]["index"] + 1) % len(sibs)
+            sibs[k] = sibs[k][:-1] + ("0" if sibs[k][-1] != "0" else "1")
+            lvl[0]["siblings"] = sibs
+            it["proof"] = lvl
+        else:
+            it["root"] = it["root"][:-1] + ("0" if it["root"][-1] != "0" else "1")
+    return out, bad
+
+
+def phase_serve(dev, kind: str, tr):
+    """(15) The serving edge on the card: one single-sealer PBFT Node
+    (crypto_backend "device", memory storage, blocks of one suite CHUNK,
+    rpc_port, ws_port and metrics_port 0, every other serving field at
+    the JAX defaults: 8 workers, batches of 256, a query cache of 4,096
+    entries and 64 MB, trace sampling 0.02, the profiler at 5 Hz).
+    Phase 13's heights 1-2 (`tr`) go in over JSON-RPC in two waves, the
+    second once every receipt of the first is there: SERVE_CLIENTS
+    SdkClient threads post batch bodies of SERVE_BATCH sendTransaction
+    entries (wait=false), one tx alone under a sampled traceparent. A
+    WsSdkClient session holds newBlockHeaders and SERVE_PUSHED receipt
+    subscriptions. After each commit: getBlockByNumber hot (the cache)
+    and cold (an uncached JsonRpcImpl over the node: one recover batch),
+    SERVE_READS proofs (SERVE_PROOF_MISSES of them evicted) and
+    receipts in one batch each, verifyProofs over
+    their tx and receipt proofs (1% tampered), balanceOf SERVE_CALLS
+    times, getSystemStatus and getAuditReport; then getTrace of the
+    traced request and GET /metrics, /status and /profile. The suite
+    calls are recorded by site; the counters, zeroed before the first
+    POST and read after the node stops, must equal the launches they
+    imply. -> (launches by kernel, launches by site, timings)."""
+    from fisco_bcos_tpu_torch.codec.wire import Reader
+    from fisco_bcos_tpu_torch.crypto.suite import CHUNK, make_suite
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.init.node import Node, NodeConfig
+    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode
+    from fisco_bcos_tpu_torch.net.gateway import FakeGateway
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.rpc.server import JsonRpcImpl, _receipt_json
+    from fisco_bcos_tpu_torch.sdk.client import SdkClient
+    from fisco_bcos_tpu_torch.sdk.ws import WsSdkClient
+    from fisco_bcos_tpu_torch.zk import proof as zkproof
+
+    tag = f"[serve {kind}]"
+    ntx = PBFT_TXS[kind]
+    frames = tr["frames"][:SERVE_WAVES * ntx]
+    if len(frames) != SERVE_WAVES * ntx:
+        fail(f"{tag} phase 13's traffic holds {len(tr['frames'])} frames, want "
+             f"{SERVE_WAVES * ntx} or more")
+    waves = [frames[w * ntx:(w + 1) * ntx] for w in range(SERVE_WAVES)]
+    rng = random.Random(SEED + 15)
+    suite = make_suite(kind == "sm", device=dev)
+    host = make_suite(kind == "sm", backend="host")
+    sealer = seal_keys(suite)[0]
+    cfg = NodeConfig(consensus="pbft", sm_crypto=kind == "sm", crypto_backend="device",
+                     device=str(dev), tx_count_limit=ntx, txpool_limit=PBFT_POOL_LIMIT,
+                     min_seal_time=SERVE_MIN_SEAL, view_timeout=PBFT_VIEW_TIMEOUT,
+                     rpc_port=0, ws_port=0, metrics_port=0)
+    counters = slice_counters(kind)
+    calls: list = []
+    gw = FakeGateway()
+    # the suite as Node builds it from cfg (init/node.py), recorded
+    node = Node(cfg, keypair=sealer, gateway=gw, suite=_Recorder(make_suite(
+        cfg.sm_crypto, backend=cfg.crypto_backend, device=cfg.device,
+        device_min_batch=cfg.device_min_batch, mesh_devices=cfg.crypto_mesh_devices), 0, calls))
+    node.build_genesis([ConsensusNode(sealer.pub_bytes)])
+    if node.query_cache is None or node.subhub is None or node.ws is None or \
+            node.metrics is None or (node.config.rpc_workers, node.config.rpc_max_batch,
+                                     node.config.rpc_cache_entries, node.config.profile_hz) \
+            != (8, 256, 4096, 5.0):
+        fail(f"{tag} the node's serving planes are not the JAX defaults")
+    commits: dict = {}
+    # first of the commit observers: the cache prime and the push fan-out
+    # run after it on the same notifier thread
+    node.scheduler.on_commit.insert(0, lambda n: commits.setdefault(n, time.perf_counter()))
+    direct: list = []   # send_transaction's direct-path fallback: txpool.submit
+    submit = node.txpool.submit
+    node.txpool.submit = lambda *a, **k: (direct.append(1), submit(*a, **k))[1]
+    failures = _Failures()
+    logging.getLogger("bcos-tpu").addHandler(failures)
+    sessions: list = []
+    walls: dict = {"admission": [], "tx_per_s": [], "last_admission_to_commit": [], "prime": [],
+                   "hot_block": [], "cold_block": [], "proofs_primed": [],
+                   "proofs_evicted": [], "verify_proofs": [],
+                   "receipts": [], "calls": []}
+    reads: dict = {"served": {}, "verdicts": [], "tampered": 0, "balances": [],
+                   "cold_recovers": []}
+    lane_stats, marks = [], []
+    stopped = []
+
+    def stop():
+        if not stopped:
+            stopped.append(True)
+            for s in sessions:
+                s.close()
+            node.stop()
+            gw.stop()
+
+    try:
+        node.start()
+        url = f"http://{node.rpc.host}:{node.rpc.port}"
+        sdk = SdkClient(url, timeout=SERVE_DEADLINE)
+        sessions.append(sdk)
+        push = WsSdkClient(node.ws.host, node.ws.port)
+        sessions.append(push)
+        wave_hashes = [[T.Transaction.decode(f).hash(host) for f in w] for w in waves]
+        pushed = rng.sample([h for w in wave_hashes for h in w], SERVE_PUSHED)
+        push.subscribe("newBlockHeaders")
+        for h in pushed:
+            push.subscribe("receipt", {"txHash": "0x" + h.hex()})
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t_first = None
+        for w, wave in enumerate(waves):
+            height = w + 1
+            if w == 0:
+                # one tx alone under a sampled W3C traceparent header
+                tp = f"00-{SERVE_TRACE}-{'7f' * 8}-01"
+                t_first = time.perf_counter()
+                rep, hdrs = serve_post(node.rpc.port, {
+                    "jsonrpc": "2.0", "id": 1, "method": "sendTransaction",
+                    "params": ["group0", "", "0x" + wave[-1].hex(), False, False]},
+                    {"traceparent": tp})
+                if rep.get("result", {}).get("transactionHash") != \
+                        "0x" + wave_hashes[0][-1].hex() or hdrs.get("traceparent") != tp:
+                    fail(f"{tag} the traced sendTransaction answered {rep} with "
+                         f"traceparent {hdrs.get('traceparent')}")
+                got, t0, t_last = serve_wave(url, wave[:-1], tag)
+            else:
+                got, t0, t_last = serve_wave(url, wave, tag)
+                t_first = t0
+            want = dict(zip(wave, wave_hashes[w]))
+            if any(got[f] != want[f] for f in got):
+                fail(f"{tag} a sendTransaction reply carries another hash than the host "
+                     f"suite's")
+            walls["admission"].append((t_last - t_first) * 1e3)
+            walls["tx_per_s"].append(ntx / (t_last - t_first))
+            snap_wait(tag, f"height {height}", lambda: node.ledger.current_number() >= height)
+            snap_wait(tag, f"block {height}'s proofs rendered",
+                      lambda: node.zk.stats()["proofsRendered"] >= height * ntx)
+            walls["last_admission_to_commit"].append((commits[height] - t_last) * 1e3)
+            walls["prime"].append((time.perf_counter() - commits[height]) * 1e3)
+            missing = [h for h in wave_hashes[w] if node.ledger.receipt(h) is None]
+            if missing or len(node.ledger.tx_hashes_by_number(height)) != ntx:
+                fail(f"{tag} block {height} holds "
+                     f"{len(node.ledger.tx_hashes_by_number(height))} txs and "
+                     f"{len(missing)} of the wave's receipts are missing")
+            lane_stats.append(node.ingest.stats())
+            marks.append(len(calls))   # the wave's admission calls end before here
+            log(f"{tag} wave {height}: admission over RPC {walls['admission'][-1]:.1f} ms "
+                f"({walls['tx_per_s'][-1]:.0f} tx/s), last admission to commit "
+                f"{walls['last_admission_to_commit'][-1]:.1f} ms, the prime "
+                f"{walls['prime'][-1]:.1f} ms; lane {lane_stats[-1]}")
+            # -- reads after the commit -----------------------------------
+            # by the block's order, the order of the prime's puts: the last
+            # ones still cached (the byte bound may hold fewer than 4,096)
+            order = node.ledger.tx_hashes_by_number(height)
+            tail = order[-4 * SERVE_READS:]
+            head = order[:-cfg.rpc_cache_entries]
+            nmiss = min(SERVE_PROOF_MISSES, len(head))
+            sample = rng.sample(tail, SERVE_READS - nmiss) + rng.sample(head, nmiss)
+            for part, hs in (("proofs_primed", sample[:SERVE_READS - nmiss]),
+                             ("proofs_evicted", sample[SERVE_READS - nmiss:])):
+                t0 = time.perf_counter()
+                docs = sdk.request_batch([("getProof", ["group0", "", "0x" + h.hex()])
+                                          for h in hs]) if hs else []
+                walls[part].append((time.perf_counter() - t0) * 1e3)
+                reads.setdefault("docs", []).extend(zip(hs, docs))
+            cold = JsonRpcImpl(node)
+            cold.cache = None
+            k0 = len(calls)
+            t0 = time.perf_counter()
+            cold_doc = cold.get_block_by_number("group0", "", height)
+            torch.cuda.synchronize()
+            walls["cold_block"].append((time.perf_counter() - t0) * 1e3)
+            reads["cold_recovers"].append([(c[0], c[1]) for c in calls[k0:]
+                                           if c[0] in ("recover_addresses", "recover_batch")])
+            for _ in range(2):   # the first may miss (the LRU evicted it while priming)
+                t0 = time.perf_counter()
+                hot = sdk.get_block_by_number(height)
+                walls["hot_block"].append((time.perf_counter() - t0) * 1e3)
+            if json.loads(json.dumps(cold_doc)) != hot or len(hot["transactions"]) != ntx:
+                fail(f"{tag} block {height}'s JSON from the cache differs from the cold render")
+            firsts = node.ledger.block_by_number(height, with_txs=True).transactions[:8]
+            if [t["from"] for t in hot["transactions"][:8]] != [
+                    "0x" + T.Transaction.decode(t.encode()).sender(host).hex() for t in firsts]:
+                fail(f"{tag} block {height}'s senders differ from the host suite's")
+            polled = rng.sample(wave_hashes[w], SERVE_READS)
+            t0 = time.perf_counter()
+            rcs = sdk.request_batch([("getTransactionReceipt", ["group0", "", "0x" + h.hex()])
+                                     for h in polled])
+            walls["receipts"].append((time.perf_counter() - t0) * 1e3)
+            for h, r in zip(polled, rcs):
+                reads["served"][h] = r.get("result")
+            items = []
+            for h, d in reads.pop("docs"):
+                reply, d = d, d.get("result") or {}
+                if not d.get("found"):
+                    fail(f"{tag} getProof found no proof of {h.hex()}: {str(reply)[:300]}")
+                items.append({"leaf": "0x" + h.hex(), "proof": d["txProof"],
+                              "root": d["txsRoot"]})
+                items.append({"leaf": "0x" + node.ledger.receipt(h).hash(host).hex(),
+                              "proof": d["receiptProof"], "root": d["receiptsRoot"]})
+            items, bad = tamper_items(items, rng)
+            t0 = time.perf_counter()
+            verdict = sdk.request("verifyProofs", ["group0", "", items])
+            walls["verify_proofs"].append((time.perf_counter() - t0) * 1e3)
+            oracle = zkproof.verify_inclusion_batch(host, [
+                (bytes.fromhex(it["leaf"][2:]), zkproof.w16_proof_from_json(it["proof"]),
+                 bytes.fromhex(it["root"][2:])) for it in items])
+            want_v = [i not in bad for i in range(len(items))]
+            if verdict["results"] != oracle.tolist() or verdict["results"] != want_v:
+                fail(f"{tag} verifyProofs' verdicts differ from the host suite's or from "
+                     f"the tampering: {sum(verdict['results'])} true of {len(items)}, "
+                     f"{len(bad)} tampered")
+            reads["verdicts"].append(len(items))
+            reads["tampered"] += len(bad)
+            accounts = rng.sample(tr["accounts"], SERVE_CALLS)
+            t0 = time.perf_counter()
+            outs = [sdk.call(pc.BALANCE_ADDRESS, pc.encode_call(
+                "balanceOf", lambda wr, a=a: wr.blob(a))) for a in accounts]
+            walls["calls"].append((time.perf_counter() - t0) * 1e3)
+            reads["balances"].append((height, accounts, outs))
+            status = sdk.request("getSystemStatus", ["group0"])
+            audit = sdk.request("getAuditReport", ["group0"])
+            if status["blockNumber"] != height or not audit["ok"]:
+                fail(f"{tag} getSystemStatus says height {status['blockNumber']}, "
+                     f"getAuditReport {audit}")
+        trace_doc = sdk.request("getTrace", ["group0", "", SERVE_TRACE])
+        metrics_rpc = serve_get(node.rpc.port, "/metrics")
+        metrics_port = serve_get(node.metrics.port, "/metrics")
+        status_http = serve_get(node.rpc.port, "/status")
+        profile = serve_get(node.rpc.port, "/profile")
+        events = []
+        deadline = time.monotonic() + SERVE_DEADLINE
+        while len(events) < SERVE_PUSHED + SERVE_WAVES and time.monotonic() < deadline:
+            ev = push.next_event(0.5)
+            if ev is not None:
+                events.append(ev)
+        headers_polled = [sdk.get_block_by_number(h, only_header=True)
+                          for h in range(1, SERVE_WAVES + 1)]
+        polled_pushed = sdk.request_batch([("getTransactionReceipt",
+                                            ["group0", "", "0x" + h.hex()]) for h in pushed])
+        cache, zk, subs = node.query_cache.stats(), node.zk.stats(), node.subhub.stats()
+        t_stop = time.perf_counter()
+        stop()   # no suite call after this: the counters are final
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        stop_ms = (time.perf_counter() - t_stop) * 1e3
+    finally:
+        stop()
+        node.txpool.submit = submit
+        logging.getLogger("bcos-tpu").removeHandler(failures)
+        from fisco_bcos_tpu_torch.analysis import profiler
+        profiler.configure(hz=0)   # the process-wide sampler thread ends
+
+    # -- checks ---------------------------------------------------------------
+    if failures.seen:
+        fail(f"{tag} a best-effort catch fired: {failures.seen[:3]}")
+    if direct:
+        fail(f"{tag} send_transaction took its direct-path fallback {len(direct)} times")
+    if zk["proofsRendered"] != SERVE_WAVES * ntx:
+        fail(f"{tag} {zk['proofsRendered']} proofs rendered, want {SERVE_WAVES * ntx}")
+    by_site, site_launches, want = launches_by_site(kind, suite, calls)
+    got = {k: n for k, n in launches.items() if n}
+    log(f"{tag} launches {got}; by site: {site_launches}")
+    log(f"{tag} suite calls by site: "
+        + ", ".join(f"{s} {len(cs)}" for s, cs in sorted(by_site.items())))
+    if got != want:
+        fail(f"{tag} the counters {got}, the recorded suite calls give {want}")
+    eck = "ecdsa_recover" if kind == "ecdsa" else "sm2_verify"
+    hashk = "keccak256_varlen" if kind == "ecdsa" else "sm3_varlen"
+    for site, k in (("admission", eck), ("cold_senders", eck), ("prime", hashk),
+                    ("verify_proofs", hashk), ("pbft_seals", eck if kind == "sm"
+                                               else "ecdsa_verify")):
+        if not site_launches.get(site, {}).get(k):
+            fail(f"{tag} {k} was not launched by {site}: {site_launches.get(site)}")
+    cold = reads["cold_recovers"]
+    if any(len(c) != 1 or c[0][1] != ntx for c in cold):
+        fail(f"{tag} a cold getBlockByNumber made the recover calls {cold}, want one "
+             f"batch of {ntx}")
+    vp = by_site.get("verify_proofs", [])
+    if [c[0] for c in vp] != ["hash_batch"] * SERVE_WAVES:
+        fail(f"{tag} verifyProofs made the calls {[c[0] for c in vp]}, want one hash "
+             f"batch a request")
+    missing = [k for k in counters if not launches[k]]
+    if missing:
+        fail(f"{tag} the phase did not launch {missing}")
+    spans = {s["name"] for s in trace_doc["spans"]}
+    if "rpc.sendTransaction" not in spans:
+        fail(f"{tag} getTrace of the traced request holds {sorted(spans)}, not "
+             f"rpc.sendTransaction")
+    texts = [metrics_rpc[1].decode(), metrics_port[1].decode()]
+    absent = [s for s in SERVE_SERIES for t in texts if s not in t]
+    if metrics_rpc[0] != 200 or metrics_port[0] != 200 or absent:
+        fail(f"{tag} GET /metrics answered {metrics_rpc[0]} and {metrics_port[0]}, "
+             f"without {sorted(set(absent))}")
+    series = sorted({ln.split("{")[0].split(" ")[0] for ln in texts[0].splitlines()
+                     if ln.startswith(("bcos_rpc_", "bcos_zk_"))})
+    roles = {ln.split(";", 1)[0] for ln in profile[1].decode().splitlines()}
+    if profile[0] != 200 or not {"edge", "ingest"} <= roles:
+        fail(f"{tag} GET /profile answered {profile[0]} with the roles {sorted(roles)}")
+    if status_http[0] != 200 or json.loads(status_http[1])["blockNumber"] != SERVE_WAVES:
+        fail(f"{tag} GET /status answered {status_http[0]}")
+    # pushes: every one arrived and equals the polled JSON
+    by_kind: dict = {}
+    for ev in events:
+        by_kind.setdefault(ev["kind"], []).append(ev["result"])
+    if by_kind.get("newBlockHeaders") != headers_polled:
+        fail(f"{tag} the newBlockHeaders pushes differ from the polled headers")
+    pushed_rc = {r["transactionHash"]: r for r in by_kind.get("receipt", [])}
+    if len(pushed_rc) != SERVE_PUSHED or any(
+            pushed_rc.get("0x" + h.hex()) != r["result"] for h, r in zip(pushed, polled_pushed)):
+        fail(f"{tag} {len(pushed_rc)} of {SERVE_PUSHED} receipt pushes arrived, or one "
+             f"differs from the polled receipt")
+    for h, r in zip(pushed, polled_pushed):
+        reads["served"][h] = r["result"]
+    # the chain against a solo Scheduler on the host suite and a Python replay
+    blocks = [node.ledger.block_by_number(h, with_txs=True) for h in range(1, SERVE_WAVES + 1)]
+    committed = [t.encode() for b in blocks for t in b.transactions]
+    if sorted(committed) != sorted(frames):
+        fail(f"{tag} the committed txs are not the frames sent")
+    t0 = time.perf_counter()
+    ores, obal = pbft_oracle(host, blocks, [sealer.pub_bytes], ntx, cfg.compatibility_version)
+    oracle_s = time.perf_counter() - t0
+    heads = [(h.number, h.state_root, h.txs_root, h.receipts_root)
+             for h in (b.header for b in blocks)]
+    if heads != [(x.header.number, x.header.state_root, x.header.txs_root,
+                  x.header.receipts_root) for x in ores]:
+        fail(f"{tag} (number, state, txs, receipts roots) differ from the oracle's")
+    rows = {k: node.storage.get(pc.T_BALANCE, k) for k in node.storage.keys(pc.T_BALANCE)}
+    want_bal = pbft_replay(tr["ops"], committed)
+    if rows != obal or {k: int.from_bytes(v, "big") for k, v in rows.items()} != want_bal:
+        fail(f"{tag} c_balance rows differ from the oracle's or from the Python replay")
+    oracle_rc = {}   # as the ledger keeps them: the message is not stored
+    for b, x in zip(blocks, ores):
+        for t, rc in zip(b.transactions, x.receipts):
+            oracle_rc[t.hash(host)] = _receipt_json(T.Receipt.decode(rc.encode()), t.hash(host))
+    wrong = [h for h, r in reads["served"].items() if r != oracle_rc.get(h)]
+    if wrong:
+        log(f"{tag} a receipt served {reads['served'][wrong[0]]}, the oracle's "
+            f"{oracle_rc.get(wrong[0])}")
+        fail(f"{tag} {len(wrong)} of {len(reads['served'])} receipts served differ from the "
+             f"oracle's")
+    for height, accounts, outs in reads["balances"]:
+        bal = pbft_replay(tr["ops"], committed[:height * ntx])
+        if [Reader(bytes.fromhex(o["output"][2:])).u64() if o["status"] == 0 else None
+                for o in outs] != [bal.get(a) for a in accounts]:
+            fail(f"{tag} balanceOf after block {height} differs from the Python replay")
+    adm = [[c[1] for c in calls[lo:hi] if c[4] == "admission" and c[0] == "recover_addresses"]
+           for lo, hi in zip([0] + marks[:-1], marks)]
+    sizes = np.array([s for a in adm for s in a] or [0])
+    reverted = sum(x.status != 0 for res in ores for x in res.receipts)
+    timings = dict(walls=walls, lane=lane_stats, cache=cache, zk=zk, subs=subs,
+                   oracle_s=oracle_s, stop_ms=stop_ms,
+                   dispatch=dict(n=[len(a) for a in adm], mean=float(sizes.mean()),
+                                 median=float(np.median(sizes)), max=int(sizes.max()),
+                                 recover_launches=[sum(-(-s // CHUNK) for s in a)
+                                                   for a in adm]))
+    log(f"{tag} {SERVE_WAVES} blocks of {ntx} txs over JSON-RPC ({SERVE_CLIENTS} clients, "
+        f"batches of {SERVE_BATCH}); roots and {len(rows)} c_balance rows equal the host-suite "
+        f"oracle's ({oracle_s:.1f} s) and the Python replay, {reverted} transfers reverted; "
+        f"{len(reads['served'])} receipts served equal the oracle's; verifyProofs exact on "
+        f"{sum(reads['verdicts'])} items ({reads['tampered']} tampered); "
+        f"{SERVE_PUSHED} receipt and {SERVE_WAVES} header pushes equal the polled JSON; "
+        f"{zk['proofsRendered']} proofs rendered; direct-path fallbacks 0; the traced "
+        f"request's spans {sorted(spans)}; GET /metrics (the edge and the metrics port) "
+        f"serves {series}; GET /profile's roles {sorted(roles)}")
+    log(f"{tag} walls (ms): admission over RPC "
+        + ", ".join(f"{x:.1f}" for x in walls["admission"])
+        + " (" + ", ".join(f"{x:.0f} tx/s" for x in walls["tx_per_s"]) + "); last admission "
+        "to commit " + ", ".join(f"{x:.1f}" for x in walls["last_admission_to_commit"])
+        + "; commit to the block's proofs rendered (the prime) "
+        + ", ".join(f"{x:.1f}" for x in walls["prime"]) + "; getBlockByNumber cold " + ", ".join(f"{x:.1f}" for x in walls["cold_block"])
+        + ", over HTTP (first, second) " + ", ".join(f"{x:.1f}" for x in walls["hot_block"])
+        + f"; {SERVE_READS} receipts " + ", ".join(f"{x:.1f}" for x in walls["receipts"])
+        + f"; getProof of {SERVE_READS}: the primed ones "
+        + ", ".join(f"{x:.1f}" for x in walls["proofs_primed"]) + ", the evicted ones ("
+        + f"up to {SERVE_PROOF_MISSES}) " + ", ".join(f"{x:.1f}" for x in walls["proofs_evicted"])
+        + f"; verifyProofs of {2 * SERVE_READS} " + ", ".join(
+            f"{x:.1f}" for x in walls["verify_proofs"])
+        + f"; {SERVE_CALLS} balanceOf " + ", ".join(f"{x:.1f}" for x in walls["calls"])
+        + f"; the node's stop {stop_ms:.1f}")
+    d = timings["dispatch"]
+    log(f"{tag} ingest lane: {lane_stats[-1]['batches_total']} dispatches for "
+        f"{lane_stats[-1]['txs_total']} txs (mean {lane_stats[-1]['mean_batch']}); the "
+        f"admission's recover batches a wave: {d['n']}, of mean {d['mean']:.1f}, median "
+        f"{d['median']:.0f}, max {d['max']} txs; {eck} launches a wave "
+        f"{d['recover_launches']}")
+    log(f"{tag} query cache: {cache}; zk: {zk}; subscriptions: {subs}")
+    return launches, site_launches, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -4122,9 +4680,13 @@ def main() -> int:
         for k in slice_counters(kind):
             by_path[k][f"pbft_{kind}"] = got[k]
     for kind in ("ecdsa", "sm"):
-        got, _, _ = phase_snap(dev, kind, traffic.pop(kind), chains.pop(kind))
+        got, _, _ = phase_snap(dev, kind, traffic[kind], chains.pop(kind))
         for k in slice_counters(kind):
             by_path[k][f"snap_{kind}"] = got[k]
+    for kind in ("ecdsa", "sm"):
+        got, _, _ = phase_serve(dev, kind, traffic.pop(kind))
+        for k in slice_counters(kind):
+            by_path[k][f"rpc_{kind}"] = got[k]
     for k, paths in by_path.items():
         rows[k]["launches"] = sum(paths.values())
         rows[k]["launches_by_path"] = paths

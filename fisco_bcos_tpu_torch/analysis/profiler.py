@@ -1,19 +1,51 @@
-"""profiler — thread-role classification and per-thread stage markers.
+"""profiler — always-on sampling profiler with GIL/wall attribution.
 
-The part of the JAX package's continuous profiler that the node planes
-call on their hot paths: `stage(...)` scopes label the calling thread's
-work with a pipeline stage (the ingest lane holds one around each
-admission batch), `classify` maps a thread name to its subsystem role, and
-`current_stage` reads a thread's label. The sampling profiler that reads
-them (its sampler thread, folded stacks, CPU accounting, bursts and
-flamegraph) is not ported yet (ROADMAP.md); without it a marker costs two
-dict writes per scope.
+The trace plane (utils/otrace.py) answers *which stage* a transaction's
+wall-clock went to; this module says *which functions* hold the GIL and
+*which threads* burn the CPU, stdlib-only:
+
+  * `SamplingProfiler` — a background daemon thread samples
+    `sys._current_frames()` at a configurable LOW hz (default 5), folds
+    each thread's stack into `role;stage;file:func;...` lines and
+    aggregates them in a bounded epoch ring (recent-window semantics, hard
+    entry cap — a long-lived node never grows the profile without bound).
+  * per-thread ROLE classification by thread name (ingest / commit / pbft /
+    edge / lane / compaction / ...), so a flamegraph's first split answers
+    "which subsystem", not "which anonymous thread"; `stage(...)` scopes
+    label a thread's work with a pipeline stage (the ingest lane holds one
+    around each admission batch).
+  * per-thread CPU accounting via `/proc/self/task/<tid>/stat`: each
+    sampling tick reads every OS thread's utime+stime and attributes the
+    delta to the function at the top of that thread's sampled Python stack.
+    The residue (threads with no Python frame, CPU between samples on
+    exited threads) is reported as unattributed, so `attributed_pct` is a
+    real coverage number.
+  * BURST mode: a `[TRACE][slow-span]` firing (otrace's always-retained
+    slow ring) triggers a short high-hz capture linked to that trace id;
+    `getTrace` returns the profile alongside the spans.
+  * a zero-dependency flamegraph renderer (`flame_html`) — self-contained
+    HTML+JS, served by `GET /profile?fmt=flame` on the rpc/ops edge.
+
+Cost contract: DISARMED (hz<=0) there is no sampler thread and the only
+hot-path residue is the `stage(...)` markers — two dict writes per scope.
+Armed, the sampler's own CPU is measured and exported
+(`bcos_profile_overhead_seconds_total`).
 """
 
 from __future__ import annotations
 
+import json
+import os
+import sys
 import threading
+import time
+from collections import OrderedDict, deque
 from typing import Optional
+
+try:
+    _CLK_TCK = os.sysconf("SC_CLK_TCK") or 100
+except (AttributeError, ValueError, OSError):  # non-POSIX fallback
+    _CLK_TCK = 100
 
 # -- thread-role classification -------------------------------------------
 # prefix -> role; first match wins. Matches the repo's thread-naming
@@ -87,3 +119,654 @@ class stage:
 
 def current_stage(ident: int) -> Optional[str]:
     return _THREAD_STAGE.get(ident)
+
+
+# -- folded-stack aggregation ---------------------------------------------
+class _Folded:
+    """Bounded folded-stack counter: at the entry cap, novel stacks land in
+    an explicit `(overflow)` bucket instead of growing the dict — the
+    profile degrades visibly, never silently, and never unboundedly."""
+
+    __slots__ = ("cap", "counts", "overflow", "samples")
+
+    def __init__(self, cap: int):
+        self.cap = max(16, int(cap))
+        self.counts: dict[str, int] = {}
+        self.overflow = 0
+        self.samples = 0
+
+    def add(self, key: str, n: int = 1) -> None:
+        self.samples += n
+        cur = self.counts.get(key)
+        if cur is not None:
+            self.counts[key] = cur + n
+        elif len(self.counts) < self.cap:
+            self.counts[key] = n
+        else:
+            self.overflow += n
+
+    def merge_into(self, out: dict) -> None:
+        for k, v in self.counts.items():
+            out[k] = out.get(k, 0) + v
+
+
+def _fold_frame(frame, role: str, stg: Optional[str],
+                max_depth: int = 48) -> str:
+    """One thread's live frame -> `role;stage;file:func;...` (root first,
+    leaf last — the flamegraph convention). Over-deep stacks keep both
+    ENDS around an elision marker: dropping the root frames would give
+    the line a mid-stack root that can't merge with the same code path
+    sampled shallower, and dropping the leaf would lose the one frame
+    the sample exists to name."""
+    parts = []
+    f = frame
+    while f is not None:
+        code = f.f_code
+        parts.append(f"{os.path.basename(code.co_filename)}:{code.co_name}")
+        f = f.f_back
+    parts.reverse()
+    if len(parts) > max_depth:
+        keep_head = max_depth // 2
+        keep_tail = max_depth - keep_head - 1
+        parts = parts[:keep_head] + ["(...)"] + parts[-keep_tail:]
+    head = [role]
+    if stg:
+        head.append(f"stage.{stg}")
+    return ";".join(head + parts)
+
+
+def _leaf_of(frame) -> str:
+    code = frame.f_code
+    return f"{os.path.basename(code.co_filename)}:{code.co_name}"
+
+
+# -- per-thread CPU accounting --------------------------------------------
+def read_task_cpu() -> dict[int, float]:
+    """{os tid: cumulative utime+stime seconds} from /proc/self/task.
+    Empty dict on platforms without procfs (the profiler then degrades to
+    wall-sample-only attribution)."""
+    out: dict[int, float] = {}
+    try:
+        tids = os.listdir("/proc/self/task")
+    except OSError:
+        return out
+    for tid in tids:
+        try:
+            with open(f"/proc/self/task/{tid}/stat", "rb") as f:
+                raw = f.read()
+        except OSError:
+            continue  # thread exited between listdir and open
+        # comm may contain spaces/parens: fields start after the LAST ')'
+        try:
+            rest = raw[raw.rindex(b")") + 2:].split()
+            # rest[11] = utime, rest[12] = stime (stat fields 14/15)
+            out[int(tid)] = (int(rest[11]) + int(rest[12])) / _CLK_TCK
+        except (ValueError, IndexError):
+            continue
+    return out
+
+
+class SamplingProfiler:
+    """Process-wide by default (`PROFILER`, like otrace.TRACER): one
+    sampler thread per process regardless of how many in-process nodes
+    configured it. Thread-safe."""
+
+    _EPOCHS = 4            # ring depth: folded() covers the last ~4 epochs
+    _EPOCH_S = 60.0        # rotation period of the always-on ring
+    _BURST_KEEP = 16       # burst profiles retained, keyed by trace id
+    _BURST_GAP_S = 2.0     # min spacing between bursts (storm guard)
+
+    def __init__(self, hz: float = 0.0, ring: int = 2048,
+                 burst_hz: float = 97.0, burst_s: float = 1.0):
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.hz = 0.0
+        self.ring = int(ring)
+        self.burst_hz = float(burst_hz)
+        self.burst_s = float(burst_s)
+        # always-on aggregation: epoch ring of bounded folded dicts
+        self._epochs: deque[_Folded] = deque(maxlen=self._EPOCHS)
+        self._epoch_t0 = 0.0
+        # CPU attribution (always-on sampler only — bursts are wall-only).
+        # The /proc/self/task scan is the expensive part of a tick, so it
+        # runs at a bounded interval (not every sample): attribution
+        # granularity is clock ticks (~10 ms) anyway, and the stack-walk
+        # part of the tick stays cheap enough for always-on duty.
+        self._cpu_prev: dict[int, float] = {}
+        self._cpu_last_read = 0.0
+        self._last_attrib: dict[int, tuple] = {}
+        self._last_by_native: dict[int, int] = {}
+        self._cpu_by_key: dict[tuple, float] = {}  # (role, stage, leaf)
+        self._cpu_total = 0.0          # every observed thread delta
+        self._cpu_attributed = 0.0     # deltas that landed on a Python leaf
+        self._cpu_self = 0.0           # the sampler's own thread
+        self._samples = 0
+        self._overhead_s = 0.0         # wall seconds spent inside sample()
+        self._samples_emitted = 0      # metric-emission watermarks
+        self._overhead_emitted = 0.0
+        self._armed_at = 0.0
+        # burst + on-demand capture state
+        self._capture_gate = threading.Semaphore(1)
+        self._bursts: OrderedDict[str, dict] = OrderedDict()
+        self._burst_active = False
+        self._burst_next_ok = 0.0
+        self._hooked_tracer = None
+        if hz > 0:
+            self.configure(hz=hz)
+
+    # -- lifecycle ---------------------------------------------------------
+    @property
+    def armed(self) -> bool:
+        return self._thread is not None
+
+    def configure(self, hz: Optional[float] = None,
+                  ring: Optional[int] = None,
+                  burst_hz: Optional[float] = None,
+                  burst_s: Optional[float] = None) -> "SamplingProfiler":
+        """Apply [profile] knobs. hz<=0 disarms (stops and joins the
+        sampler thread — the disarmed state has NO thread)."""
+        with self._lock:
+            if ring is not None:
+                self.ring = max(64, int(ring))
+            if burst_hz is not None:
+                self.burst_hz = max(0.0, float(burst_hz))
+            if burst_s is not None:
+                self.burst_s = min(10.0, max(0.05, float(burst_s)))
+            if hz is not None:
+                self.hz = max(0.0, min(250.0, float(hz)))
+        if self.burst_hz > 0:
+            self._hook_tracer()
+        if hz is not None:
+            if self.hz > 0:
+                self._start()
+            else:
+                self._stop_thread()
+        return self
+
+    def _hook_tracer(self) -> None:
+        """Subscribe to the tracer's slow-span firings (idempotent). The
+        hook lives on otrace's SLOW path only — the unsampled fast path
+        never sees the profiler."""
+        from ..utils.otrace import TRACER
+        if self._hooked_tracer is TRACER:
+            return
+        self._hooked_tracer = TRACER
+        if self._on_slow_span not in TRACER.on_slow:
+            TRACER.on_slow.append(self._on_slow_span)
+
+    def _start(self) -> None:
+        with self._lock:
+            if self._thread is not None:
+                return
+            self._stop.clear()
+            self._epochs.clear()
+            self._epochs.append(_Folded(self._epoch_cap()))
+            self._epoch_t0 = time.monotonic()
+            self._cpu_prev = read_task_cpu()
+            self._cpu_last_read = time.monotonic()
+            self._armed_at = time.monotonic()
+            self._thread = threading.Thread(
+                target=self._run, name="profile-sampler", daemon=True)
+            self._thread.start()
+
+    def _stop_thread(self) -> None:
+        with self._lock:
+            t, self._thread = self._thread, None
+            self._stop.set()
+        if t is not None:
+            t.join(timeout=5)
+
+    def _epoch_cap(self) -> int:
+        return max(64, self.ring // self._EPOCHS)
+
+    # -- always-on sampler -------------------------------------------------
+    def _run(self) -> None:
+        me = threading.current_thread()
+        failures = 0
+        while not self._stop.is_set():
+            hz = self.hz
+            if hz <= 0:
+                return
+            self._stop.wait(1.0 / hz)
+            if self._stop.is_set():
+                return
+            try:
+                self._sample(me)
+                failures = 0
+            except Exception:  # noqa: BLE001 — the profiler must never
+                # take the process down; persistent failure disarms it
+                # instead of spamming the log at hz
+                failures += 1
+                from ..utils.log import LOG
+                LOG.exception("profiler sample failed (%d consecutive)",
+                              failures)
+                if failures >= 5:
+                    LOG.error("profiler disarming after repeated sample "
+                              "failures")
+                    with self._lock:
+                        if self._thread is threading.current_thread():
+                            self._thread = None
+                        self.hz = 0.0
+                    return
+
+    def _sample(self, me: threading.Thread) -> None:
+        t0 = time.perf_counter()
+        frames = sys._current_frames()
+        threads = {t.ident: t for t in threading.enumerate()}
+        # ident -> (role, stage, leaf) for CPU attribution below
+        attrib: dict[int, tuple] = {}
+        by_native: dict[int, int] = {}
+        with self._lock:
+            fold = self._epochs[-1]
+            now_m = time.monotonic()
+            if now_m - self._epoch_t0 >= self._EPOCH_S:
+                self._epochs.append(_Folded(self._epoch_cap()))
+                self._epoch_t0 = now_m
+                fold = self._epochs[-1]
+            for ident, frame in frames.items():
+                th = threads.get(ident)
+                if th is me:
+                    continue
+                name = th.name if th is not None else "?"
+                role = classify(name)
+                stg = _THREAD_STAGE.get(ident)
+                fold.add(_fold_frame(frame, role, stg))
+                attrib[ident] = (role, stg or "", _leaf_of(frame))
+                nid = getattr(th, "native_id", None) if th else None
+                if nid is not None:
+                    by_native[nid] = ident
+            self._samples += 1
+            self._last_attrib = attrib
+            self._last_by_native = by_native
+            due = (time.monotonic() - self._cpu_last_read
+                   >= self._cpu_interval())
+        if due:
+            self._account_cpu(me)
+        with self._lock:
+            dt = time.perf_counter() - t0
+            self._overhead_s += dt
+            n_threads = len(frames)
+        # metrics ride the CPU-scan cadence (<= 1/s), not every tick: the
+        # per-role rollup iterates the whole attribution dict and the
+        # registry lock contends with hot-path metric writers
+        if not due:
+            return
+        try:
+            from ..utils.metrics import REGISTRY
+            with self._lock:
+                d_samples = self._samples - self._samples_emitted
+                self._samples_emitted = self._samples
+                d_over = self._overhead_s - self._overhead_emitted
+                self._overhead_emitted = self._overhead_s
+            REGISTRY.inc("bcos_profile_samples_total", d_samples)
+            REGISTRY.inc("bcos_profile_overhead_seconds_total", d_over)
+            REGISTRY.set_gauge("bcos_profile_threads", n_threads)
+            for role, sec in self.cpu_by_role().items():
+                REGISTRY.set_gauge("bcos_profile_cpu_seconds",
+                                   round(sec, 4), labels={"role": role})
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _cpu_interval(self) -> float:
+        """Seconds between /proc CPU scans: every ~5th sample, capped at
+        1 s — high-hz attribution runs stay fine-grained, the always-on
+        low-hz sampler pays the scan at most once per second."""
+        return min(1.0, 5.0 / max(1.0, self.hz))
+
+    def _account_cpu(self, me: Optional[threading.Thread]) -> None:
+        """Read per-thread CPU and attribute the deltas to each thread's
+        most recently sampled (role, stage, leaf) key."""
+        cpu = read_task_cpu()  # procfs reads OUTSIDE the lock
+        me_nid = getattr(me, "native_id", None) if me is not None else None
+        with self._lock:
+            self._cpu_last_read = time.monotonic()
+            attrib, by_native = self._last_attrib, self._last_by_native
+            prev = self._cpu_prev
+            for tid, total in cpu.items():
+                d = total - prev.get(tid, total)
+                if d <= 0:
+                    continue
+                self._cpu_total += d
+                if tid == me_nid:
+                    self._cpu_self += d
+                    continue
+                key = attrib.get(by_native.get(tid, -1))
+                if key is None:
+                    continue  # native/unsampled thread: stays unattributed
+                self._cpu_attributed += d
+                cur = self._cpu_by_key.get(key)
+                if cur is not None:
+                    self._cpu_by_key[key] = cur + d
+                elif len(self._cpu_by_key) < self.ring:
+                    self._cpu_by_key[key] = d
+                else:
+                    k = ("other", "", "(overflow)")
+                    self._cpu_by_key[k] = self._cpu_by_key.get(k, 0.0) + d
+            self._cpu_prev = cpu
+
+    # -- one-shot sampling (bursts + /profile?seconds=N) -------------------
+    def _capture_into(self, fold: _Folded, seconds: float, hz: float,
+                      stop: Optional[threading.Event] = None) -> None:
+        me = threading.current_thread()
+        interval = 1.0 / max(1.0, hz)
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            if stop is not None and stop.is_set():
+                return
+            frames = sys._current_frames()
+            threads = {t.ident: t for t in threading.enumerate()}
+            for ident, frame in frames.items():
+                th = threads.get(ident)
+                if th is me:
+                    continue
+                name = th.name if th is not None else "?"
+                fold.add(_fold_frame(frame, classify(name),
+                                     _THREAD_STAGE.get(ident)))
+            time.sleep(interval)
+
+    def capture(self, seconds: float, hz: Optional[float] = None) -> str:
+        """Synchronous bounded capture -> folded text (the
+        `/profile?seconds=N` route; runs on the caller's thread).
+        SINGLE-FLIGHT: the ops edge has two bounded workers, so a second
+        concurrent capture would let two unauthenticated requests starve
+        /metrics and /healthz for the whole window — it raises instead.
+        """
+        if not self._capture_gate.acquire(blocking=False):
+            raise RuntimeError("a capture is already running")
+        try:
+            fold = _Folded(4096)
+            self._capture_into(fold, min(10.0, max(0.05, float(seconds))),
+                               hz or max(self.burst_hz, 50.0))
+            return _folded_text(fold.counts, fold.overflow)
+        finally:
+            self._capture_gate.release()
+
+    # -- burst mode (slow-span linked) -------------------------------------
+    def _on_slow_span(self, span: dict) -> None:
+        """otrace slow-ring hook: a slow span fires a high-hz burst tied to
+        its trace id. Rate-limited; one burst at a time."""
+        self.trigger_burst(span.get("traceId", ""),
+                           reason=span.get("name", ""))
+
+    def trigger_burst(self, trace_id: str, reason: str = "") -> bool:
+        if not trace_id or self.burst_hz <= 0 or not self.armed:
+            return False
+        now = time.monotonic()
+        with self._lock:
+            if self._burst_active or trace_id in self._bursts \
+                    or now < self._burst_next_ok:
+                return False
+            self._burst_active = True
+        t = threading.Thread(target=self._burst_run, name="profile-burst",
+                             args=(trace_id, reason), daemon=True)
+        t.start()
+        return True
+
+    def _burst_run(self, trace_id: str, reason: str) -> None:
+        fold = _Folded(4096)
+        t0 = time.time()
+        try:
+            self._capture_into(fold, self.burst_s, self.burst_hz,
+                               stop=self._stop)
+        finally:
+            rec = {
+                "traceId": trace_id,
+                "reason": reason,
+                "hz": self.burst_hz,
+                "seconds": self.burst_s,
+                "samples": fold.samples,
+                "captured_at": round(t0, 3),
+                "folded": _folded_text(fold.counts, fold.overflow),
+            }
+            with self._lock:
+                self._bursts[trace_id] = rec
+                while len(self._bursts) > self._BURST_KEEP:
+                    self._bursts.popitem(last=False)
+                self._burst_active = False
+                self._burst_next_ok = time.monotonic() + self._BURST_GAP_S
+            try:
+                from ..utils.metrics import REGISTRY
+                REGISTRY.inc("bcos_profile_bursts_total")
+            except Exception:  # noqa: BLE001
+                pass
+
+    def burst_profile(self, trace_id: str) -> Optional[dict]:
+        tid = trace_id.lower().removeprefix("0x")
+        with self._lock:
+            rec = self._bursts.get(tid)
+            return dict(rec) if rec else None
+
+    def burst_ids(self) -> set[str]:
+        with self._lock:
+            return set(self._bursts)
+
+    # -- queries -----------------------------------------------------------
+    def folded(self) -> str:
+        """The always-on ring's folded stacks (recent epochs merged),
+        `stack count` per line — flamegraph.pl / speedscope compatible."""
+        merged: dict[str, int] = {}
+        overflow = 0
+        with self._lock:
+            for ep in self._epochs:
+                ep.merge_into(merged)
+                overflow += ep.overflow
+        return _folded_text(merged, overflow)
+
+    def cpu_by_role(self) -> dict[str, float]:
+        with self._lock:
+            return self._cpu_by_role_locked()
+
+    def _cpu_by_role_locked(self) -> dict[str, float]:
+        """Caller holds self._lock (it is non-reentrant); _cpu_by_key is
+        mutated under the lock by attribution()/reset() on other threads,
+        so an unlocked iteration could see the dict resize mid-walk."""
+        out: dict[str, float] = {}
+        for (role, _stg, _leaf), sec in self._cpu_by_key.items():
+            out[role] = out.get(role, 0.0) + sec
+        if self._cpu_self > 0:
+            out["profiler"] = out.get("profiler", 0.0) + self._cpu_self
+        return out
+
+    def attribution(self) -> dict:
+        """CPU attribution snapshot (a benchmark's attribution view):
+        per-(role, stage, function) GIL-held CPU seconds plus the honest
+        coverage numbers."""
+        # flush the interval-deferred CPU deltas first: a short bench
+        # window must not lose its tail to the scan cadence
+        if self.armed:
+            self._account_cpu(self._thread)
+        with self._lock:
+            by_key = dict(self._cpu_by_key)
+            total = self._cpu_total
+            attributed = self._cpu_attributed
+            self_cpu = self._cpu_self
+            samples = self._samples
+        by_func: dict[str, float] = {}
+        by_stage: dict[str, float] = {}
+        rows = []
+        for (role, stg, leaf), sec in sorted(by_key.items(),
+                                             key=lambda kv: -kv[1]):
+            rows.append({"role": role, "stage": stg or None, "func": leaf,
+                         "cpu_seconds": round(sec, 4)})
+            by_func[leaf] = by_func.get(leaf, 0.0) + sec
+            by_stage[stg or role] = by_stage.get(stg or role, 0.0) + sec
+        return {
+            "rows": rows,
+            "by_func": {k: round(v, 4) for k, v in sorted(
+                by_func.items(), key=lambda kv: -kv[1])},
+            "by_stage": {k: round(v, 4) for k, v in sorted(
+                by_stage.items(), key=lambda kv: -kv[1])},
+            "total_cpu_seconds": round(total, 4),
+            "attributed_cpu_seconds": round(attributed, 4),
+            "profiler_cpu_seconds": round(self_cpu, 4),
+            "attributed_pct": round(100.0 * attributed / total, 1)
+            if total > 0 else None,
+            "samples": samples,
+        }
+
+    def reset(self) -> None:
+        """Drop aggregation + attribution (bench windows)."""
+        with self._lock:
+            self._epochs.clear()
+            self._epochs.append(_Folded(self._epoch_cap()))
+            self._epoch_t0 = time.monotonic()
+            self._cpu_by_key.clear()
+            self._cpu_total = 0.0
+            self._cpu_attributed = 0.0
+            self._cpu_self = 0.0
+            self._samples = 0
+            self._overhead_s = 0.0
+            self._samples_emitted = 0
+            self._overhead_emitted = 0.0
+            self._cpu_prev = read_task_cpu()
+            self._cpu_last_read = time.monotonic()
+            self._last_attrib = {}
+            self._last_by_native = {}
+            self._armed_at = time.monotonic()
+
+    def stats(self) -> dict:
+        """Cheap snapshot for getSystemStatus / the /status document."""
+        with self._lock:
+            distinct = sum(len(ep.counts) for ep in self._epochs)
+            overflow = sum(ep.overflow for ep in self._epochs)
+            wall = time.monotonic() - self._armed_at if self.armed else 0.0
+            top = sorted(self._cpu_by_key.items(), key=lambda kv: -kv[1])[:8]
+            return {
+                "armed": self.armed,
+                "hz": self.hz,
+                "ring": self.ring,
+                "burst_hz": self.burst_hz,
+                "burst_s": self.burst_s,
+                "samples": self._samples,
+                "distinct_stacks": distinct,
+                "overflow_dropped": overflow,
+                "self_overhead_pct": round(
+                    100.0 * self._overhead_s / wall, 3) if wall > 1e-9
+                else 0.0,
+                "cpu_total_seconds": round(self._cpu_total, 3),
+                "cpu_attributed_seconds": round(self._cpu_attributed, 3),
+                "cpu_by_role": {r: round(s, 3)
+                                for r, s in
+                                self._cpu_by_role_locked().items()},
+                "top_gil_holders": [
+                    {"role": k[0], "stage": k[1] or None, "func": k[2],
+                     "cpu_seconds": round(v, 3)} for k, v in top],
+                "bursts": sorted(self._bursts),
+            }
+
+
+def _folded_text(counts: dict[str, int], overflow: int = 0) -> str:
+    lines = [f"{k} {v}" for k, v in
+             sorted(counts.items(), key=lambda kv: -kv[1])]
+    if overflow:
+        lines.append(f"(overflow) {overflow}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- flamegraph rendering --------------------------------------------------
+_FLAME_TMPL = """<!DOCTYPE html>
+<html><head><meta charset="utf-8"><title>%TITLE%</title><style>
+body{margin:0;font:12px/1.4 monospace;background:#1b1b1f;color:#ddd}
+#hdr{padding:8px 12px;border-bottom:1px solid #333}
+#hdr b{color:#fff}#g{position:relative;margin:8px}
+.f{position:absolute;height:17px;overflow:hidden;white-space:nowrap;
+box-sizing:border-box;border:1px solid #1b1b1f;border-radius:2px;
+padding:0 3px;cursor:pointer;color:#201505}
+.f:hover{border-color:#fff}
+#tip{padding:4px 12px;color:#9a9}
+</style></head><body>
+<div id="hdr"><b>%TITLE%</b> &mdash; folded samples; click a frame to
+zoom, click the root row to reset.</div>
+<div id="g"></div><div id="tip"></div>
+<script>
+const FOLDED = %FOLDED%;
+const root = {n:"all", v:0, c:{}};
+for (const line of FOLDED.split("\\n")) {
+  if (!line) continue;
+  const sp = line.lastIndexOf(" ");
+  const count = parseInt(line.slice(sp+1)); if (!count) continue;
+  const parts = line.slice(0, sp).split(";");
+  root.v += count;
+  let node = root;
+  for (const p of parts) {
+    node = node.c[p] || (node.c[p] = {n:p, v:0, c:{}});
+    node.v += count;
+  }
+}
+const g = document.getElementById("g"), tip = document.getElementById("tip");
+let zoom = root;
+function color(name, depth) {
+  let h = 0; for (let i=0;i<name.length;i++) h=(h*31+name.charCodeAt(i))|0;
+  const hue = depth===0 ? 210 : 20 + (Math.abs(h) % 40);
+  return `hsl(${hue},70%,${60+(Math.abs(h>>8)%20)}%)`;
+}
+function depthOf(node){let d=1,m=0;for(const k in node.c)
+  m=Math.max(m,depthOf(node.c[k]));return d+m;}
+function render() {
+  g.innerHTML=""; const W=g.clientWidth||document.body.clientWidth-16;
+  g.style.height=(depthOf(zoom)*18+4)+"px";
+  (function draw(node,x,w,d){
+    const el=document.createElement("div"); el.className="f";
+    el.style.left=x+"px"; el.style.top=(d*18)+"px"; el.style.width=w+"px";
+    el.style.background=color(node.n,d);
+    el.textContent=node.n; el.title=node.n+" — "+node.v+" samples ("+
+      (100*node.v/root.v).toFixed(1)+"%)";
+    el.onclick=()=>{zoom = (node===zoom)? root : node; render();};
+    el.onmouseenter=()=>{tip.textContent=el.title;};
+    g.appendChild(el);
+    let cx=x;
+    const kids=Object.values(node.c).sort((a,b)=>b.v-a.v);
+    for (const k of kids) {
+      const kw=w*k.v/node.v;
+      if (kw>=2) draw(k,cx,kw-1,d+1);
+      cx+=kw;
+    }
+  })(zoom,0,W,0);
+}
+render(); window.onresize=render;
+</script></body></html>
+"""
+
+
+def flame_html(folded_text: str, title: str = "bcos profile") -> str:
+    """Folded stacks -> a single self-contained flamegraph HTML page
+    (no external assets — servable from an air-gapped ops edge). The
+    `<\\/` escape keeps a pathological frame name from closing the
+    script element (json.dumps leaves `/` unescaped)."""
+    return (_FLAME_TMPL
+            .replace("%TITLE%", title.replace("<", "&lt;"))
+            .replace("%FOLDED%", json.dumps(folded_text)
+                     .replace("</", "<\\/")))
+
+
+# process-wide default profiler: DISARMED until a node's [profile] config
+# (or a bench/test) arms it — the disarmed state has no sampler thread
+PROFILER = SamplingProfiler()
+
+
+def attach_burst(doc: dict, trace_id: str) -> dict:
+    """ONE owner for the trace↔burst join (rpc getTrace + ops /trace):
+    when a slow-span burst captured `trace_id`, the profile rides along
+    in the response as `profile`."""
+    burst = PROFILER.burst_profile(trace_id)
+    if burst is not None:
+        doc["profile"] = burst
+    return doc
+
+
+def flag_profiled(traces: list[dict]) -> list[dict]:
+    """Mark each trace summary with `profiled: true` when a burst
+    profile is retrievable for it (rpc listTraces + ops /traces)."""
+    profiled = PROFILER.burst_ids()
+    for t in traces:
+        t["profiled"] = t["traceId"] in profiled
+    return traces
+
+
+def configure(hz: Optional[float] = None, ring: Optional[int] = None,
+              burst_hz: Optional[float] = None,
+              burst_s: Optional[float] = None) -> SamplingProfiler:
+    """Apply [profile] config to the process profiler (init/node.py)."""
+    return PROFILER.configure(hz=hz, ring=ring, burst_hz=burst_hz,
+                              burst_s=burst_s)

@@ -15,12 +15,14 @@ The port's Node wires the planes the port has: the ledger on the storage
 `make_storage` selects (memory, WAL, the disk engine, key pages), the
 txpool and its ingest lane, the executor, the in-process Scheduler, the
 sealer, front, tx gossip, block sync with snap sync, snapshots
-(checkpoint, prune, serve), PBFT, health, overload and the peer clock.
-Its suite runs on `device` ("cuda" unless a caller asks for "cpu"). A
-config that selects a plane the port does not have yet (out-of-process
-workers, the RPC/WS/metrics edges, multi-group hosting, the sampling
-profiler) raises NotImplementedError naming its ROADMAP.md item, rather
-than running without it.
+(checkpoint, prune, serve), PBFT, health, overload, the peer clock, AMOP,
+the ZK proof plane, and the serving edge: JSON-RPC over HTTP and WS with
+the query cache, subscriptions and per-client admission, the Prometheus
+endpoint, tracing and the sampling profiler. Its suite runs on `device`
+("cuda" unless a caller asks for "cpu"). A config that selects a plane
+the port does not have yet (out-of-process workers, multi-group hosting)
+raises NotImplementedError naming its ROADMAP.md item, rather than
+running without it.
 """
 
 from __future__ import annotations
@@ -55,10 +57,9 @@ class NodeConfig:
     group_id: str = "group0"
     sm_crypto: bool = False
     # the port differs here: the JAX package's NodeConfig also carries the
-    # settings of planes the port does not have yet (the crypto lane, the
-    # tracing and profiler rings, the RPC edge, subscriptions, the
-    # serving edge's client rates, p2p). No code here would read them, so
-    # they are left out: passing one is a TypeError, not a silent no-op.
+    # settings of planes the port does not have yet (the crypto lane, p2p).
+    # No code here would read them, so they are left out: passing one is a
+    # TypeError, not a silent no-op.
     # Each slice that ports a plane brings its fields back. The fields
     # that select such a plane stay, and _check_ported refuses them.
     storage_path: Optional[str] = None  # None = in-memory
@@ -105,6 +106,13 @@ class NodeConfig:
     # scoring 1.0 on the overload plane — a compaction-starved node goes
     # busy and sheds writes instead of silently drowning in L0 segments
     overload_compact_debt_mb: int = 256
+    # the serving edge's per-client token buckets (rpc/admission.py).
+    # Rates are per client, tokens/sec; 0 = that class unlimited
+    # (fair-share concurrency still applies)
+    client_write_rate: float = 0.0
+    client_write_burst: float = 0.0  # 0 -> 2x rate
+    client_read_rate: float = 0.0
+    client_read_burst: float = 0.0
     # continuous-batching ingest lane (txpool/ingest.py): coalesces
     # concurrent RPC/gossip submissions into device-sized submit_batch
     # calls. ingest_lane=False restores direct per-call submission (the
@@ -179,21 +187,48 @@ class NodeConfig:
     # multi-group hosting (init/group.py, not ported): group ids this
     # process runs; empty = a single-group node
     groups: list = dataclasses.field(default_factory=list)
-    # spans slower than this are kept in the tracer's slow ring and logged
+    # tracing plane ([trace] ini, utils/otrace.py): sample_rate samples
+    # NEW root traces (an incoming sampled traceparent is always honored);
+    # ring_size bounds the in-process span ring served by getTrace and
+    # /trace; spans slower than slow_ms are ALWAYS retained (never
+    # sampled out) in a separate slow ring + logged. sample_rate=0 with
+    # slow_ms=0 turns the whole plane into one branch on the hot path.
+    trace_sample_rate: float = 0.02
+    trace_ring_size: int = 4096
     trace_slow_ms: float = 1000.0
-    # the port differs here: 0, not 5. The sampling profiler is not
-    # ported yet (ROADMAP.md A3.9), so the plane stays disarmed and a
-    # non-zero hz raises
-    profile_hz: float = 0.0
-    # the RPC edge, the WS server and the Prometheus endpoint (not
-    # ported): None = none
-    rpc_port: Optional[int] = None
-    ws_port: Optional[int] = None
-    metrics_port: Optional[int] = None
-    # ZK proof plane: the scheduler persists per-block state-leaf digest
-    # indexes (its state_index). The proof plane above them (zk/, proof
-    # bundles served by RPC) is not ported. Poseidon hashing itself is
-    # always available via suite.poseidon_batch regardless of this knob.
+    # continuous profiling plane ([profile] ini, analysis/profiler.py):
+    # hz samples every thread's stack + per-thread CPU at a LOW rate
+    # always-on (folded stacks served via GET /profile); ring bounds the
+    # retained distinct stacks; a [TRACE][slow-span] firing captures a
+    # burst_s burst at burst_hz linked to the trace id (getTrace returns
+    # it). hz=0 disarms the whole plane: no sampler thread.
+    profile_hz: float = 5.0
+    profile_ring: int = 2048
+    profile_burst_hz: float = 97.0
+    profile_burst_s: float = 1.0
+    rpc_port: Optional[int] = None  # None = no RPC server; 0 = ephemeral
+    rpc_host: str = "127.0.0.1"
+    # serving read plane (rpc/edge.py + rpc/cache.py): one bounded worker
+    # pool shared by the HTTP event-loop edge and the WS server; a
+    # commit-coherent LRU serving rendered block/tx/receipt JSON
+    rpc_workers: int = 8        # blocking-call offload threads
+    rpc_max_batch: int = 256    # JSON-RPC 2.0 batch entry cap
+    rpc_cache_entries: int = 4096  # 0 disables the query cache
+    rpc_cache_mb: int = 64      # approximate rendered-bytes bound
+    rpc_keepalive_s: float = 60.0  # idle keep-alive connection reap
+    # push-based subscription plane (rpc/eventsub.SubHub): distinct WS
+    # sessions allowed to hold subscriptions, and the per-session push
+    # outbox byte bound (beyond it, droppable frames evict oldest-first
+    # and a lossless overflow kills the session)
+    sub_max_sessions: int = 16384
+    sub_outbox_kb: int = 1024
+    ws_port: Optional[int] = None  # None = no WS server; 0 = ephemeral
+    metrics_port: Optional[int] = None  # None = no Prometheus endpoint
+    # ZK proof plane (zk/proof.py): persist per-block state-leaf digest
+    # indexes (changeset-inclusion proofs via getProof) and render every
+    # committed tx's proof bundle into the query cache at commit.
+    # Poseidon hashing itself is always available via suite.poseidon_batch
+    # regardless of this knob.
     zk_proofs: bool = True
     # deterministic fault injection ([failpoints] spec, utils/failpoints.py):
     # `site=action;site2=action` armed at node construction — test/chaos
@@ -209,13 +244,8 @@ def _check_ported(cfg: NodeConfig) -> None:
     if cfg.scheduler_workers > 0:
         unported.append("out-of-process execution workers and DMC "
                         "(scheduler_workers): the DMC slice")
-    for name in ("rpc_port", "ws_port", "metrics_port"):
-        if getattr(cfg, name) is not None:
-            unported.append(f"the RPC edge ({name}): A3.8")
     if cfg.groups:
         unported.append("multi-group hosting (groups): the multi-group slice")
-    if cfg.profile_hz:
-        unported.append("the sampling profiler (profile_hz): A3.9")
     if unported:
         raise NotImplementedError(
             "the port's Node does not have these planes yet (ROADMAP.md): "
@@ -248,11 +278,21 @@ class Node:
         if cfg.failpoints:
             from ..utils import failpoints as _fp
             _fp.arm_spec(cfg.failpoints)
-        # tracing plane: the process tracer adopts this node's slow-span
-        # threshold (sampling new roots is the RPC edge's, not ported)
+        # tracing plane: the process tracer adopts this node's [trace]
+        # knobs (one node per process in deployments; in-process clusters
+        # share the tracer and are told apart by the per-node trace label
+        # stamped on spans)
         from ..utils import otrace
-        otrace.TRACER.configure(slow_ms=cfg.trace_slow_ms)
+        otrace.configure(sample_rate=cfg.trace_sample_rate,
+                         ring_size=cfg.trace_ring_size,
+                         slow_ms=cfg.trace_slow_ms)
         self.trace_label = self.keypair.pub_bytes[:4].hex()
+        # continuous profiling plane: process-wide like the tracer; armed
+        # at a low always-on hz by default, disarmed entirely at hz=0
+        from ..analysis import profiler as _profiler
+        _profiler.configure(hz=cfg.profile_hz, ring=cfg.profile_ring,
+                            burst_hz=cfg.profile_burst_hz,
+                            burst_s=cfg.profile_burst_s)
         # storage injection seam — the reference's StorageInitializer picks
         # RocksDB vs TiKV (libinitializer/Initializer.cpp:145-261); callers
         # pass e.g. a carried JAX chain (storage/carry.storage_from_jax)
@@ -271,6 +311,9 @@ class Node:
         if isinstance(self.storage, _SpaceHealth) \
                 and self.storage.health is None:
             self.storage.health = self.health
+        # multi-group hosting (not ported) would set this to its group
+        # registry, so RPC group methods enumerate the real registry
+        self.group_registry = None
         self.ledger = Ledger(self.storage, self.suite)
         self.txpool = TxPool(self.suite, self.ledger, cfg.chain_id,
                              cfg.group_id, cfg.txpool_limit,
@@ -319,6 +362,11 @@ class Node:
                                    trace_label=self.trace_label,
                                    health=self.health,
                                    state_index=cfg.zk_proofs)
+        # ZK proof plane bookkeeping (zk/proof.py): commit-time render
+        # counts, proof cache hit rate, batched-verify volume — behind
+        # bcos_zk_* and the getSystemStatus "zk" section
+        from ..zk.proof import ZkPlane
+        self.zk = ZkPlane(self)
         if self.overload is not None:
             self.overload.add_signal(
                 "commit_backlog",
@@ -342,6 +390,7 @@ class Node:
         self.front: Optional[FrontService] = None
         self.txsync: Optional[TransactionSync] = None
         self.blocksync: Optional[BlockSync] = None
+        self.amop = None
         if gateway is not None:
             self.front = FrontService(self.keypair.pub_bytes, gateway)
             self.txsync = TransactionSync(self.front, self.txpool,
@@ -368,6 +417,59 @@ class Node:
                 timesync=self.timesync, snapshot=self.snapshot,
                 snap_sync_threshold=cfg.snap_sync_threshold,
                 registry=self.metrics_view, agg_registry=cfg.agg_registry)
+            from ..net.amop import AMOPService
+            self.amop = AMOPService(self.front)
+        from ..rpc.eventsub import EventSub
+        self.eventsub = EventSub(self.ledger, self.scheduler)
+        self.rpc = None
+        self.ws = None
+        self.query_cache = None
+        self.subhub = None
+        self.rpc_pool = None
+        self.admission = None
+        if cfg.rpc_port is not None or cfg.ws_port is not None:
+            from ..rpc.edge import WorkerPool
+            from ..rpc.server import JsonRpcServer
+            self.rpc_pool = WorkerPool(cfg.rpc_workers)
+            # per-client edge admission (rpc/admission.py): token buckets
+            # (reads and writes budgeted separately; 0 = unlimited) +
+            # fair-share concurrency over the bounded worker pool, with
+            # write rates shrunk by the overload controller while busy
+            from ..rpc.admission import ClientAdmission
+            self.admission = ClientAdmission(
+                write_rate=cfg.client_write_rate,
+                write_burst=cfg.client_write_burst,
+                read_rate=cfg.client_read_rate,
+                read_burst=cfg.client_read_burst,
+                fair_capacity=cfg.rpc_workers * 8,
+                overload=self.overload, registry=self.metrics_view)
+            impl = self.make_rpc_impl()
+            if cfg.rpc_port is not None:
+                # the RPC edge doubles as the ops surface: GET /metrics,
+                # /status, /trace served from the same event loop
+                from ..rpc.ops import OpsRoutes
+                self.rpc = JsonRpcServer(impl, host=cfg.rpc_host,
+                                         port=cfg.rpc_port,
+                                         pool=self.rpc_pool,
+                                         keepalive_s=cfg.rpc_keepalive_s,
+                                         ops=OpsRoutes(
+                                             status_fn=self.system_status,
+                                             health_fn=self.health.snapshot),
+                                         admission=self.admission)
+            if cfg.ws_port is not None:
+                from ..rpc.ws_server import WsRpcServer
+                self.ws = WsRpcServer(impl, host=cfg.rpc_host,
+                                      port=cfg.ws_port, pool=self.rpc_pool,
+                                      admission=self.admission,
+                                      subhub=self.subhub,
+                                      outbox_kb=cfg.sub_outbox_kb)
+        self.metrics = None
+        if cfg.metrics_port is not None:
+            from ..utils.metrics import MetricsServer
+            self.metrics = MetricsServer(host=cfg.rpc_host,
+                                         port=cfg.metrics_port,
+                                         status_fn=self.system_status,
+                                         health_fn=self.health.snapshot)
         self._started = False
 
     def _on_health_change(self, old: str, new: str) -> None:
@@ -390,6 +492,94 @@ class Node:
         if self.health.writes_shed():
             return False
         return self.overload is None or self.overload.accepting_remote_txs()
+
+    # -- RPC impl wiring ---------------------------------------------------
+    def make_rpc_impl(self):
+        """-> JsonRpcImpl bound to this node with the commit-coherent
+        query cache wired (created on first call when rpc_cache_entries >
+        0): hot responses pre-rendered at commit off the consensus path,
+        wiped on rollback and snap-sync install (a stale cache would
+        serve pre-wipe blocks after a snapshot jumped the head). The ONE
+        place this wiring lives."""
+        from ..rpc.server import JsonRpcImpl
+
+        cfg = self.config
+        if self.query_cache is None and cfg.rpc_cache_entries > 0:
+            from ..rpc.cache import QueryCache
+            self.query_cache = QueryCache(
+                max_entries=cfg.rpc_cache_entries,
+                max_bytes=cfg.rpc_cache_mb << 20,
+                registry=self.metrics_view)
+            impl = JsonRpcImpl(self)  # reads query_cache: order matters
+            self.scheduler.on_commit.append(impl.prime_block)
+            self.scheduler.on_invalidate.append(self.query_cache.invalidate)
+        else:
+            impl = JsonRpcImpl(self)
+        if self.subhub is None:
+            # push-based subscription fan-out, bound to the FIRST impl
+            # (the one whose prime_block runs): on_commit is appended
+            # AFTER prime_block so the fan-out worker always finds the
+            # block's fragments already rendered in the query cache
+            from ..rpc.eventsub import SubHub
+            self.subhub = SubHub(self, impl,
+                                 max_sessions=cfg.sub_max_sessions,
+                                 registry=self.metrics_view)
+            self.scheduler.on_commit.append(self.subhub.on_commit)
+            self.scheduler.on_invalidate.append(self.subhub.on_invalidate)
+            self.txpool.register_broadcast_hook(self.subhub.on_pending)
+        return impl
+
+    # -- aggregated operational state (getSystemStatus RPC + /status) ------
+    def system_status(self) -> dict:
+        """One group-labeled JSON document collecting what used to be
+        scattered across RPC methods, logs and bench hooks: pipeline
+        occupancy, ingest/storage/cache stats, sync mode, txpool depth,
+        the tracer and the profiler. Every value is a cheap snapshot
+        read — safe to poll."""
+        from ..analysis import profiler as _prof
+        from ..utils import otrace
+        cfg = self.config
+        bs = self.blocksync
+        lane = getattr(self.suite, "_lane", None)  # LaneSuite seam
+        storage_stats = getattr(self.storage, "stats", None)
+        reg = self.group_registry
+        return {
+            "group": cfg.group_id,
+            "chain": cfg.chain_id,
+            "node": self.keypair.pub_bytes.hex(),
+            "health": self.health.snapshot(),
+            "blockNumber": self.ledger.current_number(),
+            "syncMode": bs.sync_mode if bs is not None else "replay",
+            "txpool": {**self.txpool.status(),
+                       "unsealed": self.txpool.pending_count()},
+            "ingest": self.ingest.stats() if self.ingest else None,
+            "pipeline": self.scheduler.pipeline_stats(),
+            "execWorkers": None,   # out-of-process workers: not ported
+            "storage": storage_stats() if callable(storage_stats)
+            else {"backend": type(self.storage).__name__},
+            "cache": self.query_cache.stats() if self.query_cache else None,
+            "snapshot": self.snapshot.status(),
+            "consensus": self.consensus.status()
+            if self.consensus is not None else None,
+            "cryptoLane": lane.stats() if lane is not None else None,
+            "zk": self.zk.stats(),
+            "groups": reg.groups() if reg is not None else [cfg.group_id],
+            "trace": otrace.TRACER.stats(),
+            "profile": _prof.PROFILER.stats(),
+            "overload": self.overload.stats()
+            if self.overload is not None else None,
+            "admission": self.admission.stats()
+            if self.admission is not None else None,
+            "subscriptions": self._subscriptions_status(),
+        }
+
+    def _subscriptions_status(self) -> Optional[dict]:
+        if self.subhub is None:
+            return None
+        out = self.subhub.stats()
+        if self.ws is not None:
+            out["outboxDrops"] = self.ws.push_drop_stats()
+        return out
 
     # -- genesis -----------------------------------------------------------
     def build_genesis(self, sealers: Optional[list[ConsensusNode]] = None) -> None:
@@ -439,6 +629,14 @@ class Node:
             self.overload.start()  # busy/brownout sampler
         if self.txsync is not None:
             self.txsync.start()  # periodic pool anti-entropy sweep
+        if self.rpc_pool is not None:
+            self.rpc_pool.start()  # before the edges: they offload into it
+        if self.rpc is not None:
+            self.rpc.start()
+        if self.ws is not None:
+            self.ws.start()
+        if self.metrics is not None:
+            self.metrics.start()
         LOG.info(badge("NODE", "started",
                        number=self.ledger.current_number(),
                        mode=self.config.consensus))
@@ -485,8 +683,18 @@ class Node:
             self._start_engine()
 
     def stop(self) -> None:
+        if self.metrics is not None:
+            self.metrics.stop()
+        if self.rpc is not None:
+            self.rpc.stop()
+        if self.ws is not None:
+            self.ws.stop()
+        if self.subhub is not None:
+            self.subhub.stop()  # after the WS edge: no new fan-outs
+        if self.rpc_pool is not None:
+            self.rpc_pool.stop()  # after the edges: no new submitters
         if self.ingest is not None:
-            self.ingest.stop()  # no new submitters, drain queue
+            self.ingest.stop()  # after RPC: no new submitters, drain queue
         if self.overload is not None:
             self.overload.stop()
         self.snapshot.stop()

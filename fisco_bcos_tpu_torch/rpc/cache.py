@@ -1,0 +1,159 @@
+"""Commit-coherent query cache for the RPC read plane.
+
+Serving traffic is read-dominated (receipts, blocks, balances, polling)
+and the hot responses are IMMUTABLE once their block commits — yet the
+old read path re-read the ledger, re-rendered JSON and re-ran a full
+`batch_recover_senders` on every `getBlockByNumber --includeTxs`. Like
+Blockchain Machine (arXiv:2104.06968) moving block serving work off the
+critical path, the fix is do-once-serve-many: render a committed block's
+hot responses ONCE (at `Scheduler.on_commit`, off the consensus path, or
+lazily on first touch) and serve every subsequent identical query from
+this LRU.
+
+Coherence rules (the part that makes this safe, not just fast):
+
+  * only immutable data is cached — block/tx/receipt JSON and recovered
+    senders for COMMITTED heights. Head-dependent queries
+    (getBlockNumber, call, pending size, sync status) never enter.
+  * the whole cache is invalidated on a storage rollback and on a
+    snap-sync `external_commit` (a snapshot install jumps the head over
+    wiped tables — a stale cache would keep serving pre-wipe blocks).
+    Invalidation bumps a GENERATION; renders capture the generation
+    BEFORE their ledger reads and `put` drops entries whose generation
+    is stale, so an in-flight render that raced a wipe can never insert
+    pre-wipe data into the post-wipe cache.
+  * bounded two ways: entry count and approximate rendered bytes
+    (`rpc_cache_entries` / `rpc_cache_mb` knobs); least-recently-USED
+    evicts first.
+
+Served entries are the SAME object every hit, so identical queries
+serialize byte-for-byte identical responses; callers must treat cached
+values as frozen (copy before annotating, e.g. proof attachment).
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from collections import OrderedDict
+from typing import Any, Hashable, Optional
+
+from ..utils.metrics import REGISTRY
+
+
+class RawResult(dict):
+    """A rendered JSON fragment that carries its own serialized bytes.
+
+    Still a dict (direct `impl` callers, the in-process SDK and the
+    proof-annotating copy path keep working unchanged), but transports
+    that know about it — the HTTP envelope writer and the WS push
+    fan-out — splice `.raw` into the response with a buffer join instead
+    of re-`dumps`-ing the dict on every hit. The bytes are encoded ONCE,
+    at render time (commit prime or first touch): cached hits stop
+    paying serialization.
+
+    `.raw` is the compact-separator encoding of the dict at construction
+    time; callers must never mutate a RawResult afterwards (the cache
+    already demands frozen values — annotate a plain `dict(out)` copy)."""
+
+    __slots__ = ("raw",)
+
+    def __init__(self, obj: dict, raw: Optional[bytes] = None):
+        super().__init__(obj)
+        self.raw = raw if raw is not None else json.dumps(
+            obj, separators=(",", ":"), default=str).encode()
+
+
+class QueryCache:
+    def __init__(self, max_entries: int = 4096,
+                 max_bytes: int = 64 << 20, registry=None):
+        # metrics sink: multi-group nodes pass a group-labeled view so
+        # G caches' counters don't silently aggregate
+        self._reg = registry if registry is not None else REGISTRY
+        self.max_entries = max(1, int(max_entries))
+        self.max_bytes = max(1, int(max_bytes))
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[Hashable, tuple[Any, int]]" = \
+            OrderedDict()
+        self._bytes = 0
+        self._gen = 0
+        self._hits = 0
+        self._misses = 0
+        self._invalidations = 0
+
+    # -- generation fencing ------------------------------------------------
+    def generation(self) -> int:
+        """Capture BEFORE reading the ledger for a render; pass the value
+        to `put` so a concurrent invalidation voids the insert."""
+        with self._lock:
+            return self._gen
+
+    def invalidate(self, *_args) -> None:
+        """Drop everything and fence out in-flight renders (rollback /
+        snapshot install / prune). Extra args ignored so this can sit
+        directly on scheduler observer lists."""
+        with self._lock:
+            self._gen += 1
+            self._entries.clear()
+            self._bytes = 0
+            self._invalidations += 1
+        self._reg.inc("bcos_rpc_cache_invalidations_total")
+
+    # -- lookup / insert ---------------------------------------------------
+    def get(self, key: Hashable) -> Optional[Any]:
+        with self._lock:
+            item = self._entries.get(key)
+            if item is None:
+                self._misses += 1
+                self._reg.inc("bcos_rpc_cache_misses_total")
+                return None
+            self._entries.move_to_end(key)
+            self._hits += 1
+        self._reg.inc("bcos_rpc_cache_hits_total")
+        return item[0]
+
+    def put(self, key: Hashable, value: Any, gen: int,
+            size: Optional[int] = None) -> None:
+        # size ONCE at render time (renders are per-commit / first-touch,
+        # hits are free) — the JSON length is the honest footprint proxy.
+        # RawResult values already carry their encoding; callers that
+        # hold the bytes pass `size=` so the sizing dumps is never paid.
+        if size is None:
+            raw = getattr(value, "raw", None)
+            if raw is not None:
+                size = len(raw)
+        if size is None:
+            try:
+                size = len(json.dumps(value, separators=(",", ":"),
+                                      default=str))
+            except (TypeError, ValueError):
+                size = 1024
+        with self._lock:
+            if gen != self._gen:
+                return  # render raced an invalidation: stale data, drop
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (value, size)
+            self._bytes += size
+            while (len(self._entries) > self.max_entries
+                   or self._bytes > self.max_bytes):
+                _, (_, sz) = self._entries.popitem(last=False)
+                self._bytes -= sz
+            self._reg.set_gauge("bcos_rpc_cache_entries",
+                               len(self._entries))
+            self._reg.set_gauge("bcos_rpc_cache_bytes", self._bytes)
+
+    # -- introspection -----------------------------------------------------
+    def stats(self) -> dict:
+        with self._lock:
+            total = self._hits + self._misses
+            return {
+                "entries": len(self._entries),
+                "bytes": self._bytes,
+                "hits": self._hits,
+                "misses": self._misses,
+                "hit_rate": round(self._hits / total, 4) if total else 0.0,
+                "generation": self._gen,
+                "invalidations": self._invalidations,
+            }

@@ -1,0 +1,526 @@
+"""Event subscription — contract-log filters pushed on block commit.
+
+Reference counterpart: FISCO-BCOS bcos-rpc/bcos-rpc/event/EventSub.cpp
+(+ EventSubMatcher / EventSubTask): WS clients register a filter
+{fromBlock, toBlock, addresses, topics}; the node replays the historical
+range, then pushes matches as new blocks commit. The same matcher semantics
+apply here (Ethereum-style: `addresses` is an OR-set; `topics` is a list of
+per-position OR-sets, null = wildcard), delivered to in-process callbacks —
+the RPC/SDK layer exposes register/unregister over the wire.
+
+`SubHub` is the push-based subscription plane on top of it: typed streams
+(`newBlockHeaders` / `logs` / `pendingTransactions` / per-hash `receipt`)
+fanned out at commit time from the SAME serialized fragment bytes the
+QueryCache primed (rpc/cache.RawResult) — a notification costs buffer
+joins, zero extra `json.dumps` and zero recover batches beyond the
+existing `prime_block`. Fan-out runs on the hub's own worker thread (one
+pass builds the per-kind payload bytes once, then enqueues per-session
+through bounded outbox sinks), fenced by the cache generation so a
+rollback / snapshot install can never push a stale fragment.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import json
+import queue
+import threading
+import time
+from collections import deque
+from typing import Callable, Optional, Sequence
+
+from ..analysis import lockcheck as lc
+from ..protocol import LogEntry, Receipt
+from ..utils.log import LOG, badge
+from ..utils.metrics import REGISTRY
+
+# typed subscription-plane reject: a subscription storm sheds with THIS
+# code (the admission plane's -32005 stays for rate limits) — clients can
+# tell "too many subscribers" from "slow down"
+JSONRPC_SUB_LIMIT = -32006
+
+# callback(block_number, tx_hash, log_index, log)
+EventCallback = Callable[[int, bytes, int, LogEntry], None]
+
+
+@dataclasses.dataclass
+class EventFilter:
+    from_block: int = 0
+    to_block: int = -1  # -1 = follow head forever
+    addresses: Optional[set[bytes]] = None  # None = any
+    # topics[i] = allowed values for position i (None = wildcard)
+    topics: Sequence[Optional[set[bytes]]] = ()
+
+    def matches(self, log: LogEntry) -> bool:
+        if self.addresses is not None and log.address not in self.addresses:
+            return False
+        for i, allowed in enumerate(self.topics):
+            if allowed is None:
+                continue
+            if i >= len(log.topics) or log.topics[i] not in allowed:
+                return False
+        return True
+
+
+class _Task:
+    def __init__(self, task_id: str, flt: EventFilter, cb: EventCallback):
+        self.task_id = task_id
+        self.filter = flt
+        self.cb = cb
+        self.next_block = flt.from_block
+        self.done = False
+        # serialises pumps: subscribe()'s historical replay can race the
+        # commit-observer pump on the same task (duplicate deliveries).
+        # Registered HOT (lockorder.HOT_LOCKS) and guards ONLY the drain
+        # handoff (pending_head/draining): ledger scans and subscriber
+        # callbacks run off-lock in _pump's drain loop, so a blocking
+        # delivery can no longer stall the commit-notifier thread while
+        # it HOLDS this lock.
+        self.lock = lc.make_lock("eventsub.task")
+        self.pending_head: Optional[int] = None
+        self.draining = False
+
+
+class EventSub:
+    """Bound to one node: replays history, then follows commits."""
+
+    def __init__(self, ledger, scheduler):
+        self.ledger = ledger
+        self._ids = itertools.count(1)
+        self._tasks: dict[str, _Task] = {}
+        self._lock = lc.make_lock("eventsub.registry")
+        scheduler.on_commit.append(self._on_block)
+
+    # -- registration ------------------------------------------------------
+    def subscribe(self, flt: EventFilter, cb: EventCallback) -> str:
+        task = _Task(f"evt-{next(self._ids)}", flt, cb)
+        with self._lock:
+            self._tasks[task.task_id] = task
+        # historical replay up to the current head, synchronously
+        self._pump(task, self.ledger.current_number())
+        if task.done:
+            self.unsubscribe(task.task_id)
+        return task.task_id
+
+    def unsubscribe(self, task_id: str) -> bool:
+        with self._lock:
+            return self._tasks.pop(task_id, None) is not None
+
+    def active(self) -> list[str]:
+        with self._lock:
+            return sorted(self._tasks)
+
+    # -- delivery ----------------------------------------------------------
+    def _on_block(self, number: int) -> None:
+        with self._lock:
+            tasks = list(self._tasks.values())
+        for task in tasks:
+            self._pump(task, number)
+            if task.done:
+                self.unsubscribe(task.task_id)
+
+    def _pump(self, task: _Task, head: int) -> None:
+        """Deliver matches for blocks [task.next_block, head].
+
+        Drain pattern: exactly one thread is the task's drainer at a
+        time; a concurrent pump parks its head under the lock and
+        returns (the active drainer re-checks before exiting, so no
+        head is lost). Per-task delivery ORDER is what the old
+        hold-the-lock-across-delivery scheme bought — this keeps it
+        while moving the ledger reads and the subscriber callback
+        OFF the hot eventsub.task lock."""
+        with task.lock:
+            if task.pending_head is None or head > task.pending_head:
+                task.pending_head = head
+            if task.draining:
+                return
+            task.draining = True
+        while True:
+            with task.lock:
+                hd = task.pending_head
+                task.pending_head = None
+                if hd is None:
+                    task.draining = False
+                    return
+            try:
+                self._deliver(task, hd)
+            except BaseException:
+                with task.lock:
+                    task.draining = False
+                raise
+
+    def _deliver(self, task: _Task, head: int) -> None:
+        # cursor state (next_block/done) is owned by the active drainer
+        # — the draining flag makes that single-threaded
+        flt = task.filter
+        hi = head if flt.to_block < 0 else min(head, flt.to_block)
+        while task.next_block <= hi:
+            n = task.next_block
+            for tx_hash in self.ledger.tx_hashes_by_number(n):
+                rc: Optional[Receipt] = self.ledger.receipt(tx_hash)
+                if rc is None:
+                    continue
+                for idx, log in enumerate(rc.logs):
+                    if flt.matches(log):
+                        try:
+                            task.cb(n, tx_hash, idx, log)
+                        except Exception:
+                            LOG.exception(badge("EVENTSUB", "callback-failed",
+                                                task=task.task_id))
+            task.next_block = n + 1
+        if flt.to_block >= 0 and task.next_block > flt.to_block:
+            task.done = True
+
+
+# ---------------------------------------------------------------------------
+# push-based subscription plane
+# ---------------------------------------------------------------------------
+
+SUB_KINDS = ("newBlockHeaders", "logs", "pendingTransactions", "receipt")
+
+# per-session subscription guard (beyond the node-wide session cap): a
+# single client opening hundreds of streams is a storm, not a workload
+MAX_SUBS_PER_OWNER = 256
+
+_FRAME_SUFFIX = b"}}"
+
+
+class SubLimitError(Exception):
+    """Subscription admission reject (node-wide session cap or per-owner
+    sub cap). Transports answer JSONRPC_SUB_LIMIT."""
+
+
+class _Sub:
+    __slots__ = ("sub_id", "kind", "sink", "owner", "filter", "tx_hash",
+                 "prefix")
+
+    def __init__(self, sub_id: str, kind: str, sink, owner,
+                 flt: Optional[EventFilter], tx_hash: Optional[bytes]):
+        self.sub_id = sub_id
+        self.kind = kind
+        # sink(frame_bytes, lossless, t0) -> bool; False = receiver dead.
+        # The WS layer binds this to _Session.push (bounded outbox); in-
+        # process tests bind plain callables.
+        self.sink = sink
+        self.owner = owner
+        self.filter = flt
+        self.tx_hash = tx_hash
+        # the per-sub envelope differs only by id/kind: prebuild it once
+        # so a push is prefix + fragment + suffix — pure buffer join
+        self.prefix = (b'{"jsonrpc": "2.0", "method": "subscription", '
+                       b'"params": {"subscription": "' + sub_id.encode()
+                       + b'", "kind": "' + kind.encode()
+                       + b'", "result": ')
+
+
+class SubHub:
+    """Commit-time push fan-out, sourced from the primed fragment cache.
+
+    Wiring (init/node.py make_rpc_impl): `on_commit` is appended AFTER
+    `impl.prime_block` on the scheduler's observer list, so by the time a
+    commit number reaches the hub's queue the QueryCache already holds
+    the block's rendered fragments; the fan-out worker reads those bytes
+    and joins them into per-subscriber frames. `on_invalidate` rides the
+    scheduler's double-invalidation discipline: the generation captured
+    before the fragment reads is re-checked before any frame is enqueued,
+    so a rollback or snapshot install racing the fan-out drops the batch
+    instead of pushing a fragment from a dead chain.
+
+    Drop classes: `newBlockHeaders` / `logs` / `pendingTransactions` are
+    DROPPABLE (live best-effort streams — a slow reader loses oldest
+    first); per-hash `receipt` completions are LOSSLESS (the client is
+    waiting on that one frame; overflow kills the session rather than
+    silently gapping it)."""
+
+    def __init__(self, node, impl, max_sessions: int = 16384,
+                 registry=None):
+        self.node = node
+        self.impl = impl
+        self.cache = getattr(node, "query_cache", None)
+        self.max_sessions = max(1, int(max_sessions))
+        self._reg = registry if registry is not None else REGISTRY
+        self._ids = itertools.count(1)
+        self._lock = lc.make_lock("subhub.registry")
+        self._subs: dict[str, dict[str, _Sub]] = {k: {} for k in SUB_KINDS}
+        self._owner_counts: dict = {}
+        self._q: "queue.Queue[Optional[int]]" = queue.Queue(maxsize=4096)
+        self._worker: Optional[threading.Thread] = None
+        self._stopped = False
+        # notify-latency reservoir: recent commit-dequeue -> wire-written
+        # samples (seconds), fed by the WS fan-out writer; getSystemStatus
+        # computes honest p50/p99 from it (histogram buckets are coarse)
+        self._lat = deque(maxlen=4096)
+        self._lat_lock = lc.make_lock("subhub.latency")
+        self._pushes = 0
+        self._push_fail = 0
+        self._rejects = 0
+
+    # -- registration ------------------------------------------------------
+    def subscribe(self, kind: str, sink, owner=None,
+                  flt: Optional[EventFilter] = None,
+                  tx_hash: Optional[bytes] = None) -> str:
+        if kind not in SUB_KINDS:
+            raise ValueError(f"unknown subscription kind {kind!r}")
+        with self._lock:
+            if owner not in self._owner_counts and \
+                    len(self._owner_counts) >= self.max_sessions:
+                self._rejects += 1
+                self._reg.inc("bcos_sub_rejects_total")
+                raise SubLimitError(
+                    f"subscriber session cap reached "
+                    f"({self.max_sessions}); raise [rpc] sub_max_sessions")
+            if self._owner_counts.get(owner, 0) >= MAX_SUBS_PER_OWNER:
+                self._rejects += 1
+                self._reg.inc("bcos_sub_rejects_total")
+                raise SubLimitError(
+                    f"per-session subscription cap reached "
+                    f"({MAX_SUBS_PER_OWNER})")
+            sub = _Sub(f"sub-{next(self._ids)}", kind, sink, owner, flt,
+                       tx_hash)
+            self._subs[kind][sub.sub_id] = sub
+            self._owner_counts[owner] = self._owner_counts.get(owner, 0) + 1
+            self._reg.set_gauge("bcos_sub_active", len(self._subs[kind]),
+                                labels={"kind": kind})
+            if self._worker is None and not self._stopped:
+                self._worker = threading.Thread(target=self._fanout_loop,
+                                                name="sub-fanout",
+                                                daemon=True)
+                self._worker.start()
+        if kind == "receipt" and tx_hash is not None:
+            # already committed? serve the primed fragment immediately —
+            # a subscriber must not wait for the NEXT commit to learn
+            # about a receipt that exists now
+            raw = self._receipt_fragment(tx_hash)
+            if raw is not None:
+                self._emit(sub, raw, lossless=True, t0=time.perf_counter())
+                self.unsubscribe(sub.sub_id)
+        return sub.sub_id
+
+    def unsubscribe(self, sub_id: str) -> bool:
+        with self._lock:
+            for kind, subs in self._subs.items():
+                sub = subs.pop(sub_id, None)
+                if sub is not None:
+                    n = self._owner_counts.get(sub.owner, 1) - 1
+                    if n <= 0:
+                        self._owner_counts.pop(sub.owner, None)
+                    else:
+                        self._owner_counts[sub.owner] = n
+                    self._reg.set_gauge("bcos_sub_active", len(subs),
+                                        labels={"kind": kind})
+                    return True
+        return False
+
+    def unsubscribe_owner(self, owner) -> int:
+        """Drop every stream a disconnecting session held."""
+        with self._lock:
+            ids = [s.sub_id for subs in self._subs.values()
+                   for s in subs.values() if s.owner is owner]
+        return sum(1 for sid in ids if self.unsubscribe(sid))
+
+    # -- scheduler observers ----------------------------------------------
+    def on_commit(self, number: int) -> None:
+        """Rides Scheduler.on_commit AFTER prime_block: hand the number
+        to the fan-out worker and return — the notifier thread must never
+        pay per-subscriber work."""
+        with self._lock:
+            busy = any(self._subs[k] for k in
+                       ("newBlockHeaders", "logs", "receipt"))
+        if not busy:
+            return
+        try:
+            self._q.put_nowait(number)
+        except queue.Full:
+            # fan-out hopelessly behind: drop the oldest commit, keep the
+            # newest — subscribers prefer fresh heads over a full history
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            try:
+                self._q.put_nowait(number)
+            except queue.Full:
+                pass
+            self._reg.inc("bcos_sub_commit_dropped_total")
+
+    def on_invalidate(self, *_args) -> None:
+        """Rollback / snapshot install: nothing to clear here — queued
+        numbers are re-read from the post-invalidation ledger/cache, and
+        the generation fence in _fanout drops any batch whose fragments
+        were read before the wipe. Present (and wired) so the discipline
+        is explicit on the scheduler's observer list."""
+
+    def stop(self) -> None:
+        self._stopped = True
+        if self._worker is not None:
+            try:
+                self._q.put_nowait(None)
+            except queue.Full:
+                pass
+            self._worker.join(timeout=2)
+            self._worker = None
+
+    # -- pendingTransactions (txpool broadcast hook) -----------------------
+    def on_pending(self, txs) -> None:
+        with self._lock:
+            subs = list(self._subs["pendingTransactions"].values())
+        if not subs:
+            return
+        suite = self.node.suite
+        # hash hex fragments — byte joins, no dumps (hashes were computed
+        # at admission; tx.hash caches)
+        frags = [b'"0x' + tx.hash(suite).hex().encode() + b'"'
+                 for tx in txs]
+        t0 = time.perf_counter()
+        for sub in subs:
+            for raw in frags:
+                self._emit(sub, raw, lossless=False, t0=t0)
+
+    # -- fan-out -----------------------------------------------------------
+    def _fanout_loop(self) -> None:
+        while True:
+            number = self._q.get()
+            if number is None or self._stopped:
+                return
+            try:
+                self._fanout(number)
+            except Exception:  # noqa: BLE001 — one commit must not kill
+                LOG.exception(badge("SUBHUB", "fanout-failed",
+                                    number=number))
+
+    def _fanout(self, number: int) -> None:
+        cache = self.cache
+        with self._lock:
+            hdr_subs = list(self._subs["newBlockHeaders"].values())
+            log_subs = list(self._subs["logs"].values())
+            rc_subs = list(self._subs["receipt"].values())
+        if not (hdr_subs or log_subs or rc_subs):
+            return
+        t0 = time.perf_counter()
+        for _attempt in range(2):
+            gen = cache.generation() if cache is not None else 0
+            hdr_raw = self._header_fragment(number) if hdr_subs else None
+            log_rows = self._log_rows(number) if log_subs else []
+            rc_done = []
+            for sub in rc_subs:
+                raw = self._receipt_fragment(sub.tx_hash)
+                if raw is not None:
+                    rc_done.append((sub, raw))
+            if cache is None or cache.generation() == gen:
+                break
+            # an invalidation raced the reads: every fragment above is
+            # suspect (pre-wipe bytes must never reach a subscriber) —
+            # re-read once against the new generation, else give up
+        else:
+            return
+        if hdr_raw is not None:
+            for sub in hdr_subs:
+                self._emit(sub, hdr_raw, lossless=False, t0=t0)
+        for sub in log_subs:
+            flt = sub.filter
+            for log, raw in log_rows:
+                if flt is None or flt.matches(log):
+                    self._emit(sub, raw, lossless=False, t0=t0)
+        for sub, raw in rc_done:
+            # receipt completions carry a contract (the client is waiting
+            # on exactly this frame): LOSSLESS, then one-shot complete
+            self._emit(sub, raw, lossless=True, t0=t0)
+            self.unsubscribe(sub.sub_id)
+
+    def _emit(self, sub: _Sub, raw: bytes, lossless: bool,
+              t0: float) -> None:
+        frame = sub.prefix + raw + _FRAME_SUFFIX
+        try:
+            ok = sub.sink(frame, lossless, t0)
+        except Exception:  # noqa: BLE001 — a sink bug must not stop fanout
+            ok = False
+        if ok:
+            self._pushes += 1
+            self._reg.inc("bcos_sub_pushes_total",
+                          labels={"kind": sub.kind})
+        else:
+            self._push_fail += 1
+            self.unsubscribe(sub.sub_id)
+
+    # -- fragment sources (primed bytes; lazy render is the cold path) -----
+    def _header_fragment(self, number: int) -> Optional[bytes]:
+        out = self.impl.get_block_by_number(
+            self.node.config.group_id, "", number, True, False)
+        if out is None:
+            return None
+        raw = getattr(out, "raw", None)
+        return raw if raw is not None else json.dumps(out).encode()
+
+    def _receipt_fragment(self, h: Optional[bytes]) -> Optional[bytes]:
+        if h is None:
+            return None
+        out = self.impl._receipt_json_cached(h)
+        if out is None:
+            return None
+        raw = getattr(out, "raw", None)
+        return raw if raw is not None else json.dumps(out).encode()
+
+    def _log_rows(self, number: int) -> list:
+        cache = self.cache
+        if cache is not None:
+            rows = cache.get(("logs", number))
+            if rows is not None:
+                return rows
+        # prime raced or cache disabled: render the rows now (same shape
+        # prime_block builds), fenced like any other lazy render
+        gen = cache.generation() if cache is not None else 0
+        ledger = self.node.ledger
+        rows, size = [], 0
+        from .cache import RawResult
+        from .server import _hex
+        for ti, tx_hash in enumerate(ledger.tx_hashes_by_number(number)):
+            rc = ledger.receipt(tx_hash)
+            if rc is None:
+                continue
+            for idx, log in enumerate(rc.logs):
+                frag = RawResult({
+                    "address": _hex(log.address),
+                    "topics": [_hex(t) for t in log.topics],
+                    "data": _hex(log.data),
+                    "blockNumber": number,
+                    "transactionHash": _hex(tx_hash),
+                    "transactionIndex": ti,
+                    "logIndex": idx,
+                })
+                rows.append((log, frag.raw))
+                size += len(frag.raw)
+        if cache is not None:
+            cache.put(("logs", number), rows, gen, size=size + 64)
+        return rows
+
+    # -- telemetry ---------------------------------------------------------
+    def note_latency(self, seconds: float) -> None:
+        """Fed by the WS fan-out writer when a push frame's last byte is
+        accepted by the kernel: commit-dequeue -> wire."""
+        with self._lat_lock:
+            self._lat.append(seconds)
+        self._reg.observe("bcos_sub_notify_seconds", seconds)
+
+    def stats(self) -> dict:
+        with self._lock:
+            by_kind = {k: len(v) for k, v in self._subs.items()}
+            sessions = len(self._owner_counts)
+        with self._lat_lock:
+            lat = sorted(self._lat)
+        n = len(lat)
+
+        def pct(p: float) -> float:
+            return round(lat[min(n - 1, int(p * n))] * 1000, 3) if n \
+                else 0.0
+
+        return {
+            "sessions": sessions,
+            "byKind": by_kind,
+            "pushes": self._pushes,
+            "pushFailures": self._push_fail,
+            "rejects": self._rejects,
+            "notifyP50Ms": pct(0.50),
+            "notifyP99Ms": pct(0.99),
+            "notifySamples": n,
+        }

@@ -1,0 +1,983 @@
+"""JSON-RPC 2.0 access layer over HTTP.
+
+Reference counterpart: FISCO-BCOS bcos-rpc/bcos-rpc/ — method table in
+jsonrpc/JsonRpcInterface.cpp:16-71 (24 methods) and the implementation
+JsonRpcImpl_2_0.cpp (:416 sendTransaction co_awaits the txpool; queries fan
+out to ledger/scheduler/txpool/consensus/sync). Serving runs on the
+event-loop edge (rpc/edge.py — keep-alive, pipelining, bounded worker
+offload, the boostssl-ASIO analogue); the method surface and response
+shapes follow the reference so a reference SDK user finds the same API.
+Hex conventions: tx/block/hash parameters are 0x-hex.
+
+JSON-RPC 2.0 BATCH payloads (list bodies) are handled per spec over both
+transports: per-entry responses carry the entry's id, invalid entries get
+their own error objects, notifications (no "id") produce no response, an
+all-notification batch produces an empty reply body, and response order
+matches request order.
+
+Hot immutable queries (block/tx/receipt JSON, recovered senders) serve
+from the commit-coherent `QueryCache` (rpc/cache.py) when the node has
+one: rendered once per commit (`JsonRpcImpl.prime_block` rides
+`Scheduler.on_commit`) or on first touch, invalidated on rollback and
+snapshot install.
+
+`JsonRpcImpl` is transport-independent (the WS server and the in-process SDK
+reuse it); `JsonRpcServer` binds it to HTTP.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Optional
+
+from ..protocol import Block, BlockHeader, Receipt, Transaction
+from ..utils import otrace
+from ..utils.log import LOG, badge
+from .cache import RawResult
+from .edge import EventLoopHttpServer, WorkerPool
+
+JSONRPC_PARSE_ERROR = -32700
+JSONRPC_INVALID_REQUEST = -32600
+# server-side caps on client-blockable time: one request's receipt wait
+# (the client's `timeout` param is clamped to this) and one payload's
+# total execution budget (a batch runs its entries sequentially in ONE
+# bounded-pool worker — without a budget, 256 blocking sendTransaction
+# entries could park a worker for hours and starve the shared pool)
+MAX_WAIT_SECONDS = 30.0
+BATCH_BUDGET_SECONDS = 60.0
+JSONRPC_METHOD_NOT_FOUND = -32601
+JSONRPC_INVALID_PARAMS = -32602
+JSONRPC_INTERNAL_ERROR = -32603
+# group routing failure gets its OWN code (the reference's GroupNotExist):
+# clients must be able to tell "no such group" from a malformed request
+JSONRPC_GROUP_NOT_FOUND = -32004
+# edge admission reject: the error object carries a data.retryAfterMs
+# hint; clients back off instead of hammering. ONE definition — the
+# emitters (rpc/admission.py, rpc/ws_server.py) use the same constant.
+from .admission import JSONRPC_RATE_LIMITED  # noqa: F401 — public API
+
+
+def _hex(b: bytes) -> str:
+    return "0x" + b.hex()
+
+
+def _unhex(s: str) -> bytes:
+    return bytes.fromhex(s[2:] if s.startswith("0x") else s)
+
+
+def _receipt_json(rc: Receipt, tx_hash: bytes) -> dict:
+    return {
+        "version": rc.version,
+        "transactionHash": _hex(tx_hash),
+        "blockNumber": rc.block_number,
+        "status": rc.status,
+        "gasUsed": str(rc.gas_used),
+        "contractAddress": _hex(rc.contract_address) if rc.contract_address else "",
+        "output": _hex(rc.output),
+        "message": rc.message,
+        "logEntries": [
+            {"address": _hex(log.address),
+             "topics": [_hex(t) for t in log.topics],
+             "data": _hex(log.data)} for log in rc.logs
+        ],
+    }
+
+
+def _tx_json(tx: Transaction, h: bytes,
+             sender: Optional[bytes] = None) -> dict:
+    out = {
+        "version": tx.version,
+        "hash": _hex(h),
+        "chainID": tx.chain_id,
+        "groupID": tx.group_id,
+        "blockLimit": tx.block_limit,
+        "nonce": tx.nonce,
+        "to": _hex(tx.to),
+        "input": _hex(tx.input),
+        "abi": tx.abi,
+        "signature": _hex(tx.signature),
+        "importTime": tx.import_time,
+    }
+    if sender:
+        out["from"] = _hex(sender)
+    return out
+
+
+def _header_json(h: BlockHeader) -> dict:
+    return {
+        "version": h.version,
+        "number": h.number,
+        "hash": None,  # filled by callers that know the suite
+        "parentInfo": [{"blockNumber": p.number, "blockHash": _hex(p.hash)}
+                       for p in h.parent_info],
+        "txsRoot": _hex(h.txs_root),
+        "receiptsRoot": _hex(h.receipts_root),
+        "stateRoot": _hex(h.state_root),
+        "gasUsed": str(h.gas_used),
+        "timestamp": h.timestamp,
+        "sealer": h.sealer,
+        "sealerList": [_hex(pk) for pk in h.sealer_list],
+        "consensusWeights": list(h.consensus_weights),
+        "extraData": _hex(h.extra_data),
+        "signatureList": [{"index": i, "signature": _hex(s)}
+                          for i, s in h.signature_list],
+    }
+
+
+class JsonRpcError(Exception):
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+        self.message = message
+
+
+# -- serialized-fragment envelope splice ------------------------------------
+# Cached fragments (RawResult) carry the bytes their render already paid
+# for; the envelope writer joins buffers around them instead of walking
+# the whole dict through json.dumps again on every hit. The head matches
+# what `json.dumps` produces for handle()'s literal response dict, so
+# spliced and non-spliced envelopes look alike on the wire.
+_SPLICE_HEAD = b'{"jsonrpc": "2.0", "id": '
+
+
+def _encode_one(resp) -> bytes:
+    if isinstance(resp, dict) and len(resp) == 3 and "error" not in resp:
+        raw = getattr(resp.get("result"), "raw", None)
+        if raw is not None:
+            return (_SPLICE_HEAD + json.dumps(resp.get("id")).encode()
+                    + b', "result": ' + raw + b"}")
+    return json.dumps(resp).encode()
+
+
+def encode_jsonrpc(resp) -> bytes:
+    """JSON-RPC response (dict / batch list / None) -> body bytes, with
+    cached RawResult fragments spliced in by buffer join. Both transports
+    (HTTP edge handler, WS dispatch) render through here — a cached read
+    hit performs ZERO `json.dumps` of the fragment."""
+    if resp is None:
+        return b""
+    if isinstance(resp, list):
+        return b"[" + b", ".join(_encode_one(r) for r in resp) + b"]"
+    return _encode_one(resp)
+
+
+def handle_payload_with(impl, payload, max_batch: int = 256):
+    """JSON-RPC 2.0 framing over any `impl` with `.handle(dict) -> dict`
+    (JsonRpcImpl, the multigroup facade, the Pro facade): accepts a single
+    request dict OR a batch list, returns a response dict, a response
+    list, or None (nothing to send — notification-only payload)."""
+    if isinstance(payload, list):
+        if not payload:
+            return {"jsonrpc": "2.0", "id": None,
+                    "error": {"code": JSONRPC_INVALID_REQUEST,
+                              "message": "empty batch"}}
+        if len(payload) > max_batch:
+            return {"jsonrpc": "2.0", "id": None,
+                    "error": {"code": JSONRPC_INVALID_REQUEST,
+                              "message": f"batch too large (> {max_batch} "
+                                         "entries)"}}
+        out = []
+        deadline = time.monotonic() + BATCH_BUDGET_SECONDS
+        for entry in payload:
+            if time.monotonic() > deadline:
+                # budget exhausted: answer the remaining entries instead
+                # of executing them — this worker must come back to the
+                # pool (order + per-id shape preserved; notifications
+                # stay silent per spec)
+                if isinstance(entry, dict) and "id" not in entry:
+                    continue
+                out.append({"jsonrpc": "2.0",
+                            "id": entry.get("id")
+                            if isinstance(entry, dict) else None,
+                            "error": {"code": -32000,
+                                      "message": "batch budget exhausted"}})
+                continue
+            resp = _handle_entry(impl, entry)
+            if resp is not None:
+                out.append(resp)
+        return out or None
+    return _handle_entry(impl, payload)
+
+
+def _handle_entry(impl, entry):
+    if not isinstance(entry, dict):
+        return {"jsonrpc": "2.0", "id": None,
+                "error": {"code": JSONRPC_INVALID_REQUEST,
+                          "message": "invalid request"}}
+    resp = impl.handle(entry)
+    # a notification (no "id" member) is executed but never answered
+    return None if "id" not in entry else resp
+
+
+class JsonRpcImpl:
+    """Method table bound to one node (multi-group: one impl per group)."""
+
+    def __init__(self, node):
+        self.node = node
+        # commit-coherent query cache: present when the node wired one
+        # (init/node.py); facades without it serve uncached
+        self.cache = getattr(node, "query_cache", None)
+        self.max_batch = getattr(getattr(node, "config", None),
+                                 "rpc_max_batch", 256)
+        self.methods = {
+            "call": self.call,
+            "sendTransaction": self.send_transaction,
+            "getTransaction": self.get_transaction,
+            "getTransactionReceipt": self.get_transaction_receipt,
+            "getBlockByHash": self.get_block_by_hash,
+            "getBlockByNumber": self.get_block_by_number,
+            "getBlockHashByNumber": self.get_block_hash_by_number,
+            "getBlockNumber": self.get_block_number,
+            "getCode": self.get_code,
+            "getABI": self.get_abi,
+            "getSealerList": self.get_sealer_list,
+            "getObserverList": self.get_observer_list,
+            "getPbftView": self.get_pbft_view,
+            "getPendingTxSize": self.get_pending_tx_size,
+            "getSyncStatus": self.get_sync_status,
+            "getSnapshotStatus": self.get_snapshot_status,
+            "getConsensusStatus": self.get_consensus_status,
+            "getSystemConfigByKey": self.get_system_config_by_key,
+            "getTotalTransactionCount": self.get_total_transaction_count,
+            "getPeers": self.get_peers,
+            "getGroupPeers": self.get_group_peers,
+            "getGroupList": self.get_group_list,
+            "getGroupInfo": self.get_group_info,
+            "getGroupInfoList": self.get_group_info_list,
+            "getGroupNodeInfo": self.get_group_node_info,
+            # ZK proof plane (zk/proof.py): verifiable serving
+            "getProof": self.get_proof,
+            "verifyProofs": self.verify_proofs,
+            # observability plane (utils/otrace.py + Node.system_status)
+            "getTrace": self.get_trace,
+            "listTraces": self.list_traces,
+            "getSystemStatus": self.get_system_status,
+            # robustness plane: structural-invariant audit (ops/audit.py)
+            "getAuditReport": self.get_audit_report,
+        }
+
+    # -- dispatch ----------------------------------------------------------
+    def handle_payload(self, payload):
+        """Single request dict OR JSON-RPC 2.0 batch list -> response
+        dict / list / None (see handle_payload_with)."""
+        return handle_payload_with(self, payload, self.max_batch)
+
+    def handle(self, request: dict) -> dict:
+        rid = request.get("id")
+        try:
+            if request.get("jsonrpc") != "2.0" or "method" not in request:
+                raise JsonRpcError(JSONRPC_INVALID_REQUEST, "invalid request")
+            fn = self.methods.get(request["method"])
+            if fn is None:
+                raise JsonRpcError(JSONRPC_METHOD_NOT_FOUND,
+                                   f"unknown method {request['method']}")
+            params = request.get("params", [])
+            # tracing: a request-level W3C traceparent member (the WS
+            # transport's context carrier; HTTP also scopes the header at
+            # the edge), the transport's scoped context, or — when the
+            # node samples locally — a fresh root. The untraced,
+            # unsampled path costs one branch.
+            ctx = otrace.parse_traceparent(request.get("traceparent")) \
+                if "traceparent" in request else None
+            tracer = otrace.TRACER
+            if ctx is None and otrace.current() is None and tracer.idle():
+                result = fn(*params) if isinstance(params, list) \
+                    else fn(**params)
+                return {"jsonrpc": "2.0", "id": rid, "result": result}
+            with tracer.span(f"rpc.{request['method']}", parent=ctx,
+                             attrs={"group": params[0] if isinstance(
+                                 params, list) and params else ""}):
+                result = fn(*params) if isinstance(params, list) \
+                    else fn(**params)
+            return {"jsonrpc": "2.0", "id": rid, "result": result}
+        except JsonRpcError as exc:
+            return {"jsonrpc": "2.0", "id": rid,
+                    "error": {"code": exc.code, "message": exc.message}}
+        except TypeError as exc:
+            return {"jsonrpc": "2.0", "id": rid,
+                    "error": {"code": JSONRPC_INVALID_PARAMS,
+                              "message": str(exc)}}
+        except Exception as exc:  # noqa: BLE001 — RPC boundary
+            LOG.exception(badge("RPC", "internal-error"))
+            return {"jsonrpc": "2.0", "id": rid,
+                    "error": {"code": JSONRPC_INTERNAL_ERROR,
+                              "message": str(exc)}}
+
+    # -- group guard -------------------------------------------------------
+    def _registry(self):
+        """The process's group registry (GroupManager) when this node is
+        one of several groups behind a shared edge, else None."""
+        return getattr(self.node, "group_registry", None)
+
+    def _check_group(self, group: str) -> None:
+        if group == self.node.config.group_id:
+            return
+        reg = self._registry()
+        if reg is not None and reg.node(group) is not None:
+            # a registered sibling group: this impl serves ONE group, the
+            # shared edge should have routed there — answer with the
+            # routable error, not a parameter error
+            raise JsonRpcError(
+                JSONRPC_INVALID_PARAMS,
+                f"group {group} is served by a sibling impl; route via "
+                "the grouped RPC edge")
+        raise JsonRpcError(JSONRPC_GROUP_NOT_FOUND,
+                           f"unknown group {group}")
+
+    # -- tx path -----------------------------------------------------------
+    def send_transaction(self, group: str, node_name: str = "",
+                         tx_hex: str = "", require_proof: bool = False,
+                         wait: bool = True, timeout: float = 30.0):
+        self._check_group(group)
+        from ..protocol import TransactionStatus
+        health = getattr(self.node, "health", None)
+        if health is not None and health.writes_shed():
+            # degraded node: writes are refused with the typed status code
+            # while every read method below keeps serving
+            raise JsonRpcError(int(TransactionStatus.NODE_DEGRADED),
+                               "node degraded: writes shed "
+                               f"({health.state()})")
+        raw = _unhex(tx_hex)
+        ctx = otrace.current()
+        tx = None
+        if ctx is not None:
+            # traced request: decode eagerly — the span context follows
+            # the TX OBJECT from here (ingest lane entry -> pool admission
+            # -> sealer adoption -> every node's consensus spans via the
+            # p2p envelope). Tracing is sampled, so the object-path cost
+            # is paid on a fraction of requests.
+            tx = Transaction.decode(raw)
+            tx._otrace = ctx
+        from ..protocol import TransactionStatus
+        # the wait budget is CLIENT-supplied: clamp it, or a crafted
+        # request parks a shared-pool worker for arbitrary time
+        timeout = max(0.0, min(float(timeout), MAX_WAIT_SECONDS))
+        deadline = time.monotonic() + timeout
+        lane = getattr(self.node, "ingest", None)
+        if lane is not None:
+            # continuous-batching lane: this request's tx coalesces with
+            # every other in-flight sendTransaction (and gossip arrivals)
+            # into ONE batch recover; the future resolves with this tx's
+            # own admission result. Untraced requests ride the COLUMNAR
+            # door: the raw frame is never decoded into a Transaction on
+            # this thread — the dispatcher folds the cohort's frames into
+            # one arena-backed column batch (protocol.columnar)
+            from ..txpool.ingest import TxPoolIsFull
+            from ..utils.task import TaskTimeout
+            try:
+                if tx is None:
+                    res = lane.submit_wire(raw, timeout=timeout)
+                else:
+                    res = lane.submit(tx, timeout=timeout)
+            except TxPoolIsFull as exc:
+                raise JsonRpcError(int(TransactionStatus.TXPOOL_FULL),
+                                   str(exc))
+            except TaskTimeout:
+                # same contract as the receipt timeout below: the tx MAY
+                # still land on chain; the client can re-query by hash
+                raise JsonRpcError(JSONRPC_INTERNAL_ERROR,
+                                   "timed out waiting for admission")
+            except Exception:  # noqa: BLE001 — LaneStopped or dispatch
+                # failure. submit_batch guards its broadcast hooks, so a
+                # dispatch exception means this tx was NOT admitted —
+                # retrying alone on the direct path is safe and isolates
+                # this request from a bad cohort member
+                res = self.node.txpool.submit(
+                    tx if tx is not None else Transaction.decode(raw))
+        else:
+            res = self.node.txpool.submit(
+                tx if tx is not None else Transaction.decode(raw))
+        if res.status not in (TransactionStatus.OK,
+                              TransactionStatus.ALREADY_IN_TXPOOL,
+                              TransactionStatus.ALREADY_KNOWN):
+            raise JsonRpcError(int(res.status),
+                               TransactionStatus(res.status).name)
+        # ALREADY_IN_TXPOOL / ALREADY_KNOWN are NOT errors here: the tx is
+        # admitted (or committed) — exactly what a client re-POSTing after
+        # a connection reset produces (SdkClient's bounded retry). Fall
+        # through to the receipt wait so the retry resolves like the
+        # original would have.
+        if not wait:
+            return {"transactionHash": _hex(res.tx_hash), "status": None}
+        # remaining budget only: admission may have consumed part of the
+        # client's timeout — wait=True must not double-spend it
+        from ..txpool.txpool import TxDropped
+        try:
+            rc = self.node.txpool.wait_for_receipt(
+                res.tx_hash, max(0.0, deadline - time.monotonic()))
+        except TxDropped as exc:
+            # evicted/shed after admission: settle NOW with the typed
+            # status instead of burning the client's full timeout
+            raise JsonRpcError(int(exc.status),
+                               TransactionStatus(exc.status).name)
+        if rc is None:
+            raise JsonRpcError(JSONRPC_INTERNAL_ERROR,
+                               "timed out waiting for receipt")
+        out = _receipt_json(rc, res.tx_hash)
+        if require_proof:
+            self._attach_proof(out, res.tx_hash, "receiptProof",
+                               "receiptsRoot",
+                               self.node.ledger.receipt_proof)
+        return out
+
+    def call(self, group: str, node_name: str = "", to: str = "",
+             data: str = ""):
+        self._check_group(group)
+        tx = Transaction(to=_unhex(to), input=_unhex(data))
+        rc = self.node.scheduler.call(tx)
+        return {"blockNumber": self.node.ledger.current_number(),
+                "status": rc.status, "output": _hex(rc.output)}
+
+    # -- queries -----------------------------------------------------------
+    def get_transaction(self, group: str, node_name: str = "",
+                        tx_hash: str = "", require_proof: bool = False):
+        self._check_group(group)
+        h = _unhex(tx_hash)
+        out = self._tx_json_cached(h)
+        if out is None:
+            return None
+        if require_proof:
+            out = dict(out)  # cached values are frozen; annotate a copy
+            self._attach_proof(out, h, "txProof", "txsRoot",
+                               self.node.ledger.tx_proof)
+        return out
+
+    def _attach_proof(self, out: dict, h: bytes, proof_key: str,
+                      root_key: str, builder) -> None:
+        """Annotate a response with an inclusion proof — or, when the
+        body rows are gone (pruned history; the builders return None
+        instead of tearing), a typed null proof + the prune floor, never
+        a TypeError-shaped internal error."""
+        pr = builder(h)
+        if pr is None:
+            out[proof_key] = None
+            out["prunedBelow"] = self.node.ledger.pruned_below()
+            return
+        proof, root = pr
+        out[proof_key] = _proof_json(proof)
+        out[root_key] = _hex(root)
+
+    def _tx_json_cached(self, h: bytes):
+        cache = self.cache
+        if cache is not None:
+            hit = cache.get(("tx", h))
+            if hit is not None:
+                return hit
+            gen = cache.generation()
+        tx = self.node.ledger.transaction(h)
+        if tx is None:
+            return None
+        out = RawResult(_tx_json(tx, h, sender=tx.sender(self.node.suite)))
+        if cache is not None:
+            cache.put(("tx", h), out, gen, size=len(out.raw))
+        return out
+
+    def get_transaction_receipt(self, group: str, node_name: str = "",
+                                tx_hash: str = "",
+                                require_proof: bool = False):
+        self._check_group(group)
+        h = _unhex(tx_hash)
+        out = self._receipt_json_cached(h)
+        if out is None:
+            return None
+        if require_proof:
+            out = dict(out)  # cached values are frozen; annotate a copy
+            self._attach_proof(out, h, "receiptProof", "receiptsRoot",
+                               self.node.ledger.receipt_proof)
+        return out
+
+    def _receipt_json_cached(self, h: bytes):
+        cache = self.cache
+        if cache is not None:
+            hit = cache.get(("rc", h))
+            if hit is not None:
+                return hit
+            gen = cache.generation()
+        rc = self.node.ledger.receipt(h)
+        if rc is None:
+            return None
+        out = RawResult(_receipt_json(rc, h))
+        if cache is not None:
+            cache.put(("rc", h), out, gen, size=len(out.raw))
+        return out
+
+    def get_block_by_number(self, group: str, node_name: str = "",
+                            number: int = 0, only_header: bool = False,
+                            only_tx_hash: bool = False):
+        self._check_group(group)
+        cache = self.cache
+        key = ("block", number, bool(only_header), bool(only_tx_hash))
+        gen = None
+        if cache is not None:
+            hit = cache.get(key)
+            if hit is not None:
+                return hit
+            gen = cache.generation()  # BEFORE the ledger reads (fencing)
+        out = self._block_json(self.node.ledger.block_by_number(
+            number, with_txs=not only_header), only_header, only_tx_hash,
+            gen=gen)
+        if cache is not None and out is not None:
+            out = RawResult(out)  # encode once; hits splice the bytes
+            cache.put(key, out, gen, size=len(out.raw))
+        return out
+
+    def get_block_by_hash(self, group: str, node_name: str = "",
+                          block_hash: str = "", only_header: bool = False,
+                          only_tx_hash: bool = False):
+        self._check_group(group)
+        n = self.node.ledger.number_by_hash(_unhex(block_hash))
+        if n is None:
+            return None
+        return self.get_block_by_number(group, node_name, n, only_header,
+                                        only_tx_hash)
+
+    def _block_json(self, block: Optional[Block], only_header: bool,
+                    only_tx_hash: bool, gen: Optional[int] = None):
+        if block is None:
+            return None
+        suite = self.node.suite
+        out = _header_json(block.header)
+        out["hash"] = _hex(block.header.hash(suite))
+        if only_header:
+            return out
+        from ..protocol import batch_hash
+        if only_tx_hash:
+            out["transactions"] = [_hex(h) for h in (
+                block.tx_hashes or batch_hash(block.transactions, suite))]
+        else:
+            senders = self._senders_for_block(block, gen)
+            txs_json = []
+            for t, sender in zip(block.transactions, senders):
+                txs_json.append(_tx_json(t, t.hash(suite), sender=sender))
+            out["transactions"] = txs_json
+        return out
+
+    def _senders_for_block(self, block: Block, gen: Optional[int]):
+        """Recovered senders for a committed block: computed ONCE (at
+        commit via prime_block, or on first touch) and reused — N
+        identical getBlock requests cost <= 1 recover batch."""
+        cache, n = self.cache, block.header.number
+        if cache is not None:
+            hit = cache.get(("senders", n))
+            if hit is not None and len(hit) == len(block.transactions):
+                return hit
+        # one batch recover for all senders (not a per-tx scalar loop)
+        from ..protocol import batch_recover_senders
+        senders, _ = batch_recover_senders(block.transactions,
+                                           self.node.suite)
+        if cache is not None and gen is not None:
+            # bytes rows are not JSON: size them directly (no dumps)
+            cache.put(("senders", n), senders, gen,
+                      size=sum(len(s) if s else 1 for s in senders) + 48)
+        return senders
+
+    # -- commit-time cache priming (Scheduler.on_commit observer) ----------
+    def prime_block(self, number: int) -> None:
+        """Render the just-committed block's hot responses once, off the
+        consensus path (runs on the scheduler's notifier thread): block
+        JSON with txs / tx-hash-only / header-only, per-tx transaction +
+        receipt JSON, per-log push fragments, and the recovered-senders
+        row. Every fragment is a RawResult — its bytes are encoded HERE,
+        exactly once; polled hits splice them (encode_jsonrpc) and the
+        subscription fan-out (rpc/eventsub.SubHub) pushes the same bytes,
+        so a notification costs zero extra render."""
+        cache = self.cache
+        if cache is None:
+            return
+        try:
+            gen = cache.generation()
+            ledger = self.node.ledger
+            block = ledger.block_by_number(number, with_txs=True)
+            if block is None or number > ledger.current_number():
+                return
+            # use the scheduler's LIVE tx objects when they are this
+            # block's: their senders were recovered at admission/verify,
+            # so the render below costs ZERO extra recover batches
+            # (ledger reads decode fresh copies with _sender unset)
+            stash = getattr(self.node.scheduler, "last_committed_txs",
+                            {}).get(number)
+            if stash is not None and len(stash) == len(block.transactions):
+                block.transactions = list(stash)
+            full = RawResult(self._block_json(block, False, False, gen=gen))
+            cache.put(("block", number, False, False), full, gen,
+                      size=len(full.raw))
+            hashes_only = RawResult(self._block_json(block, False, True))
+            cache.put(("block", number, False, True), hashes_only, gen,
+                      size=len(hashes_only.raw))
+            header = RawResult(self._block_json(block, True, False))
+            cache.put(("block", number, True, False), header, gen,
+                      size=len(header.raw))
+            suite = self.node.suite
+            for tx, tj in zip(block.transactions, full["transactions"]):
+                h = tx.hash(suite)
+                rtj = RawResult(tj)
+                cache.put(("tx", h), rtj, gen, size=len(rtj.raw))
+            # receipts + the per-log push fragments: the logs row carries
+            # (LogEntry, rendered bytes) pairs so the subscription fan-out
+            # does filter matching + buffer joins only — no dumps, no
+            # ledger reads on the hot path
+            log_rows: list[tuple] = []
+            log_bytes = 0
+            for ti, (rc, tx) in enumerate(zip(block.receipts,
+                                              block.transactions)):
+                h = tx.hash(suite)
+                rrc = RawResult(_receipt_json(rc, h))
+                cache.put(("rc", h), rrc, gen, size=len(rrc.raw))
+                for idx, log in enumerate(rc.logs):
+                    frag = RawResult({
+                        "address": _hex(log.address),
+                        "topics": [_hex(t) for t in log.topics],
+                        "data": _hex(log.data),
+                        "blockNumber": number,
+                        "transactionHash": _hex(h),
+                        "transactionIndex": ti,
+                        "logIndex": idx,
+                    })
+                    log_rows.append((log, frag.raw))
+                    log_bytes += len(frag.raw)
+            cache.put(("logs", number), log_rows, gen,
+                      size=log_bytes + 64)
+            # ZK proof plane: render every tx's getProof bundle (both
+            # trees' levels built once) so proof hits cost zero walks
+            zk = getattr(self.node, "zk", None)
+            if zk is not None and getattr(self.node.config, "zk_proofs",
+                                          True):
+                zk.prime(number, gen, cache)
+        except Exception:  # noqa: BLE001 — priming is best-effort
+            LOG.exception(badge("RPC", "cache-prime-failed", number=number))
+
+    # -- ZK proof plane ----------------------------------------------------
+    def get_proof(self, group: str, node_name: str = "", tx_hash: str = "",
+                  state_keys=None, number: Optional[int] = None):
+        """Verifiable proof bundle. `tx_hash` -> the tx's inclusion proof
+        under txsRoot + its receipt's under receiptsRoot, served from the
+        commit-time rendered cache (zero tree walks on a hit). Optional
+        `state_keys` = [[table, hex_key], ...] adds changeset-inclusion
+        proofs against block `number`'s (default: head) state_root —
+        proving "block N wrote this key", per the state-root trust model
+        (README "ZK proof plane": the root covers the block's OWN
+        changeset, not cumulative state)."""
+        self._check_group(group)
+        from ..zk import proof as zkproof
+        ledger = self.node.ledger
+        zk = getattr(self.node, "zk", None)
+        out: dict = {}
+        if tx_hash:
+            h = _unhex(tx_hash)
+            cache = self.cache
+            doc = cache.get(("proof", h)) if cache is not None else None
+            hit = doc is not None
+            if doc is None:
+                gen = cache.generation() if cache is not None else None
+                doc = zkproof.render_proof_doc(ledger, h)
+                if doc is not None and cache is not None:
+                    cache.put(("proof", h), doc, gen)
+            if zk is not None:
+                zk.note_proof(hit)
+            if doc is None:
+                # typed not-found; the state section below still serves
+                out["found"] = False
+                out["prunedBelow"] = ledger.pruned_below()
+            else:
+                out.update(doc)
+                out["found"] = True
+        if state_keys:
+            n = int(number) if number is not None \
+                else ledger.current_number()
+            # batched: one index decode + one level build for all keys
+            proofs = ledger.state_proofs(
+                n, [(t, _unhex(k)) for t, k in state_keys])
+            indexed = proofs is not None
+            entries = []
+            for (table, key_hex), sp in zip(
+                    state_keys, proofs or [None] * len(state_keys)):
+                if sp is None:
+                    # `indexed` disambiguates "block N did not write this
+                    # key" (provable absence from the index) from "no
+                    # index exists" (pruned / pre-feature / zk_proofs
+                    # off) — the latter proves NOTHING about the key
+                    entries.append({"table": table, "key": key_hex,
+                                    "present": False,
+                                    "indexed": indexed})
+                    continue
+                proof, root, leaf, idx = sp
+                entries.append({
+                    "table": table, "key": key_hex, "present": True,
+                    "indexed": True,
+                    "leafDigest": _hex(leaf), "leafIndex": idx,
+                    "stateRoot": _hex(root),
+                    "stateProof": zkproof.w16_proof_json(proof)})
+            out["stateBlockNumber"] = n
+            out["stateEntries"] = entries
+        return out
+
+    def verify_proofs(self, group: str, node_name: str = "",
+                      proofs=None):
+        """Batched verification: N width-16 inclusion proofs (each
+        {leaf, proof, root} in getProof's JSON shape) checked with ONE
+        batched hash call through the crypto lane — the server-side
+        counterpart of the light client's span verification, for
+        gateways validating proofs fetched from untrusted archives."""
+        self._check_group(group)
+        from ..zk import proof as zkproof
+        items = [(_unhex(p["leaf"]),
+                  zkproof.w16_proof_from_json(p["proof"]),
+                  _unhex(p["root"])) for p in (proofs or [])]
+        ok = zkproof.verify_inclusion_batch(self.node.suite, items)
+        zk = getattr(self.node, "zk", None)
+        if zk is not None and items:
+            zk.note_verified(len(items), int(ok.sum()))
+        return {"results": [bool(v) for v in ok],
+                "verified": int(ok.sum())}
+
+    def get_block_hash_by_number(self, group: str, node_name: str = "",
+                                 number: int = 0):
+        self._check_group(group)
+        h = self.node.ledger.header_by_number(number)
+        return _hex(h.hash(self.node.suite)) if h else None
+
+    def get_block_number(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        return self.node.ledger.current_number()
+
+    def get_code(self, group: str, node_name: str = "", address: str = ""):
+        if self.node.storage is None:  # Pro RPC without a storage service
+            return "0x"
+        self._check_group(group)
+        code = self.node.executor.get_code(_unhex(address),
+                                           self.node.storage)
+        return _hex(code) if code else "0x"
+
+    def get_abi(self, group: str, node_name: str = "", address: str = ""):
+        self._check_group(group)
+        if self.node.storage is None:  # Pro RPC without a storage service
+            return ""
+        return self.node.executor.get_abi(_unhex(address), self.node.storage)
+
+    def get_sealer_list(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        cfg = self.node.ledger.ledger_config()
+        return [{"nodeID": _hex(n.node_id), "weight": n.weight}
+                for n in cfg.consensus_nodes]
+
+    def get_observer_list(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        return [_hex(n.node_id)
+                for n in self.node.ledger.consensus_nodes()
+                if n.node_type == "consensus_observer"]
+
+    def get_pbft_view(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        c = self.node.consensus
+        return c.view if c is not None else 0
+
+    def get_pending_tx_size(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        return self.node.txpool.pending_count()
+
+    def get_sync_status(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        bs = self.node.blocksync
+        return bs.status() if bs is not None else \
+            {"blockNumber": self.node.ledger.current_number(), "peers": {}}
+
+    def get_snapshot_status(self, group: str, node_name: str = ""):
+        """Checkpoint/pruning state of this node (snapshot/ subsystem):
+        last snapshot height + root, pruned-below floor, and the sync mode
+        (replay vs snap) the node last used to catch up."""
+        self._check_group(group)
+        snap = getattr(self.node, "snapshot", None)
+        out = snap.status() if snap is not None else {"enabled": False}
+        bs = self.node.blocksync
+        out["syncMode"] = bs.sync_mode if bs is not None else "replay"
+        return out
+
+    def get_consensus_status(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        c = self.node.consensus
+        return c.status() if c is not None else {}
+
+    def get_system_config_by_key(self, group: str, node_name: str = "",
+                                 key: str = ""):
+        self._check_group(group)
+        value, enable_number = self.node.ledger.system_config(key)
+        return {"value": value, "blockNumber": enable_number}
+
+    def get_total_transaction_count(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        led = self.node.ledger
+        return {"transactionCount": led.total_tx_count(),
+                "failedTransactionCount": led.total_failed_count(),
+                "blockNumber": led.current_number()}
+
+    def get_peers(self, group: str = "", node_name: str = ""):
+        front = self.node.front
+        peers = front.peers() if front is not None else []
+        return {"p2pNodeID": _hex(self.node.keypair.pub_bytes),
+                "peers": [{"p2pNodeID": _hex(p)} for p in peers]}
+
+    def get_group_peers(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        return [p["p2pNodeID"] for p in self.get_peers()["peers"]]
+
+    def get_group_list(self):
+        reg = self._registry()
+        groups = reg.groups() if reg is not None \
+            else [self.node.config.group_id]
+        return {"groupList": groups}
+
+    @staticmethod
+    def _group_info_of(node) -> dict:
+        g0 = node.ledger.header_by_number(0)
+        return {
+            "groupID": node.config.group_id,
+            "chainID": node.config.chain_id,
+            "genesisHash": _hex(g0.hash(node.suite)) if g0 else "",
+            "smCrypto": node.config.sm_crypto,
+            "blockNumber": node.ledger.current_number(),
+        }
+
+    def get_group_info(self, group: str = ""):
+        gid = group or self.node.config.group_id
+        if gid == self.node.config.group_id:
+            return self._group_info_of(self.node)
+        reg = self._registry()
+        other = reg.node(gid) if reg is not None else None
+        if other is None:
+            raise JsonRpcError(JSONRPC_GROUP_NOT_FOUND,
+                               f"unknown group {gid}")
+        return self._group_info_of(other)
+
+    def get_group_info_list(self):
+        reg = self._registry()
+        if reg is None:
+            return [self._group_info_of(self.node)]
+        infos = []
+        for gid in reg.groups():
+            node = reg.node(gid)
+            if node is not None:
+                infos.append(self._group_info_of(node))
+        return infos
+
+    def get_group_node_info(self, group: str, node_name: str = ""):
+        self._check_group(group)
+        c = self.node.consensus
+        return {
+            "nodeID": _hex(self.node.keypair.pub_bytes),
+            "type": "consensus_sealer" if c is not None else "observer",
+            "blockNumber": self.node.ledger.current_number(),
+        }
+
+    # -- observability plane ----------------------------------------------
+    def get_trace(self, group: str, node_name: str = "",
+                  trace_id: str = ""):
+        """Every span this node retained for `trace_id` (hex, with or
+        without 0x). A multi-process chain stitches client-side: query
+        each node and merge by traceId (spans carry a `node` attribute)."""
+        self._check_group(group)
+        from ..analysis import profiler
+        tid = trace_id.lower().removeprefix("0x")
+        spans = otrace.TRACER.get_trace(tid)
+        # slow-span burst linking: when this trace tripped the slow ring
+        # and a high-hz burst captured it, the function-level evidence
+        # rides along with the spans
+        return profiler.attach_burst(
+            {"traceId": tid, "spans": spans,
+             "node": _hex(self.node.keypair.pub_bytes)}, tid)
+
+    def list_traces(self, group: str, node_name: str = "",
+                    limit: int = 50, slow_only: bool = False):
+        self._check_group(group)
+        from ..analysis import profiler
+        traces = otrace.TRACER.list_traces(limit=limit,
+                                           slow_only=bool(slow_only))
+        return {"traces": profiler.flag_profiled(traces)}
+
+    def get_system_status(self, group: str = "", node_name: str = ""):
+        """One JSON document aggregating the node's scattered operational
+        state (pipeline occupancy, lane merge stats, storage engine,
+        txpool/ingest depth, sync mode, groups, tracer) — the /status ops
+        endpoint serves the same document."""
+        if group:
+            self._check_group(group)
+        return self.node.system_status()
+
+    def get_audit_report(self, group: str = "", node_name: str = "",
+                         max_blocks: int = 256):
+        """Structural-invariant audit (ops/audit.py): chain/storage/nonce
+        coherence for this node plus cross-group xshard conservation when
+        the process hosts several groups. The post-chaos-run gate."""
+        if group:
+            self._check_group(group)
+        from ..ops.audit import audit_report
+        return audit_report(self.node, max_blocks=int(max_blocks))
+
+
+def _proof_json(proof) -> list:
+    return [{"siblings": [_hex(s) for s in sibs], "index": pos}
+            for sibs, pos in proof]
+
+
+def http_body_handler(impl, max_batch: int = 256):
+    """-> handler(raw_body, headers) -> response bytes (or (bytes,
+    extra-response-headers)), for EventLoopHttpServer. Works with any impl
+    exposing `.handle` (handle_payload_with does the batch framing), so
+    the multigroup and Pro facades serve batches too.
+
+    W3C trace context: an incoming `traceparent` header scopes the whole
+    payload's execution (every entry's spans join the client's trace) and
+    is echoed on the response, so callers can correlate without parsing
+    bodies."""
+
+    def handle(raw: bytes, headers: Optional[dict] = None):
+        ctx = otrace.parse_traceparent(
+            headers.get("traceparent")) if headers else None
+        try:
+            payload = json.loads(raw)
+        except Exception:
+            resp = {"jsonrpc": "2.0", "id": None,
+                    "error": {"code": JSONRPC_PARSE_ERROR,
+                              "message": "parse error"}}
+        else:
+            with otrace.ctx_scope(ctx):
+                resp = handle_payload_with(impl, payload, max_batch)
+            if resp is None:
+                return b""  # notification-only payload: nothing to send
+        body = encode_jsonrpc(resp)
+        if ctx is not None:
+            return body, {"traceparent": ctx.traceparent()}
+        return body
+
+    return handle
+
+
+class JsonRpcServer:
+    """HTTP binding (the reference's boostssl HttpServer role): the
+    selectors event loop in rpc/edge.py with keep-alive + pipelining,
+    method execution offloaded to a bounded (optionally node-shared)
+    WorkerPool."""
+
+    def __init__(self, impl, host: str = "127.0.0.1", port: int = 0,
+                 pool: Optional[WorkerPool] = None, workers: int = 8,
+                 keepalive_s: float = 60.0, ops=None, admission=None):
+        self.impl = impl
+        max_batch = getattr(impl, "max_batch", 256)
+        self._own_pool = pool is None
+        self._pool = pool if pool is not None else WorkerPool(workers)
+        self._edge = EventLoopHttpServer(
+            http_body_handler(impl, max_batch), host=host, port=port,
+            pool=self._pool, keepalive_s=keepalive_s, ops=ops,
+            admission=admission)
+        self.host, self.port = self._edge.host, self._edge.port
+
+    def start(self) -> None:
+        if self._own_pool:
+            self._pool.start()
+        self._edge.start()
+        LOG.info(badge("RPC", "listening", host=self.host, port=self.port))
+
+    def stop(self) -> None:
+        self._edge.stop()
+        if self._own_pool:
+            self._pool.stop()

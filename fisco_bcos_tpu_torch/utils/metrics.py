@@ -6,11 +6,10 @@ Prometheus/Grafana bundle shipped under
 FISCO-BCOS tools/BcosBuilder/docker/host/linux/monitor/ with
 tools/template/Dashboard.json. Instead of log scraping, the framework keeps
 counters/gauges/histograms in-process and exposes them in the Prometheus
-text format, so the same Grafana dashboards can point straight at a node.
-The HTTP scrape endpoint (`MetricsServer` in the JAX package) rides the
-RPC edge and is not ported yet (ROADMAP.md). `utils.log.metric()` keeps
-emitting the flat METRIC lines; this registry is the queryable aggregate
-view (also served by the RPC `getMetrics` method).
+text format over HTTP (`MetricsServer`), so the same Grafana dashboards can
+point straight at a node. `utils.log.metric()` keeps emitting the flat
+METRIC lines; this registry is the queryable aggregate view (also served by
+the RPC `getMetrics` method).
 """
 
 from __future__ import annotations
@@ -217,3 +216,40 @@ def for_group(group: str, registry: Optional[MetricsRegistry] = None
               ) -> GroupMetricsView:
     """Per-group dual-writing view over `registry` (default REGISTRY)."""
     return GroupMetricsView(registry or REGISTRY, group)
+
+
+class MetricsServer:
+    """Ops scrape endpoint: GET /metrics (Prometheus text), plus the
+    /trace, /traces, /status, /healthz, /failpoints and /profile views
+    of the same single-loop ops server (rpc/ops.OpsRoutes — including
+    the continuous profiler's folded stacks and flamegraph HTML).
+
+    Thin compat wrapper: serving moved off the old thread-per-scrape
+    `ThreadingHTTPServer` onto the shared event-loop edge
+    (rpc/edge.py + rpc/ops.OpsRoutes — one loop thread, two workers);
+    nodes that already run an RPC edge serve the same GET routes from it
+    and don't need this dedicated listener at all."""
+
+    def __init__(self, registry: MetricsRegistry = REGISTRY,
+                 host: str = "127.0.0.1", port: int = 0,
+                 status_fn=None, tracer=None, health_fn=None):
+        # runtime imports: rpc.edge imports this module for REGISTRY, so
+        # the dependency must stay one-way at import time
+        from ..rpc.edge import EventLoopHttpServer, WorkerPool
+        from ..rpc.ops import OpsRoutes
+
+        self._pool = WorkerPool(2, name="ops-worker")
+        self._server = EventLoopHttpServer(
+            None, host=host, port=port, pool=self._pool,
+            keepalive_s=30.0, name="ops-http",
+            ops=OpsRoutes(registry=registry, tracer=tracer,
+                          status_fn=status_fn, health_fn=health_fn))
+        self.port = self._server.port
+
+    def start(self) -> None:
+        self._pool.start()
+        self._server.start()
+
+    def stop(self) -> None:
+        self._server.stop()
+        self._pool.stop()

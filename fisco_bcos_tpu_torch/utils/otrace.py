@@ -1,20 +1,37 @@
-"""otrace: sampled spans of one transaction's path, OpenTelemetry-shaped.
+"""otrace — zero-dependency, OpenTelemetry-shaped tracing plane.
 
-A traced submission carries a `SpanContext` (trace_id, span_id,
-sampled): the thread that submits scopes it (`ctx_scope`, read back by
-`current`), and cross-thread handoffs pin it onto the carried object
-(an ingest lane entry, a tx's `_otrace`). The ingest lane and the txpool
-then record their already-timed stages under it (`TRACER.record`) into a
-bounded ring of finished spans, queryable by trace id (`get_trace`).
+Reference counterpart: the reference answers "where does a transaction's
+wall-clock go" with stage-stamped METRIC lines (BlockTrace /
+DmcStepRecorder, bcos-scheduler/src/BlockExecutive.cpp:761-801) scraped
+into a Prometheus/Grafana bundle. That attributes latency per *stage* but
+cannot follow ONE transaction across threads and nodes. This module adds
+the missing cross-cutting view with OpenTelemetry's data model — sampled
+spans with a trace_id/span_id/parent chain, W3C `traceparent` context
+propagation — while staying stdlib-only:
 
-With no context attached the instrumented hot paths pay one branch.
-The block pipeline's stage clock (utils/trace.BlockTrace) offers the
-stages of unbound blocks to slow capture (`observe_slow`): a stage longer
-than `slow_ms` is kept in a separate slow ring and logged; slow_ms = 0,
-the default, keeps nothing. The node front's frames carry a sampled
-context packed (`wire_bytes`, read back by `unpack_ctx`), so a block's
-trace follows it to every replica. The W3C `traceparent` parsing and
-live spans ride the RPC edge and come with it.
+  * `SpanContext` — (trace_id, span_id, sampled); parses/renders the W3C
+    `traceparent` header and packs to 25 bytes for the p2p frame envelope
+    (net/front.py appends it to every outbound frame, so a block's
+    consensus spans stitch across all nodes of a real chain).
+  * `Tracer` — process-wide (`TRACER`, like metrics.REGISTRY): bounded
+    in-process ring buffer of finished spans, queryable via the
+    `getTrace`/`listTraces` RPC methods and the `/trace` ops endpoint.
+  * sampling: new roots are sampled at `sample_rate`; an INCOMING context
+    (client traceparent, p2p envelope) carries its own sampled flag and is
+    honored — a client that asks for its trace gets it regardless of the
+    node's local rate. Spans that exceed `slow_ms` are ALWAYS retained in
+    a separate slow ring (never sampled out) and logged, so tail latency
+    stays observable at sample_rate=0.
+  * propagation inside a process is a per-thread context stack
+    (`ctx_scope`/`current`): the serving edge, the p2p delivery thread and
+    the consensus worker each scope the context they carry, and
+    cross-thread handoffs (ingest lane entries, sealed blocks, PBFT
+    messages) pin the context onto the carried object.
+
+Cost contract: with no context attached and sampling off, the
+instrumented hot paths pay one branch (plus, where slow-capture applies,
+one monotonic clock read); span dicts are only materialised for sampled
+or slow spans.
 """
 
 from __future__ import annotations
@@ -25,10 +42,15 @@ import time
 from collections import deque
 from typing import Optional
 
+from .log import LOG, badge
+
 
 def _rand_id(nbytes: int) -> bytes:
-    """Span ids need uniqueness, not cryptographic strength; all-zero ids
-    are invalid per the W3C spec, hence the `max(..., 1)`."""
+    """Trace/span ids need uniqueness, not cryptographic strength:
+    random.getrandbits stays in-process (~10x cheaper than an os.urandom
+    syscall), which matters because an id pair is minted per RPC request
+    even when the span ends up unsampled. All-zero ids are invalid per
+    the W3C spec, hence the `max(..., 1)`."""
     return max(random.getrandbits(nbytes * 8), 1).to_bytes(nbytes, "big")
 
 
@@ -36,7 +58,7 @@ _WIRE_LEN = 16 + 8 + 1  # trace_id + span_id + flags
 
 
 class SpanContext:
-    """Immutable (trace_id, span_id, sampled) triple: the propagated part
+    """Immutable (trace_id, span_id, sampled) triple — the propagated part
     of a span, W3C Trace Context shaped."""
 
     __slots__ = ("trace_id", "span_id", "sampled")
@@ -46,10 +68,40 @@ class SpanContext:
         self.span_id = span_id
         self.sampled = bool(sampled)
 
+    def traceparent(self) -> str:
+        return (f"00-{self.trace_id.hex()}-{self.span_id.hex()}-"
+                f"{'01' if self.sampled else '00'}")
+
     def pack(self) -> bytes:
         """25-byte wire form for the p2p frame envelope."""
         return self.trace_id + self.span_id + (b"\x01" if self.sampled
                                                else b"\x00")
+
+    def __repr__(self) -> str:  # debugging only
+        return f"SpanContext({self.traceparent()})"
+
+
+def parse_traceparent(value) -> Optional[SpanContext]:
+    """W3C traceparent header -> SpanContext, or None if malformed.
+    Accepts any version (only version 00's field layout is read, per
+    spec's forward-compatibility rule)."""
+    if not isinstance(value, str):
+        return None
+    parts = value.strip().split("-")
+    if len(parts) < 4:
+        return None
+    ver, tid, sid, flags = parts[0], parts[1], parts[2], parts[3]
+    if len(ver) != 2 or len(tid) != 32 or len(sid) != 16 or len(flags) < 2:
+        return None
+    try:
+        trace_id = bytes.fromhex(tid)
+        span_id = bytes.fromhex(sid)
+        sampled = bool(int(flags[:2], 16) & 0x01)
+    except ValueError:
+        return None
+    if trace_id == bytes(16) or span_id == bytes(8):
+        return None  # all-zero ids are invalid per spec
+    return SpanContext(trace_id, span_id, sampled)
 
 
 def unpack_ctx(data: bytes) -> Optional[SpanContext]:
@@ -73,7 +125,7 @@ def current() -> Optional[SpanContext]:
 
 
 class ctx_scope:
-    """`with ctx_scope(ctx): ...` pushes `ctx` as the thread's current
+    """`with ctx_scope(ctx): ...` — pushes `ctx` as the thread's current
     context. A None ctx is a no-op scope, so callers never branch."""
 
     __slots__ = ("ctx",)
@@ -96,7 +148,7 @@ class ctx_scope:
 
 
 def wire_bytes() -> bytes:
-    """Current context packed for the p2p frame envelope: b"" when there
+    """Current context packed for the p2p frame envelope — b"" when there
     is nothing worth propagating (no context, or unsampled)."""
     ctx = current()
     if ctx is None or not ctx.sampled:
@@ -104,86 +156,285 @@ def wire_bytes() -> bytes:
     return ctx.pack()
 
 
+# -- spans ----------------------------------------------------------------
+class _Span:
+    """A live span. `end()` (or context-manager exit) records it into the
+    tracer's ring when sampled, and into the slow ring when it exceeded
+    the slow threshold (regardless of sampling)."""
+
+    __slots__ = ("tracer", "name", "ctx", "parent_id", "attrs", "_t0",
+                 "_scope", "_ended")
+
+    def __init__(self, tracer: "Tracer", name: str,
+                 ctx: SpanContext, parent_id: bytes,
+                 attrs: Optional[dict]):
+        self.tracer = tracer
+        self.name = name
+        self.ctx = ctx
+        self.parent_id = parent_id
+        self.attrs = dict(attrs) if attrs else {}
+        self._t0 = time.monotonic()
+        self._scope = None
+        self._ended = False
+
+    def set_attr(self, key: str, value) -> None:
+        self.attrs[key] = value
+
+    def end(self) -> None:
+        if self._ended:
+            return
+        self._ended = True
+        self.tracer._finish(self.name, self.ctx, self.parent_id,
+                            self._t0, time.monotonic(), self.attrs)
+
+    def __enter__(self):
+        self._scope = ctx_scope(self.ctx)
+        self._scope.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            self.attrs.setdefault("error", exc_type.__name__)
+        if self._scope is not None:
+            self._scope.__exit__(exc_type, exc, tb)
+        self.end()
+        return False
+
+
+class _NullSpan:
+    """No-op span returned when the tracer has nothing to do — one object,
+    zero per-call allocation."""
+
+    __slots__ = ()
+
+    def set_attr(self, key: str, value) -> None:
+        pass
+
+    def end(self) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
 class Tracer:
-    """Process-wide span sink (`TRACER`, like metrics.REGISTRY): a bounded
-    ring of the finished spans of sampled traces."""
+    """Process-wide span sink + sampler (`TRACER` is the default, like
+    metrics.REGISTRY — one node per process in deployments; in-process
+    test clusters share it and tell nodes apart by span attributes)."""
 
-    def __init__(self, ring_size: int = 4096, slow_ms: float = 0.0,
-                 slow_ring: int = 512):
+    def __init__(self, sample_rate: float = 0.0, ring_size: int = 4096,
+                 slow_ms: float = 0.0, slow_ring: int = 512):
         self._lock = threading.Lock()
-        self._ring: deque = deque(maxlen=max(16, int(ring_size)))
-        self._slow: deque = deque(maxlen=max(16, int(slow_ring)))
-        self.slow_s = max(0.0, float(slow_ms)) / 1000.0
+        # slow-span observers: callback(span_dict), fired OUTSIDE the ring
+        # lock on the already-slow path only (the profiler's burst-capture
+        # trigger, analysis/profiler.py). Observers must never raise.
+        self.on_slow: list = []
+        self.configure(sample_rate=sample_rate, ring_size=ring_size,
+                       slow_ms=slow_ms, slow_ring=slow_ring)
 
-    def configure(self, slow_ms: Optional[float] = None) -> None:
-        """Apply the [trace] slow threshold (0 keeps no slow spans)."""
-        if slow_ms is not None:
-            self.slow_s = max(0.0, float(slow_ms)) / 1000.0
+    def configure(self, sample_rate: Optional[float] = None,
+                  ring_size: Optional[int] = None,
+                  slow_ms: Optional[float] = None,
+                  slow_ring: Optional[int] = None) -> None:
+        """Apply [trace] knobs. Ring resizes clear the affected ring (a
+        deque's maxlen is immutable); same-size reconfiguration keeps
+        recorded spans."""
+        with self._lock:
+            if sample_rate is not None:
+                self.sample_rate = max(0.0, min(1.0, float(sample_rate)))
+            if slow_ms is not None:
+                self.slow_s = max(0.0, float(slow_ms)) / 1000.0
+            if ring_size is not None:
+                ring_size = max(16, int(ring_size))
+                if getattr(self, "_ring", None) is None or \
+                        self._ring.maxlen != ring_size:
+                    self._ring: deque = deque(maxlen=ring_size)
+            if slow_ring is not None:
+                slow_ring = max(16, int(slow_ring))
+                if getattr(self, "_slow", None) is None or \
+                        self._slow.maxlen != slow_ring:
+                    self._slow: deque = deque(maxlen=slow_ring)
+            if not hasattr(self, "_dropped"):
+                self._dropped = 0
+                self._recorded = 0
 
     def reset(self) -> None:
-        """Drop every recorded span."""
+        """Drop every recorded span (tests, bench warm-up)."""
         with self._lock:
             self._ring.clear()
             self._slow.clear()
+            self._dropped = 0
+            self._recorded = 0
+
+    # -- context construction ----------------------------------------------
+    def idle(self) -> bool:
+        """True when span bookkeeping can be skipped entirely — the ONE
+        branch the instrumented-but-unsampled hot path pays."""
+        return self.sample_rate <= 0.0 and self.slow_s <= 0.0
+
+    def new_root(self) -> SpanContext:
+        """Fresh trace; sampled per sample_rate."""
+        sampled = self.sample_rate > 0.0 and (
+            self.sample_rate >= 1.0 or random.random() < self.sample_rate)
+        return SpanContext(_rand_id(16), _rand_id(8), sampled)
+
+    @staticmethod
+    def child_of(parent: SpanContext) -> SpanContext:
+        return SpanContext(parent.trace_id, _rand_id(8), parent.sampled)
+
+    # -- span API ----------------------------------------------------------
+    def span(self, name: str, parent: Optional[SpanContext] = None,
+             attrs: Optional[dict] = None):
+        """Start a span. `parent=None` consults the thread's current
+        context, then starts a new (maybe-sampled) root. Returns a live
+        span usable as a context manager (which also scopes the span's
+        context for children), or a no-op span when there is provably
+        nothing to record."""
+        if parent is None:
+            parent = current()
+        if parent is None:
+            if self.idle():
+                return _NULL_SPAN
+            parent = self.new_root()
+            # a root HAS no parent span: record with an empty parent id
+            ctx = parent
+            return _Span(self, name, ctx, b"", attrs)
+        if not parent.sampled and self.slow_s <= 0.0:
+            return _NULL_SPAN
+        return _Span(self, name, self.child_of(parent), parent.span_id,
+                     attrs)
 
     def record(self, name: str, parent: Optional[SpanContext],
                t0: float, t1: Optional[float] = None,
                attrs: Optional[dict] = None) -> None:
-        """Record an already-timed span (monotonic t0/t1) as a child of
-        `parent`. No-op when parent is None or unsampled."""
-        if parent is None or not parent.sampled:
+        """Record an already-timed span (monotonic t0/t1) under `parent`.
+        The workhorse for cross-thread stages that kept their own stamps
+        (scheduler/PBFT/ingest). No-op when parent is None/unsampled and
+        the duration is under the slow threshold."""
+        if parent is None:
             return
-        t1 = t1 if t1 is not None else time.monotonic()
+        self._finish(name, self.child_of(parent), parent.span_id, t0,
+                     t1 if t1 is not None else time.monotonic(), attrs)
+
+    def observe_slow(self, name: str, duration_s: float,
+                     attrs: Optional[dict] = None) -> None:
+        """Slow-capture seam for paths with no context bound: retains a
+        synthetic span iff it exceeds slow_ms (never enters the main
+        ring — sample_rate=0 keeps it empty)."""
+        if self.slow_s <= 0.0 or duration_s < self.slow_s:
+            return
+        now_m = time.monotonic()
+        ctx = SpanContext(_rand_id(16), _rand_id(8), False)
+        self._finish(name, ctx, b"", now_m - duration_s, now_m, attrs)
+
+    # -- recording ---------------------------------------------------------
+    def _finish(self, name: str, ctx: SpanContext, parent_id: bytes,
+                t0: float, t1: float, attrs: Optional[dict]) -> None:
+        dur = max(0.0, t1 - t0)
+        slow = self.slow_s > 0.0 and dur >= self.slow_s
+        if not ctx.sampled and not slow:
+            return
         # wall-clock anchor derived once at record time (spans carry
         # monotonic stamps until here so cross-stage math never sees a
         # clock step)
         start_wall = time.time() - (time.monotonic() - t0)
         span = {
-            "traceId": parent.trace_id.hex(),
-            "spanId": _rand_id(8).hex(),
-            "parentSpanId": parent.span_id.hex(),
+            "traceId": ctx.trace_id.hex(),
+            "spanId": ctx.span_id.hex(),
+            "parentSpanId": parent_id.hex() if parent_id else "",
             "name": name,
             "start_ms": round(start_wall * 1000.0, 3),
-            "duration_ms": round(max(0.0, t1 - t0) * 1000.0, 3),
+            "duration_ms": round(dur * 1000.0, 3),
             "attrs": dict(attrs) if attrs else {},
         }
+        if slow:
+            span["slow"] = True
         with self._lock:
-            self._ring.append(span)
+            if ctx.sampled:
+                if len(self._ring) == self._ring.maxlen:
+                    self._dropped += 1
+                self._ring.append(span)
+            if slow:
+                self._slow.append(span)
+            self._recorded += 1
+        if slow:
+            from . import metrics as _m  # lazy: slow path only
+            _m.REGISTRY.inc("bcos_trace_slow_spans_total")
+            LOG.warning(badge("TRACE", "slow-span", name=name,
+                              ms=span["duration_ms"],
+                              trace=span["traceId"][:16]))
+            for cb in list(self.on_slow):
+                try:
+                    cb(span)
+                except Exception:  # noqa: BLE001 — observers must not
+                    pass           # break span recording
 
-    def observe_slow(self, name: str, duration_s: float,
-                     attrs: Optional[dict] = None) -> None:
-        """Slow-capture seam for paths with no context bound: retains a
-        synthetic span in the slow ring iff it exceeds slow_ms (never in
-        the main ring)."""
-        if self.slow_s <= 0.0 or duration_s < self.slow_s:
-            return
-        start_wall = time.time() - duration_s
-        span = {
-            "traceId": _rand_id(16).hex(),
-            "spanId": _rand_id(8).hex(),
-            "parentSpanId": "",
-            "name": name,
-            "start_ms": round(start_wall * 1000.0, 3),
-            "duration_ms": round(duration_s * 1000.0, 3),
-            "attrs": dict(attrs) if attrs else {},
-            "slow": True,
-        }
-        with self._lock:
-            self._slow.append(span)
-        from . import metrics as _m  # lazy: slow path only
-        from .log import LOG, badge
-        _m.REGISTRY.inc("bcos_trace_slow_spans_total")
-        LOG.warning(badge("TRACE", "slow-span", name=name,
-                          ms=span["duration_ms"], trace=span["traceId"][:16]))
-
+    # -- queries (getTrace / listTraces / /trace) --------------------------
     def get_trace(self, trace_id: str) -> list[dict]:
-        """Every retained span of `trace_id` (hex), start-ordered, from
-        both rings (a slow span is findable by the id logged with it)."""
+        """Every retained span of `trace_id` (hex), start-ordered. Scans
+        both rings (a slow span of an unsampled trace is findable by the
+        id logged with it)."""
         tid = trace_id.lower().removeprefix("0x")
         with self._lock:
             spans = [s for s in self._ring if s["traceId"] == tid]
-            spans += [s for s in self._slow if s["traceId"] == tid]
+            seen = {s["spanId"] for s in spans}
+            spans += [s for s in self._slow
+                      if s["traceId"] == tid and s["spanId"] not in seen]
         return sorted(spans, key=lambda s: s["start_ms"])
 
+    def list_traces(self, limit: int = 50, slow_only: bool = False) -> list:
+        """Newest-first trace summaries: id, span count, names, wall
+        bounds."""
+        with self._lock:
+            if slow_only:
+                spans = list(self._slow)
+            else:
+                spans = list(self._ring)
+                seen = {s["spanId"] for s in spans}
+                spans += [s for s in self._slow
+                          if s["spanId"] not in seen]
+        by_trace: dict[str, list[dict]] = {}
+        for s in spans:
+            by_trace.setdefault(s["traceId"], []).append(s)
+        out = []
+        for tid, ss in by_trace.items():
+            t0 = min(s["start_ms"] for s in ss)
+            t1 = max(s["start_ms"] + s["duration_ms"] for s in ss)
+            out.append({"traceId": tid, "spans": len(ss),
+                        "names": sorted({s["name"] for s in ss}),
+                        "start_ms": t0,
+                        "duration_ms": round(t1 - t0, 3)})
+        out.sort(key=lambda t: t["start_ms"], reverse=True)
+        return out[:max(1, int(limit))]
 
-TRACER = Tracer(ring_size=4096)
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "sample_rate": self.sample_rate,
+                "slow_ms": round(self.slow_s * 1000.0, 1),
+                "ring_size": self._ring.maxlen,
+                "ring_spans": len(self._ring),
+                "slow_spans": len(self._slow),
+                "recorded_total": self._recorded,
+                "dropped_total": self._dropped,
+            }
+
+
+# process-wide default tracer: OFF until a node's [trace] config (or a
+# bench/test) turns sampling on — the hot path then costs one branch
+TRACER = Tracer(sample_rate=0.0, ring_size=4096, slow_ms=0.0)
+
+
+def configure(sample_rate: Optional[float] = None,
+              ring_size: Optional[int] = None,
+              slow_ms: Optional[float] = None) -> Tracer:
+    """Apply [trace] config to the process tracer (init/node.py)."""
+    TRACER.configure(sample_rate=sample_rate, ring_size=ring_size,
+                     slow_ms=slow_ms)
+    return TRACER

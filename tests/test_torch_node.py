@@ -8,9 +8,10 @@ on which the port's Nodes restart and commit the next height equal to a
 JAX continuation. Compared: every block's state, tx and receipt roots
 and the c_balance rows (header hashes carry the seal time), and within a
 chain the header hashes across nodes. NodeConfig fields that select a
-plane the port does not have yet must raise, the storage and snapshot
-fields build their planes as the JAX Node does, snap sync installs a
-peer's snapshot, and the default suite is on the card.
+plane the port does not have yet must raise, the serving edge's fields
+start their planes and answer as the JAX Node's do, the storage and
+snapshot fields build their planes as the JAX Node does, snap sync
+installs a peer's snapshot, and the default suite is on the card.
 """
 
 import time
@@ -143,9 +144,9 @@ def test_chain_carried_from_jax_continues_on_the_port():
     assert balances == {b"alice": (998).to_bytes(16, "big"), b"bob": (12).to_bytes(16, "big")}
 
 
-UNPORTED = [("scheduler_workers", 1), ("rpc_port", 0),
-            ("ws_port", 0), ("metrics_port", 0), ("groups", ["g1", "g2"]),
-            ("profile_hz", 5.0)]
+UNPORTED = [("scheduler_workers", 1), ("groups", ["g1", "g2"])]
+# the fields that start the serving edge's planes
+SERVING = [("rpc_port", 0), ("ws_port", 0), ("metrics_port", 0), ("profile_hz", 5.0)]
 # the fields that select the storage and snapshot planes
 DURABLE = [("storage_path", "chain-dir"), ("storage_backend", "wal"),
            ("storage_backend", "disk"), ("snapshot_interval", 5),
@@ -157,6 +158,67 @@ def test_unported_planes_raise(field, value):
     cfg = pnode.NodeConfig(crypto_backend="host", device="cpu", **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pnode.Node(cfg)
+
+
+def _first_answer(root: str, node, field: str):
+    """The first request a client makes of the plane `field` started."""
+    import http.client
+    import json
+
+    if field == "rpc_port":
+        conn = http.client.HTTPConnection(node.rpc.host, node.rpc.port, timeout=30)
+        try:
+            conn.request("POST", "/", body=json.dumps({
+                "jsonrpc": "2.0", "id": 1, "method": "getGroupInfo",
+                "params": ["group0"]}).encode())
+            doc = json.loads(conn.getresponse().read())
+        finally:
+            conn.close()
+        doc["result"].pop("genesisHash")   # the genesis header carries its time
+        return doc
+    if field == "ws_port":
+        cli = pb.mod(root, "sdk.ws").WsSdkClient(node.ws.host, node.ws.port)
+        try:
+            return [cli.get_block_number(), cli.request("getGroupList", [])]
+        finally:
+            cli.close()
+    if field == "metrics_port":
+        conn = http.client.HTTPConnection("127.0.0.1", node.metrics.port, timeout=30)
+        try:
+            conn.request("GET", "/healthz")
+            r = conn.getresponse()
+            return r.status, r.getheader("Content-Type"), json.loads(r.read())["state"]
+        finally:
+            conn.close()
+    prof = pb.mod(root, "analysis.profiler").PROFILER
+    st = prof.stats()
+    return st["armed"], st["hz"], sorted(st), prof._thread.name
+
+
+@pytest.mark.parametrize("field,value", SERVING)
+def test_each_serving_field_starts_its_plane(field, value):
+    """Each serving field starts its plane on the port's Node as on the
+    JAX Node (an RPC edge, a WS server, a Prometheus endpoint, the
+    sampler thread), and both answer a client's first request alike."""
+    answers = []
+    for root in pb.ROOTS:
+        N = pb.mod(root, "init.node")
+        extra = dict(scheduler_workers=0) if root == "fisco_bcos_tpu" else dict(device="cpu")
+        cfg = dict(profile_hz=0.0)
+        cfg[field] = value
+        node = N.Node(N.NodeConfig(crypto_backend="host", min_seal_time=0.0, **extra, **cfg))
+        try:
+            node.start()
+            planes = {"rpc_port": node.rpc, "ws_port": node.ws, "metrics_port": node.metrics}
+            assert [k for k, v in planes.items() if v is not None] == \
+                ([field] if field in planes else [])
+            answers.append(_first_answer(root, node, field))
+        finally:
+            node.stop()
+            pb.mod(root, "analysis.profiler").configure(hz=0)
+    assert answers[1] == answers[0]
+    if field == "profile_hz":
+        assert answers[1][:2] == (True, 5.0)
 
 
 @pytest.mark.parametrize("field,value", DURABLE)
@@ -286,20 +348,23 @@ def test_a_node_far_behind_catches_up_by_replay():
 def test_the_node_runs_on_the_card_unless_asked_for_the_cpu():
     """NodeConfig.device defaults to "cuda": without a card the node's
     suite refuses to build rather than running on the CPU; the sampling
-    profiler's hz defaults to 0 (the plane is not ported); the storage
-    and snapshot fields have the JAX package's defaults; and the settings
-    of planes the port does not have are not fields at all."""
+    profiler's hz defaults to 5, as the JAX package's; the storage,
+    snapshot and serving fields have the JAX package's defaults; and the
+    settings of planes the port does not have are not fields at all."""
     cfg = pnode.NodeConfig()
-    assert cfg.device == "cuda" and cfg.profile_hz == 0 and cfg.snap_sync_threshold == 256
+    assert cfg.device == "cuda" and cfg.profile_hz == 5.0 and cfg.snap_sync_threshold == 256
     # the port keeps the JAX fields its planes read or refuse, plus device
     port_fields = set(pnode.NodeConfig.__dataclass_fields__)
     assert port_fields - set(jnode.NodeConfig.__dataclass_fields__) == {"device"}
     assert {"snap_sync_threshold", "rpc_port", "groups"} <= port_fields
-    assert not port_fields & {"p2p_port", "rpc_workers", "crypto_lane"}
+    assert not port_fields & {"p2p_port", "p2p_peers", "crypto_lane"}
     durable = [f for f in port_fields if f.startswith(("storage_", "snapshot_", "snap_"))]
     assert len(durable) == 13 and "overload_compact_debt_mb" in port_fields
+    serving = [f for f in port_fields if f.startswith(("rpc_", "sub_", "client_", "trace_",
+                                                       "profile_"))]
+    assert len(serving) == 20 and {"ws_port", "metrics_port"} <= port_fields
     jcfg = jnode.NodeConfig()
-    for f in durable + ["overload_compact_debt_mb"]:
+    for f in durable + serving + ["overload_compact_debt_mb", "ws_port", "metrics_port"]:
         assert getattr(cfg, f) == getattr(jcfg, f), f
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -308,5 +373,7 @@ def test_the_node_runs_on_the_card_unless_asked_for_the_cpu():
     try:
         assert node.suite.device.type == "cpu" and node.suite.backend == "auto"
         assert node.front is None and node.blocksync is None and node.consensus is None
+        assert node.rpc is None and node.ws is None and node.metrics is None
     finally:
         node.stop()
+        pb.mod("fisco_bcos_tpu_torch", "analysis.profiler").configure(hz=0)

@@ -45,7 +45,7 @@ def test_metrics_registry_exports_what_the_jax_one_does():
     _feed(jmetrics, j)
     assert p.prometheus_text() == j.prometheus_text()
     assert p.snapshot() == j.snapshot()
-    assert not hasattr(pmetrics, "MetricsServer")   # rides the RPC edge: not ported
+    assert hasattr(pmetrics, "MetricsServer")   # the scrape endpoint rides the RPC edge
 
 
 def test_stage_histogram_and_trace_spans_match_jax():

@@ -279,6 +279,15 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
         assert not {"jax", "jaxlib", "fisco_bcos_tpu"} & set(roots), (path, roots)
 
 
+def test_the_import_scan_covers_every_port_package():
+    """The scan above walks the whole port: the serving edge (rpc/, sdk/)
+    and the planes under it as well as the kernels' packages."""
+    dirs = {p.parent.name for p in _port_sources()}
+    assert {"rpc", "sdk", "net", "zk", "analysis", "init", "ops", "crypto"} <= dirs
+    names = {p.name for p in _port_sources() if p.parent.name in ("rpc", "sdk")}
+    assert {"server.py", "edge.py", "ws_server.py", "eventsub.py", "client.py", "ws.py"} <= names
+
+
 def test_tensor_entry_points_dispatch_on_device():
     """CPU tensors take the plain versions; nothing counts a launch."""
     from fisco_bcos_tpu_torch.ops import cuda_hash, keccak
