@@ -5,8 +5,10 @@ ZK plane's batched Poseidon (BN254), both chains again on the composed
 EC route, then each chain's node path from wire frames to the ledger and
 the seal judge, each chain's block execution through the executor and
 the scheduler, each chain on a 4-node PBFT network of the port's
-Nodes, each chain's durability, and each chain's serving edge driven
-by the port's own SDK clients over JSON-RPC and WS.
+Nodes, each chain's durability, each chain's serving edge driven
+by the port's own SDK clients over JSON-RPC and WS, and each chain on
+four Nodes over loopback TCP (SM-TLS on the SM chain) with a light
+client verifying it.
 
     python3 chip_smoke.py
 
@@ -201,8 +203,10 @@ version or to the CPU):
    with rpc_port, ws_port and metrics_port 0 and the JAX defaults
    otherwise (8 RPC workers, batches of 256, a query cache of 4,096
    entries and 64 MB, trace sampling 0.02, the profiler at 5 Hz).
-   Phase 13's heights 1-2 go in over JSON-RPC in two waves (the second
-   once every receipt of the first is there): 8 SdkClient threads on
+   Phase 13's height 1 goes in over JSON-RPC in one wave (SERVE_WAVES;
+   a later wave starts once every receipt of the one before is there;
+   two waves took the script past 850 s on a slow card machine's
+   host): 8 SdkClient threads on
    keep-alive connections post batch bodies of 256 sendTransaction
    entries (wait=false), one tx alone under a sampled traceparent. A
    WsSdkClient session holds newBlockHeaders and 64 receipt
@@ -223,6 +227,36 @@ version or to the CPU):
    senders, evicted proofs, verifyProofs, calls). Walls: admission over
    RPC and its tx/s, each wave's last admission to its commit, the
    prime, the reads; the lane's dispatch sizes and recover launches.
+16. The p2p socket transport and the light node, on each chain: four
+   port Nodes (crypto_backend "device", the 4 sealers, blocks of one
+   suite CHUNK that seal only when full) on their own
+   net.p2p.P2PGateway bound to 127.0.0.1 on port 0, in a full mesh
+   brought up one link at a time (the smaller id of a pair dials):
+   plain TCP on the default chain, SM-TLS on the SM chain (a seeded
+   CertificateAuthority, one dual-cert credential a node), each
+   handshake timed and any failure failing the phase, every session an
+   SMSocket there. Height 1 of phase 13's traffic (16,384 txs; 4,096 on
+   SM) goes in through node 0's ingest lane and txsync gossips it over
+   the sockets; the nodes commit it. A fifth gateway, holding no sealer
+   key, dials node 0 only; its LightNodeClient on a device suite calls
+   status, header_range over the committed heights (one verify launch),
+   transactions and receipts spans of 1,024 seeded hashes of the block
+   (proof-checked: one identity and one proof-level hash batch a span),
+   transaction, send_transaction of a fresh tx (admitted), then a rogue
+   sealer set and a tampered proof root (every node's server forged at
+   its level-build seam), which must be rejected. Checked: every node at
+   height 1 with equal header hashes and a seal quorum; roots and
+   c_balance rows equal a solo host-suite Scheduler's and a Python
+   replay; the light client's answers equal a host-suite client's over
+   the same front and the block's txs and the ledger's receipts; no
+   best-effort catch fired (a failed frame dispatch, a dropped frame);
+   the counters (zeroed before the gateways are made, read after
+   everything stops) equal the launches the five parties' recorded
+   suite calls imply, by site (admission, gossip import, PBFT packets
+   and seals, the leader's root, execution, the light client's spans,
+   the light-node server). Printed: each session's codec, the
+   handshakes, admission and gossip, height 1 on each node, each light
+   call's wall and launches. No profiler session.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -3405,7 +3439,12 @@ PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
               # the ingest lane's object door (sendTransaction under a span
               # context), and a call's sender (an unsigned tx: one lane)
               "ingest.py:_dispatch": "ingest", "scheduler.py:call": "rpc_call",
-              "ledger.py:receipt_proof": "proof_miss"}
+              "ledger.py:receipt_proof": "proof_miss",
+              # phase 16's light client (its spans) and light-node server
+              "lightnode.py:header_range": "light_headers",
+              "lightnode.py:transactions": "light_txs",
+              "lightnode.py:receipts": "light_receipts",
+              "lightnode.py:_block_levels": "light_server"}
 
 
 def pbft_site(node: int) -> str:
@@ -4108,7 +4147,7 @@ def phase_snap(dev, kind: str, tr, chain):
 # ---------------------------------------------------------------------------
 SERVE_CLIENTS = 8        # SdkClient threads, as benchmark/chain_bench.py --read-clients 8
 SERVE_BATCH = 256        # sendTransaction entries a JSON-RPC batch body (rpc_max_batch)
-SERVE_WAVES = 2          # phase 13's heights 1-2: the registers, then the transfers
+SERVE_WAVES = 1          # phase 13's height 1, the registers (a second wave: its transfers)
 SERVE_MIN_SEAL = 60.0    # s: a block seals when it holds a suite CHUNK, never on time
 SERVE_DEADLINE = 240.0   # s for each wait of the phase
 SERVE_READS = 256        # receipts and proofs read after each commit
@@ -4129,16 +4168,17 @@ SERVE_FAILED = ("cache-prime-failed", "proof-prime-failed", "ingest-dispatch-fai
 
 class _Failures(logging.Handler):
     """Collects the log records of the reference's best-effort catches
-    (a failed prime or render, a failed lane dispatch): a kernel failure
-    on the card would end there, so any record fails the phase."""
+    (a failed prime or render, a failed lane or frame dispatch): a kernel
+    failure on the card would end there, so any record fails the phase."""
 
-    def __init__(self):
+    def __init__(self, needles=SERVE_FAILED):
         super().__init__(logging.WARNING)
+        self.needles = needles
         self.seen: list = []
 
     def emit(self, record):
         msg = record.getMessage()
-        if any(s in msg for s in SERVE_FAILED):
+        if any(s in msg for s in self.needles):
             self.seen.append(msg[:200])
 
 
@@ -4239,8 +4279,9 @@ def phase_serve(dev, kind: str, tr):
     rpc_port, ws_port and metrics_port 0, every other serving field at
     the JAX defaults: 8 workers, batches of 256, a query cache of 4,096
     entries and 64 MB, trace sampling 0.02, the profiler at 5 Hz).
-    Phase 13's heights 1-2 (`tr`) go in over JSON-RPC in two waves, the
-    second once every receipt of the first is there: SERVE_CLIENTS
+    Phase 13's first SERVE_WAVES heights (`tr`) go in over JSON-RPC in
+    as many waves, each once every receipt of the one before is there:
+    SERVE_CLIENTS
     SdkClient threads post batch bodies of SERVE_BATCH sendTransaction
     entries (wait=false), one tx alone under a sampled traceparent. A
     WsSdkClient session holds newBlockHeaders and SERVE_PUSHED receipt
@@ -4617,6 +4658,374 @@ def phase_serve(dev, kind: str, tr):
     return launches, site_launches, timings
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the p2p socket transport (plain TCP, SM-TLS) and the light node
+# ---------------------------------------------------------------------------
+P2P_MIN_SEAL = 60.0      # s: height 1 seals when the pool holds its block, never on time
+P2P_DEADLINE = 240.0     # s for each wait of the phase
+P2P_SPAN = 1024          # seeded tx hashes of block 1 a light-client span
+P2P_REDIAL = 0.1         # s between a gateway's dial passes (the reference's default is 1)
+P2P_FAILED = ("dispatch-failed", "bad-zstd-frame", "overlong-inflate", "zstd-frame-unsupported",
+              "send-queue-full", "no-route", "peer-rejected-acl")
+
+
+def p2p_wait(tag: str, what: str, pred) -> None:
+    deadline = time.monotonic() + P2P_DEADLINE
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"{tag} {what} not reached in {P2P_DEADLINE:.0f} s")
+        time.sleep(0.005)
+
+
+def phase_p2p(dev, kind: str, tr):
+    """(16) Four port Nodes (crypto_backend "device") on their own
+    P2PGateways bound to 127.0.0.1, port 0, in a full mesh: plain TCP on
+    the default chain, SM-TLS on the SM chain (a seeded
+    CertificateAuthority, one dual-cert credential a node, as the
+    reference selects GM TLS when sm_crypto is on). Height 1 of phase 13's
+    traffic (`tr`) at full width goes in through node 0's ingest lane and
+    txsync gossips it over the sockets; the nodes commit it. A fifth
+    gateway, holding no sealer key, dials node 0 only; its
+    LightNodeClient on a device suite asks status, header_range over the
+    committed heights, transactions and receipts spans of P2P_SPAN seeded
+    hashes of the block, one transaction, send_transaction of one fresh
+    tx, then a rogue sealer set and a tampered proof root, which must be
+    rejected; a host-suite client over the same front must give the same
+    verdicts and payloads. Every suite call of the five is recorded by
+    site; the counters, zeroed before the frames go in and read after
+    everything stops, must equal the launches they imply. No profiler
+    session. -> (launches by kernel, launches by site, timings)."""
+    from fisco_bcos_tpu_torch.consensus import qc
+    from fisco_bcos_tpu_torch.consensus.pbft.engine import PBFTEngine
+    from fisco_bcos_tpu_torch.crypto.suite import make_suite
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.init.node import Node, NodeConfig
+    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode
+    from fisco_bcos_tpu_torch.lightnode import LightNodeClient, LightNodeServer
+    from fisco_bcos_tpu_torch.net import p2p, smtls
+    from fisco_bcos_tpu_torch.net.front import FrontService
+    from fisco_bcos_tpu_torch.protocol import BlockHeader
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    tag = f"[p2p {kind}]"
+    t_phase = time.perf_counter()
+    ntx = PBFT_TXS[kind]
+    frames = tr["frames"][:ntx]
+    if len(frames) != ntx:
+        fail(f"{tag} phase 13's traffic holds {len(tr['frames'])} frames, want {ntx} or more")
+    suite = make_suite(kind == "sm", device=dev)
+    host = make_suite(kind == "sm", backend="host")
+    keys = seal_keys(suite)
+    sealers = [ConsensusNode(k.pub_bytes) for k in keys]
+    sealer_set = sorted(k.pub_bytes for k in keys)
+    first = sealer_set[1 % len(keys)]   # leads height 1 in view 0
+    # the smaller node id of a pair dials (net/p2p.py _install): the light
+    # client's key is the first seeded one under node 0's, so the light
+    # gateway dials node 0 and node 0 dials nothing of it
+    light_kp = next(kp for kp in (suite.generate_keypair(b"p2p-light%d" % s) for s in range(256))
+                    if kp.pub_bytes < keys[0].pub_bytes)
+    cfg = NodeConfig(consensus="pbft", sm_crypto=kind == "sm", crypto_backend="device",
+                     device=str(dev), tx_count_limit=ntx, txpool_limit=PBFT_POOL_LIMIT,
+                     min_seal_time=P2P_MIN_SEAL, view_timeout=PBFT_VIEW_TIMEOUT,
+                     ingest_max_batch=INGEST_MAX_BATCH, ingest_queue_cap=4 * ntx, profile_hz=0)
+    counters = slice_counters(kind)
+    verk = "ecdsa_verify" if kind == "ecdsa" else "sm2_verify"
+    eck = "ecdsa_recover" if kind == "ecdsa" else "sm2_verify"
+    hashk = "keccak256_varlen" if kind == "ecdsa" else "sm3_varlen"
+    handshakes: list = []   # (ms, ok, what)
+
+    class TimedTLS(smtls.SMTLSContext):
+        """The SM-TLS context, each handshake timed and its failure kept."""
+
+        def wrap_socket(self, sock, server_side=False, server_hostname=None):
+            t0 = time.perf_counter()
+            try:
+                out = super().wrap_socket(sock, server_side, server_hostname)
+            except Exception as exc:
+                handshakes.append(((time.perf_counter() - t0) * 1e3, False, repr(exc)[:120]))
+                raise
+            handshakes.append(((time.perf_counter() - t0) * 1e3, True, "smtls"))
+            return out
+
+    ctxs = [None] * 5
+    if kind == "sm":
+        ca = smtls.CertificateAuthority(seed=b"p2p-chain-ca" * 3)
+        ctxs = [TimedTLS(ca.pub, ca.issue(f"node{i}", seed=b"p2p-node%d" % i))
+                for i in range(4)]
+        ctxs.append(TimedTLS(ca.pub, ca.issue("light", seed=b"p2p-light")))
+    calls: list = []
+    failures = _Failures(P2P_FAILED)
+    logging.getLogger("bcos-tpu").addHandler(failures)
+    gws, nodes, live = [], [], []
+    walls: dict = {}
+    commits: list = [{} for _ in range(4)]
+    preprepares: dict = {}
+    orig_pp = PBFTEngine._broadcast_preprepare
+    orig_hello = p2p.P2PGateway._handshake
+
+    def stamped(engine, block, carried=False):
+        preprepares.setdefault(block.header.number, (engine.index, time.perf_counter()))
+        return orig_pp(engine, block, carried)
+
+    def hello(gw, sock):
+        t0 = time.perf_counter()
+        out = orig_hello(gw, sock)
+        handshakes.append(((time.perf_counter() - t0) * 1e3, out is not None, "hello"))
+        return out
+
+    def stop():
+        while live:
+            live.pop().stop()
+        for gw in gws:
+            gw.stop()
+
+    light_calls: dict = {}
+    try:
+        PBFTEngine._broadcast_preprepare = stamped
+        p2p.P2PGateway._handshake = hello
+        for c in counters.values():
+            c.launches = 0
+        t_gw = time.perf_counter()
+        gws = [p2p.P2PGateway(kp.pub_bytes, host="127.0.0.1", port=0, server_ssl=ctx,
+                              client_ssl=ctx, reconnect_interval=P2P_REDIAL)
+               for kp, ctx in zip(keys, ctxs)]
+        # each node's suite as Node builds it from cfg (init/node.py), recorded
+        for i, kp in enumerate(keys):
+            n = Node(cfg, keypair=kp, gateway=gws[i], suite=_Recorder(make_suite(
+                cfg.sm_crypto, backend=cfg.crypto_backend, device=cfg.device,
+                device_min_batch=cfg.device_min_batch,
+                mesh_devices=cfg.crypto_mesh_devices), i, calls))
+            nodes.append(n)
+            live.append(n)
+            n.build_genesis(sealers)
+            if n.suite.backend != "device" or n.suite.device.type != dev.type:
+                fail(f"{tag} node {i}'s suite is on {n.suite.backend!r} on {n.suite.device}")
+            if not isinstance(n.lightnode_server, LightNodeServer):
+                fail(f"{tag} node {i} built no light-node server")
+            n.scheduler.on_commit.append(
+                lambda num, i=i: commits[i].setdefault(num, time.perf_counter()))
+        lgw = p2p.P2PGateway(light_kp.pub_bytes, host="127.0.0.1", port=0,
+                             server_ssl=ctxs[4], client_ssl=ctxs[4],
+                             reconnect_interval=P2P_REDIAL)
+        gws.append(lgw)
+        lfront = FrontService(light_kp.pub_bytes, lgw)
+        # the mesh, one link at a time: the smaller id of a pair dials
+        # (net/p2p.py _install), and a handshake run alone stays far
+        # inside the dial's 3 s socket timeout (the SM-TLS handshake's SM2
+        # is pure Python: seven at once under one GIL time out)
+        links = [(i, j) for i in range(4) for j in range(i + 1, 4)] + [(4, 0)]
+        for i, j in links:
+            a, b = sorted((i, j), key=lambda k: gws[k].node_id)
+            gws[a].add_peer(gws[b].host, gws[b].port)
+            p2p_wait(tag, f"the session of gateways {a} and {b}",
+                     lambda: gws[b].node_id in gws[a]._sessions
+                     and gws[a].node_id in gws[b]._sessions)
+        p2p_wait(tag, "every session up", lambda: [len(g._sessions) for g in gws]
+                 == [4, 3, 3, 3, 1])
+        p2p_wait(tag, "every route", lambda: all(len(g.peers()) == 4 for g in gws))
+        walls["sessions_up"] = (time.perf_counter() - t_gw) * 1e3
+        bad = [h for h in handshakes if not h[1]]
+        if bad:
+            fail(f"{tag} a handshake failed: {bad[:3]}")
+        socks = {type(s.sock).__name__ for g in gws for s in g._sessions.values()}
+        want_socks = {"SMSocket"} if kind == "sm" else {"socket"}
+        if socks != want_socks:
+            fail(f"{tag} the sessions are {socks}, want {want_socks}")
+        codecs = [("zstd" if g._use_zstd else "zlib",
+                   sorted("zstd" if s.caps & p2p.CAP_ZSTD else "zlib"
+                          for s in g._sessions.values())) for g in gws]
+        log(f"{tag} sessions: {sum(len(g._sessions) for g in gws) // 2} ({socks.pop()}), up "
+            f"{walls['sessions_up']:.1f} ms after the gateways were made; codec by gateway "
+            f"(its frames; each session's hello): {codecs}")
+        hs = sorted(h[0] for h in handshakes if h[2] == "smtls")
+        he = sorted(h[0] for h in handshakes if h[2] == "hello")
+        log(f"{tag} handshakes: " + (f"SM-TLS {len(hs)} (both ends), ms median "
+                                      f"{hs[len(hs) // 2]:.1f}, max {hs[-1]:.1f}; " if hs else "")
+            + f"p2p hello {len(he)}, ms median {he[len(he) // 2]:.1f}, max {he[-1]:.1f}")
+        # height 1: in at node 0's ingest lane, gossiped over the sockets
+        t_in = time.perf_counter()
+        for n in nodes:
+            n.ingest.start()
+        if nodes[0].ingest.submit_many_wire_nowait(frames) != ntx:
+            fail(f"{tag} node 0's ingest queue refused frames")
+        p2p_wait(tag, "every pool full", lambda: all(n.txpool.pending_count() >= ntx
+                                                     for n in nodes))
+        t_start = time.perf_counter()
+        walls["admission_gossip"] = (t_start - t_in) * 1e3
+        # height 1's leader starts last (a pre-prepare reaching a peer whose
+        # engine has not registered is dropped)
+        for n in sorted(nodes, key=lambda n: n.keypair.pub_bytes == first):
+            n.start()
+        p2p_wait(tag, "height 1 on every node",
+                 lambda: all(n.ledger.current_number() >= 1 for n in nodes))
+        walls["chain"] = (time.perf_counter() - t_start) * 1e3
+        # the commit observers run on each node's notifier thread, after it
+        p2p_wait(tag, "every node's commit notice", lambda: all(1 in c for c in commits))
+        if 1 not in preprepares:
+            fail(f"{tag} no pre-prepare of height 1 was recorded")
+        leader, t_pp = preprepares[1]
+        walls["preprepare"] = (t_pp - t_start) * 1e3
+        walls["commits"] = [(c[1] - t_pp) * 1e3 if 1 in c else None for c in commits]
+        # the light client: a device suite, recorded as the fifth party
+        rng = random.Random(SEED + 16)
+        block = nodes[0].ledger.block_by_number(1, with_txs=True)
+        hashes = [t.hash(host) for t in block.transactions]
+        span = [hashes[i] for i in sorted(rng.sample(range(len(hashes)), P2P_SPAN))]
+        lsuite = _Recorder(make_suite(kind == "sm", device=dev), 4, calls)
+        client = LightNodeClient(lfront, lsuite, [k.pub_bytes for k in keys])
+        hclient = LightNodeClient(lfront, host, [k.pub_bytes for k in keys])
+        user = host.generate_keypair(b"p2p-light-user")
+        fresh = T.Transaction(to=pc.BALANCE_ADDRESS, nonce="p2p-light-1", block_limit=500,
+                              input=pc.encode_call("register",
+                                                  lambda w: w.blob(b"p2p-light").u64(1))
+                              ).sign(host, user)
+        rogue_keys = [host.generate_keypair(b"p2p-rogue%d" % k) for k in range(4)]
+        out: dict = {}
+        want: dict = {}
+
+        def ask(name, fn, hfn=None):
+            """One call of the device client, timed with the launches the
+            suite calls made meanwhile imply; then the host client's."""
+            n0 = len(calls)
+            t0 = time.perf_counter()
+            out[name] = fn()
+            light_calls[name] = ((time.perf_counter() - t0) * 1e3,
+                                 expected_launches(kind, suite, calls[n0:]))
+            if hfn is not None:
+                want[name] = hfn()
+
+        rogue = [k.pub_bytes for k in rogue_keys]
+        ask("status", client.status, hclient.status)
+        ask("header_range", lambda: client.header_range(1, 1),
+            lambda: hclient.header_range(1, 1))
+        ask("transactions", lambda: client.transactions(span),
+            lambda: hclient.transactions(span))
+        ask("receipts", lambda: client.receipts(span), lambda: hclient.receipts(span))
+        ask("transaction", lambda: client.transaction(span[0]),
+            lambda: hclient.transaction(span[0]))
+        ask("send_transaction", lambda: client.send_transaction(fresh))
+        # its gossip to the peers settles before the next call is timed
+        p2p_wait(tag, "the fresh tx in every pool",
+                 lambda: all(n.txpool.pending_count() >= 1 for n in nodes))
+        ask("rogue_header_range", lambda: LightNodeClient(lfront, lsuite, rogue).header_range(
+            1, 1), lambda: LightNodeClient(lfront, host, rogue).header_range(1, 1))
+        levels = {}
+        for n in nodes:   # a peer's proof root forged at the level-build seam
+            levels[n] = orig = n.lightnode_server._block_levels
+            n.lightnode_server._block_levels = (
+                lambda memo, number, want_tx, orig=orig: (
+                    lambda ctx: None if ctx is None else (ctx[0], ctx[1], b"\x13" * 32))(
+                        orig(memo, number, want_tx)))
+        ask("tampered_transactions", lambda: client.transactions(span[:64]),
+            lambda: hclient.transactions(span[:64]))
+        for n, orig in levels.items():
+            n.lightnode_server._block_levels = orig
+        # the teardown's own drops (a frame to a stopped peer) are not failures
+        logging.getLogger("bcos-tpu").removeHandler(failures)
+        stop()   # no suite call after this: the counters are final
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        PBFTEngine._broadcast_preprepare = orig_pp
+        p2p.P2PGateway._handshake = orig_hello
+        logging.getLogger("bcos-tpu").removeHandler(failures)
+        stop()
+    if failures.seen:
+        fail(f"{tag} a best-effort catch fired: {failures.seen[:3]}")
+
+    # -- checks ---------------------------------------------------------------
+    def enc(x):
+        """A comparable answer: a header by its hash (each node's copy
+        carries the seals it collected), a tx or receipt by its encoding."""
+        if x is None or isinstance(x, int):
+            return x
+        if isinstance(x, list):
+            return [enc(e) for e in x]
+        return x.hash(host) if isinstance(x, BlockHeader) else x.encode()
+
+    if out["status"] != 1:
+        fail(f"{tag} the light client's status is {out['status']}, want 1")
+    header = nodes[0].ledger.header_by_number(1)
+    if enc(out["header_range"]) != [header.hash(host)]:
+        fail(f"{tag} the light client's verified header is not the committed one")
+    by_hash = {t.hash(host): t for t in block.transactions}
+    if enc(out["transactions"]) != [by_hash[h].encode() for h in span] or \
+            enc(out["transaction"]) != by_hash[span[0]].encode():
+        fail(f"{tag} the light client's verified txs are not the block's")
+    if enc(out["receipts"]) != [nodes[0].ledger.receipt(h).encode() for h in span]:
+        fail(f"{tag} the light client's verified receipts are not the ledger's")
+    status, sent_hash = out["send_transaction"]
+    if status != 0 or sent_hash != fresh.hash(host):
+        fail(f"{tag} send_transaction answered ({status}, {sent_hash.hex()}), want admitted")
+    if out["rogue_header_range"] != [None] or out["tampered_transactions"] != [None] * 64:
+        fail(f"{tag} a rogue sealer set or a tampered proof root was not rejected")
+    for name, got in want.items():
+        if enc(out[name]) != enc(got):
+            fail(f"{tag} {name}: the device client's answer differs from the host client's")
+    for name, site, k, n in (("header_range", "light_headers", verk, 1),
+                             ("rogue_header_range", "light_headers", verk, 1),
+                             ("transactions", "light_txs", hashk, 2)):
+        got = light_calls[name][1].get(k, 0)
+        if got < n:
+            fail(f"{tag} {name} launched {k} {got} times, want {n} or more")
+    views = [n.consensus.status()["view"] for n in nodes]
+    if any(views):
+        log(f"{tag} a view change fired: views {views}")
+    if [n.ledger.current_number() for n in nodes] != [1] * 4:
+        fail(f"{tag} heights {[n.ledger.current_number() for n in nodes]}, want 1")
+    if len(block.transactions) != ntx or sorted(t.encode() for t in block.transactions) \
+            != sorted(frames):
+        fail(f"{tag} block 1 holds {len(block.transactions)} txs, not the {ntx} frames sent")
+    quorum = len(keys) - (len(keys) - 1) // 3
+    for i, n in enumerate(nodes):
+        h = n.ledger.header_by_number(1)
+        if h.hash(host) != header.hash(host):
+            fail(f"{tag} node {i}'s header hash differs from node 0's")
+        if not all(qc.verify_spans([h], sealer_set, host)) or len(h.signature_list) < quorum:
+            fail(f"{tag} node {i}: the committed header lacks a seal quorum")
+    t0 = time.perf_counter()
+    ores, obal = pbft_oracle(host, [block], [k.pub_bytes for k in keys], ntx,
+                             cfg.compatibility_version)
+    oracle_s = time.perf_counter() - t0
+    o = ores[0].header
+    want_bal = pbft_replay(tr["ops"], [t.encode() for t in block.transactions])
+    for i, n in enumerate(nodes):
+        h = n.ledger.header_by_number(1)
+        if (h.state_root, h.txs_root, h.receipts_root) != \
+                (o.state_root, o.txs_root, o.receipts_root) or o.hash(host) != h.hash(host):
+            fail(f"{tag} node {i}: the roots differ from the host-suite oracle's")
+        rows = snap_rows(n)
+        if rows != obal or {k: int.from_bytes(v, "big") for k, v in rows.items()} != want_bal:
+            fail(f"{tag} node {i}: c_balance rows differ from the oracle's")
+    by_site, site_launches, want_l = launches_by_site(kind, suite, calls)
+    got = {k: n for k, n in launches.items() if n}
+    log(f"{tag} launches {got}; by site: {site_launches}")
+    if got != want_l:
+        fail(f"{tag} the counters {got}, the recorded suite calls give {want_l}")
+    for site, k in (("admission", eck), ("gossip_import", eck), ("pbft_packets", verk),
+                    ("light_headers", verk), ("light_txs", hashk), ("execute", hashk)):
+        if not site_launches.get(site, {}).get(k):
+            fail(f"{tag} {k} was not launched by {site}: {site_launches.get(site)}")
+    missing = [k for k in counters if not launches[k]]
+    if missing:
+        fail(f"{tag} the path did not launch {missing}")
+    w = walls
+    log(f"{tag} height 1 ({ntx} txs): admission and gossip {w['admission_gossip']:.1f} ms, "
+        f"pre-prepare (leader index {leader}) at {w['preprepare']:.1f} ms after start, "
+        f"committed on nodes 0-3 at " + ", ".join("-" if x is None else f"{x:.1f}"
+                                                 for x in w["commits"])
+        + f" ms after it; the chain {w['chain']:.1f} ms")
+    log(f"{tag} light client (device suite; ms, launches): " + "; ".join(
+        f"{k} {ms:.1f} {ln}" for k, (ms, ln) in light_calls.items()))
+    log(f"{tag} 4 nodes at height 1, header hashes equal, {quorum}+ seals each; roots and "
+        f"{len(obal)} c_balance rows equal the host-suite oracle's ({oracle_s:.1f} s); the "
+        f"light client's verdicts equal the host client's; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    timings = dict(walls=walls, handshakes=handshakes, light=light_calls, oracle_s=oracle_s,
+                   views=views, codecs=codecs)
+    return launches, site_launches, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -4684,9 +5093,13 @@ def main() -> int:
         for k in slice_counters(kind):
             by_path[k][f"snap_{kind}"] = got[k]
     for kind in ("ecdsa", "sm"):
-        got, _, _ = phase_serve(dev, kind, traffic.pop(kind))
+        got, _, _ = phase_serve(dev, kind, traffic[kind])
         for k in slice_counters(kind):
             by_path[k][f"rpc_{kind}"] = got[k]
+    for kind in ("ecdsa", "sm"):
+        got, _, _ = phase_p2p(dev, kind, traffic.pop(kind))
+        for k in slice_counters(kind):
+            by_path[k][f"p2p_{kind}"] = got[k]
     for k, paths in by_path.items():
         rows[k]["launches"] = sum(paths.values())
         rows[k]["launches_by_path"] = paths

@@ -16,7 +16,9 @@ The port's Node wires the planes the port has: the ledger on the storage
 txpool and its ingest lane, the executor, the in-process Scheduler, the
 sealer, front, tx gossip, block sync with snap sync, snapshots
 (checkpoint, prune, serve), PBFT, health, overload, the peer clock, AMOP,
-the ZK proof plane, and the serving edge: JSON-RPC over HTTP and WS with
+the light-node server (given a gateway: an in-process FakeGateway or a
+net.p2p.P2PGateway over TCP, with SM-TLS on the SM chain), the ZK proof
+plane, and the serving edge: JSON-RPC over HTTP and WS with
 the query cache, subscriptions and per-client admission, the Prometheus
 endpoint, tracing and the sampling profiler. Its suite runs on `device`
 ("cuda" unless a caller asks for "cpu"). A config that selects a plane
@@ -57,7 +59,7 @@ class NodeConfig:
     group_id: str = "group0"
     sm_crypto: bool = False
     # the port differs here: the JAX package's NodeConfig also carries the
-    # settings of planes the port does not have yet (the crypto lane, p2p).
+    # settings of planes the port does not have yet (the crypto lane).
     # No code here would read them, so they are left out: passing one is a
     # TypeError, not a silent no-op.
     # Each slice that ports a plane brings its fields back. The fields
@@ -224,6 +226,14 @@ class NodeConfig:
     sub_outbox_kb: int = 1024
     ws_port: Optional[int] = None  # None = no WS server; 0 = ephemeral
     metrics_port: Optional[int] = None  # None = no Prometheus endpoint
+    # p2p transport (the reference's [p2p] listen_ip/listen_port +
+    # nodes.json connected_nodes): read by a process-level daemon (the
+    # multi-group slice, not ported), which builds a net.p2p.P2PGateway
+    # from them; the Node itself builds no gateway, and in-process
+    # embeddings inject one directly, as in the JAX package
+    p2p_host: str = "127.0.0.1"
+    p2p_port: Optional[int] = None  # None = no p2p listener configured
+    p2p_peers: list = dataclasses.field(default_factory=list)  # (host, port)
     # ZK proof plane (zk/proof.py): persist per-block state-leaf digest
     # indexes (changeset-inclusion proofs via getProof) and render every
     # committed tx's proof bundle into the query cache at commit.
@@ -391,6 +401,7 @@ class Node:
         self.txsync: Optional[TransactionSync] = None
         self.blocksync: Optional[BlockSync] = None
         self.amop = None
+        self.lightnode_server = None
         if gateway is not None:
             self.front = FrontService(self.keypair.pub_bytes, gateway)
             self.txsync = TransactionSync(self.front, self.txpool,
@@ -419,6 +430,8 @@ class Node:
                 registry=self.metrics_view, agg_registry=cfg.agg_registry)
             from ..net.amop import AMOPService
             self.amop = AMOPService(self.front)
+            from ..lightnode import LightNodeServer
+            self.lightnode_server = LightNodeServer(self)
         from ..rpc.eventsub import EventSub
         self.eventsub = EventSub(self.ledger, self.scheduler)
         self.rpc = None

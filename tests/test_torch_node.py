@@ -349,22 +349,25 @@ def test_the_node_runs_on_the_card_unless_asked_for_the_cpu():
     """NodeConfig.device defaults to "cuda": without a card the node's
     suite refuses to build rather than running on the CPU; the sampling
     profiler's hz defaults to 5, as the JAX package's; the storage,
-    snapshot and serving fields have the JAX package's defaults; and the
-    settings of planes the port does not have are not fields at all."""
+    snapshot, serving and p2p fields have the JAX package's defaults; and
+    the settings of planes the port does not have (the crypto lane) are
+    not fields at all."""
     cfg = pnode.NodeConfig()
     assert cfg.device == "cuda" and cfg.profile_hz == 5.0 and cfg.snap_sync_threshold == 256
     # the port keeps the JAX fields its planes read or refuse, plus device
     port_fields = set(pnode.NodeConfig.__dataclass_fields__)
     assert port_fields - set(jnode.NodeConfig.__dataclass_fields__) == {"device"}
     assert {"snap_sync_threshold", "rpc_port", "groups"} <= port_fields
-    assert not port_fields & {"p2p_port", "p2p_peers", "crypto_lane"}
+    assert not port_fields & {"crypto_lane", "crypto_lane_wait_ms"}
+    assert {"p2p_host", "p2p_port", "p2p_peers"} <= port_fields
     durable = [f for f in port_fields if f.startswith(("storage_", "snapshot_", "snap_"))]
     assert len(durable) == 13 and "overload_compact_debt_mb" in port_fields
     serving = [f for f in port_fields if f.startswith(("rpc_", "sub_", "client_", "trace_",
                                                        "profile_"))]
     assert len(serving) == 20 and {"ws_port", "metrics_port"} <= port_fields
     jcfg = jnode.NodeConfig()
-    for f in durable + serving + ["overload_compact_debt_mb", "ws_port", "metrics_port"]:
+    for f in durable + serving + ["overload_compact_debt_mb", "ws_port", "metrics_port",
+                                  "p2p_host", "p2p_port", "p2p_peers"]:
         assert getattr(cfg, f) == getattr(jcfg, f), f
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -374,6 +377,50 @@ def test_the_node_runs_on_the_card_unless_asked_for_the_cpu():
         assert node.suite.device.type == "cpu" and node.suite.backend == "auto"
         assert node.front is None and node.blocksync is None and node.consensus is None
         assert node.rpc is None and node.ws is None and node.metrics is None
+        assert node.lightnode_server is None
     finally:
         node.stop()
         pb.mod("fisco_bcos_tpu_torch", "analysis.profiler").configure(hz=0)
+
+
+def test_a_node_given_a_gateway_serves_a_jax_light_client():
+    """As the JAX Node does, the port's Node given a gateway builds a
+    LightNodeServer (init/node.py, after AMOP): a JAX LightNodeClient on
+    its own front over the same FakeGateway reads the port node's status
+    and head header, and its answers equal those of a JAX Node's server
+    on the same chain of one block."""
+    from fisco_bcos_tpu.crypto.suite import make_suite
+    from fisco_bcos_tpu.lightnode import LightNodeClient
+    from fisco_bcos_tpu.net.front import FrontService
+    from fisco_bcos_tpu.net.gateway import FakeGateway
+    from fisco_bcos_tpu_torch.lightnode import LightNodeServer
+
+    wires = seam.batches("ecdsa")[0]
+    answers = []
+    for root in pb.ROOTS:
+        N = pb.mod(root, "init.node")
+        T = pb.mod(root, "protocol")
+        extra = dict(scheduler_workers=0) if root == "fisco_bcos_tpu" else dict(device="cpu")
+        gw = FakeGateway()
+        node = N.Node(N.NodeConfig(crypto_backend="host", min_seal_time=0.0, profile_hz=0,
+                                   **extra), gateway=gw)
+        try:
+            node.start()
+            if root == "fisco_bcos_tpu_torch":
+                assert isinstance(node.lightnode_server, LightNodeServer)
+            res = node.txpool.submit_batch([T.Transaction.decode(w) for w in wires])
+            assert [int(r.status) for r in res] == [0] * len(wires)
+            assert pb.wait_until(lambda: node.ledger.current_number() >= 1)
+            sealers = [n.node_id for n in node.ledger.ledger_config().consensus_nodes]
+            client = LightNodeClient(FrontService(b"L" * 32, gw), make_suite(backend="host"),
+                                     sealers)
+            head = client.status()
+            header = client.header(head)
+            txs = client.transactions([T.Transaction.decode(w).hash(node.suite) for w in wires])
+            answers.append((head, header.number, header.state_root, header.txs_root,
+                            [t.encode() for t in txs]))
+        finally:
+            node.stop()
+            gw.stop()
+    assert answers[1] == answers[0]
+    assert answers[1][0] >= 1 and len(answers[1][4]) == len(wires)

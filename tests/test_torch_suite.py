@@ -280,12 +280,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_the_import_scan_covers_every_port_package():
-    """The scan above walks the whole port: the serving edge (rpc/, sdk/)
-    and the planes under it as well as the kernels' packages."""
+    """The scan above walks the whole port: the serving edge (rpc/, sdk/),
+    the light node (lightnode/), the socket transport and its SM-TLS and
+    ciphers, and the planes under them as well as the kernels' packages."""
     dirs = {p.parent.name for p in _port_sources()}
-    assert {"rpc", "sdk", "net", "zk", "analysis", "init", "ops", "crypto"} <= dirs
+    assert {"rpc", "sdk", "net", "zk", "analysis", "init", "ops", "crypto",
+            "lightnode"} <= dirs
     names = {p.name for p in _port_sources() if p.parent.name in ("rpc", "sdk")}
     assert {"server.py", "edge.py", "ws_server.py", "eventsub.py", "client.py", "ws.py"} <= names
+    names = {f"{p.parent.name}/{p.name}" for p in _port_sources()}
+    assert {"lightnode/__init__.py", "lightnode/lightnode.py", "net/p2p.py", "net/smtls.py",
+            "crypto/symm.py"} <= names
 
 
 def test_tensor_entry_points_dispatch_on_device():
