@@ -6,9 +6,11 @@ EC route, then each chain's node path from wire frames to the ledger and
 the seal judge, each chain's block execution through the executor and
 the scheduler, each chain on a 4-node PBFT network of the port's
 Nodes, each chain's durability, each chain's serving edge driven
-by the port's own SDK clients over JSON-RPC and WS, and each chain on
+by the port's own SDK clients over JSON-RPC and WS, each chain on
 four Nodes over loopback TCP (SM-TLS on the SM chain) with a light
-client verifying it.
+client verifying it, and the Air deployment: each chain as four node
+processes from build_chain, and one process hosting two groups on a
+shared crypto lane with cross-group transfers.
 
     python3 chip_smoke.py
 
@@ -154,11 +156,13 @@ version or to the CPU):
 13. A 4-node PBFT chain of the port's own Nodes (init/node.py), on each
    chain: NodeConfig(consensus="pbft", crypto_backend="device") over one
    FakeGateway, the 4 sealers of the genesis, leader_period 1 (heights
-   1-3 have three leaders), blocks of one suite CHUNK (16,384 txs; 4,096
+   1-2 have two leaders), blocks of one suite CHUNK (16,384 txs; 4,096
    on the SM chain), the pool limit 131,072, the ingest lane at 16,384
-   frames a dispatch, a view timeout far above a healthy height. Three
+   frames a dispatch, a view timeout far above a healthy height. Two
    blocks of phase 12's balance workload (registers, then transfers with
-   1% reverting), every tx signed natively, go in as wire frames through
+   1% reverting; three were signed, phase 14 commits the third; the chain
+   ran three heights until phase 17 took the script past 1,080 s on slow
+   hosts), every tx signed natively, go in as wire frames through
    node 0's ingest lane; txsync gossips them (one batch recovery a
    packet on each peer), and every pool holds them all before the nodes
    start (height 1's leader last). The PBFT engines verify each drained
@@ -171,7 +175,7 @@ version or to the CPU):
    calls imply and the profiler's calls, with the verify kernel launched
    by PBFT packets and seals. Walls: admission and gossip, each height
    from its pre-prepare to its commit on every node, the chain. Checked:
-   all four nodes at height 3 with equal header hashes and a seal quorum
+   all four nodes at height 2 with equal header hashes and a seal quorum
    on each; the committed blocks executed in order by a solo Scheduler on
    the host suite give the same headers, roots and c_balance rows, and a
    Python replay the same balances.
@@ -257,6 +261,38 @@ version or to the CPU):
    the light-node server). Printed: each session's codec, the
    handshakes, admission and gossip, height 1 on each node, each light
    call's wall and launches. No profiler session.
+17. The Air deployment, each node an OS process of its own (the port's
+   build_chain and `python -m fisco_bcos_tpu_torch`'s main, through this
+   script's child entry `--daemon-child NODE_DIR OUT_JSON INDEX`, which
+   records the daemon's suite calls by site and, on SIGTERM, writes its
+   counters, the launches its calls imply and its peak reserved memory).
+   (a) Each chain: a 4-node build_chain directory (device cuda,
+   crypto_backend "device", plain TCP on the default chain, --sm-tls on
+   the SM chain, blocks of phase 13's size that seal only when full), four
+   child daemons; height 1 of phase 13's traffic over JSON-RPC to node 0
+   as phase 15 sends it. Checked: every child among nvidia-smi's compute
+   apps; block 1's header hash equal on all four with a seal quorum; the
+   roots and c_balance rows each node wrote to disk equal the host-suite
+   oracle's and a Python replay; SIGTERM ends each with 0 and removes its
+   node.pid; node 3 restarted alone reopens at height 1 (WAL replay) and
+   a second daemon on its live directory exits 3; each child's counters
+   equal the launches its recorded calls imply, by site. Printed: each
+   boot, admission over RPC and its tx/s, first POST to height 1 on each
+   node, the leader's pre-prepare to each commit (host clock across
+   processes), the restart, each child's peak reserved memory. (b) The
+   default chain: one daemon with [groups] list = group0,group1 (a
+   single sealer, the node's key, JAX-default blocks of 1,000 txs, a
+   partial one sealed after 2 s, the lane's window 2 ms);
+   8,192 registers a group over JSON-RPC at once, the batch entries
+   alternating groups; then 64 cross-group transfers, one to an unknown
+   group (refunded) and one beyond its balance (reverted). Checked:
+   getGroupList, JSONRPC_GROUP_NOT_FOUND for an unknown group, the
+   transfers settled once each (getAuditReport's cross-group section),
+   each group's blocks, roots, c_balance and xshard rows on disk equal a
+   host-suite GroupManager's replay and a Python replay, a lane dispatch
+   carried both groups' requests, the counters equal the launches the
+   lane's base-suite calls imply. Printed: each group's wall, the lane's
+   items a base call. No profiler session.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -267,11 +303,14 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import random
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3411,7 +3450,10 @@ def phase_exec(dev, suite, kind: str, rng):
 # phase 13: a 4-node PBFT chain of the port's own Nodes on the card
 # ---------------------------------------------------------------------------
 PBFT_TXS = {"ecdsa": 16384, "sm": 4096}   # a block: one suite CHUNK on the default chain
-PBFT_HEIGHTS = 3
+# phase 13's chain runs two heights (three until phase 17 took the script
+# past 1,080 s on slow hosts), its traffic three: phase 14 commits all three
+PBFT_HEIGHTS = 2
+PBFT_TRAFFIC_HEIGHTS = 3
 PBFT_POOL_LIMIT = 131072
 PBFT_VIEW_TIMEOUT = 300.0   # s: far above a healthy height, so no view change fires
 PBFT_MIN_SEAL = 2.0         # s: a partial block waits this long to fill
@@ -3444,7 +3486,9 @@ PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
               "lightnode.py:header_range": "light_headers",
               "lightnode.py:transactions": "light_txs",
               "lightnode.py:receipts": "light_receipts",
-              "lightnode.py:_block_levels": "light_server"}
+              "lightnode.py:_block_levels": "light_server",
+              # phase 17's shared crypto lane (the 2-group daemon's merged calls)
+              "lane.py:_dispatch": "lane"}
 
 
 def pbft_site(node: int) -> str:
@@ -3465,12 +3509,13 @@ def pbft_site(node: int) -> str:
     return "other"
 
 
-def pbft_traffic(suite, ntx: int, heights: int, seed: int = SEED + 13):
+def pbft_traffic(suite, ntx: int, heights: int, seed: int = SEED + 13,
+                 group_id: str = "group0"):
     """`heights` blocks of ntx txs of phase 12's balance workload: block 1
     registers ntx accounts with 1,000 each, the later blocks transfer 1
-    over seeded pairs, 1% of them 10^6, which revert. Every tx is signed
-    natively by one of 16 keys over its own payload. -> dict(frames, ops
-    {frame: op}, accounts, sign seconds)."""
+    over seeded pairs, 1% of them 10^6, which revert. Every tx, of group
+    `group_id`, is signed natively by one of 16 keys over its own payload.
+    -> dict(frames, ops {frame: op}, accounts, sign seconds)."""
     from fisco_bcos_tpu_torch.executor import precompiled as pc
     from fisco_bcos_tpu_torch.protocol import types as T
 
@@ -3480,6 +3525,7 @@ def pbft_traffic(suite, ntx: int, heights: int, seed: int = SEED + 13):
     txs, ops = [], []
     for i, a in enumerate(accounts):
         txs.append(T.Transaction(to=pc.BALANCE_ADDRESS, nonce=f"p1-{i}", block_limit=500,
+                                 group_id=group_id,
                                  input=pc.encode_call("register",
                                                       lambda w, a=a: w.blob(a).u64(EXEC_BALANCE))))
         ops.append(("register", a, EXEC_BALANCE))
@@ -3491,7 +3537,7 @@ def pbft_traffic(suite, ntx: int, heights: int, seed: int = SEED + 13):
             a, b = accounts[src[i]], accounts[(src[i] + hop[i]) % ntx]
             m = EXEC_BIG if big[i] else 1
             txs.append(T.Transaction(
-                to=pc.BALANCE_ADDRESS, nonce=f"p{h}-{i}", block_limit=500,
+                to=pc.BALANCE_ADDRESS, nonce=f"p{h}-{i}", block_limit=500, group_id=group_id,
                 input=pc.encode_call("transfer",
                                      lambda w, a=a, b=b, m=m: w.blob(a).blob(b).u64(m))))
             ops.append(("transfer", a, b, m))
@@ -3566,7 +3612,7 @@ def pbft_oracle(host, blocks, sealers, ntx: int, compat: str):
 def phase_pbft(dev, kind: str):
     """(13) A 4-node PBFT chain of the port's own Nodes (init/node.py) on
     the card: one FakeGateway, the 4 sealers of the genesis, leader_period
-    1 (heights 1-3 have three leaders), crypto_backend "device" (every
+    1 (each height a leader of its own), crypto_backend "device" (every
     batch of every node on the card). The txs come in as wire frames
     through node 0's ingest lane and txsync gossips them; every pool holds
     them all before the nodes start and the first grant. Each node's suite
@@ -3592,12 +3638,13 @@ def phase_pbft(dev, kind: str):
     ntx, heights = PBFT_TXS[kind], PBFT_HEIGHTS
     suite = make_suite(kind == "sm", device=dev)
     t0 = time.perf_counter()
-    tr = pbft_traffic(suite, ntx, heights)
-    frames = tr["frames"]
+    tr = pbft_traffic(suite, ntx, PBFT_TRAFFIC_HEIGHTS)
+    frames = tr["frames"][:heights * ntx]
     keys = seal_keys(suite)
     sealers = [ConsensusNode(k.pub_bytes) for k in keys]
-    log(f"{tag} set-up: {heights} blocks of {ntx} txs, {len(frames)} native signatures in "
-        f"{tr['sign_s']:.2f} s ({tr['sign_s'] / len(frames) * 1e3:.3f} ms each), "
+    nsig = len(tr["frames"])
+    log(f"{tag} set-up: {heights} blocks of {ntx} txs, {nsig} native signatures in "
+        f"{tr['sign_s']:.2f} s ({tr['sign_s'] / nsig * 1e3:.3f} ms each), "
         f"{time.perf_counter() - t0:.1f} s in all")
     cfg = NodeConfig(consensus="pbft", sm_crypto=kind == "sm", crypto_backend="device",
                      device=str(dev), tx_count_limit=ntx, txpool_limit=PBFT_POOL_LIMIT,
@@ -4208,15 +4255,17 @@ def serve_get(port: int, path: str) -> tuple:
         conn.close()
 
 
-def serve_wave(url: str, frames, tag: str):
+def serve_wave(url: str, frames, tag: str, groups=None):
     """The frames as JSON-RPC batch bodies of SERVE_BATCH sendTransaction
-    entries (wait=false), posted by SERVE_CLIENTS SdkClient threads on
-    keep-alive connections, each thread its share of the bodies in turn.
+    entries (wait=false), each entry to group0 or to its frame's group in
+    `groups`, posted by SERVE_CLIENTS SdkClient threads on keep-alive
+    connections, each thread its share of the bodies in turn.
     -> (tx hash by frame, first POST time, last response time)."""
     import threading
 
     from fisco_bcos_tpu_torch.sdk.client import SdkClient
 
+    group_of = dict(zip(frames, groups)) if groups is not None else {}
     bodies = [frames[i:i + SERVE_BATCH] for i in range(0, len(frames), SERVE_BATCH)]
     hashes: dict = {}
     errors: list = []
@@ -4227,8 +4276,8 @@ def serve_wave(url: str, frames, tag: str):
         try:
             for body in bodies[k::SERVE_CLIENTS]:
                 resps = sdk.request_batch([
-                    ("sendTransaction", ["group0", "", "0x" + f.hex(), False, False])
-                    for f in body])
+                    ("sendTransaction", [group_of.get(f, "group0"), "", "0x" + f.hex(), False,
+                                         False]) for f in body])
                 stamps.append(time.perf_counter())
                 for f, r in zip(body, resps):
                     res = r.get("result")
@@ -5026,7 +5075,711 @@ def phase_p2p(dev, kind: str, tr):
     return launches, site_launches, timings
 
 
+DAEMON_DEADLINE = 240.0   # s for each wait of the phase
+DAEMON_BOOT = 180.0       # s for a child daemon to answer over RPC (torch, the card, kernels)
+DAEMON_STOP = 60.0        # s for a child to exit after SIGTERM
+GROUP_TXS = 8192          # registers a group of the 2-group daemon
+XSHARD_N = 64             # cross-group transfers group0 -> group1
+XSHARD_AMOUNT = 7
+LANE_WAIT_MS = 2.0        # the 2-group daemon's lane window (crypto_lane_wait_ms)
+DAEMON_FAILED = SERVE_FAILED + P2P_FAILED
+
+
+def port_block(n: int) -> int:
+    """A base port with n consecutive free ports on 127.0.0.1."""
+    import socket
+
+    rng = random.Random()
+    for _ in range(64):
+        base = rng.randint(20000, 55000)
+        socks = []
+        try:
+            for i in range(n):
+                socks.append(socket.create_server(("127.0.0.1", base + i)))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("no block of free ports on 127.0.0.1")
+
+
+def daemon_child(argv) -> int:
+    """(17) The child side of phase 17: `chip_smoke.py --daemon-child
+    NODE_DIR OUT_JSON INDEX` runs fisco_bcos_tpu_torch.__main__.main on
+    NODE_DIR with every suite the daemon makes recorded by site (INDEX is
+    the node's: ingest is admission on node 0, gossip import elsewhere),
+    every lane dispatch's group tags kept, each pre-prepare and commit
+    stamped on the host clock and the best-effort catches watched. When
+    the daemon returns (SIGTERM), it writes its exit code, its kernel
+    launch counters, the launches its recorded calls imply by site, the
+    lane's dispatches and stats, the stamps and
+    torch.cuda.max_memory_reserved() to OUT_JSON. -> the daemon's code."""
+    node_dir, out_path, index = argv[0], argv[1], int(argv[2])
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fisco_bcos_tpu_torch import __main__ as entry
+    from fisco_bcos_tpu_torch.consensus.pbft.engine import PBFTEngine
+    from fisco_bcos_tpu_torch.crypto import lane as lane_mod
+    from fisco_bcos_tpu_torch.crypto import suite as suite_mod
+    from fisco_bcos_tpu_torch.init.daemon import NodeDaemon
+    from fisco_bcos_tpu_torch.tool.config import node_config_from_ini
+
+    with open(Path(node_dir) / "config.ini") as f:
+        kind = "sm" if node_config_from_ini(f.read()).sm_crypto else "ecdsa"
+    calls, suites, dispatches = [], [], []
+    stamps: dict = {"preprepare": {}, "commit": {}}
+    held: dict = {}
+    failures = _Failures(DAEMON_FAILED)
+    make, dispatch = suite_mod.make_suite, lane_mod.CryptoLane._dispatch
+    pp, boot, shutdown = (PBFTEngine._broadcast_preprepare, NodeDaemon._boot,
+                          NodeDaemon.shutdown)
+
+    def recorded(*a, **k):
+        s = make(*a, **k)
+        if s.backend == "host":
+            return s
+        suites.append(s)
+        return _Recorder(s, index, calls)
+
+    def tagged(lane, batch):
+        dispatches.append((batch[0].op, sorted({r.tag for r in batch}), sum(r.n for r in batch)))
+        return dispatch(lane, batch)
+
+    def stamped(engine, block, carried=False):
+        stamps["preprepare"].setdefault(str(block.header.number), time.time())
+        return pp(engine, block, carried)
+
+    def booted(daemon):
+        logging.getLogger("bcos-tpu").addHandler(failures)   # after the daemon's log set-up
+        boot(daemon)
+        nodes = ([daemon.manager.node(g) for g in daemon.manager.groups()]
+                 if daemon.manager is not None else [daemon.node])
+        for n in nodes:   # first of the observers: the commit-time prime runs after it
+            n.scheduler.on_commit.insert(0, (
+                lambda num, g=n.config.group_id: stamps["commit"].setdefault(
+                    f"{g}:{num}", time.time())))
+
+    def stopping(daemon):
+        # the teardown's own drops (a frame to a stopped peer) are not failures
+        logging.getLogger("bcos-tpu").removeHandler(failures)
+        if daemon.manager is not None:
+            held["lane"] = daemon.manager.crypto_lane_stats()
+            held["xshard"] = daemon.manager.coordinator.stats()
+        return shutdown(daemon)
+
+    suite_mod.make_suite = recorded
+    lane_mod.CryptoLane._dispatch = tagged
+    PBFTEngine._broadcast_preprepare = stamped
+    NodeDaemon._boot, NodeDaemon.shutdown = booted, stopping
+    rc = entry.main([node_dir, "--log-file", str(Path(node_dir) / "daemon.log")])
+    out = {"rc": rc, "pid": os.getpid(), "kind": kind, "failures": failures.seen,
+           "stamps": stamps, "dispatches": dispatches, **held}
+    if suites:
+        torch.cuda.synchronize()
+        _, sites, want = launches_by_site(kind, suites[0], calls)
+        out.update(launches={k: c.launches for k, c in slice_counters(kind).items()
+                             if c.launches},
+                   want=want, sites=sites, calls=len(calls),
+                   max_reserved=torch.cuda.max_memory_reserved())
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return rc
+
+
+class _Daemons:
+    """Child daemon processes of one phase-17 chain: started through
+    daemon_cmd, their output in the node directory, every one killed in
+    close() if it is still running."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+        self.procs: dict = {}   # key -> (Popen, node dir, out json, spawn time)
+        self.termed: set = set()
+
+    def start(self, key, node_dir: str, index: int, cmd=None):
+        out = str(Path(node_dir) / f"child-{key}.json")
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent),
+                   OMP_NUM_THREADS="1")
+        log_f = open(Path(node_dir) / f"child-{key}.out", "wb")
+        try:
+            p = subprocess.Popen(cmd or daemon_cmd(node_dir, out, index), stdout=log_f,
+                                 stderr=subprocess.STDOUT, env=env,
+                                 cwd=str(Path(__file__).resolve().parent))
+        finally:
+            log_f.close()
+        self.procs[key] = (p, node_dir, out, time.time())
+        return p
+
+    def tail(self, key) -> str:
+        p, node_dir, _, _ = self.procs[key]
+        text = ""
+        for name in (f"child-{key}.out", "daemon.log"):
+            path = Path(node_dir) / name
+            if path.exists():
+                text += f"\n--- {name}:\n" + path.read_text(errors="replace")[-3000:]
+        return text
+
+    def alive(self, key) -> None:
+        p = self.procs[key][0]
+        if p.poll() is not None:
+            fail(f"{self.tag} daemon {key} exited with {p.returncode}:{self.tail(key)}")
+
+    def term(self, key) -> None:
+        """SIGTERM, once: a second one could land while the interpreter
+        exits, when the default action (death by the signal) is back."""
+        p = self.procs[key][0]
+        if key not in self.termed and p.poll() is None:
+            self.termed.add(key)
+            p.send_signal(signal.SIGTERM)
+
+    def stop(self, key) -> dict:
+        """SIGTERM, wait; it must exit 0 and leave no node.pid. -> its out json."""
+        p, node_dir, out, _ = self.procs[key]
+        self.term(key)
+        try:
+            rc = p.wait(timeout=DAEMON_STOP)
+        except subprocess.TimeoutExpired:
+            fail(f"{self.tag} daemon {key} did not exit {DAEMON_STOP:.0f} s after SIGTERM")
+        if rc != 0:
+            fail(f"{self.tag} daemon {key} exited {rc} after SIGTERM:{self.tail(key)}")
+        if (Path(node_dir) / "node.pid").exists():
+            fail(f"{self.tag} daemon {key} left its node.pid behind")
+        with open(out) as f:
+            return json.load(f)
+
+    def close(self) -> None:
+        for p, *_ in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p, *_ in self.procs.values():
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=30)
+
+
+def daemon_cmd(node_dir: str, out: str, index: int) -> list:
+    """The command line of one phase-17 child daemon."""
+    return [sys.executable, str(Path(__file__).resolve()), "--daemon-child", node_dir, out,
+            str(index)]
+
+
+def daemon_rpc(port: int, method: str, params, group: str | None = "group0"):
+    """One JSON-RPC call on a fresh connection; -> its result (fails on an error)."""
+    rep, _ = serve_post(port, {"jsonrpc": "2.0", "id": 1, "method": method,
+                               "params": ([group, ""] if group else []) + list(params)})
+    if "error" in rep:
+        fail(f"[daemon] {method} on port {port} answered {rep['error']}")
+    return rep["result"]
+
+
+def daemon_wait(tag: str, what: str, pred) -> None:
+    deadline = time.monotonic() + DAEMON_DEADLINE
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"{tag} {what} not reached in {DAEMON_DEADLINE:.0f} s")
+        time.sleep(0.05)
+
+
+def daemon_up(ds: _Daemons, key, port: int, group: str = "group0") -> float:
+    """Wait until daemon `key` answers getBlockNumber on `port`. -> the host
+    clock time it first did."""
+    deadline = time.monotonic() + DAEMON_BOOT
+    while True:
+        ds.alive(key)
+        try:
+            rep, _ = serve_post(port, {"jsonrpc": "2.0", "id": 1, "method": "getBlockNumber",
+                                       "params": [group, ""]})
+            if "result" in rep:
+                return time.time()
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            fail(f"{ds.tag} daemon {key} did not answer on port {port} in {DAEMON_BOOT:.0f} s:"
+                 f"{ds.tail(key)}")
+        time.sleep(0.1)
+
+
+def child_launches(tag: str, who: str, out: dict, kind: str, served: bool = True) -> dict:
+    """A child's counters against the launches its recorded suite calls
+    imply (both from the child); no best-effort catch may have fired; a
+    child that `served` traffic must have launched kernels and reserved
+    memory on the card. -> its counters."""
+    if out.get("failures"):
+        fail(f"{tag} {who}: a best-effort catch fired: {out['failures'][:3]}")
+    if served and not (out.get("launches") and out.get("max_reserved")):
+        fail(f"{tag} {who} did not hold the card: launches {out.get('launches')}, peak "
+             f"reserved {out.get('max_reserved')} B")
+    got, want = out.get("launches", {}), out.get("want", {})
+    if got != want:
+        fail(f"{tag} {who}: the counters {got}, the recorded suite calls give {want}")
+    return got
+
+
+def compute_apps() -> list:
+    """nvidia-smi's compute apps on the card: [(pid, used memory)]. In a
+    container the pids can be another pid namespace's (the card machine
+    lists a child of this script as pid 1)."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return [(int(line.split(",")[0]), line.split(",")[1].strip())
+            for line in r.stdout.splitlines() if line.strip()]
+
+
+def holds_card(tag: str, before: list, pids: set) -> str:
+    """Every child process holds the card: nvidia-smi lists its pid. Where
+    nvidia-smi lists no pid of this pid namespace (neither a child's nor
+    this script's), each child's own peak reserved memory and launches,
+    which it writes when it stops, are the evidence (see child_launches).
+    -> what nvidia-smi showed."""
+    after = compute_apps()
+    listed = {p for p, _ in after}
+    if pids <= listed:
+        return f"pids {sorted(pids)} among nvidia-smi's compute apps"
+    if listed & (pids | {os.getpid()}):
+        fail(f"{tag} nvidia-smi lists compute apps {after}, not every child {sorted(pids)}")
+    return (f"nvidia-smi lists {len(after)} compute apps ({len(before)} before the children "
+            f"started) under another pid namespace's pids {sorted(listed)}")
+
+
+def patch_node_dir(node_dir: str, genesis_limit: int | None = None, **fields) -> None:
+    """Rewrite a build_chain node directory's config.ini with `fields` set
+    (as the JAX package's chaos harness patches its chains), and its
+    genesis with blocks of `genesis_limit` txs."""
+    from fisco_bcos_tpu_torch.tool.config import (ChainConfig, node_config_from_ini,
+                                                  node_config_to_ini)
+
+    path = Path(node_dir) / "config.ini"
+    cfg = node_config_from_ini(path.read_text())
+    for k, v in fields.items():
+        setattr(cfg, k, v)
+    path.write_text(node_config_to_ini(cfg))
+    if genesis_limit is not None:
+        gpath = Path(node_dir) / "genesis"
+        chain = ChainConfig.from_ini(gpath.read_text())
+        chain.block_tx_count_limit = genesis_limit
+        gpath.write_text(chain.to_ini())
+
+
+def stored_chain(node_dir: str, host, groups=None) -> dict:
+    """A stopped daemon's committed chain, read from its data directory
+    (the WAL the daemon wrote): {group: (blocks 1..head with txs, the
+    c_balance and xshard rows)}; `groups` None reads the one group's."""
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.ledger.ledger import Ledger
+    from fisco_bcos_tpu_torch.storage import make_storage
+    from fisco_bcos_tpu_torch.storage.namespace import NamespacedStorage
+
+    st = make_storage("auto", str(Path(node_dir) / "data"))
+    out = {}
+    try:
+        for g in groups or [None]:
+            view = st if g is None else NamespacedStorage(st, g)
+            led = Ledger(view, host)
+            blocks = [led.block_by_number(h, with_txs=True)
+                      for h in range(1, led.current_number() + 1)]
+            rows = {t: {k: view.get(t, k) for k in view.keys(t)}
+                    for t in (pc.T_BALANCE, pc.T_XSHARD_OUT, pc.T_XSHARD_IN, pc.T_XSHARD_PEND)}
+            out[g or "group0"] = (blocks, rows)
+    finally:
+        st.close()
+    return out
+
+
+def phase_daemon(dev, kind: str, tr):
+    """(17a) The Air deployment on each chain: a 4-node chain written by
+    the port's build_chain (device = cuda, crypto_backend "device"; plain
+    TCP on the default chain, --sm-tls on the SM chain), each node its own
+    OS process (daemon_child: python -m fisco_bcos_tpu_torch's main, its
+    suite calls recorded by site). Height 1 of phase 13's traffic (`tr`)
+    goes in at node 0 over JSON-RPC as phase 15 sends it. Checked: every
+    child holds the card (nvidia-smi's compute apps), block 1's header
+    hash is equal on all four with a seal quorum, the roots and c_balance
+    rows on every node's disk equal the host-suite oracle's and a Python
+    replay; SIGTERM ends each with 0 and no node.pid; node 3 alone
+    reopens at height 1 (WAL replay), a second daemon on its live
+    directory exits 3; every child's counters equal the launches its
+    recorded calls imply. -> (launches by kernel, by site, timings)."""
+    from fisco_bcos_tpu_torch.consensus import qc
+    from fisco_bcos_tpu_torch.crypto.suite import make_suite
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.tool.build_chain import build_chain
+
+    tag = f"[daemon {kind}]"
+    t_phase = time.perf_counter()
+    ntx = PBFT_TXS[kind]
+    frames = tr["frames"][:ntx]
+    if len(frames) != ntx:
+        fail(f"{tag} phase 13's traffic holds {len(tr['frames'])} frames, want {ntx} or more")
+    host = make_suite(kind == "sm", backend="host")
+    root = Path(tempfile.mkdtemp(prefix=f"chip-smoke-daemon-{kind}-"))
+    ds = _Daemons(tag)
+    walls: dict = {}
+    try:
+        base = port_block(8)
+        info = build_chain(str(root), 4, sm_crypto=kind == "sm", consensus="pbft",
+                           rpc_base_port=base, p2p_base_port=base + 4,
+                           crypto_backend="device", sm_tls=kind == "sm", device=str(dev))
+        dirs = [n["dir"] for n in info["nodes"]]
+        rpcs = [n["rpc_port"] for n in info["nodes"]]
+        sealers = [bytes.fromhex(n["node_id"]) for n in info["nodes"]]
+        for d in dirs:   # blocks of one suite CHUNK that seal only when full, as phase 16's
+            patch_node_dir(d, genesis_limit=ntx, min_seal_time=P2P_MIN_SEAL,
+                           view_timeout=PBFT_VIEW_TIMEOUT, txpool_limit=PBFT_POOL_LIMIT)
+        before = compute_apps()
+        for i, d in enumerate(dirs):
+            ds.start(i, d, i)
+        walls["boot"] = [(daemon_up(ds, i, rpcs[i]) - ds.procs[i][3]) * 1e3 for i in range(4)]
+        t_mesh = time.time()
+        daemon_wait(tag, "the mesh", lambda: all(
+            len(daemon_rpc(p, "getPeers", [], group=None)["peers"]) == 3 for p in rpcs))
+        walls["mesh"] = (time.time() - t_mesh) * 1e3
+        on_card = holds_card(tag, before, {ds.procs[i][0].pid for i in range(4)})
+        t_post = time.time()
+        got, t0, t_last = serve_wave(f"http://127.0.0.1:{rpcs[0]}", frames, tag)
+        if any(got[f] != T.Transaction.decode(f).hash(host) for f in frames):
+            fail(f"{tag} a sendTransaction reply carries another hash than the host suite's")
+        walls["admission"] = (t_last - t0) * 1e3
+        walls["tx_per_s"] = ntx / (t_last - t0)
+        heights: dict = {}
+        deadline = time.monotonic() + DAEMON_DEADLINE
+        while len(heights) < 4:
+            for i, p in enumerate(rpcs):
+                if i not in heights and daemon_rpc(p, "getBlockNumber", []) >= 1:
+                    heights[i] = time.time()
+            if time.monotonic() > deadline:
+                fail(f"{tag} height 1 on nodes {sorted(heights)} only, in {DAEMON_DEADLINE:.0f} s")
+            time.sleep(0.02)
+        walls["post_to_height1"] = [(heights[i] - t_post) * 1e3 for i in range(4)]
+        quorum = 4 - (4 - 1) // 3
+        heads = [daemon_rpc(p, "getBlockByNumber", [1, True, False]) for p in rpcs]
+        if len({h["hash"] for h in heads}) != 1 or \
+                min(len(h["signatureList"]) for h in heads) < quorum:
+            fail(f"{tag} block 1's headers over RPC: hashes {[h['hash'] for h in heads]}, "
+                 f"seals {[len(h['signatureList']) for h in heads]}")
+        if kind == "sm" and not all("tls=True" in (Path(d) / "daemon.log").read_text()
+                                    for d in dirs):
+            fail(f"{tag} a daemon came up without its SM-TLS credential")
+        # the commit-time prime renders each tx's proof on the notifier
+        # thread, which the daemon's stop does not join: let it end first
+        daemon_wait(tag, "every node's proofs rendered", lambda: all(
+            daemon_rpc(p, "getSystemStatus", [])["zk"]["proofsRendered"] >= ntx for p in rpcs))
+        for i in range(4):   # the four at once, then each waited for
+            ds.term(i)
+        outs = [ds.stop(i) for i in range(4)]
+        chains = [stored_chain(d, host)["group0"] for d in dirs]   # before node 3 reopens
+        blocks = [c[0] for c in chains]
+        if any(len(b) != 1 for b in blocks):
+            fail(f"{tag} the nodes' disks hold {[len(b) for b in blocks]} blocks, want 1")
+        block = blocks[0][0]
+        if len(block.transactions) != ntx or sorted(t.encode() for t in block.transactions) \
+                != sorted(frames):
+            fail(f"{tag} block 1 holds {len(block.transactions)} txs, not the {ntx} frames sent")
+        # node 3 alone on its directory: WAL replay; a second daemon there must exit 3
+        t_r = time.time()
+        p3 = ds.start("3r", dirs[3], 3)
+        pid_file = Path(dirs[3]) / "node.pid"
+        deadline = time.monotonic() + DAEMON_BOOT
+        while not (pid_file.exists() and pid_file.read_text().strip() == str(p3.pid)):
+            ds.alive("3r")
+            if time.monotonic() > deadline:
+                fail(f"{tag} the restarted node 3 wrote no node.pid")
+            time.sleep(0.02)
+        double = ds.start("double", dirs[3], 3, cmd=[
+            sys.executable, "-m", "fisco_bcos_tpu_torch", dirs[3], "--log-file",
+            str(Path(dirs[3]) / "double.log")])
+        t_o = time.perf_counter()   # the host-suite oracle, while node 3 boots
+        ores, obal = pbft_oracle(host, [block], sealers, ntx, "1.1.0")
+        oracle_s = time.perf_counter() - t_o
+        walls["restart"] = (daemon_up(ds, "3r", rpcs[3]) - t_r) * 1e3
+        if daemon_rpc(rpcs[3], "getBlockNumber", []) != 1:
+            fail(f"{tag} node 3 reopened at {daemon_rpc(rpcs[3], 'getBlockNumber', [])}, want 1")
+        try:
+            rc = double.wait(timeout=DAEMON_BOOT)
+        except subprocess.TimeoutExpired:
+            fail(f"{tag} a second daemon on node 3's live directory kept running")
+        if rc != 3:
+            fail(f"{tag} a second daemon on node 3's live directory exited {rc}, want 3:"
+                 f"{ds.tail('double')}")
+        outs.append(ds.stop("3r"))
+    finally:
+        ds.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- checks ---------------------------------------------------------------
+    o = ores[0].header
+    want_bal = pbft_replay(tr["ops"], [t.encode() for t in block.transactions])
+    for i, (b, rows) in enumerate(chains):
+        h = b[0].header
+        if "0x" + h.hash(host).hex() != heads[i]["hash"]:
+            fail(f"{tag} node {i}'s stored header is not the one it served")
+        if not all(qc.verify_spans([h], sorted(sealers), host)) or \
+                len(h.signature_list) < quorum:
+            fail(f"{tag} node {i}: the committed header lacks a seal quorum")
+        if (h.state_root, h.txs_root, h.receipts_root) != \
+                (o.state_root, o.txs_root, o.receipts_root) or o.hash(host) != h.hash(host):
+            fail(f"{tag} node {i}: the roots differ from the host-suite oracle's")
+        bal = rows["c_balance"]
+        if bal != obal or {k: int.from_bytes(v, "big") for k, v in bal.items()} != want_bal:
+            fail(f"{tag} node {i}: c_balance rows differ from the oracle's")
+    launches: dict = {}
+    sites: dict = {}
+    who = ["node 0", "node 1", "node 2", "node 3", "node 3 restarted"]
+    for w, out in zip(who, outs):
+        for k, n in child_launches(tag, w, out, kind, served=w != who[-1]).items():
+            launches[k] = launches.get(k, 0) + n
+        for site, ks in out.get("sites", {}).items():
+            for k, n in ks.items():
+                sites.setdefault(site, {})[k] = sites.setdefault(site, {}).get(k, 0) + n
+    eck = "ecdsa_recover" if kind == "ecdsa" else "sm2_verify"
+    verk = "ecdsa_verify" if kind == "ecdsa" else "sm2_verify"
+    hashk = "keccak256_varlen" if kind == "ecdsa" else "sm3_varlen"
+    for site, k in (("admission", eck), ("gossip_import", eck), ("pbft_packets", verk),
+                    ("execute", hashk)):
+        if not sites.get(site, {}).get(k):
+            fail(f"{tag} {k} was not launched by {site}: {sites.get(site)}")
+    missing = [k for k in slice_counters(kind) if not launches.get(k)]
+    if missing:
+        fail(f"{tag} the path did not launch {missing}")
+    pps = [float(o_["stamps"]["preprepare"]["1"]) for o_ in outs[:4]
+           if "1" in o_["stamps"]["preprepare"]]
+    if len(pps) != 1:
+        fail(f"{tag} {len(pps)} nodes stamped a pre-prepare of height 1, want 1")
+    leader = next(i for i, o_ in enumerate(outs[:4]) if "1" in o_["stamps"]["preprepare"])
+    walls["commits"] = [(o_["stamps"]["commit"]["group0:1"] - pps[0]) * 1e3 for o_ in outs[:4]]
+    walls["max_reserved_mb"] = [o_["max_reserved"] / 2 ** 20 for o_ in outs]
+    w = walls
+    log(f"{tag} 4 processes on the card ({on_card}); boot, ms "
+        f"(spawn to the first RPC answer): " + ", ".join(f"{x:.1f}" for x in w["boot"])
+        + f"; mesh {w['mesh']:.1f} ms" + (" (SM-TLS)" if kind == "sm" else " (plain TCP)"))
+    log(f"{tag} height 1 ({ntx} txs): admission over RPC {w['admission']:.1f} ms "
+        f"({w['tx_per_s']:.0f} tx/s); first POST to height 1 on nodes 0-3: "
+        + ", ".join(f"{x:.1f}" for x in w["post_to_height1"])
+        + f" ms; pre-prepare (node {leader}) to commit on nodes 0-3: "
+        + ", ".join(f"{x:.1f}" for x in w["commits"]) + " ms")
+    log(f"{tag} SIGTERM: 4 exits 0, no node.pid; node 3 alone reopened at height 1 in "
+        f"{w['restart']:.1f} ms (spawn to RPC); a second daemon there exited 3; peak reserved "
+        f"MB by process: " + ", ".join(f"{x:.0f}" for x in w["max_reserved_mb"]))
+    log(f"{tag} launches {launches}; by site: {sites}")
+    log(f"{tag} header hashes equal, {quorum}+ seals; roots and {len(obal)} c_balance rows on "
+        f"every disk equal the host-suite oracle's ({oracle_s:.1f} s); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, sites, dict(walls=walls, oracle_s=oracle_s)
+
+
+def groups_oracle(host, chains: dict, sealer: bytes):
+    """The groups' committed blocks executed in order by a host-suite
+    GroupManager (one Node a group over one MemoryStorage, no coordinator:
+    its legs are in the blocks), each header rebuilt from the committed one
+    as block sync replays it. -> (manager, {group: [results]}); stop the
+    manager after use."""
+    from fisco_bcos_tpu_torch.init.group import GroupManager
+    from fisco_bcos_tpu_torch.init.node import NodeConfig
+    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.storage import MemoryStorage
+
+    mgr = GroupManager(storage=MemoryStorage(), xshard=False)
+    results: dict = {}
+    for g, (blocks, _) in chains.items():
+        node = mgr.add_group(NodeConfig(group_id=g, crypto_backend="host", device="cpu",
+                                        profile_hz=0), suite=host)
+        node.build_genesis([ConsensusNode(sealer)])
+        results[g] = []
+        for b in blocks:
+            h = b.header
+            replay = T.Block(transactions=[T.Transaction.decode(t.encode())
+                                           for t in b.transactions])
+            for f in ("version", "number", "timestamp", "sealer", "extra_data"):
+                setattr(replay.header, f, getattr(h, f))
+            replay.header.consensus_weights = list(h.consensus_weights)
+            replay.header.sealer_list = list(h.sealer_list)
+            r = node.scheduler.execute_block(replay)
+            if r is None:
+                fail(f"the oracle's group {g} did not execute block {h.number}")
+            r.header.signature_list = h.signature_list
+            if not node.scheduler.commit_block(r.header):
+                fail(f"the oracle's group {g} did not commit block {h.number}")
+            results[g].append(r)
+    return mgr, results
+
+
+def phase_groups(dev):
+    """(17b) Multi-group hosting on the default chain: one daemon process
+    (a 1-node build_chain directory, crypto_backend "device", its
+    config.ini's [groups] list = group0,group1; each group a single sealer
+    holding the node's key, blocks of the JAX default 1,000 txs, a
+    partial one sealed after PBFT_MIN_SEAL, a lane window of LANE_WAIT_MS)
+    hosts two
+    chains on one shared crypto lane. GROUP_TXS registers a group go in
+    over JSON-RPC at once (each batch body's entries alternate the groups,
+    routed by the group param); then XSHARD_N cross-group transfers from
+    group0 to group1, one to an unknown group (refunded) and one beyond
+    its balance (reverted). Checked: getGroupList, an unknown group's
+    JSONRPC_GROUP_NOT_FOUND; the coordinator settles every transfer once
+    (getAuditReport's cross-group section clean); each group's blocks,
+    roots, c_balance and xshard rows on disk equal a host-suite
+    GroupManager's replay of them and a Python replay; one lane dispatch
+    carried both groups' requests; the counters equal the launches the
+    lane's base-suite calls imply. -> (launches by kernel, by site, timings)."""
+    from fisco_bcos_tpu_torch.crypto.suite import make_suite
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.ops.audit import audit_cross_group
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.rpc.server import JSONRPC_GROUP_NOT_FOUND
+    from fisco_bcos_tpu_torch.tool.build_chain import build_chain
+
+    tag = "[groups ecdsa]"
+    t_phase = time.perf_counter()
+    groups = ["group0", "group1"]
+    host = make_suite(backend="host")
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-groups-"))
+    ds = _Daemons(tag)
+    walls: dict = {}
+    try:
+        base = port_block(2)
+        info = build_chain(str(root), 1, consensus="pbft", rpc_base_port=base,
+                           p2p_base_port=base + 1, crypto_backend="device", device=str(dev))
+        d = info["nodes"][0]["dir"]
+        sealer = bytes.fromhex(info["nodes"][0]["node_id"])
+        # a partial block waits PBFT_MIN_SEAL to fill, which bounds the
+        # block count while the registers trickle in over RPC; the lane's
+        # coalescing window for device deployments (NodeConfig:
+        # crypto_lane_wait_ms) lets the groups' concurrent requests meet
+        patch_node_dir(d, groups=groups, min_seal_time=PBFT_MIN_SEAL,
+                       crypto_lane_wait_ms=LANE_WAIT_MS)
+        ds.start("g", d, 0)
+        traffic = {g: pbft_traffic(host, GROUP_TXS, 1, seed=SEED + 17 + k, group_id=g)
+                   for k, g in enumerate(groups)}   # signed while the daemon boots
+        walls["boot"] = (daemon_up(ds, "g", base) - ds.procs["g"][3]) * 1e3
+        if daemon_rpc(base, "getGroupList", [], group=None)["groupList"] != groups:
+            fail(f"{tag} getGroupList answered another list than {groups}")
+        rep, _ = serve_post(base, {"jsonrpc": "2.0", "id": 1, "method": "getBlockNumber",
+                                   "params": ["group9", ""]})
+        if rep.get("error", {}).get("code") != JSONRPC_GROUP_NOT_FOUND:
+            fail(f"{tag} an unknown group answered {rep}")
+        mixed = [f for pair in zip(*(traffic[g]["frames"] for g in groups)) for f in pair]
+        t_post = time.time()
+        got, t0, t_last = serve_wave(f"http://127.0.0.1:{base}", mixed, tag,
+                                     groups=groups * GROUP_TXS)
+        if any(got[f] != T.Transaction.decode(f).hash(host) for f in mixed):
+            fail(f"{tag} a sendTransaction reply carries another hash than the host suite's")
+        walls["admission"] = (t_last - t0) * 1e3
+        walls["tx_per_s"] = len(mixed) / (t_last - t0)
+        done: dict = {}
+        deadline = time.monotonic() + DAEMON_DEADLINE
+        while len(done) < 2:
+            for g in groups:
+                if g not in done and daemon_rpc(base, "getTotalTransactionCount", [], group=g)[
+                        "transactionCount"] >= GROUP_TXS:
+                    done[g] = time.time()
+            if time.monotonic() > deadline:
+                fail(f"{tag} groups {sorted(done)} only committed their registers")
+            time.sleep(0.05)
+        walls["groups"] = {g: (done[g] - t_post) * 1e3 for g in groups}
+        # the transfers: XSHARD_N to group1, one to a group nobody hosts, one beyond its balance
+        user = host.generate_keypair(b"xshard-user")
+        accts = traffic["group0"]["accounts"]
+        legs = [(b"xs%03d" % i, "group1", accts[i], XSHARD_AMOUNT) for i in range(XSHARD_N)]
+        legs += [(b"xs-lost", "group9", accts[XSHARD_N], XSHARD_AMOUNT),
+                 (b"xs-poor", "group1", accts[XSHARD_N + 1], EXEC_BIG)]
+        xframes = [T.Transaction(
+            to=pc.XSHARD_ADDRESS, nonce=f"xs-{i}", block_limit=500, group_id="group0",
+            input=pc.encode_call("transferOut", lambda w, x=x, g=g, a=a, m=m: (
+                w.blob(x).text(g).blob(a).blob(a).u64(m)))).sign(host, user).encode()
+            for i, (x, g, a, m) in enumerate(legs)]
+        t_x = time.time()
+        serve_wave(f"http://127.0.0.1:{base}", xframes, tag)
+        deadline = time.monotonic() + DAEMON_DEADLINE
+        while True:
+            xg = daemon_rpc(base, "getAuditReport", [1])["crossGroup"]
+            if (xg["pending"], xg["outbox"], xg["inbox"]) == (0, XSHARD_N + 1, XSHARD_N):
+                break
+            if time.monotonic() > deadline:
+                fail(f"{tag} the transfers did not settle in {DAEMON_DEADLINE:.0f} s: {xg}")
+            time.sleep(0.1)
+        walls["xshard"] = (time.time() - t_x) * 1e3
+        # the commit-time prime runs on the notifier thread, which the
+        # daemon's stop does not join: let each group's end first
+        daemon_wait(tag, "each group's proofs rendered", lambda: all(
+            daemon_rpc(base, "getSystemStatus", [], group=g)["zk"]["proofsRendered"]
+            >= daemon_rpc(base, "getTotalTransactionCount", [], group=g)["transactionCount"]
+            for g in groups))
+        if not xg["ok"]:
+            fail(f"{tag} getAuditReport's cross-group section: {xg['problems'][:3]}")
+        out = ds.stop("g")
+    finally:
+        ds.close()
+    try:
+        chains = stored_chain(d, host, groups)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- checks ---------------------------------------------------------------
+    t_o = time.perf_counter()
+    mgr, ores = groups_oracle(host, chains, sealer)
+    try:
+        oxg = audit_cross_group(mgr)
+        orows = {g: {t: {k: mgr.node(g).storage.get(t, k) for k in mgr.node(g).storage.keys(t)}
+                     for t in chains[g][1]} for g in groups}
+    finally:
+        mgr.stop()
+    oracle_s = time.perf_counter() - t_o
+    for g in groups:
+        blocks, rows = chains[g]
+        if [r.header.hash(host) for r in ores[g]] != [b.header.hash(host) for b in blocks] or \
+                any((r.header.state_root, r.header.txs_root, r.header.receipts_root)
+                    != (b.header.state_root, b.header.txs_root, b.header.receipts_root)
+                    for r, b in zip(ores[g], blocks)):
+            fail(f"{tag} {g}: the headers or roots differ from the host-suite oracle's")
+        if rows != orows[g]:
+            fail(f"{tag} {g}: the c_balance or xshard rows differ from the oracle's")
+    if not oxg["ok"] or (oxg["outbox"], oxg["inbox"], oxg["pending"]) != \
+            (XSHARD_N + 1, XSHARD_N, 0):
+        fail(f"{tag} the oracle's cross-group audit: {oxg}")
+    bal = {g: {k: int.from_bytes(v, "big") for k, v in chains[g][1][pc.T_BALANCE].items()}
+           for g in groups}
+    want = {g: {a: EXEC_BALANCE for a in traffic[g]["accounts"]} for g in groups}
+    for i in range(XSHARD_N):
+        want["group0"][accts[i]] -= XSHARD_AMOUNT
+        want["group1"][accts[i]] += XSHARD_AMOUNT
+    if bal != want:
+        fail(f"{tag} the balances are not the registers with each transfer landed once")
+    outbox = {x: pc.decode_intent(v) for x, v in chains["group0"][1][pc.T_XSHARD_OUT].items()}
+    if sorted(outbox) != sorted(x for x, *_ in legs[:-1]) or \
+            any(outbox[x]["status"] != pc.XS_DONE for x, *_ in legs[:XSHARD_N]) or \
+            outbox[b"xs-lost"]["status"] != pc.XS_ABORTED:
+        fail(f"{tag} the outbox is not {XSHARD_N} settled and one refunded transfer")
+    if sorted(chains["group1"][1][pc.T_XSHARD_IN]) != sorted(x for x, *_ in legs[:XSHARD_N]):
+        fail(f"{tag} group1's inbox does not hold each transfer once")
+    got = child_launches(tag, "the daemon", out, "ecdsa")
+    both = [dsp for dsp in out["dispatches"] if dsp[1] == groups]
+    if not both:
+        fail(f"{tag} no lane dispatch carried both groups' requests: {out['dispatches'][:8]}")
+    missing = [k for k in slice_counters("ecdsa") if not got.get(k)]
+    if missing:
+        fail(f"{tag} the path did not launch {missing}")
+    lane = out["lane"]["ecdsa"]
+    merged = {op: sum(1 for dsp in both if dsp[0] == op) for op in ("recover", "verify", "hash")}
+    w = walls
+    log(f"{tag} 1 process, 2 groups; boot {w['boot']:.1f} ms; admission over RPC "
+        f"{w['admission']:.1f} ms for {len(mixed)} txs ({w['tx_per_s']:.0f} tx/s); first POST "
+        f"to every register committed: " + ", ".join(f"{g} {x:.1f}" for g, x in w["groups"].items())
+        + f" ms; {XSHARD_N + 2} transfers settled {w['xshard']:.1f} ms after the POST "
+        f"(coordinator {out['xshard']})")
+    log(f"{tag} heights {[len(chains[g][0]) for g in groups]}; the lane: "
+        f"{lane['device_calls']} base calls, {lane['items_total']} items "
+        f"({lane['items_total'] / max(1, lane['device_calls']):.2f} a call), "
+        f"{lane['merged_calls']} merged; dispatches carrying both groups by op {merged}; peak "
+        f"reserved {out['max_reserved'] / 2 ** 20:.0f} MB")
+    log(f"{tag} launches {got}; by site: {out['sites']}")
+    log(f"{tag} each group's headers, roots, c_balance and xshard rows equal the host-suite "
+        f"GroupManager's replay ({oracle_s:.1f} s); phase {time.perf_counter() - t_phase:.1f} s")
+    return got, out["sites"], dict(walls=walls, lane=lane, merged=merged, oracle_s=oracle_s)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--daemon-child"]:
+        return daemon_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -5097,9 +5850,17 @@ def main() -> int:
         for k in slice_counters(kind):
             by_path[k][f"rpc_{kind}"] = got[k]
     for kind in ("ecdsa", "sm"):
-        got, _, _ = phase_p2p(dev, kind, traffic.pop(kind))
+        got, _, _ = phase_p2p(dev, kind, traffic[kind])
         for k in slice_counters(kind):
             by_path[k][f"p2p_{kind}"] = got[k]
+    torch.cuda.empty_cache()   # the child daemons' room on the card
+    for kind in ("ecdsa", "sm"):
+        got, _, _ = phase_daemon(dev, kind, traffic.pop(kind))
+        for k in slice_counters(kind):
+            by_path[k][f"daemon_{kind}"] = got.get(k, 0)
+    got, _, _ = phase_groups(dev)
+    for k in slice_counters("ecdsa"):
+        by_path[k]["groups_ecdsa"] = got.get(k, 0)
     for k, paths in by_path.items():
         rows[k]["launches"] = sum(paths.values())
         rows[k]["launches_by_path"] = paths

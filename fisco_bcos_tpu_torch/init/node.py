@@ -21,10 +21,12 @@ net.p2p.P2PGateway over TCP, with SM-TLS on the SM chain), the ZK proof
 plane, and the serving edge: JSON-RPC over HTTP and WS with
 the query cache, subscriptions and per-client admission, the Prometheus
 endpoint, tracing and the sampling profiler. Its suite runs on `device`
-("cuda" unless a caller asks for "cpu"). A config that selects a plane
-the port does not have yet (out-of-process workers, multi-group hosting)
-raises NotImplementedError naming its ROADMAP.md item, rather than
-running without it.
+("cuda" unless a caller asks for "cpu"). Multi-group hosting composes
+several Nodes over one shared crypto lane (init/group.py), and the
+process daemon (init/daemon.py) runs a node directory as an OS process.
+A config that selects a plane the port does not have yet (out-of-process
+workers) raises NotImplementedError naming its ROADMAP.md item, rather
+than running without it.
 """
 
 from __future__ import annotations
@@ -58,12 +60,6 @@ class NodeConfig:
     chain_id: str = "chain0"
     group_id: str = "group0"
     sm_crypto: bool = False
-    # the port differs here: the JAX package's NodeConfig also carries the
-    # settings of planes the port does not have yet (the crypto lane).
-    # No code here would read them, so they are left out: passing one is a
-    # TypeError, not a silent no-op.
-    # Each slice that ports a plane brings its fields back. The fields
-    # that select such a plane stay, and _check_ported refuses them.
     storage_path: Optional[str] = None  # None = in-memory
     # persistent backend selection (storage/__init__.py make_storage):
     # auto = wal when a path is configured, memory otherwise (historical
@@ -186,9 +182,18 @@ class NodeConfig:
     snapshot_keep_tail: int = 64
     snap_sync_threshold: int = 256
     snapshot_chunk_bytes: int = 1 << 20
-    # multi-group hosting (init/group.py, not ported): group ids this
-    # process runs; empty = a single-group node
+    # multi-group hosting (init/group.py + the daemon's [groups] wiring):
+    # group ids this PROCESS runs — G independent ledger/txpool/consensus/
+    # scheduler stacks behind one RPC edge, one gateway, one shared
+    # crypto lane, storage namespaced per group over one WAL. Empty =
+    # single-group node (this config's group_id only).
     groups: list = dataclasses.field(default_factory=list)
+    # shared crypto-plane lane (crypto/lane.py): merge all groups'
+    # verify/recover/hash batches into single device calls. Only engaged
+    # by multi-group composition; wait_ms > 0 adds a coalescing
+    # micro-window for device deployments (0 = merge in-flight only).
+    crypto_lane: bool = True
+    crypto_lane_wait_ms: float = 0.0
     # tracing plane ([trace] ini, utils/otrace.py): sample_rate samples
     # NEW root traces (an incoming sampled traceparent is always honored);
     # ring_size bounds the in-process span ring served by getTrace and
@@ -227,10 +232,9 @@ class NodeConfig:
     ws_port: Optional[int] = None  # None = no WS server; 0 = ephemeral
     metrics_port: Optional[int] = None  # None = no Prometheus endpoint
     # p2p transport (the reference's [p2p] listen_ip/listen_port +
-    # nodes.json connected_nodes): read by a process-level daemon (the
-    # multi-group slice, not ported), which builds a net.p2p.P2PGateway
-    # from them; the Node itself builds no gateway, and in-process
-    # embeddings inject one directly, as in the JAX package
+    # nodes.json connected_nodes): consumed by the process-level daemon
+    # (init/daemon.py), which builds a P2PGateway from these; in-process
+    # embeddings keep injecting a gateway directly
     p2p_host: str = "127.0.0.1"
     p2p_port: Optional[int] = None  # None = no p2p listener configured
     p2p_peers: list = dataclasses.field(default_factory=list)  # (host, port)
@@ -254,8 +258,6 @@ def _check_ported(cfg: NodeConfig) -> None:
     if cfg.scheduler_workers > 0:
         unported.append("out-of-process execution workers and DMC "
                         "(scheduler_workers): the DMC slice")
-    if cfg.groups:
-        unported.append("multi-group hosting (groups): the multi-group slice")
     if unported:
         raise NotImplementedError(
             "the port's Node does not have these planes yet (ROADMAP.md): "
@@ -305,7 +307,8 @@ class Node:
                             burst_s=cfg.profile_burst_s)
         # storage injection seam — the reference's StorageInitializer picks
         # RocksDB vs TiKV (libinitializer/Initializer.cpp:145-261); callers
-        # pass e.g. a carried JAX chain (storage/carry.storage_from_jax)
+        # pass e.g. a carried JAX chain (storage/carry.storage_from_jax),
+        # the multi-group manager a per-group NamespacedStorage
         from ..storage import make_storage
         self.storage = storage if storage is not None else make_storage(
             cfg.storage_backend, cfg.storage_path,
@@ -316,13 +319,14 @@ class Node:
             level_fanout=cfg.storage_level_fanout,
             registry=self.metrics_view, health=self.health)
         # injected storage (test fixtures): adopt its ENOSPC/flush health
-        # seam if the backend has one and nobody claimed it
+        # seam if the backend has one and nobody claimed it (multi-group
+        # shared bases get a fanout in group.py)
         from ..storage.wal import _SpaceHealth
         if isinstance(self.storage, _SpaceHealth) \
                 and self.storage.health is None:
             self.storage.health = self.health
-        # multi-group hosting (not ported) would set this to its group
-        # registry, so RPC group methods enumerate the real registry
+        # multi-group composition (init/group.py) sets this to the
+        # GroupManager so RPC group methods enumerate the real registry
         self.group_registry = None
         self.ledger = Ledger(self.storage, self.suite)
         self.txpool = TxPool(self.suite, self.ledger, cfg.chain_id,
@@ -513,7 +517,8 @@ class Node:
         0): hot responses pre-rendered at commit off the consensus path,
         wiped on rollback and snap-sync install (a stale cache would
         serve pre-wipe blocks after a snapshot jumped the head). The ONE
-        place this wiring lives."""
+        place this wiring lives — the node's own RPC/WS servers and the
+        multi-group edge (init/group.py) both call it."""
         from ..rpc.server import JsonRpcImpl
 
         cfg = self.config

@@ -144,7 +144,7 @@ def test_chain_carried_from_jax_continues_on_the_port():
     assert balances == {b"alice": (998).to_bytes(16, "big"), b"bob": (12).to_bytes(16, "big")}
 
 
-UNPORTED = [("scheduler_workers", 1), ("groups", ["g1", "g2"])]
+UNPORTED = [("scheduler_workers", 1)]
 # the fields that start the serving edge's planes
 SERVING = [("rpc_port", 0), ("ws_port", 0), ("metrics_port", 0), ("profile_hz", 5.0)]
 # the fields that select the storage and snapshot planes
@@ -158,6 +158,24 @@ def test_unported_planes_raise(field, value):
     cfg = pnode.NodeConfig(crypto_backend="host", device="cpu", **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pnode.Node(cfg)
+
+
+def test_a_node_with_groups_set_builds_as_the_jax_node_does():
+    """Multi-group hosting is ported (init/group.py, the daemon's [groups]
+    wiring): the Node no longer refuses `groups`; as in the JAX package it
+    runs its own group_id, and the manager or the daemon reads the list."""
+    cfg = pnode.NodeConfig(crypto_backend="host", device="cpu", groups=["g1", "g2"],
+                           profile_hz=0)
+    node = pnode.Node(cfg)
+    jnode_ = jnode.Node(jnode.NodeConfig(crypto_backend="host", groups=["g1", "g2"]))
+    try:
+        assert node.config.groups == jnode_.config.groups == ["g1", "g2"]
+        assert node.config.group_id == jnode_.config.group_id == "group0"
+        assert node.group_registry is None and jnode_.group_registry is None
+        assert node.system_status()["groups"] == jnode_.system_status()["groups"] == ["group0"]
+    finally:
+        node.stop()
+        jnode_.stop()
 
 
 def _first_answer(root: str, node, field: str):
@@ -349,16 +367,15 @@ def test_the_node_runs_on_the_card_unless_asked_for_the_cpu():
     """NodeConfig.device defaults to "cuda": without a card the node's
     suite refuses to build rather than running on the CPU; the sampling
     profiler's hz defaults to 5, as the JAX package's; the storage,
-    snapshot, serving and p2p fields have the JAX package's defaults; and
-    the settings of planes the port does not have (the crypto lane) are
-    not fields at all."""
+    snapshot, serving, p2p and crypto-lane fields have the JAX package's
+    defaults; the port adds only `device`."""
     cfg = pnode.NodeConfig()
     assert cfg.device == "cuda" and cfg.profile_hz == 5.0 and cfg.snap_sync_threshold == 256
     # the port keeps the JAX fields its planes read or refuse, plus device
     port_fields = set(pnode.NodeConfig.__dataclass_fields__)
     assert port_fields - set(jnode.NodeConfig.__dataclass_fields__) == {"device"}
     assert {"snap_sync_threshold", "rpc_port", "groups"} <= port_fields
-    assert not port_fields & {"crypto_lane", "crypto_lane_wait_ms"}
+    assert {"crypto_lane", "crypto_lane_wait_ms"} <= port_fields
     assert {"p2p_host", "p2p_port", "p2p_peers"} <= port_fields
     durable = [f for f in port_fields if f.startswith(("storage_", "snapshot_", "snap_"))]
     assert len(durable) == 13 and "overload_compact_debt_mb" in port_fields
@@ -367,7 +384,8 @@ def test_the_node_runs_on_the_card_unless_asked_for_the_cpu():
     assert len(serving) == 20 and {"ws_port", "metrics_port"} <= port_fields
     jcfg = jnode.NodeConfig()
     for f in durable + serving + ["overload_compact_debt_mb", "ws_port", "metrics_port",
-                                  "p2p_host", "p2p_port", "p2p_peers"]:
+                                  "p2p_host", "p2p_port", "p2p_peers", "crypto_lane",
+                                  "crypto_lane_wait_ms", "groups"]:
         assert getattr(cfg, f) == getattr(jcfg, f), f
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -282,7 +282,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_the_import_scan_covers_every_port_package():
     """The scan above walks the whole port: the serving edge (rpc/, sdk/),
     the light node (lightnode/), the socket transport and its SM-TLS and
-    ciphers, and the planes under them as well as the kernels' packages."""
+    ciphers, the deployment layer (the daemon, multi-group hosting,
+    cross-group transfers, the config loader and build_chain, disk
+    encryption, the soft HSM, `python -m`), and the planes under them as
+    well as the kernels' packages."""
     dirs = {p.parent.name for p in _port_sources()}
     assert {"rpc", "sdk", "net", "zk", "analysis", "init", "ops", "crypto",
             "lightnode"} <= dirs
@@ -291,6 +294,9 @@ def test_the_import_scan_covers_every_port_package():
     names = {f"{p.parent.name}/{p.name}" for p in _port_sources()}
     assert {"lightnode/__init__.py", "lightnode/lightnode.py", "net/p2p.py", "net/smtls.py",
             "crypto/symm.py"} <= names
+    assert {"init/daemon.py", "init/group.py", "init/xshard.py", "tool/config.py",
+            "tool/build_chain.py", "security/__init__.py", "security/dataencrypt.py",
+            "crypto/hsm.py", "fisco_bcos_tpu_torch/__main__.py"} <= names
 
 
 def test_tensor_entry_points_dispatch_on_device():
