@@ -8,9 +8,12 @@ the scheduler, each chain on a 4-node PBFT network of the port's
 Nodes, each chain's durability, each chain's serving edge driven
 by the port's own SDK clients over JSON-RPC and WS, each chain on
 four Nodes over loopback TCP (SM-TLS on the SM chain) with a light
-client verifying it, and the Air deployment: each chain as four node
-processes from build_chain, and one process hosting two groups on a
-shared crypto lane with cross-group transfers.
+client verifying it, the Pro deployment (a core node executing in
+worker processes behind the service planes and a stateless RPC service,
+DMC over the executor service, DMC message rounds), and the Air
+deployment: each chain as four node processes from build_chain, and one
+process hosting two groups on a shared crypto lane with cross-group
+transfers.
 
     python3 chip_smoke.py
 
@@ -283,7 +286,8 @@ version or to the CPU):
    default chain: one daemon with [groups] list = group0,group1 (a
    single sealer, the node's key, JAX-default blocks of 1,000 txs, a
    partial one sealed after 2 s, the lane's window 2 ms);
-   8,192 registers a group over JSON-RPC at once, the batch entries
+   4,096 registers a group (8,192 until phase 18 came) over JSON-RPC at
+   once, the batch entries
    alternating groups; then 64 cross-group transfers, one to an unknown
    group (refunded) and one beyond its balance (reverted). Checked:
    getGroupList, JSONRPC_GROUP_NOT_FOUND for an unknown group, the
@@ -293,6 +297,45 @@ version or to the CPU):
    carried both groups' requests, the counters equal the launches the
    lane's base-suite calls imply. Printed: each group's wall, the lane's
    items a base call. No profiler session.
+18. The Pro deployment, on each chain, in one process; it runs before
+   phase 17 (which takes phase 13's traffic). (a) A core node: a
+   single-sealer PBFT Node (crypto_backend "device", blocks of phase 13's
+   size that seal only when full, WAL storage) with scheduler_workers 2:
+   its blocks execute in two spawned worker processes on host suites
+   (scheduler/workers.py), its roots on the card; a TxPoolServer,
+   LedgerServer, SchedulerServer and StorageServer over it, and
+   make_pro_rpc's stateless JSON-RPC service (a device suite of its own)
+   over their proxies. Height 1 of phase 13's traffic: 2,048 txs (SM
+   1,024) over the Pro RPC from 8 SdkClient threads, one batch body each
+   (each tx one submitBatch service call: one 1-lane recovery, as the
+   reference admits it), the rest through the node's ingest lane; height
+   2 (the transfers, 1% reverting) through the ingest lane. After each
+   commit, over the Pro RPC: getBlockByNumber, getTransaction with its
+   proof (verified), balanceOf, getSealerList, getSystemConfigByKey. (b)
+   Between the heights, an ExecutorServer (DMC on) reads the node's state
+   through RemoteStorage on its StorageServer; a RemoteExecutor sends it
+   height 2's block (decoded afresh: the service recovers the senders in
+   one batch) while the pool executes the same block (its sender backfill
+   on the node's suite): receipts and changesets byte-identical. (c) A
+   DmcRoundScheduler over two ShardExecutors and 8 EVM routers, 4 a
+   shard: 1,024 signed txs (SM 256) of cross-shard CALL chains, nested
+   and re-entrant, the last two taking the shards in opposite orders, so
+   the last deadlocks and reverts; their senders recovered in one batch
+   on the card; receipts, state rows and DmcStepRecorder's round
+   checksums equal to a host-suite run (in a spawned process, which also
+   replays the committed blocks on a host-suite Scheduler: the oracle).
+   Checked: heads, roots, receipts and c_balance rows equal the oracle's
+   and a Python replay; pool fallbacks 0, each height back from a
+   worker, height 1 split one shard a worker; both workers answer PING
+   without a CUDA context, after the spawn and at the end; the counters
+   (zeroed before the first POST, read after everything stops) equal the
+   launches the recorded suite calls imply, by site (Pro RPC admission,
+   the ingest lane, backfill, roots, the executor service, the rounds, the
+   reads); one 1-lane recovery a tx at the Pro RPC admission. Printed: the
+   workers' spawn wall, admission over the Pro RPC (tx/s, launches a tx),
+   each height's execute wall in the pool, each worker's busy_s, the
+   pipe's reads, the walls of the DMC service and of the rounds, the
+   phase's seconds. No profiler session.
 
 Prints, before the last line, the card line and one JSON object listing
 every kernel; the last line is {"ok": true, "device": {...}}.
@@ -3488,7 +3531,15 @@ PBFT_SITES = {"_apply_blocks": "sync", "_carried_by_height": "view_change",
               "lightnode.py:receipts": "light_receipts",
               "lightnode.py:_block_levels": "light_server",
               # phase 17's shared crypto lane (the 2-group daemon's merged calls)
-              "lane.py:_dispatch": "lane"}
+              "lane.py:_dispatch": "lane",
+              # phase 18: a tx admitted through the txpool service, the
+              # exec pool's sender backfill, the executor service's sender
+              # batch, the message rounds' sender batch
+              "txpool_service.py:_submit_batch": "pro_admission",
+              "workers.py:execute": "backfill",
+              "executor_service.py:_execute": "executor_service",
+              "server.py:_tx_json_cached": "tx_reads",
+              "chip_smoke.py:rounds_senders": "rounds"}
 
 
 def pbft_site(node: int) -> str:
@@ -3567,46 +3618,64 @@ def pbft_replay(ops, committed) -> dict:
     return bal
 
 
+class _OracleChain:
+    """One solo Scheduler on the port's host suite (native; launches
+    nothing) over a genesis of the sealers: `replay` executes and commits
+    a committed block, its header rebuilt from the committed one as block
+    sync replays it."""
+
+    def __init__(self, host, sealers, ntx: int, compat: str):
+        from fisco_bcos_tpu_torch.executor import TransactionExecutor
+        from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode, Ledger
+        from fisco_bcos_tpu_torch.scheduler import Scheduler
+        from fisco_bcos_tpu_torch.storage import MemoryStorage
+        from fisco_bcos_tpu_torch.txpool import TxPool
+
+        self.storage = MemoryStorage()
+        ledger = Ledger(self.storage, host)
+        ledger.build_genesis([ConsensusNode(p) for p in sealers], tx_count_limit=ntx,
+                             compatibility_version=compat)
+        pool = TxPool(host, ledger, pool_limit=PBFT_POOL_LIMIT)
+        self.executor = TransactionExecutor(host)
+        self.sched = Scheduler(self.storage, ledger, self.executor, host, pool, pipeline=True,
+                               state_index=True)
+
+    def replay(self, b):
+        from fisco_bcos_tpu_torch.protocol import types as T
+
+        h = b.header
+        replay = T.Block(transactions=[T.Transaction.decode(t.encode())
+                                       for t in b.transactions])
+        for f in ("version", "number", "timestamp", "sealer", "extra_data"):
+            setattr(replay.header, f, getattr(h, f))
+        replay.header.consensus_weights = list(h.consensus_weights)
+        replay.header.sealer_list = list(h.sealer_list)
+        r = self.sched.execute_block(replay)
+        if r is None:
+            fail(f"the oracle's scheduler did not execute block {h.number}")
+        r.header.signature_list = h.signature_list
+        if not self.sched.commit_block(r.header):
+            fail(f"the oracle's scheduler did not commit block {h.number}")
+        return r
+
+    def rows(self) -> dict:
+        from fisco_bcos_tpu_torch.executor import precompiled as pc
+
+        return {k: self.storage.get(pc.T_BALANCE, k) for k in self.storage.keys(pc.T_BALANCE)}
+
+    def stop(self) -> None:
+        stop_chain(self.sched, self.executor)
+
+
 def pbft_oracle(host, blocks, sealers, ntx: int, compat: str):
     """The committed blocks executed in order by one solo Scheduler on the
-    port's host suite (native; launches nothing), each header rebuilt from
-    the committed one as block sync replays it. -> (results, c_balance rows)."""
-    from fisco_bcos_tpu_torch.executor import TransactionExecutor
-    from fisco_bcos_tpu_torch.executor import precompiled as pc
-    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode, Ledger
-    from fisco_bcos_tpu_torch.protocol import types as T
-    from fisco_bcos_tpu_torch.scheduler import Scheduler
-    from fisco_bcos_tpu_torch.storage import MemoryStorage
-    from fisco_bcos_tpu_torch.txpool import TxPool
-
-    storage = MemoryStorage()
-    ledger = Ledger(storage, host)
-    ledger.build_genesis([ConsensusNode(p) for p in sealers], tx_count_limit=ntx,
-                         compatibility_version=compat)
-    pool = TxPool(host, ledger, pool_limit=PBFT_POOL_LIMIT)
-    executor = TransactionExecutor(host)
-    sched = Scheduler(storage, ledger, executor, host, pool, pipeline=True,
-                      state_index=True)
-    results = []
+    port's host suite (_OracleChain). -> (results, c_balance rows)."""
+    chain = _OracleChain(host, sealers, ntx, compat)
     try:
-        for b in blocks:
-            h = b.header
-            replay = T.Block(transactions=[T.Transaction.decode(t.encode())
-                                           for t in b.transactions])
-            for f in ("version", "number", "timestamp", "sealer", "extra_data"):
-                setattr(replay.header, f, getattr(h, f))
-            replay.header.consensus_weights = list(h.consensus_weights)
-            replay.header.sealer_list = list(h.sealer_list)
-            r = sched.execute_block(replay)
-            if r is None:
-                fail(f"the oracle's scheduler did not execute block {h.number}")
-            r.header.signature_list = h.signature_list
-            if not sched.commit_block(r.header):
-                fail(f"the oracle's scheduler did not commit block {h.number}")
-            results.append(r)
+        results = [chain.replay(b) for b in blocks]
     finally:
-        stop_chain(sched, executor)
-    return results, {k: storage.get(pc.T_BALANCE, k) for k in storage.keys(pc.T_BALANCE)}
+        chain.stop()
+    return results, chain.rows()
 
 
 def phase_pbft(dev, kind: str):
@@ -4255,8 +4324,8 @@ def serve_get(port: int, path: str) -> tuple:
         conn.close()
 
 
-def serve_wave(url: str, frames, tag: str, groups=None):
-    """The frames as JSON-RPC batch bodies of SERVE_BATCH sendTransaction
+def serve_wave(url: str, frames, tag: str, groups=None, batch: int | None = None):
+    """The frames as JSON-RPC batch bodies of `batch` (else SERVE_BATCH) sendTransaction
     entries (wait=false), each entry to group0 or to its frame's group in
     `groups`, posted by SERVE_CLIENTS SdkClient threads on keep-alive
     connections, each thread its share of the bodies in turn.
@@ -4266,7 +4335,8 @@ def serve_wave(url: str, frames, tag: str, groups=None):
     from fisco_bcos_tpu_torch.sdk.client import SdkClient
 
     group_of = dict(zip(frames, groups)) if groups is not None else {}
-    bodies = [frames[i:i + SERVE_BATCH] for i in range(0, len(frames), SERVE_BATCH)]
+    batch = batch or SERVE_BATCH
+    bodies = [frames[i:i + batch] for i in range(0, len(frames), batch)]
     hashes: dict = {}
     errors: list = []
     stamps: list = []
@@ -5075,10 +5145,529 @@ def phase_p2p(dev, kind: str, tr):
     return launches, site_launches, timings
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the Pro deployment (execution workers, the service planes, DMC)
+# ---------------------------------------------------------------------------
+PRO_WORKERS = 2          # [scheduler] workers of the core node
+PRO_RPC_TXS = {"ecdsa": 2048, "sm": 1024}   # height 1's txs over the Pro RPC service
+PRO_CLIENTS = 8          # SdkClient threads, one batch body each
+PRO_MIN_SEAL = 60.0      # s: a block seals when the pool holds it, never on time
+PRO_DEADLINE = 240.0     # s for each wait of the phase
+PRO_READS = 16           # getTransaction proofs and balanceOf calls after each commit
+PRO_FAILED = SERVE_FAILED + ("worker-died", "worker-exec-error", "handler-failed",
+                             "spawn-failed")
+DMC_TXS = {"ecdsa": 1024, "sm": 256}     # the message rounds' block
+DMC_SHARDS = 2
+# the message rounds' contract, at each of 8 addresses: with calldata
+# `addr | rest` it CALLs addr with `rest` (a cross-shard message where addr
+# lives on the other shard), SSTOREs the call's success at slot 1, adds 1
+# to slot 0 and returns the callee's word; with no calldata (the leaf) it
+# adds 1 to slot 0 and returns the new value
+DMC_ROUTER = bytes.fromhex(
+    "3615602857"                 # CALLDATASIZE ISZERO PUSH1 leaf JUMPI
+    "60205f60143603"             # 32 0 (CALLDATASIZE - 20)
+    "8060145f37"                 # CALLDATACOPY(0, 20, n)
+    "5f5f5f3560601c"             # args 0, value 0, addr = CALLDATALOAD(0) >> 96
+    "5af1"                       # CALL(GAS, ...)
+    "600155"                     # SSTORE(1, success)
+    "5f546001015f55"             # slot 0 += 1
+    "60205ff3"                   # RETURN(0, 32)
+    "5b"                         # leaf:
+    "5f54600101805f55"           # v = slot 0 + 1; SSTORE(0, v)
+    "5f5260205ff3")              # MSTORE(0, v) RETURN(0, 32)
+DMC_CONTRACTS = tuple(bytes([0xd0 + i]) * 20 for i in range(8))
+DMC_SHARD_OF = {a: i % DMC_SHARDS for i, a in enumerate(DMC_CONTRACTS)}
+
+
+def dmc_traffic(suite, n: int, seed: int = SEED + 18) -> list:
+    """n signed txs of CALL chains over the DMC_CONTRACTS routers (4 on
+    each shard), in context order: three of four root on shard 0 and hop
+    1-3 times between the shards (shard 1, back to shard 0: nested and
+    re-entrant), one of four stays on shard 1 (a local chain of 1-3
+    routers); the last two take the shards in opposite orders (0 then 1,
+    1 then 0), so the last deadlocks and reverts. Cross-shard contexts
+    all root on shard 0, and the pair comes last: the round scheduler
+    reverts the highest context id of the blocked messages (the
+    reference's rule), which must be a lock holder (ROADMAP.md C).
+    -> the txs' wire frames."""
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    rng = random.Random(seed)
+    s0 = [a for a in DMC_CONTRACTS if DMC_SHARD_OF[a] == 0]
+    s1 = [a for a in DMC_CONTRACTS if DMC_SHARD_OF[a] == 1]
+    chains = []
+    for i in range(n - 2):
+        if i % 4 == 3:
+            chains.append([rng.choice(s1) for _ in range(rng.randint(1, 3))])
+        else:
+            chains.append([rng.choice(s0)] + [rng.choice(s1 if j % 2 == 0 else s0)
+                                             for j in range(rng.randint(1, 3))])
+    chains += [[s0[0], s1[0]], [s1[1], s0[1]]]
+    kps = [suite.generate_keypair(b"dmc" + bytes([k])) for k in range(4)]
+    return [T.Transaction(to=c[0], input=b"".join(c[1:]), nonce=f"d{i}", block_limit=500)
+            .sign(suite, kps[i % 4]).encode() for i, c in enumerate(chains)]
+
+
+class _Reverts(logging.Filter):
+    """Counts the round scheduler's deadlock reverts and keeps their log
+    lines (one a revert) off stderr."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def filter(self, record):
+        if "deadlock-revert" in record.getMessage():
+            self.n += 1
+            return False
+        return True
+
+
+def dmc_rounds(suite, txs):
+    """The message rounds' block on a fresh state holding the routers: a
+    DmcRoundScheduler over DMC_SHARDS ShardExecutors on `suite`, with a
+    DmcStepRecorder. -> (receipts, state rows, round checksums, reverts,
+    wall ms)."""
+    from fisco_bcos_tpu_torch.executor.evm import T_CODE
+    from fisco_bcos_tpu_torch.scheduler.dmc_rounds import DmcRoundScheduler, ShardExecutor
+    from fisco_bcos_tpu_torch.storage import MemoryStorage
+    from fisco_bcos_tpu_torch.storage.state import StateStorage
+    from fisco_bcos_tpu_torch.utils.trace import DmcStepRecorder
+
+    base = StateStorage(MemoryStorage())
+    for a in DMC_CONTRACTS:
+        base.set(T_CODE, a, DMC_ROUTER)
+    shards = [ShardExecutor(b"shard-%d" % i, suite, owns=lambda a, i=i: DMC_SHARD_OF.get(a) == i)
+              for i in range(DMC_SHARDS)]
+    rec, reverts = DmcStepRecorder(), _Reverts()
+    lg = logging.getLogger("bcos-tpu")
+    lg.addFilter(reverts)
+    try:
+        t0 = time.perf_counter()
+        rcs = DmcRoundScheduler(shards).execute_block(txs, base, 1, EXEC_TS, recorder=rec)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        lg.removeFilter(reverts)
+    rows = {k: (e.value, e.deleted) for k, e in base.changeset().items()}
+    return [r.encode() for r in rcs], rows, rec.checksums(), reverts.n, wall
+
+
+def rounds_senders(suite, txs):
+    """The message rounds' block's senders, recovered in one batch."""
+    from fisco_bcos_tpu_torch.protocol import batch_recover_senders
+
+    return batch_recover_senders(txs, suite)
+
+
+_PRO_ORACLE: dict = {}   # the oracle process's chain, between its jobs
+
+
+def pro_oracle(kind: str, job: str, *args):
+    """The host-suite side of phase 18, in a spawned process of its own
+    (pure CPU work beside the card work of the parent), one job at a
+    time: "rounds" (dmc_frames) runs the message rounds' block on the
+    host suite; "block" (encoded block, sealer, ntx, compat) replays the
+    next committed block on this process's _OracleChain; "rows" returns
+    that chain's c_balance rows and stops it. -> plain values."""
+    from fisco_bcos_tpu_torch.crypto.suite import make_suite
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    host = make_suite(kind == "sm", backend="host")
+    if job == "rounds":
+        return dmc_rounds(host, [T.Transaction.decode(f) for f in args[0]])
+    if job == "rows":
+        chain = _PRO_ORACLE.pop(kind)
+        chain.stop()
+        return chain.rows()
+    block, sealer, ntx, compat = args
+    if kind not in _PRO_ORACLE:
+        _PRO_ORACLE[kind] = _OracleChain(host, [sealer], ntx, compat)
+    t0 = time.perf_counter()
+    r = _PRO_ORACLE[kind].replay(T.Block.decode(block))
+    return ((r.header.number, r.header.state_root, r.header.txs_root, r.header.receipts_root),
+            [T.Receipt.decode(x.encode()).encode() for x in r.receipts],
+            time.perf_counter() - t0)
+
+
+def pro_reads(tag: str, sdk, node, host, tr, committed, height: int, rng) -> dict:
+    """Reads through the Pro RPC service after height `height` commits:
+    getBlockByNumber (its senders against the host suite's),
+    getTransaction with its proof (verified against the header's txs
+    root), balanceOf (against a Python replay), getSealerList and
+    getSystemConfigByKey. -> walls (ms)."""
+    from fisco_bcos_tpu_torch.codec.wire import Reader
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.ops.merkle import verify_merkle_proof
+    from fisco_bcos_tpu_torch.protocol import types as T
+
+    walls = {}
+    header = node.ledger.header_by_number(height)
+    ntx = len(node.ledger.tx_hashes_by_number(height))
+    t0 = time.perf_counter()
+    blk = sdk.get_block_by_number(height)
+    walls["block"] = (time.perf_counter() - t0) * 1e3
+    firsts = node.ledger.block_by_number(height, with_txs=True).transactions[:8]
+    if (int(blk["number"]) != height or len(blk["transactions"]) != ntx
+            or blk["hash"] != "0x" + header.hash(host).hex()
+            or [t["from"] for t in blk["transactions"][:8]]
+            != ["0x" + T.Transaction.decode(t.encode()).sender(host).hex() for t in firsts]):
+        fail(f"{tag} getBlockByNumber({height}) over the Pro RPC differs from the core "
+             f"node's block or the host suite's senders")
+    sample = rng.sample(node.ledger.tx_hashes_by_number(height), PRO_READS)
+    t0 = time.perf_counter()
+    for h in sample:
+        got = sdk.get_transaction("0x" + h.hex(), require_proof=True)
+        proof = [([bytes.fromhex(s[2:]) for s in lvl["siblings"]], lvl["index"])
+                 for lvl in got["txProof"]]
+        root = bytes.fromhex(got["txsRoot"][2:])
+        if root != header.txs_root or not verify_merkle_proof(h, proof, root, host.hash_name):
+            fail(f"{tag} getTransaction({h.hex()}) over the Pro RPC: its proof does not "
+                 f"verify against block {height}'s txs root")
+    walls["proofs"] = (time.perf_counter() - t0) * 1e3
+    bal = pbft_replay(tr["ops"], committed)
+    accounts = rng.sample(tr["accounts"], PRO_READS)
+    t0 = time.perf_counter()
+    outs = [sdk.call(pc.BALANCE_ADDRESS, pc.encode_call("balanceOf", lambda w, a=a: w.blob(a)))
+            for a in accounts]
+    walls["calls"] = (time.perf_counter() - t0) * 1e3
+    if [Reader(bytes.fromhex(o["output"][2:])).u64() if int(o["status"]) == 0 else None
+            for o in outs] != [bal.get(a) for a in accounts]:
+        fail(f"{tag} balanceOf over the Pro RPC after block {height} differs from the "
+             f"Python replay")
+    sealers = sdk.get_sealer_list()
+    limit = sdk.get_system_config("tx_count_limit")
+    if [s["nodeID"] for s in sealers] != \
+            ["0x" + n.node_id.hex() for n in node.ledger.consensus_nodes()] \
+            or int(limit["value"]) != ntx:
+        fail(f"{tag} getSealerList {sealers} or getSystemConfigByKey {limit} over the Pro "
+             f"RPC differ from the core node's")
+    return walls
+
+
+def phase_pro(dev, kind: str, tr):
+    """(18) The Pro deployment on the card, in one process. (a) A core
+    node: a single-sealer PBFT Node (crypto_backend "device", blocks of
+    phase 13's size that seal only when full, the ingest lane at
+    INGEST_MAX_BATCH frames a dispatch, WAL storage) with
+    scheduler_workers 2, so its blocks execute in two spawned worker
+    processes on host suites (scheduler/workers.py) while the roots stay
+    on the card; a TxPoolServer, LedgerServer, SchedulerServer and
+    StorageServer over it, and make_pro_rpc's stateless JSON-RPC service
+    (its own device suite) over their proxies. Height 1 of phase 13's
+    traffic (`tr`): PRO_RPC_TXS over the Pro RPC from PRO_CLIENTS
+    SdkClient threads, one batch body each (each tx one submitBatch
+    service call, as the reference admits it), the rest through the
+    node's ingest lane; height 2 through the ingest lane. Reads over the
+    Pro RPC after each commit (pro_reads). (b) Between the heights, an
+    ExecutorServer (DMC on, a device suite) reads the core node's state
+    through RemoteStorage; a RemoteExecutor sends it height 2's block,
+    decoded afresh (no senders), and the pool executes the same block on
+    the same state (its sender backfill on the node's suite): receipts
+    and changesets byte-identical. (c) The message rounds' block
+    (dmc_traffic), its senders recovered in one batch on the card, through
+    a DmcRoundScheduler over two ShardExecutors, held to the same block on
+    the host suite: receipts, state rows and round checksums. Every suite
+    call is recorded by site; the counters, zeroed before the first POST
+    and read after everything stops, must equal the launches they imply.
+    No profiler session. -> (launches by kernel, launches by site,
+    timings)."""
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from fisco_bcos_tpu_torch.crypto.suite import make_suite
+    from fisco_bcos_tpu_torch.executor import precompiled as pc
+    from fisco_bcos_tpu_torch.init.node import Node, NodeConfig
+    from fisco_bcos_tpu_torch.ledger.ledger import ConsensusNode
+    from fisco_bcos_tpu_torch.net.gateway import FakeGateway
+    from fisco_bcos_tpu_torch.protocol import types as T
+    from fisco_bcos_tpu_torch.sdk.client import SdkClient
+    from fisco_bcos_tpu_torch.services import (ExecutorServer, RemoteExecutor, RemoteStorage,
+                                               StorageServer)
+    from fisco_bcos_tpu_torch.services.ledger_service import LedgerServer
+    from fisco_bcos_tpu_torch.services.rpc_service import ProNodeConfig, make_pro_rpc
+    from fisco_bcos_tpu_torch.services.scheduler_service import SchedulerServer
+    from fisco_bcos_tpu_torch.services.txpool_service import TxPoolServer
+
+    tag = f"[pro {kind}]"
+    t_phase = time.perf_counter()
+    sm = kind == "sm"
+    ntx, nrpc = PBFT_TXS[kind], PRO_RPC_TXS[kind]
+    frames = tr["frames"][:2 * ntx]
+    if len(frames) != 2 * ntx:
+        fail(f"{tag} phase 13's traffic holds {len(tr['frames'])} frames, want {2 * ntx}")
+    rpc_frames, lane_frames, block2 = frames[:nrpc], frames[nrpc:ntx], frames[ntx:]
+    rng = random.Random(SEED + 18)
+    host = make_suite(sm, backend="host")
+    calls: list = []
+
+    def recorded():
+        """A device suite as init/node.py builds one, its calls recorded
+        on the phase's list."""
+        return _Recorder(make_suite(sm, backend="device", device=str(dev)), 0, calls)
+
+    suite = recorded()
+    sealer = seal_keys(host)[0]
+    # the host-suite oracle's process: the rounds' block now, the committed
+    # blocks once height 2 is in
+    oracle = ProcessPoolExecutor(1, mp_context=get_context("spawn"))
+    dmc_frames = dmc_traffic(host, DMC_TXS[kind])
+    host_rounds = oracle.submit(pro_oracle, kind, "rounds", dmc_frames)
+    oracle_blocks = []
+    tmp = tempfile.mkdtemp(prefix=f"pro-{kind}-")
+    cfg = NodeConfig(consensus="pbft", sm_crypto=sm, crypto_backend="device", device=str(dev),
+                     tx_count_limit=ntx, txpool_limit=PBFT_POOL_LIMIT,
+                     min_seal_time=PRO_MIN_SEAL, view_timeout=PBFT_VIEW_TIMEOUT,
+                     ingest_max_batch=INGEST_MAX_BATCH, ingest_queue_cap=4 * ntx,
+                     scheduler_workers=PRO_WORKERS, storage_backend="wal",
+                     storage_path=os.path.join(tmp, "core"), profile_hz=0)
+    counters = slice_counters(kind)
+    gw = FakeGateway()
+    node = Node(cfg, keypair=sealer, gateway=gw, suite=suite)
+    node.build_genesis([ConsensusNode(sealer.pub_bytes)])
+    pool = node.exec_pool
+    if pool is None or pool.n != PRO_WORKERS or node.scheduler.exec_pool is not pool:
+        fail(f"{tag} the node built no pool of {PRO_WORKERS} workers under its scheduler")
+    commits: dict = {}
+    node.scheduler.on_commit.insert(0, lambda n: commits.setdefault(n, time.perf_counter()))
+    executed: dict = {}   # height -> [(ms, txs, a worker's answer)] of the scheduler's calls
+    pool_execute = pool.execute
+
+    def timed_execute(txs, *a):
+        t0 = time.perf_counter()
+        out = pool_execute(txs, *a)
+        executed.setdefault(a[1], []).append(((time.perf_counter() - t0) * 1e3, len(txs),
+                                              out is not None))
+        return out
+
+    pool.execute = timed_execute
+    failures = _Failures(PRO_FAILED)
+    logging.getLogger("bcos-tpu").addHandler(failures)
+    walls: dict = {"reads": []}
+    parts: list = []   # servers, clients and the Pro RPC, stopped in reverse
+    stopped = []
+
+    def stop():
+        if not stopped:
+            stopped.append(True)
+            for p in reversed(parts):
+                try:
+                    p()
+                except Exception as exc:  # noqa: BLE001 — reported, fails the phase
+                    failures.seen.append(f"stop: {exc!r}")
+            node.stop()
+            gw.stop()
+            node.storage.close()
+
+    try:
+        t0 = time.perf_counter()
+        node.start()   # spawns the workers
+        pongs = [pool.ping(PRO_DEADLINE)]
+        walls["spawn"] = (time.perf_counter() - t0) * 1e3
+        if pongs[0] != [False] * PRO_WORKERS:
+            fail(f"{tag} the workers answered PING with {pongs[0]} (True: a CUDA context, "
+                 f"None: no answer)")
+        srv = {"txpool": TxPoolServer(node.txpool), "ledger": LedgerServer(node.ledger),
+               "scheduler": SchedulerServer(node.scheduler),
+               "storage": StorageServer(node.storage)}
+        for s in srv.values():
+            s.start()
+            parts.append(s.stop)
+        addr = {k: ("127.0.0.1", s.port) for k, s in srv.items()}
+        rpc_server, facade = make_pro_rpc(
+            recorded(), host.generate_keypair(b"pro-rpc"), ProNodeConfig(sm_crypto=sm),
+            txpool_addr=addr["txpool"], ledger_addr=addr["ledger"],
+            scheduler_addr=addr["scheduler"], storage_addr=addr["storage"])
+        rpc_server.start()
+        parts += [rpc_server.stop, facade.close]
+        url = f"http://127.0.0.1:{rpc_server.port}"
+        sdk = SdkClient(url, timeout=PRO_DEADLINE)
+        parts.append(sdk.close)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        # -- (a) height 1: over the Pro RPC, then through the ingest lane --
+        k_rpc = len(calls)
+        got, t_first, t_last = serve_wave(url, rpc_frames, tag, batch=nrpc // PRO_CLIENTS)
+        k_lane = len(calls)
+        want = {f: T.Transaction.decode(f).hash(host) for f in rpc_frames}
+        if any(got[f] != want[f] for f in got):
+            fail(f"{tag} a sendTransaction reply carries another hash than the host suite's")
+        walls["rpc_admission"] = (t_last - t_first) * 1e3
+        walls["rpc_tx_per_s"] = nrpc / (t_last - t_first)
+        if node.ingest.submit_many_wire_nowait(lane_frames) != len(lane_frames):
+            fail(f"{tag} the ingest lane dropped frames of height 1")
+        snap_wait(tag, "height 1", lambda: node.ledger.current_number() >= 1)
+        split = [w["blocks"] for w in pool.stats()["per_worker"]]
+        block1 = node.ledger.block_by_number(1, with_txs=True)
+        oracle_blocks.append(oracle.submit(pro_oracle, kind, "block", block1.encode(),
+                                           sealer.pub_bytes, ntx, cfg.compatibility_version))
+        committed = [t.encode() for t in block1.transactions]
+        walls["reads"].append(pro_reads(tag, sdk, node, host, tr, committed, 1, rng))
+        # -- (b) DMC over the executor service, on height 1's state ------
+        exec_storage = RemoteStorage(*addr["storage"])
+        exec_srv = ExecutorServer(recorded(), exec_storage)
+        exec_srv.start()
+        rex = RemoteExecutor("127.0.0.1", exec_srv.port)
+        parts += [exec_srv.stop, exec_storage.close, rex.close]
+        ts2 = EXEC_TS + 2
+        pooled: list = []   # the pool on the same block at once: its worker runs beside
+
+        def pool_block2():
+            t0 = time.perf_counter()
+            pooled.append(pool_execute([T.Transaction.decode(f) for f in block2], node.storage,
+                                       2, ts2, node.suite, node.executor))
+            walls["pool_block2"] = (time.perf_counter() - t0) * 1e3
+
+        beside = threading.Thread(target=pool_block2, name="pro-pool-block2")
+        beside.start()
+        t0 = time.perf_counter()
+        try:
+            svc_rcs, svc_cs = rex.execute_block([T.Transaction.decode(f) for f in block2], 2,
+                                                ts2)
+        finally:
+            beside.join()
+        walls["dmc_service"] = (time.perf_counter() - t0) * 1e3
+        out = pooled[0] if pooled else None
+        if out is None:
+            fail(f"{tag} the pool did not execute height 2's block (a worker failed)")
+        if [r.encode() for r in svc_rcs] != [r.encode() for r in out[0]] or \
+                {k: (e.value, e.deleted) for k, e in svc_cs.items()} != \
+                {k: (e.value, e.deleted) for k, e in out[1].items()}:
+            fail(f"{tag} the executor service's receipts or changeset for height 2's block "
+                 f"differ from the pool's")
+        svc_reverted = sum(r.status != 0 for r in svc_rcs)
+        # -- height 2 through the ingest lane ----------------------------
+        if node.ingest.submit_many_wire_nowait(block2) != len(block2):
+            fail(f"{tag} the ingest lane dropped frames of height 2")
+        snap_wait(tag, "height 2", lambda: node.ledger.current_number() >= 2)
+        block2_ = node.ledger.block_by_number(2, with_txs=True)
+        oracle_blocks.append(oracle.submit(pro_oracle, kind, "block", block2_.encode(),
+                                           sealer.pub_bytes, ntx, cfg.compatibility_version))
+        oracle_rows = oracle.submit(pro_oracle, kind, "rows")
+        committed += [t.encode() for t in block2_.transactions]
+        walls["reads"].append(pro_reads(tag, sdk, node, host, tr, committed, 2, rng))
+        blocks = [block1, block2_]
+        # -- (c) DMC message rounds ---------------------------------------
+        dtxs = [T.Transaction.decode(f) for f in dmc_frames]
+        t0 = time.perf_counter()
+        senders, ok = rounds_senders(suite, dtxs)
+        walls["rounds_senders"] = (time.perf_counter() - t0) * 1e3
+        if not ok.all():
+            fail(f"{tag} {int((~ok).sum())} senders of the rounds' block did not recover")
+        dev_run = dmc_rounds(suite, dtxs)
+        pongs.append(pool.ping(PRO_DEADLINE))
+        reads = pool.pipe_reads()
+        final = pool.stats()
+        status = node.system_status()["execWorkers"]
+        stored = [node.ledger.receipt(t.hash(host)) for b in blocks for t in b.transactions]
+        rows = {k: node.storage.get(pc.T_BALANCE, k) for k in node.storage.keys(pc.T_BALANCE)}
+        t_stop = time.perf_counter()
+        stop()   # no suite call after this: the counters are final
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        walls["stop"] = (time.perf_counter() - t_stop) * 1e3
+        t0 = time.perf_counter()
+        host_run = host_rounds.result()
+        want_chain = [f.result() for f in oracle_blocks]
+        obal = oracle_rows.result()
+        walls["oracle_wait"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        stop()
+        oracle.shutdown(wait=True, cancel_futures=True)
+        logging.getLogger("bcos-tpu").removeHandler(failures)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- checks ---------------------------------------------------------------
+    if failures.seen:
+        fail(f"{tag} a best-effort catch fired or a service failed: {failures.seen[:3]}")
+    if pongs[-1] != [False] * PRO_WORKERS:
+        fail(f"{tag} at the end the workers answered PING with {pongs[-1]}")
+    if final["fallbacks"] or any(not ok_ for h in (1, 2) for *_, ok_ in executed.get(h, [])) \
+            or sorted(executed) != [1, 2]:
+        fail(f"{tag} the pool fell back {final['fallbacks']} times, or executed the heights "
+             f"{ {h: [x[2] for x in v] for h, v in executed.items()} }")
+    if split != [1] * PRO_WORKERS:
+        fail(f"{tag} height 1's registers went to the workers as {split} blocks, want one "
+             f"shard on each")
+    if sorted(status) != sorted(final) or status["workers"] != PRO_WORKERS:
+        fail(f"{tag} getSystemStatus' execWorkers {status} is not the pool's stats")
+    if sorted(committed) != sorted(frames):
+        fail(f"{tag} the committed txs are not the frames sent")
+    oracle_s = sum(x[2] for x in want_chain)
+    heads = [(h.number, h.state_root, h.txs_root, h.receipts_root)
+             for h in (b.header for b in blocks)]
+    if heads != [x[0] for x in want_chain]:
+        fail(f"{tag} (number, state, txs, receipts roots) differ from the oracle's")
+    if [r.encode() for r in stored] != [r for x in want_chain for r in x[1]]:
+        fail(f"{tag} the stored receipts differ from the oracle's")
+    want_bal = pbft_replay(tr["ops"], committed)
+    if rows != obal or {k: int.from_bytes(v, "big") for k, v in rows.items()} != want_bal:
+        fail(f"{tag} c_balance rows differ from the oracle's or from the Python replay")
+    if dev_run[:3] != host_run[:3] or dev_run[3] != host_run[3]:
+        fail(f"{tag} the message rounds on the card's suite differ from the host suite's: "
+             f"receipts {dev_run[0] == host_run[0]}, rows {dev_run[1] == host_run[1]}, "
+             f"round checksums {dev_run[2] == host_run[2]}, reverts {dev_run[3]} and "
+             f"{host_run[3]}")
+    statuses = [T.Receipt.decode(r).status for r in dev_run[0]]
+    if statuses.count(0) != len(statuses) or dev_run[3] < 1:
+        fail(f"{tag} the rounds' block: {statuses.count(0)} of {len(statuses)} succeeded, "
+             f"{dev_run[3]} deadlock reverts (want all, and one or more)")
+    by_site, site_launches, want = launches_by_site(kind, suite, calls)
+    got = {k: n for k, n in launches.items() if n}
+    log(f"{tag} launches {got}; by site: {site_launches}")
+    log(f"{tag} suite calls by site: "
+        + ", ".join(f"{s} {len(cs)}" for s, cs in sorted(by_site.items())))
+    if got != want:
+        fail(f"{tag} the counters {got}, the recorded suite calls give {want}")
+    eck = "ecdsa_recover" if kind == "ecdsa" else "sm2_verify"
+    hashk = "keccak256_varlen" if kind == "ecdsa" else "sm3_varlen"
+    treek = "merkle_keccak_tree" if kind == "ecdsa" else "merkle_sm3_tree"
+    for site, k in (("pro_admission", eck), ("admission", eck), ("backfill", eck),
+                    ("execute", hashk), ("execute", treek), ("executor_service", eck),
+                    ("rounds", eck)):
+        if not site_launches.get(site, {}).get(k):
+            fail(f"{tag} {k} was not launched by {site}: {site_launches.get(site)}")
+    pro_calls = [c for c in calls[k_rpc:k_lane] if c[4] == "pro_admission"
+                 and c[0] == "recover_addresses"]
+    if len(pro_calls) != nrpc or any(c[1] != 1 for c in pro_calls):
+        fail(f"{tag} the Pro RPC admission made {len(pro_calls)} recover calls of sizes "
+             f"{sorted({c[1] for c in pro_calls})}, want one 1-lane call a tx (the "
+             f"reference's submit path)")
+    missing = [k for k in counters if not launches[k]]
+    if missing:
+        fail(f"{tag} the phase did not launch {missing}")
+    busy = [w["busy_s"] for w in final["per_worker"]]
+    pro_ec = site_launches["pro_admission"].get(eck, 0)
+    log(f"{tag} workers: spawn to both PONGs {walls['spawn']:.1f} ms, PING's CUDA flags "
+        f"{pongs}; height 1 split as {split} blocks a worker; pool execute walls (ms, txs): "
+        + "; ".join(f"height {h} " + ", ".join(f"{ms:.1f} ({n})" for ms, n, _ in v)
+                    for h, v in sorted(executed.items()))
+        + f"; busy_s {busy}; pipe reads {reads}; fallbacks {final['fallbacks']}")
+    log(f"{tag} Pro RPC admission {walls['rpc_admission']:.1f} ms for {nrpc} txs "
+        f"({walls['rpc_tx_per_s']:.0f} tx/s, {PRO_CLIENTS} clients, one body each), "
+        f"{pro_ec / nrpc:.2f} {eck} launches a tx; reads after each commit (ms): "
+        + "; ".join(", ".join(f"{k} {v:.1f}" for k, v in r.items()) for r in walls["reads"]))
+    log(f"{tag} DMC over the executor service: height 2's {ntx} txs in "
+        f"{walls['dmc_service']:.1f} ms ({svc_reverted} reverted), the pool on the same "
+        f"block {walls['pool_block2']:.1f} ms, receipts and changeset byte-identical")
+    log(f"{tag} message rounds: {len(dmc_frames)} txs, senders in one batch "
+        f"{walls['rounds_senders']:.1f} ms; card suite {dev_run[4]:.1f} ms, host suite "
+        f"{host_run[4]:.1f} ms; {len(dev_run[2])} rounds, {dev_run[3]} deadlock reverts; "
+        f"receipts, {len(dev_run[1])} state rows and round checksums equal")
+    log(f"{tag} 2 heights of {ntx} txs; roots, receipts and {len(rows)} c_balance rows "
+        f"equal the host-suite oracle's ({oracle_s:.1f} s in its process, "
+        f"{walls['oracle_wait'] / 1e3:.1f} s waited for) and the Python replay; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    timings = dict(walls=walls, executed=executed, stats=final, pipe_reads=reads,
+                   oracle_s=oracle_s, rounds=(len(dev_run[2]), dev_run[3]))
+    return launches, site_launches, timings
+
+
 DAEMON_DEADLINE = 240.0   # s for each wait of the phase
 DAEMON_BOOT = 180.0       # s for a child daemon to answer over RPC (torch, the card, kernels)
 DAEMON_STOP = 60.0        # s for a child to exit after SIGTERM
-GROUP_TXS = 8192          # registers a group of the 2-group daemon
+GROUP_TXS = 4096          # registers a group of the 2-group daemon (8,192 until phase 18)
 XSHARD_N = 64             # cross-group transfers group0 -> group1
 XSHARD_AMOUNT = 7
 LANE_WAIT_MS = 2.0        # the 2-group daemon's lane window (crypto_lane_wait_ms)
@@ -5853,6 +6442,10 @@ def main() -> int:
         got, _, _ = phase_p2p(dev, kind, traffic[kind])
         for k in slice_counters(kind):
             by_path[k][f"p2p_{kind}"] = got[k]
+    for kind in ("ecdsa", "sm"):
+        got, _, _ = phase_pro(dev, kind, traffic[kind])
+        for k in rows:
+            by_path.setdefault(k, {})[f"pro_{kind}"] = got.get(k, 0)
     torch.cuda.empty_cache()   # the child daemons' room on the card
     for kind in ("ecdsa", "sm"):
         got, _, _ = phase_daemon(dev, kind, traffic.pop(kind))

@@ -14,8 +14,10 @@ Shapes:
 The port's Node wires the planes the port has: the ledger on the storage
 `make_storage` selects (memory, WAL, the disk engine, key pages), the
 txpool and its ingest lane, the executor, the in-process Scheduler, the
-sealer, front, tx gossip, block sync with snap sync, snapshots
-(checkpoint, prune, serve), PBFT, health, overload, the peer clock, AMOP,
+out-of-process execution workers ([scheduler] workers, scheduler/
+workers.py), the sealer, front, tx gossip, block sync with snap sync,
+snapshots (checkpoint, prune, serve), PBFT, health, overload, the peer
+clock, AMOP,
 the light-node server (given a gateway: an in-process FakeGateway or a
 net.p2p.P2PGateway over TCP, with SM-TLS on the SM chain), the ZK proof
 plane, and the serving edge: JSON-RPC over HTTP and WS with
@@ -24,9 +26,9 @@ endpoint, tracing and the sampling profiler. Its suite runs on `device`
 ("cuda" unless a caller asks for "cpu"). Multi-group hosting composes
 several Nodes over one shared crypto lane (init/group.py), and the
 process daemon (init/daemon.py) runs a node directory as an OS process.
-A config that selects a plane the port does not have yet (out-of-process
-workers) raises NotImplementedError naming its ROADMAP.md item, rather
-than running without it.
+A config that selects a plane the port does not have yet raises
+NotImplementedError naming its ROADMAP.md item, rather than running
+without it (`_check_ported`; no field does today).
 """
 
 from __future__ import annotations
@@ -254,10 +256,7 @@ def _check_ported(cfg: NodeConfig) -> None:
     """Raise for every config field that selects a plane the port does
     not have yet, naming its ROADMAP.md item (the JAX package's Node
     builds these; the port must not silently run without them)."""
-    unported = []
-    if cfg.scheduler_workers > 0:
-        unported.append("out-of-process execution workers and DMC "
-                        "(scheduler_workers): the DMC slice")
+    unported: list[str] = []
     if unported:
         raise NotImplementedError(
             "the port's Node does not have these planes yet (ROADMAP.md): "
@@ -376,6 +375,20 @@ class Node:
                                    trace_label=self.trace_label,
                                    health=self.health,
                                    state_index=cfg.zk_proofs)
+        # out-of-process execution workers ([scheduler] workers > 0):
+        # the execute stage runs in spawned worker interpreters with
+        # their own GILs and host suites on the CPU; roots/prewrite/2PC
+        # stay here, on this node's suite (see scheduler/workers.py).
+        # Started lazily in start() — spawning processes from a ctor
+        # complicates embedders that only build nodes to inspect them.
+        self.exec_pool = None
+        if cfg.scheduler_workers > 0:
+            from ..scheduler.workers import ExecPool
+            self.exec_pool = ExecPool(sm_crypto=cfg.sm_crypto,
+                                      workers=cfg.scheduler_workers,
+                                      health=self.health,
+                                      registry=self.metrics_view)
+            self.scheduler.attach_exec_pool(self.exec_pool)
         # ZK proof plane bookkeeping (zk/proof.py): commit-time render
         # counts, proof cache hit rate, batched-verify volume — behind
         # bcos_zk_* and the getSystemStatus "zk" section
@@ -572,7 +585,8 @@ class Node:
                        "unsealed": self.txpool.pending_count()},
             "ingest": self.ingest.stats() if self.ingest else None,
             "pipeline": self.scheduler.pipeline_stats(),
-            "execWorkers": None,   # out-of-process workers: not ported
+            "execWorkers": self.exec_pool.stats()
+            if self.exec_pool is not None else None,
             "storage": storage_stats() if callable(storage_stats)
             else {"backend": type(self.storage).__name__},
             "cache": self.query_cache.stats() if self.query_cache else None,
@@ -613,6 +627,8 @@ class Node:
         if self.ledger.current_number() < 0:
             self.build_genesis()
         self._started = True
+        if self.exec_pool is not None:
+            self.exec_pool.start()
         if self.config.consensus == "solo":
             self.sealer.set_should_seal(True, self.ledger.current_number() + 1)
             # commits landing OUTSIDE the proposal path (the health
@@ -726,6 +742,8 @@ class Node:
         if self.front is not None:
             self.front.stop()
         self.scheduler.shutdown()
+        if self.exec_pool is not None:
+            self.exec_pool.stop()
         self.health.stop()
         self._started = False
 

@@ -9,12 +9,17 @@ the scheduler stamps fill, execute, roots, consensus_wait, commit and
 notify on the trace of each height (`block_trace`, `drop_block_trace`).
 Each stamp emits a METRIC line, feeds the histogram for the pipeline's
 stages, and is recorded as a span when the block is bound to a sampled
-otrace context (else offered to the tracer's slow capture). The DMC
-round checksums (`DmcStepRecorder`) come with the DMC modules.
+otrace context (else offered to the tracer's slow capture).
+
+`DmcStepRecorder` (bcos-scheduler/src/DmcStepRecorder.cpp) checksums
+every DMC message round, so two replicas that diverge can be diffed down
+to the first round that differs: the tool a node whose kernels run on a
+card needs when a device kernel and the host oracle disagree.
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 import time
 from typing import Optional
@@ -113,3 +118,56 @@ def block_trace(number: int, owner: str = "") -> BlockTrace:
 def drop_block_trace(number: int, owner: str = "") -> Optional[BlockTrace]:
     with _bt_lock:
         return _block_traces.pop((owner, number), None)
+
+
+class DmcStepRecorder:
+    """Order-independent checksum of each DMC round's message stream.
+
+    Replicas executing the same block must record identical checksums per
+    round; the first differing round localises a divergence (scheduler bug,
+    nondeterministic executor, device/host kernel mismatch). XOR-combined
+    SHA-256 per message makes the checksum independent of intra-round
+    arrival order, like the reference's add-based checksum.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._rounds: list[bytes] = []
+        self._current = bytes(32)
+        self._count = 0
+
+    @staticmethod
+    def _digest(ctx: int, seq: int, to: bytes, data: bytes) -> bytes:
+        return hashlib.sha256(
+            ctx.to_bytes(8, "big") + seq.to_bytes(8, "big")
+            + len(to).to_bytes(2, "big") + to + data).digest()
+
+    def record_message(self, ctx: int, seq: int, to: bytes,
+                       data: bytes) -> None:
+        d = self._digest(ctx, seq, to, data)
+        with self._lock:
+            self._current = bytes(a ^ b for a, b in zip(self._current, d))
+            self._count += 1
+
+    def next_round(self) -> bytes:
+        """Close the current round; -> its checksum."""
+        with self._lock:
+            cksum = self._current
+            self._rounds.append(cksum)
+            self._current = bytes(32)
+            n = self._count
+            self._count = 0
+        metric("dmc.round_checksum", round=len(self._rounds),
+               messages=n, checksum=cksum[:8].hex())
+        return cksum
+
+    def checksums(self) -> list[bytes]:
+        with self._lock:
+            return list(self._rounds)
+
+    def summary(self) -> bytes:
+        """One digest over all rounds (order-sensitive across rounds)."""
+        h = hashlib.sha256()
+        for c in self.checksums():
+            h.update(c)
+        return h.digest()

@@ -283,3 +283,40 @@ def test_two_port_and_two_jax_daemons_commit_one_chain(tmp_path):
         assert not any(os.path.exists(os.path.join(d, "node.pid")) for d, _ in nodes)
     finally:
         ds.close()
+
+
+def worker_daemon(tmp_path, pkg: str):
+    """A solo daemon of the package with [scheduler] workers = 2 commits a
+    register in its pool, then stops on SIGTERM. -> (getSystemStatus'
+    execWorkers, the worker pids, the exit code)."""
+    ds, [(d, port)], [p] = booted(tmp_path / pkg, 1, pkgs=[pkg], consensus="solo",
+                                  scheduler_workers=2)
+    try:
+        assert "workers = 2" in open(os.path.join(d, "config.ini")).read()
+        assert send(port, register_frame(b"w", "w1"))["result"]["status"] == 0
+        wait_height(port, 1)
+        status = rpc(port, "getSystemStatus", ["group0"])["result"]["execWorkers"]
+        pids = [w["pid"] for w in status["per_worker"]]
+        rc = ds.stop(p)
+        assert not os.path.exists(os.path.join(d, "node.pid"))
+        deadline = time.monotonic() + STOP_S
+        while any(os.path.exists(f"/proc/{q}") for q in pids) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        gone = not any(os.path.exists(f"/proc/{q}") for q in pids)
+        return status, gone, rc
+    finally:
+        ds.close()
+
+
+def test_a_daemon_with_scheduler_workers_runs_its_pool_as_the_jax_daemon(tmp_path):
+    """A node directory with [scheduler] workers = 2 boots under `python -m
+    fisco_bcos_tpu_torch`, executes its block in the pool, reports the
+    pool in getSystemStatus as the JAX daemon does, and stops cleanly:
+    exit code 0, its workers gone with it."""
+    got, gone, rc = worker_daemon(tmp_path, "port")
+    want, jgone, jrc = worker_daemon(tmp_path, "jax")
+    assert (rc, gone) == (jrc, jgone) == (0, True)
+    assert sorted(got) == sorted(want) and got["workers"] == want["workers"] == 2
+    assert [sorted(w) for w in got["per_worker"]] == [sorted(w) for w in want["per_worker"]]
+    assert got["fallbacks"] == 0 and sum(w["blocks"] for w in got["per_worker"]) >= 1
+    assert all(w["alive"] for w in got["per_worker"])

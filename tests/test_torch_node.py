@@ -7,8 +7,8 @@ log holds the new view) carried across with storage/carry.storage_from_jax,
 on which the port's Nodes restart and commit the next height equal to a
 JAX continuation. Compared: every block's state, tx and receipt roots
 and the c_balance rows (header hashes carry the seal time), and within a
-chain the header hashes across nodes. NodeConfig fields that select a
-plane the port does not have yet must raise, the serving edge's fields
+chain the header hashes across nodes. A Node with scheduler_workers set
+builds its execution pool as the JAX Node does, the serving edge's fields
 start their planes and answer as the JAX Node's do, the storage and
 snapshot fields build their planes as the JAX Node does, snap sync
 installs a peer's snapshot, and the default suite is on the card.
@@ -144,7 +144,6 @@ def test_chain_carried_from_jax_continues_on_the_port():
     assert balances == {b"alice": (998).to_bytes(16, "big"), b"bob": (12).to_bytes(16, "big")}
 
 
-UNPORTED = [("scheduler_workers", 1)]
 # the fields that start the serving edge's planes
 SERVING = [("rpc_port", 0), ("ws_port", 0), ("metrics_port", 0), ("profile_hz", 5.0)]
 # the fields that select the storage and snapshot planes
@@ -153,11 +152,26 @@ DURABLE = [("storage_path", "chain-dir"), ("storage_backend", "wal"),
            ("snapshot_prune", True), ("snap_sync_threshold", 256)]
 
 
-@pytest.mark.parametrize("field,value", UNPORTED)
-def test_unported_planes_raise(field, value):
-    cfg = pnode.NodeConfig(crypto_backend="host", device="cpu", **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pnode.Node(cfg)
+def test_a_node_with_scheduler_workers_builds_its_pool_as_the_jax_node_does():
+    """Out-of-process execution workers are ported (scheduler/workers.py):
+    the Node no longer refuses `scheduler_workers`; as in the JAX package
+    it builds an ExecPool under its scheduler, spawns nothing until
+    start(), and getSystemStatus reports the pool's stats."""
+    cfg = pnode.NodeConfig(crypto_backend="host", device="cpu", scheduler_workers=1,
+                           profile_hz=0)
+    node = pnode.Node(cfg)
+    jnode_ = jnode.Node(jnode.NodeConfig(crypto_backend="host", scheduler_workers=1))
+    try:
+        for n in (node, jnode_):
+            assert n.exec_pool is not None and n.scheduler.exec_pool is n.exec_pool
+            assert n.exec_pool.n == 1 and n.exec_pool.pids() == []
+        got, want = node.system_status()["execWorkers"], jnode_.system_status()["execWorkers"]
+        assert got == want == {"workers": 1, "fallbacks": 0, "per_worker": [
+            {"pid": None, "alive": False, "blocks": 0, "busy_s": 0.0, "occupancy": 0.0}]}
+        assert pnode._check_ported(cfg) is None
+    finally:
+        node.stop()
+        jnode_.stop()
 
 
 def test_a_node_with_groups_set_builds_as_the_jax_node_does():
